@@ -1,0 +1,13 @@
+"""Hand-written Hopper kernels of the TGN training path, their plain
+PyTorch versions, and the device dispatch.
+
+    kernel             replaces (repro/kernels/...)       wrapper
+    neighbor_sample    neighbor_sample.py:_sample_kernel  neighbor_sample.py
+    fused_flush        fused_flush.py:_flush_kernel       fused_flush.py
+    temporal_attn      temporal_attn.py:_attn_kernel      temporal_attn.py
+    temporal_attn_bwd  temporal_attn.py:_attn_bwd_kernel  temporal_attn.py
+
+CUDA sources live in ``csrc/`` and are built by ``build.py`` at first use;
+``ops.py`` is the entry point the model calls; ``ref.py`` holds the plain
+versions.
+"""

@@ -1,0 +1,57 @@
+"""The kernel entry points the model calls, dispatched by device.
+
+A CUDA tensor goes to the hand-written kernel; a CPU tensor goes to the
+plain version in ``ref.py``. Nothing else chooses: there is no backend
+switch and no fallback from a kernel that fails to build or launch.
+
+The JAX package pads feature dims to 128 lanes and K to 8 sublanes here
+(``repro/kernels/ops.py``); that is a TPU layout choice, not semantics, so
+the port calls its kernels on the unpadded ``ref.py`` shapes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.fused_flush import FusedFlush
+from repro_torch.kernels.neighbor_sample import neighbor_sample_fwd
+from repro_torch.kernels.temporal_attn import TemporalAttention
+
+__all__ = ["temporal_attention", "fused_flush", "neighbor_sample"]
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {x.device}")
+
+
+def temporal_attention(q, k, v, mask):
+    """q: (B, H, D); k, v: (B, K, H, D); mask: (B, K) bool -> (B, H, D)."""
+    if _on_card(q):
+        return TemporalAttention.apply(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), mask.contiguous())
+    return ref.temporal_attention_ref(q, k, v, mask)
+
+
+def fused_flush(ids, msg, ts, mem, last, wx, wh, bx, bh):
+    """The whole message flush (segment-mean + GRU + mem/last scatter);
+    ``(mem', last', mbar)``."""
+    if _on_card(msg):
+        return FusedFlush.apply(*(x.contiguous() for x in (
+            ids, msg, ts, mem, last, wx, wh, bx, bh)))
+    return ref.flush_ref(ids, msg, ts, mem, last, wx, wh, bx, bh)
+
+
+def neighbor_sample(tcsr: dict, nodes, batch_of, k: int, window=0):
+    """K most recent temporal neighbors from a staged T-CSR (``tcsr``
+    holds indptr / nbr / t / eidx / bat). Returns ((R, k) ids, times, edge
+    rows), -1 / -1.0 front-padded, oldest -> newest."""
+    args = (tcsr["indptr"], tcsr["nbr"], tcsr["t"], tcsr["eidx"],
+            tcsr["bat"], nodes, batch_of, k, window)
+    if _on_card(nodes):
+        return neighbor_sample_fwd(*args)
+    return ref.sample_ref(*args)

@@ -1,0 +1,136 @@
+"""Plain PyTorch versions of the kernels on the TGN training path.
+
+These mirror ``repro/kernels/ref.py`` line for line and are the semantic
+ground truth of the port: the CPU executes them (``kernels/ops.py`` picks
+them for CPU tensors), the tests hold them against the JAX oracles, and
+``chip_smoke.py`` holds every CUDA kernel against them on the card.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+__all__ = ["gru_ref", "temporal_attention_ref", "segment_mean",
+           "scatter_memory", "scatter_last", "flush_ref", "sample_ref"]
+
+
+def gru_ref(x, h, wx, wh, bx, bh):
+    """GRU cell. x: (B, d_in), h: (B, d_h); wx: (d_in, 3*d_h),
+    wh: (d_h, 3*d_h); biases (3*d_h,). Gate order [reset | update |
+    candidate], as ``repro.tig.modules.gru``."""
+    gx = x @ wx + bx
+    gh = h @ wh + bh
+    rx, zx, nx = gx.chunk(3, dim=-1)
+    rh, zh, nh = gh.chunk(3, dim=-1)
+    r = torch.sigmoid(rx + rh)
+    z = torch.sigmoid(zx + zh)
+    n = torch.tanh(nx + r * nh)
+    return (1.0 - z) * n + z * h
+
+
+def temporal_attention_ref(q, k, v, mask):
+    """Masked neighbor attention. q: (B, H, D); k, v: (B, K, H, D);
+    mask: (B, K) bool -> (B, H, D). Rows with no valid neighbor give
+    exactly zero context."""
+    scores = torch.einsum("bhd,bkhd->bhk", q, k) / math.sqrt(q.shape[-1])
+    scores = scores.masked_fill(~mask[:, None, :], -1e30)
+    att = torch.softmax(scores, dim=-1)
+    att = torch.where(mask.any(-1)[:, None, None], att, 0.0)
+    return torch.einsum("bhk,bkhd->bhd", att, v)
+
+
+def segment_mean(ids, msg, n_dump: int):
+    """Per-row mean of ``msg`` over the rows that share its live id.
+
+    ids: (R,) int ids, ``n_dump`` marks padding; msg: (R, dm). Padding
+    rows get zeros. Returns (R, dm)."""
+    ids = ids.long()
+    live = (ids < n_dump)
+    sums = msg.new_zeros((n_dump + 1, msg.shape[-1])).index_add(
+        0, ids, torch.where(live[:, None], msg, 0.0))
+    cnt = msg.new_zeros((n_dump + 1,)).index_add(0, ids, live.to(msg.dtype))
+    return (sums / cnt.clamp(min=1.0)[:, None])[ids]
+
+
+def scatter_memory(mem, ids, rows):
+    """``mem`` with ``rows`` written at ``ids`` and the dump row (the
+    last) re-zeroed, out of place.
+
+    Duplicate ids carry identical rows; only the first occurrence writes,
+    and later ones go to the dump row. So the gradient reaches one copy of
+    a row, as it does through JAX's scatter (``index_put`` alone would
+    hand it to every duplicate)."""
+    n_dump = mem.shape[0] - 1
+    ids = ids.long()
+    dup = torch.tril(ids[:, None] == ids[None, :], diagonal=-1).any(1)
+    dump = torch.tensor([n_dump], device=mem.device)
+    return mem.index_put((torch.where(dup, n_dump, ids),), rows
+                         ).index_fill(0, dump, 0.0)
+
+
+def scatter_last(last, ids, ts):
+    """``last`` raised to the latest event time of each live id, with the
+    dump row re-zeroed, out of place."""
+    n_dump = last.shape[0] - 1
+    dump = torch.tensor([n_dump], device=last.device)
+    live = ids < n_dump
+    return last.scatter_reduce(0, ids.long(), torch.where(live, ts, 0.0),
+                               "amax", include_self=True
+                               ).index_fill(0, dump, 0.0)
+
+
+def flush_ref(ids, msg, ts, mem, last, wx, wh, bx, bh):
+    """Message flush: segment-mean of the pending messages, GRU update of
+    the touched memory rows, scatter of ``mem`` and ``last``.
+
+    ids: (R,) touched rows (dump row ``mem.shape[0]-1`` = padding);
+    msg: (R, dm); ts: (R,); mem: (N+1, d); last: (N+1,). Returns
+    ``(mem', last', mbar)`` with ``mbar`` the (R, dm) aggregated messages.
+    """
+    mbar = segment_mean(ids, msg, mem.shape[0] - 1)
+    s_new = gru_ref(mbar, mem[ids.long()], wx, wh, bx, bh)
+    return scatter_memory(mem, ids, s_new), scatter_last(last, ids, ts), mbar
+
+
+def sample_ref(indptr, nbr, t, eidx, bat, nodes, batch_of, k: int,
+               window=0):
+    """Temporal neighbor sampling over an exported T-CSR.
+
+    For each queried node a branchless bisect_left over the node's
+    time-sorted segment of ``bat`` finds the first event of a stream batch
+    >= ``batch_of`` (events carry the key ``batch + 1``, history 0); then
+    the K-wide window ``[end-(w+1)k, end-wk)`` before it is gathered, -1
+    front-padded, oldest -> newest (w = ``window``).
+
+    indptr: (N+1,) int32; nbr / t / eidx / bat: (pad + total,) arrays of
+    ``ChronoNeighborIndex.device_export``; nodes: (R,) int32; batch_of and
+    window: int or (R,) int32. Returns ((R, k) int32 ids, (R, k) float32
+    times, (R, k) int32 edge rows).
+    """
+    total = nbr.shape[0]
+    dev = nodes.device
+    nodes = nodes.long()
+    start = indptr[nodes]
+    stop = indptr[nodes + 1]
+    key = torch.as_tensor(batch_of, dtype=torch.int32, device=dev
+                          ).broadcast_to(nodes.shape) + 1
+    win = torch.as_tensor(window, dtype=torch.int32, device=dev
+                          ).broadcast_to(nodes.shape)
+    lo, hi = start, stop
+    for _ in range(max(1, int(total).bit_length())):
+        mid = (lo + hi) // 2
+        v = bat[mid.clamp(max=total - 1).long()]
+        active = lo < hi
+        go = active & (v < key)
+        lo = torch.where(go, mid + 1, lo)
+        hi = torch.where(active & ~go, mid, hi)
+    idx = (lo[:, None] - (win[:, None] + 1) * k
+           + torch.arange(k, dtype=torch.int32, device=dev)[None, :])
+    valid = idx >= start[:, None]
+    idx = idx.clamp(min=0).long()
+    ids = torch.where(valid, nbr[idx], -1)
+    tms = torch.where(valid, t[idx], -1.0)
+    eix = torch.where(valid, eidx[idx], -1)
+    return ids, tms, eix

@@ -1,0 +1,5 @@
+"""Functional optimizer over dicts of tensors."""
+
+from repro_torch.optim.adamw import Optimizer, adamw, clip_by_global_norm
+
+__all__ = ["Optimizer", "adamw", "clip_by_global_norm"]

@@ -1,0 +1,137 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. These need an NVIDIA GPU and skip without one; they import nothing
+of JAX, so they run on a machine with only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Tolerances: sampling is exact (integer ids, copied times); the flush and
+the attention agree to 1e-5, float32 sums taken in another order.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.build import KERNELS  # noqa: E402
+from repro_torch.tig.models import TIGConfig, init_params  # noqa: E402
+from repro_torch.tig.sampler import ChronoNeighborIndex  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _max_diff(a, b):
+    return max(float((x.cpu() - y.cpu()).abs().max()) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("window", [0, 1])
+def test_neighbor_sample_kernel_exact(cuda, window):
+    rng = np.random.default_rng(0)
+    n, e, k = 30, 150, 6
+    src = rng.integers(0, 25, e)          # nodes 25..29 have no events
+    dst = rng.integers(0, 25, e)
+    index = ChronoNeighborIndex(src, dst, np.sort(rng.uniform(0, 10, e)),
+                                np.arange(e), n, k, batch_size=10)
+    tcsr = {key: torch.from_numpy(v).to(cuda)
+            for key, v in index.device_export(depth=2).items()}
+    nodes = torch.arange(n, dtype=torch.int32, device=cuda)
+    batch_of = torch.from_numpy(
+        rng.integers(0, index.num_batches + 1, n).astype(np.int32)).to(cuda)
+    before = KERNELS["neighbor_sample"].launches
+    got = ops.neighbor_sample(tcsr, nodes, batch_of, k, window=window)
+    want = ref.sample_ref(tcsr["indptr"], tcsr["nbr"], tcsr["t"],
+                          tcsr["eidx"], tcsr["bat"], nodes, batch_of, k,
+                          window)
+    assert KERNELS["neighbor_sample"].launches == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_fused_flush_kernel_and_grads(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    r, n, dm, d = 24, 12, 10, 6
+    ids = torch.tensor([3, 5, 3, 12, 7, 5, 5, 12, 0, 1, 2, 3] * 2,
+                       dtype=torch.int32, device=cuda)
+    args = [ids] + [torch.randn(s, generator=gen, device=cuda) for s in (
+        (r, dm), (r,), (n + 1, d), (n + 1,), (dm, 3 * d), (d, 3 * d),
+        (3 * d,), (3 * d,))]
+    before = KERNELS["fused_flush"].launches
+    got = ops.fused_flush(*args)
+    assert KERNELS["fused_flush"].launches == before + 1
+    assert _max_diff(got, ref.flush_ref(*args)) < 1e-5
+    # backward: the autograd.Function recomputes through flush_ref
+    diff = (1, 5, 6, 7, 8)
+    a = [x.clone().requires_grad_(i in diff) for i, x in enumerate(args)]
+    b = [x.clone().requires_grad_(i in diff) for i, x in enumerate(args)]
+    cot = [torch.randn(got[i].shape, generator=gen, device=cuda)
+           for i in (0, 2)]                      # last' has no gradient
+    out_a, out_b = ops.fused_flush(*a), ref.flush_ref(*b)
+    ga = torch.autograd.grad((out_a[0], out_a[2]), [a[i] for i in diff], cot)
+    gb = torch.autograd.grad((out_b[0], out_b[2]), [b[i] for i in diff], cot)
+    assert _max_diff(ga, gb) < 1e-5
+
+
+def test_temporal_attn_kernels(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    b, k, h, d = 40, 10, 2, 86
+    q = torch.randn((b, h, d), generator=gen, device=cuda)
+    kk = torch.randn((b, k, h, d), generator=gen, device=cuda)
+    v = torch.randn((b, k, h, d), generator=gen, device=cuda)
+    mask = torch.rand((b, k), generator=gen, device=cuda) < 0.6
+    mask[0] = False                                   # no neighbor at all
+    before = (KERNELS["temporal_attn"].launches,
+              KERNELS["temporal_attn_bwd"].launches)
+    x = [t.clone().requires_grad_() for t in (q, kk, v)]
+    y = [t.clone().requires_grad_() for t in (q, kk, v)]
+    out = ops.temporal_attention(*x, mask)
+    want = ref.temporal_attention_ref(*y, mask)
+    assert float((out - want).abs().max().detach()) < 1e-5
+    assert float(out[0].abs().max()) == 0.0
+    g = torch.randn(out.shape, generator=gen, device=cuda)
+    assert _max_diff(torch.autograd.grad(out, x, g),
+                     torch.autograd.grad(want, y, g)) < 1e-5
+    assert (KERNELS["temporal_attn"].launches,
+            KERNELS["temporal_attn_bwd"].launches) == (before[0] + 1,
+                                                       before[1] + 1)
+
+
+def test_kernel_wrappers_reject_bad_arguments(cuda):
+    from repro_torch.kernels.temporal_attn import temporal_attn_fwd
+
+    q = torch.zeros((4, 2, 8), device=cuda)
+    kv = torch.zeros((4, 3, 2, 8), device=cuda)
+    mask = torch.ones((4, 3), dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        temporal_attn_fwd(q.double(), kv, kv, mask)
+    with pytest.raises(ValueError):
+        temporal_attn_fwd(q, kv[:, :2], kv, mask)
+    strided = torch.zeros((4, 2, 3, 8), device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        temporal_attn_fwd(q, strided, kv, mask)
+
+
+def test_train_single_on_card_matches_cpu(cuda):
+    from repro_torch.tig.data import synthetic_tig
+    from repro_torch.tig.train import train_single
+
+    g = synthetic_tig("tiny")
+    cfg = TIGConfig(flavor="tgn", dim=16, dim_time=8, dim_edge=16,
+                    dim_node=16, num_neighbors=4, n_heads=2, batch_size=50)
+    p0 = init_params(torch.Generator().manual_seed(0), cfg)
+    on_card = train_single(g, cfg, epochs=1, params=p0)
+    on_cpu = train_single(g, cfg, epochs=1, params=p0, device="cpu")
+    # float32 sums in another order, compounded over 17 AdamW steps
+    assert abs(on_card.losses[0] - on_cpu.losses[0]) < 1e-4
+    assert abs(on_card.val_ap - on_cpu.val_ap) < 1e-3
+    assert abs(on_card.test_ap - on_cpu.test_ap) < 1e-3

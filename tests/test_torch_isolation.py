@@ -1,0 +1,75 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor the JAX package, and the entry points run on the card
+unless the caller asks for the CPU."""
+
+import ast
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch  # noqa: E402
+from repro_torch.tig import engine, protocol, train  # noqa: E402
+from repro_torch.tig.data import synthetic_tig  # noqa: E402
+from repro_torch.tig.models import TIGConfig  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch."))
+
+
+def test_importing_every_module_pulls_in_no_jax():
+    mods = _modules()
+    assert "repro_torch.kernels.ops" in mods and len(mods) > 20
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in (ROOT / "src" / "repro_torch")
+     .rglob("*.py")] + ["chip_smoke.py"]))
+def test_sources_name_no_jax_import(path):
+    tree = ast.parse((ROOT / path).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names
+
+
+def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = synthetic_tig("tiny")
+    cfg = TIGConfig(dim=16, dim_time=8, dim_edge=16, dim_node=16,
+                    num_neighbors=4, batch_size=50)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.train_single(g, cfg, epochs=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.train_single(g, cfg, epochs=1, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.scan_train_epoch({}, {}, {}, {}, {}, cfg=cfg, opt=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.scan_eval_stream({}, {}, {}, {}, cfg=cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        protocol.score_stream({}, cfg, {}, {}, {})

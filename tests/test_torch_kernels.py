@@ -1,0 +1,240 @@
+"""The port's plain kernel versions (``repro_torch.kernels.ref``) against
+the JAX package's oracles and its Pallas kernels in interpret mode, on the
+same numpy inputs; and the port's device dispatch on CPU tensors.
+
+Tolerances: sampling is exact (integer ids, copied times); the flush and
+the attention agree to 1e-5 forward and backward, float32 sums taken in
+another order.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.fused_flush import fused_flush_fwd  # noqa: E402
+from repro.kernels.neighbor_sample import neighbor_sample_fwd  # noqa: E402
+from repro.kernels.temporal_attn import (temporal_attn,  # noqa: E402
+                                         temporal_attn_bwd)
+from repro.tig.sampler import ChronoNeighborIndex as JaxIndex  # noqa: E402
+from repro_torch.kernels import fused_flush as tflush  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.build import KERNELS  # noqa: E402
+from repro_torch.kernels.neighbor_sample import (  # noqa: E402
+    neighbor_sample_fwd as torch_sample_fwd)
+from repro_torch.tig.sampler import ChronoNeighborIndex  # noqa: E402
+
+TOL = 1e-5
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _close(a, b, tol=TOL):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=tol,
+                               rtol=0)
+
+
+# ------------------------------------------------------------- sampling
+
+def _tcsr_case():
+    """A stream whose nodes 25..29 have no events and many nodes fewer
+    than K events; exported at depth 2 so window 1 is in bounds."""
+    rng = np.random.default_rng(0)
+    n, e, k, bsz = 30, 150, 6, 10
+    args = (rng.integers(0, 25, e), rng.integers(0, 25, e),
+            np.sort(rng.uniform(0, 10, e)), np.arange(e))
+    tidx = ChronoNeighborIndex(*args, n, k, bsz)
+    jidx = JaxIndex(*args, n, k, bsz)
+    batch_of = rng.integers(0, tidx.num_batches + 1, n).astype(np.int32)
+    return tidx, jidx, batch_of, k
+
+
+def test_device_export_matches_jax():
+    tidx, jidx, _, _ = _tcsr_case()
+    for depth in (1, 2):
+        a, b = tidx.device_export(depth), jidx.device_export(depth)
+        assert a.keys() == b.keys()
+        for key in a:
+            assert a[key].dtype == b[key].dtype
+            np.testing.assert_array_equal(a[key], b[key])
+
+
+@pytest.mark.parametrize("window", [0, 1])
+def test_sample_ref_exact(window):
+    tidx, _, batch_of, k = _tcsr_case()
+    ex = tidx.device_export(depth=2)
+    nodes = np.arange(tidx.num_nodes, dtype=np.int32)
+    jargs = [jnp.asarray(ex[key]) for key in
+             ("indptr", "nbr", "t", "eidx", "bat")]
+    want = jref.sample_ref(*jargs, jnp.asarray(nodes), jnp.asarray(batch_of),
+                           k, window)
+    kern = neighbor_sample_fwd(*jargs, jnp.asarray(nodes),
+                               jnp.asarray(batch_of), k=k, interpret=True,
+                               window=window)
+    got = ref.sample_ref(*(_t(ex[key]) for key in
+                           ("indptr", "nbr", "t", "eidx", "bat")),
+                         _t(nodes), _t(batch_of), k, window)
+    host = tidx.sample(nodes, batch_of, window=window)
+    for g, w, kn, h in zip(got, want, kern, host):
+        assert g.dtype == {np.int32: torch.int32,
+                           np.float32: torch.float32}[np.asarray(w).dtype.type]
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(kn))
+        np.testing.assert_array_equal(g.numpy(), h.astype(g.numpy().dtype))
+    assert (got[0] == -1).all(1)[25:].all()       # degree-0 nodes
+    assert ((got[0] == -1).any(1) & (got[0] >= 0).any(1)).any()  # K > deg
+
+
+# ---------------------------------------------------------------- flush
+
+def _flush_case(seed=0):
+    rng = np.random.default_rng(seed)
+    r, n, dm, d = 24, 12, 10, 6
+    ids = np.array([3, 5, 3, 12, 7, 5, 5, 12, 0, 1, 2, 3] * 2, np.int32)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    mem = f(n + 1, d)
+    mem[n] = 0.0
+    last = np.abs(f(n + 1))
+    last[n] = 0.0
+    return [ids, f(r, dm), np.abs(f(r)) + 1.0, mem, last, f(dm, 3 * d),
+            f(d, 3 * d), f(3 * d), f(3 * d)]
+
+
+def test_flush_ref_forward_matches_jax():
+    args = _flush_case()
+    got = ref.flush_ref(*map(_t, args))
+    want = jref.flush_ref(*map(jnp.asarray, args))
+    kern = fused_flush_fwd(*map(jnp.asarray, args), interpret=True)
+    for g, w, kn in zip(got, want, kern):
+        _close(g.numpy(), w)
+        _close(g.numpy(), kn)
+
+
+def test_flush_ref_grads_match_jax():
+    args = _flush_case(1)
+    rng = np.random.default_rng(2)
+    diff = (1, 5, 6, 7, 8)                     # msg, wx, wh, bx, bh
+    outs = jref.flush_ref(*map(jnp.asarray, args))
+    cot = [rng.normal(size=o.shape).astype(np.float32) for o in outs]
+
+    def f(*xs):
+        full = list(map(jnp.asarray, args))
+        for i, x in zip(diff, xs):
+            full[i] = x
+        return jref.flush_ref(*full)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(args[i]) for i in diff))
+    want = vjp(tuple(map(jnp.asarray, cot)))
+    ts = [_t(a).requires_grad_(i in diff) for i, a in enumerate(args)]
+    mem2, _last2, mbar = ref.flush_ref(*ts)      # last' has no gradient
+    got = torch.autograd.grad([mem2, mbar], [ts[i] for i in diff],
+                              [_t(cot[0]), _t(cot[2])])
+    for g, w in zip(got, want):
+        _close(g.numpy(), w)
+
+
+@pytest.mark.parametrize("diff", [(1, 5, 6, 7, 8), (5, 6, 7, 8)],
+                         ids=["msg-and-weights", "weights-only"])
+def test_fused_flush_function_backward_is_flush_ref(monkeypatch, diff):
+    """The autograd.Function around the flush kernel: forward as given,
+    backward recomputed through ``flush_ref``. On the CPU the kernel is
+    stood in by the plain version, so the glue is what is tested. With
+    ``message_fn="id"`` the messages are state, and only the GRU weights
+    take a gradient."""
+    monkeypatch.setattr(tflush, "fused_flush_fwd",
+                        lambda *a: tuple(o.detach() for o in
+                                         ref.flush_ref(*a)))
+    args = _flush_case(3)
+    a = [_t(x).requires_grad_(i in diff) for i, x in enumerate(args)]
+    b = [_t(x).requires_grad_(i in diff) for i, x in enumerate(args)]
+    out_a = tflush.FusedFlush.apply(*a)
+    out_b = ref.flush_ref(*b)
+    assert not out_a[1].requires_grad            # last' has no gradient
+    cot = [torch.randn(out_a[i].shape,
+                       generator=torch.Generator().manual_seed(i))
+           for i in (0, 2)]
+    ga = torch.autograd.grad((out_a[0], out_a[2]), [a[i] for i in diff], cot,
+                             allow_unused=True)
+    used = [i for i in (0, 2) if out_b[i].requires_grad]
+    gb = torch.autograd.grad([out_b[i] for i in used], [b[i] for i in diff],
+                             [cot[(0, 2).index(i)] for i in used])
+    for x, y in zip(ga, gb):
+        _close(x.numpy(), y.numpy(), 0.0)
+    with pytest.raises(NotImplementedError):
+        tflush.FusedFlush.apply(*(_t(x).requires_grad_(i == 3)
+                                  for i, x in enumerate(args)))
+
+
+# ------------------------------------------------------------ attention
+
+def _attn_case():
+    rng = np.random.default_rng(4)
+    b, k, h, d = 12, 5, 2, 8
+    f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    mask = rng.uniform(size=(b, k)) < 0.6
+    mask[0] = False                              # a row with no neighbor
+    mask[1] = True
+    return f(b, h, d), f(b, k, h, d), f(b, k, h, d), mask, f(b, h, d)
+
+
+def test_temporal_attention_ref_forward_matches_jax():
+    q, k, v, mask, _ = _attn_case()
+    got = ref.temporal_attention_ref(_t(q), _t(k), _t(v), _t(mask))
+    jargs = tuple(map(jnp.asarray, (q, k, v, mask)))
+    _close(got.numpy(), jref.temporal_attention_ref(*jargs))
+    _close(got.numpy(), temporal_attn(*jargs, block_b=4, interpret=True))
+    assert float(got[0].abs().max()) == 0.0
+
+
+def test_temporal_attention_ref_backward_matches_jax():
+    q, k, v, mask, g = _attn_case()
+    xs = [_t(x).requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(
+        ref.temporal_attention_ref(*xs, _t(mask)), xs, _t(g))
+    jm = jnp.asarray(mask)
+    _, vjp = jax.vjp(lambda a, b, c: jref.temporal_attention_ref(a, b, c, jm),
+                     *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    kern = temporal_attn_bwd(*map(jnp.asarray, (g, q, k, v, mask)),
+                             block_b=4, interpret=True)
+    for x, w, kn in zip(got, want, kern):
+        _close(x.numpy(), w)
+        _close(x.numpy(), kn)
+
+
+# ------------------------------------------------------------- dispatch
+
+def test_ops_take_the_plain_version_on_cpu():
+    counts = {name: kern.launches for name, kern in KERNELS.items()}
+    q, k, v, mask, _ = _attn_case()
+    out = ops.temporal_attention(_t(q), _t(k), _t(v), _t(mask))
+    torch.testing.assert_close(out, ref.temporal_attention_ref(
+        _t(q), _t(k), _t(v), _t(mask)), rtol=0, atol=0)
+    args = list(map(_t, _flush_case()))
+    for x, y in zip(ops.fused_flush(*args), ref.flush_ref(*args)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    tidx, _, batch_of, kk = _tcsr_case()
+    tcsr = {key: _t(v) for key, v in tidx.device_export().items()}
+    nodes = torch.arange(tidx.num_nodes, dtype=torch.int32)
+    got = ops.neighbor_sample(tcsr, nodes, _t(batch_of), kk)
+    want = ref.sample_ref(tcsr["indptr"], tcsr["nbr"], tcsr["t"],
+                          tcsr["eidx"], tcsr["bat"], nodes, _t(batch_of), kk)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert {n: kern.launches for n, kern in KERNELS.items()} == counts
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    tidx, _, batch_of, k = _tcsr_case()
+    ex = {key: _t(v) for key, v in tidx.device_export().items()}
+    with pytest.raises(ValueError, match="CUDA"):
+        torch_sample_fwd(ex["indptr"], ex["nbr"], ex["t"], ex["eidx"],
+                         ex["bat"], torch.zeros(3, dtype=torch.int32), 0, k)
+    with pytest.raises(ValueError, match="CUDA"):
+        tflush.fused_flush_fwd(*map(_t, _flush_case()))
