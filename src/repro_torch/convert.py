@@ -1,10 +1,14 @@
-"""Carry params, model state and AdamW state between the two packages.
+"""Carry params, model state, AdamW state and the LM decode cache between
+the two packages.
 
 The JAX package's trees become numpy with
 ``jax.tree.map(np.asarray, tree)``: nested dicts of arrays under the same
-keys as here (``upd/xz/w``, ``mem``, ``{"step", "mu", "nu"}``). These
-functions map such a tree to tensors and back, key for key, dtype for
-dtype, so both packages can compute the same thing from the same numbers.
+keys as here (``upd/xz/w``, ``mem``, ``{"step", "mu", "nu"}``,
+``layers/tm/wr/w``, ``wkv``). These functions map such a tree to tensors
+and back, key for key, dtype for dtype, so both packages can compute the
+same thing from the same numbers. bfloat16 leaves (numpy's ``ml_dtypes``
+type on the JAX side, in the decode cache) come in through float32, which
+holds them exactly.
 """
 
 from __future__ import annotations
@@ -15,12 +19,20 @@ import torch
 from repro_torch.tree import tree_map
 
 __all__ = ["params_from_numpy", "params_to_numpy", "state_from_numpy",
-           "state_to_numpy", "opt_state_from_numpy", "opt_state_to_numpy"]
+           "state_to_numpy", "opt_state_from_numpy", "opt_state_to_numpy",
+           "cache_from_numpy"]
+
+
+def _leaf_from_numpy(x, device):
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(x, copy=True)).to(device)
 
 
 def _from_numpy(tree, device="cpu"):
-    return tree_map(
-        lambda x: torch.from_numpy(np.array(x, copy=True)).to(device), tree)
+    return tree_map(lambda x: _leaf_from_numpy(x, device), tree)
 
 
 def _to_numpy(tree):
@@ -52,3 +64,9 @@ def opt_state_from_numpy(tree, device="cpu") -> dict:
 
 def opt_state_to_numpy(opt_state: dict) -> dict:
     return _to_numpy(opt_state)
+
+
+def cache_from_numpy(tree, device="cpu") -> dict:
+    """LM decode cache (``wkv`` float32, ``tm_shift`` / ``cm_shift``
+    bfloat16, each stacked over layers) -> tensors."""
+    return _from_numpy(tree, device)

@@ -1,11 +1,12 @@
-"""Hand-written Hopper kernels of the TGN training path, their plain
-PyTorch versions, and the device dispatch.
+"""Hand-written Hopper kernels of the TGN training and RWKV6 serving paths,
+their plain PyTorch versions, and the device dispatch.
 
     kernel             replaces (repro/kernels/...)       wrapper
     neighbor_sample    neighbor_sample.py:_sample_kernel  neighbor_sample.py
     fused_flush        fused_flush.py:_flush_kernel       fused_flush.py
     temporal_attn      temporal_attn.py:_attn_kernel      temporal_attn.py
     temporal_attn_bwd  temporal_attn.py:_attn_bwd_kernel  temporal_attn.py
+    rwkv6              rwkv6_scan.py:_wkv_kernel          rwkv6_scan.py
 
 CUDA sources live in ``csrc/`` and are built by ``build.py`` at first use;
 ``ops.py`` is the entry point the model calls; ``ref.py`` holds the plain

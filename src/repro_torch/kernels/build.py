@@ -27,7 +27,8 @@ __all__ = ["Kernel", "KERNELS", "build_all", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("neighbor_sample.cu", "fused_flush.cu", "temporal_attn.cu")
+SOURCES = ("neighbor_sample.cu", "fused_flush.cu", "temporal_attn.cu",
+           "rwkv6_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -130,4 +131,7 @@ KERNELS: dict[str, Kernel] = {k.name: k for k in (
     # g q k v mask rows heads kn dh dq dk dv stream
     Kernel("temporal_attn_bwd", "temporal_attn.cu", "temporal_attn_bwd",
            (P, P, P, P, P, I, I, I, I, P, P, P, P)),
+    # r k v w u s0 batch heads seq in_bf16 out_bf16 o s_out stream
+    Kernel("rwkv6", "rwkv6_scan.cu", "rwkv6_wkv",
+           (P, P, P, P, P, P, I, I, I, I, I, P, P, P)),
 )}

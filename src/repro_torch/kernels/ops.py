@@ -16,9 +16,10 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.fused_flush import FusedFlush
 from repro_torch.kernels.neighbor_sample import neighbor_sample_fwd
+from repro_torch.kernels.rwkv6_scan import rwkv6_fwd
 from repro_torch.kernels.temporal_attn import TemporalAttention
 
-__all__ = ["temporal_attention", "fused_flush", "neighbor_sample"]
+__all__ = ["temporal_attention", "fused_flush", "neighbor_sample", "rwkv6"]
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -55,3 +56,30 @@ def neighbor_sample(tcsr: dict, nodes, batch_of, k: int, window=0):
     if _on_card(nodes):
         return neighbor_sample_fwd(*args)
     return ref.sample_ref(*args)
+
+
+def rwkv6(r, k, v, w, u, *, state=None, chunk=64, return_state=True):
+    """RWKV6 WKV recurrence in the model's layout. r, k, w: (B, S, H, Dk);
+    v: (B, S, H, Dv); u: (H, Dk); state: optional (B, H, Dk, Dv). Returns
+    ``(o, state)`` with o (B, S, H, Dv), or ``o`` alone without
+    ``return_state``. (The JAX package's op takes (B, H, S, D); the plain
+    versions keep that layout, and only the CPU branch moves the axes.)
+
+    ``o`` is float32 when ``S % chunk`` or ``S <= chunk`` (the JAX
+    package's XLA path then takes the token scan) and has ``r``'s dtype
+    otherwise, on both devices. On the CPU ``chunk`` also picks the plain
+    version (chunked algebra or scan); the card's kernel is sequential and
+    takes any S."""
+    s = r.shape[1]
+    if _on_card(r):
+        out_dtype = torch.float32 if (s % chunk or s <= chunk) else r.dtype
+        o, st = rwkv6_fwd(
+            *(x.contiguous() for x in (r, k, v, w.float(), u.float())),
+            None if state is None else state.float().contiguous(),
+            out_dtype=out_dtype)
+    else:
+        o, st = ref.rwkv6_chunked_ref(
+            *(x.transpose(1, 2) for x in (r, k, v, w)), u, state=state,
+            chunk=chunk, return_state=True)
+        o = o.transpose(1, 2)
+    return (o, st) if return_state else o

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the kernels on the TGN training path.
+"""Plain PyTorch versions of the kernels on the port's paths (TGN training
+and RWKV6 serving).
 
 These mirror ``repro/kernels/ref.py`` line for line and are the semantic
 ground truth of the port: the CPU executes them (``kernels/ops.py`` picks
@@ -13,7 +14,8 @@ import math
 import torch
 
 __all__ = ["gru_ref", "temporal_attention_ref", "segment_mean",
-           "scatter_memory", "scatter_last", "flush_ref", "sample_ref"]
+           "scatter_memory", "scatter_last", "flush_ref", "sample_ref",
+           "rwkv6_ref", "rwkv6_chunked_ref"]
 
 
 def gru_ref(x, h, wx, wh, bx, bh):
@@ -134,3 +136,85 @@ def sample_ref(indptr, nbr, t, eidx, bat, nodes, batch_of, k: int,
     tms = torch.where(valid, t[idx], -1.0)
     eix = torch.where(valid, eidx[idx], -1)
     return ids, tms, eix
+
+
+def rwkv6_ref(r, k, v, w, u, *, state=None, return_state=False):
+    """RWKV6 (Finch) WKV recurrence, token by token, in float32.
+
+    r, k, w: (B, H, S, Dk); v: (B, H, S, Dv); u: (H, Dk); ``w`` is the
+    per-channel decay in (0, 1); state: optional (B, H, Dk, Dv) initial
+    state. Returns float32 ``o`` (B, H, S, Dv) (and the final state).
+
+        o_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
+        S_t = diag(w_t) S_{t-1} + k_t v_t^T
+    """
+    b, h, s, dk = r.shape
+    dv = v.shape[-1]
+    r, k, v, w = (x.float() for x in (r, k, v, w))
+    u = u.float()
+    if state is None:
+        state = torch.zeros((b, h, dk, dv), dtype=torch.float32,
+                            device=r.device)
+    st = state.float()
+    outs = []
+    for t in range(s):
+        rt, kt, vt, wt = r[:, :, t], k[:, :, t], v[:, :, t], w[:, :, t]
+        kv = kt[..., :, None] * vt[..., None, :]          # (B,H,Dk,Dv)
+        outs.append(torch.einsum("bhk,bhkv->bhv", rt,
+                                 st + u[None, :, :, None] * kv))
+        st = wt[..., :, None] * st + kv
+    o = torch.stack(outs, dim=2)                           # (B,H,S,Dv)
+    return (o, st) if return_state else o
+
+
+def rwkv6_chunked_ref(r, k, v, w, u, *, state=None, chunk: int = 64,
+                      return_state=False):
+    """Chunked WKV6, as ``repro/kernels/ref.py:rwkv6_chunked_xla``: the
+    same function as ``rwkv6_ref`` by the matmul reformulation of the TPU
+    kernel (intra-chunk (C, C) scores, one state carry per chunk).
+
+    Falls back to the token scan when ``S % chunk`` or ``S <= chunk``, and
+    then returns float32; otherwise ``o`` has ``r``'s dtype. The
+    log-space decays keep float32 in range only for |log w| * chunk
+    below about 80."""
+    b, h, s, dk = r.shape
+    dv = v.shape[-1]
+    if s % chunk or s <= chunk:
+        return rwkv6_ref(r, k, v, w, u, state=state,
+                         return_state=return_state)
+    nc = s // chunk
+    rr, kk, vv, ww = (x.float().reshape(b, h, nc, chunk, -1)
+                      for x in (r, k, v, w))
+    u = u.float()
+    lw = torch.log(torch.clamp(ww, 1e-38, 1.0))           # (B,H,NC,C,Dk)
+    c = torch.cumsum(lw, dim=-2)
+    c_prev = c - lw
+    c_tot = c[..., -1:, :]                                 # (B,H,NC,1,Dk)
+    z = 0.5 * c_tot
+
+    r_dec = rr * torch.exp(c_prev - z)
+    k_dec = kk * torch.exp(z - c)
+    scores = torch.einsum("bhnid,bhnjd->bhnij", r_dec, k_dec)
+    ti = torch.arange(chunk, device=r.device)
+    scores = torch.where(ti[None, :] < ti[:, None], scores, 0.0)
+    intra = torch.einsum("bhnij,bhnjd->bhnid", scores, vv)
+    bonus = torch.sum(rr * u[None, :, None, None, :] * kk, dim=-1,
+                      keepdim=True) * vv
+
+    # inter-chunk: sequential state carry (S/C steps instead of S)
+    r_in = rr * torch.exp(c_prev)                          # (B,H,NC,C,Dk)
+    k_carry = kk * torch.exp(c_tot - c)
+    decay_tot = torch.exp(c_tot[..., 0, :])                # (B,H,NC,Dk)
+    if state is None:
+        state = torch.zeros((b, h, dk, dv), dtype=torch.float32,
+                            device=r.device)
+    st = state.float()
+    inter = []
+    for n in range(nc):
+        inter.append(torch.einsum("bhid,bhdv->bhiv", r_in[:, :, n], st))
+        st = decay_tot[:, :, n, :, None] * st + torch.einsum(
+            "bhjd,bhjv->bhdv", k_carry[:, :, n], vv[:, :, n])
+    inter = torch.stack(inter, dim=2)                      # (B,H,NC,C,Dv)
+
+    o = (intra + bonus + inter).reshape(b, h, s, dv).to(r.dtype)
+    return (o, st) if return_state else o

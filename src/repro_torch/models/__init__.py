@@ -1,0 +1,12 @@
+"""The language-model substrate of the port, so far the RWKV6 family:
+``layers`` (linear, RMSNorm), ``rwkv`` (time-mix and channel-mix),
+``transformer`` (per-family blocks), ``model`` (init, forward, decode
+cache, ``serve_step``), ``sampling`` and ``serve`` (batched generation and
+its CLI). Copies of ``repro/models``; the other families raise
+``NotImplementedError``.
+"""
+
+from repro_torch.models.model import (forward, init_cache, init_params,
+                                      serve_step)
+
+__all__ = ["init_params", "forward", "init_cache", "serve_step"]

@@ -5,7 +5,10 @@ of JAX, so they run on a machine with only PyTorch:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: sampling is exact (integer ids, copied times); the flush and
-the attention agree to 1e-5, float32 sums taken in another order.
+the attention agree to 1e-5, float32 sums taken in another order. The WKV
+kernel agrees with its plain version to 1e-5 of the output's largest
+magnitude in float32 (sums in another order, and the chunked algebra),
+plus one bfloat16 unit (2^-7 relative) where the output is bfloat16.
 """
 
 import numpy as np
@@ -135,3 +138,59 @@ def test_train_single_on_card_matches_cpu(cuda):
     assert abs(on_card.losses[0] - on_cpu.losses[0]) < 1e-4
     assert abs(on_card.val_ap - on_cpu.val_ap) < 1e-3
     assert abs(on_card.test_ap - on_cpu.test_ap) < 1e-3
+
+
+@pytest.mark.parametrize("s,with_state,dtype", [
+    (1, True, torch.float32), (1, True, torch.bfloat16),
+    (100, True, torch.bfloat16), (256, False, torch.bfloat16),
+    (256, True, torch.float32)])
+def test_rwkv6_kernel_matches_plain(cuda, s, with_state, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    b, h, d = 2, 3, 64
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    r, k, v = (randn(b, s, h, d).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(randn(b, s, h, d) * 0.5 - 2.0))
+    u = randn(h, d) * 0.5
+    state = randn(b, h, d, d) if with_state else None
+    before = KERNELS["rwkv6"].launches
+    got_o, got_s = ops.rwkv6(r, k, v, w, u, state=state)
+    assert KERNELS["rwkv6"].launches == before + 1
+    want_o, want_s = ref.rwkv6_chunked_ref(
+        *(x.transpose(1, 2) for x in (r, k, v, w)), u, state=state,
+        return_state=True)
+    want_o = want_o.transpose(1, 2)
+    assert got_o.dtype == want_o.dtype
+    scale = float(want_o.float().abs().max())
+    assert torch.allclose(got_o.float(), want_o.float(), rtol=(
+        2 ** -7 if got_o.dtype == torch.bfloat16 else 0.0),
+        atol=1e-5 * scale)
+    assert torch.allclose(got_s, want_s, rtol=0.0,
+                          atol=1e-5 * float(want_s.abs().max()))
+
+
+def test_rwkv_generate_on_card_matches_cpu(cuda):
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model
+    from repro_torch.models.serve import generate
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b", reduced=True),
+                              dtype="float32")
+    p_cpu = model.init_params(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+    p_gpu = tree_map(lambda x: x.to(cuda), p_cpu)
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 128)))
+    before = KERNELS["rwkv6"].launches
+    on_card = model.forward(p_gpu, {"tokens": tokens}, cfg)
+    assert KERNELS["rwkv6"].launches == before + cfg.n_layers
+    on_cpu = model.forward(p_cpu, {"tokens": tokens}, cfg, device="cpu")
+    assert float((on_card.cpu() - on_cpu).abs().max()) < 1e-4
+    a = generate(p_gpu, cfg, tokens[:, :4], 8)
+    c = generate(p_cpu, cfg, tokens[:, :4], 8, device="cpu")
+    np.testing.assert_array_equal(a.tokens, c.tokens)

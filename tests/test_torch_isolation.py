@@ -13,6 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch  # noqa: E402
+from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.models import model, serve  # noqa: E402
 from repro_torch.tig import engine, protocol, train  # noqa: E402
 from repro_torch.tig.data import synthetic_tig  # noqa: E402
 from repro_torch.tig.models import TIGConfig  # noqa: E402
@@ -73,3 +75,19 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
         engine.scan_eval_stream({}, {}, {}, {}, cfg=cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         protocol.score_stream({}, cfg, {}, {}, {})
+    lm = get_config("rwkv6-1.6b", reduced=True)
+    params = model.init_params(torch.Generator(), lm, device="cpu")
+    cache = model.init_cache(lm, 2, device="cpu")
+    tokens = torch.zeros((2, 4), dtype=torch.int64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_params(torch.Generator(), lm)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_cache(lm, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.forward(params, {"tokens": tokens}, lm)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.serve_step(params, cache, {"token": tokens[:, 0]}, lm)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.generate(params, lm, tokens, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--gen", "1"])
