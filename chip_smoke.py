@@ -23,9 +23,31 @@ Phases, each fatal on failure:
   7. small-input agreement: REDUCED RWKV6 in float32, ``forward`` logits
      and 8 greedy ``generate`` tokens on the card against the CPU;
   8. the RWKV6 path at full width: RWKV6-1.6B (24 layers, d_model 2048,
-     random params from a seed) ``forward`` on (4, 2048) tokens, then
-     ``generate`` with batch 4, prompt 32, gen 32, greedy — launch counts
-     read around each — and where a decode step's time goes.
+     random params from a seed) ``forward`` on (4, 2048) tokens, with where
+     its time goes, then ``generate`` with batch 4, prompt 32, gen 32,
+     greedy — launch counts read around each — and where a decode step's
+     time goes;
+  9. the GRU kernels (forward, and backward with all six grads) against
+     their plain versions at TGN's updater shape (400, 616, 172), the
+     backward benchmark's (512, 176, 128) and a ragged (37, 24, 16),
+     timed beside ``torch.gru_cell`` and its autograd as a yardstick;
+ 10. the ``ops.gru`` path: forward and backward through autograd at the
+     first two shapes, launch counts read around it;
+ 11. the flash attention kernel against its plain version at the
+     StarCoder2-3B forward's shape (B 2, S 8192, 24 / 2 heads, D 128,
+     bf16, window 4096; the plain version a batch row and 4 heads at a
+     time), where faulty versions of the plain one (P in float8, a key
+     tile dropped) must fail the same check, and at a small ragged
+     float32 shape without a window, timed beside
+     ``F.scaled_dot_product_attention`` with the same mask;
+ 12. small-input agreement: REDUCED StarCoder2 in float32, ``forward``
+     logits and 16 greedy ``generate`` tokens after a 56-token prompt (the
+     ring buffer of the window of 64 wraps) on the card against the CPU;
+ 13. the StarCoder2 path at full width: StarCoder2-3B (30 layers, d_model
+     3072, random params from a seed) ``forward`` on (2, 8192) tokens,
+     with where its time goes, then ``generate`` with batch 4, prompt 32,
+     gen 32, greedy — launch counts read around each — and where a decode
+     step's time goes.
 The line before the last holds the card's name and power limit, the one
 before that the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
@@ -44,15 +66,26 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TOL = 1e-5            # kernel vs plain version, float32 sums in another order
 WKV_REL = 1e-5        # WKV: of the largest |plain| (float32, another order)
+GRU_REL = 1e-5        # GRU grads: of the largest |plain| (sums over rows)
 BF16_UNIT = 2.0 ** -7     # one bfloat16 unit, relative: two roundings
+# bf16 flash: |kernel - plain (float32)| <= 2^-8 |plain| (the one rounding
+# of the output) + FLASH_P_REL |P| |V| (float32 sums in another order and P
+# kept to 2^-17 as hi + lo bf16 parts; the P V error of a relative error d
+# in every weight is at most d |P| |V|)
+FLASH_P_REL = 2.0 ** -14
+FLASH_TILE = 64           # the bf16 kernel's query and key tile
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12      # H100 SXM, dense bf16 on the tensor cores
 TPU_KERNELS = {               # the TPU kernel each CUDA kernel replaces
     "neighbor_sample": "src/repro/kernels/neighbor_sample.py:52",
     "fused_flush": "src/repro/kernels/fused_flush.py:53",
     "temporal_attn": "src/repro/kernels/temporal_attn.py:40",
     "temporal_attn_bwd": "src/repro/kernels/temporal_attn.py:84",
     "rwkv6": "src/repro/kernels/rwkv6_scan.py:39",
+    "fused_gru": "src/repro/kernels/fused_gru.py:33",
+    "fused_gru_bwd": "src/repro/kernels/fused_gru.py:75",
+    "flash_attention": "src/repro/kernels/flash_attention.py:30",
 }
 TIG_PATH = ("neighbor_sample", "fused_flush", "temporal_attn",
             "temporal_attn_bwd")
@@ -61,6 +94,13 @@ WKV_SHAPES = (        # (label, B, H, S, initial state): the RWKV6 path's
     ("ragged", 4, 32, 100, True),        # a ragged prompt, with a state
     ("prompt", 4, 32, 2048, False),      # forward on (4, 2048) tokens
 )
+GRU_SHAPES = (        # (label, rows, d_in, d_h)
+    ("tgn", 400, 616, 172),        # TGN's updater: 2 x batch 200, msg 616
+    ("bench", 512, 176, 128),      # benchmarks/kernel_backward.py:128
+    ("ragged", 37, 24, 16),        # rows not a multiple of the 32-row tile
+)
+# StarCoder2-3B forward on (2, 8192) tokens: (B, S, H, Hkv, D, window)
+FLASH_PATH = (2, 8192, 24, 2, 128, 4096)
 
 
 def card_line() -> str:
@@ -139,19 +179,33 @@ def device_ms(fn, iters: int = 20, rounds: int = 5,
     return statistics.median(per_round) / 1e3
 
 
-def timings(fn) -> dict:
+def timings(fn, heavy: bool = False) -> dict:
+    """Device and back-to-back time per call; ``heavy`` calls (tens of ms)
+    are timed over fewer of them."""
+    if heavy:
+        return {"ms": device_ms(fn, iters=1, rounds=3, warmup=1),
+                "call_ms": call_ms(fn, iters=2, warmup=1)}
     return {"ms": device_ms(fn), "call_ms": call_ms(fn)}
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          flop_rate: float = FP32_FLOP_PER_S) -> tuple[float, str]:
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / FP32_FLOP_PER_S * 1e3
+    t_f = flops / flop_rate * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
 def max_err(a, b) -> float:
     return max(float((x.double() - y.double()).abs().max())
                for x, y in zip(a, b))
+
+
+def reset_counts(torch, kernels) -> None:
+    """Zero every kernel's launch count and the peak-memory statistic,
+    right before a path is driven."""
+    for kern in kernels.values():
+        kern.launches = 0
+    torch.cuda.reset_peak_memory_stats()
 
 
 def print_kernel(r: dict) -> None:
@@ -452,10 +506,12 @@ def wkv_checks(torch, dev) -> list:
     return recs
 
 
-def rwkv_small_agreement(torch):
-    """Phase 7: REDUCED RWKV6 in float32, the port on the card (the WKV
-    kernel) against the port on the CPU (the plain chunked version), from
-    the same params: forward logits to 1e-4, 8 greedy tokens identical."""
+def lm_small_agreement(torch, arch: str, prompt: int, gen: int) -> None:
+    """Phases 7 and 12: a REDUCED LM in float32, the port on the card (its
+    kernel) against the port on the CPU (the plain version), from the same
+    params: forward logits on (2, 128) tokens to 1e-4 (float32 sums in
+    another order), then ``gen`` greedy tokens after ``prompt`` prompt
+    tokens, identical."""
     import dataclasses
 
     import numpy as np
@@ -465,7 +521,7 @@ def rwkv_small_agreement(torch):
     from repro_torch.models.serve import generate
     from repro_torch.tree import tree_map
 
-    cfg = dataclasses.replace(get_config("rwkv6-1.6b", reduced=True),
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
                               dtype="float32")
     p_cpu = model.init_params(torch.Generator().manual_seed(0), cfg,
                               device="cpu")
@@ -475,20 +531,25 @@ def rwkv_small_agreement(torch):
     on_card = model.forward(p_gpu, {"tokens": tokens}, cfg)
     on_cpu = model.forward(p_cpu, {"tokens": tokens}, cfg, device="cpu")
     d_logit = float((on_card.cpu() - on_cpu).abs().max())
-    a = generate(p_gpu, cfg, tokens[:, :4], 8)
-    c = generate(p_cpu, cfg, tokens[:, :4], 8, device="cpu")
-    print(f"small agreement RWKV6 REDUCED float32 (card vs CPU): forward "
-          f"logits (2, 128) max abs diff {d_logit:.3g}; greedy tokens "
-          f"{a.tokens.tolist()} vs {c.tokens.tolist()}")
+    a = generate(p_gpu, cfg, tokens[:, :prompt], gen)
+    c = generate(p_cpu, cfg, tokens[:, :prompt], gen, device="cpu")
+    print(f"small agreement {arch} REDUCED float32 (card vs CPU): forward "
+          f"logits (2, 128) max abs diff {d_logit:.3g}; greedy tokens after "
+          f"{prompt} prompt tokens {a.tokens.tolist()} vs "
+          f"{c.tokens.tolist()}")
     if not (d_logit <= 1e-4 and np.array_equal(a.tokens, c.tokens)):
-        raise AssertionError("RWKV6 on the card and on the CPU disagree")
+        raise AssertionError(f"{arch} on the card and on the CPU disagree")
 
 
-def rwkv_path(torch, kernels) -> int:
-    """Phase 8: RWKV6-1.6B at its published widths, random params from a
-    seed: ``forward`` on (4, 2048) tokens, then ``generate`` (batch 4,
-    prompt 32, gen 32, greedy), launch counts zeroed before and read after
-    each; then a profile of decode steps. Returns the WKV launches."""
+def lm_path(torch, kernels, arch: str, kernel: str, batch: int, seq: int,
+            gen_per_layer: int) -> int:
+    """Phases 8 and 13: an LM at its published widths, random params from
+    a seed: ``forward`` on (batch, seq) tokens and where its time goes,
+    then ``generate`` (batch 4, prompt 32, gen 32, greedy), launch counts
+    zeroed before and read after each: ``kernel`` once per layer in
+    ``forward`` and ``gen_per_layer`` times per layer in ``generate``, no
+    other kernel. Then a profile of decode steps. Returns ``kernel``'s
+    launches."""
     import numpy as np
 
     from repro_torch.configs.base import get_config
@@ -496,30 +557,28 @@ def rwkv_path(torch, kernels) -> int:
     from repro_torch.models.serve import generate
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config("rwkv6-1.6b")
+    cfg = get_config(arch)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     params = model.init_params(gen, cfg)
     torch.cuda.synchronize()
     n_params = sum(x.numel() for x in tree_leaves(params))
-    print(f"RWKV6-1.6B: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.d_model // cfg.rwkv_head_dim} WKV heads of "
-          f"{cfg.rwkv_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
-          f"{n_params} params (float32, {cfg.dtype} compute), init "
+    heads = (f"{cfg.d_model // cfg.rwkv_head_dim} WKV heads of "
+             f"{cfg.rwkv_head_dim}" if cfg.rwkv else
+             f"{cfg.n_heads} / {cfg.n_kv_heads} heads of "
+             f"{cfg.resolved_head_dim}, window {cfg.window}")
+    print(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, {heads}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {n_params} params "
+          f"(float32, {cfg.dtype} compute), init "
           f"{time.perf_counter() - t0:.2f} s")
-    tokens = torch.randint(0, cfg.vocab, (4, 2048), generator=gen,
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
                            device=dev)
     logits = model.forward(params, {"tokens": tokens}, cfg)   # warm-up
     del logits
     torch.cuda.synchronize()
 
-    def zero():
-        for kern in kernels.values():
-            kern.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-
-    zero()
+    reset_counts(torch, kernels)
     t0 = time.perf_counter()
     logits = model.forward(params, {"tokens": tokens}, cfg)
     torch.cuda.synchronize()
@@ -529,25 +588,29 @@ def rwkv_path(torch, kernels) -> int:
     finite = bool(torch.isfinite(logits).all())
     shape, dtype = tuple(logits.shape), logits.dtype
     del logits
-    print(f"RWKV6-1.6B forward (4, 2048): {fwd_s:.4f} s "
-          f"({4 * 2048 / fwd_s:.0f} tok/s), logits {shape} {dtype} finite "
-          f"{finite}, peak {fwd_peak:.1f} MiB, launches {fwd_launches}")
+    print(f"{arch} forward ({batch}, {seq}): {fwd_s:.4f} s "
+          f"({batch * seq / fwd_s:.0f} tok/s), logits {shape} {dtype} "
+          f"finite {finite}, peak {fwd_peak:.1f} MiB, launches "
+          f"{fwd_launches}")
+    print_profile(f"{arch} forward ({batch}, {seq})",
+                  lambda: model.forward(params, {"tokens": tokens}, cfg), 1,
+                  fwd_s * 1e3)
 
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, (4, 32))
-    zero()
+    reset_counts(torch, kernels)
     res = generate(params, cfg, prompts, 32)
     gen_launches = {n: k.launches for n, k in kernels.items()}
     gen_peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    print(f"RWKV6-1.6B generate (batch 4, prompt 32, gen 32, greedy): "
+    print(f"{arch} generate (batch 4, prompt 32, gen 32, greedy): "
           f"prefill {res.prefill_s:.4f} s, decode {res.decode_s:.4f} s "
           f"({4 * 32 / res.decode_s:.1f} tok/s, "
           f"{res.decode_s / 32 * 1e3:.3f} ms/step), peak {gen_peak:.1f} "
           f"MiB, launches {gen_launches}; first sequence "
           f"{res.tokens[0][:16].tolist()}")
-    want_fwd = {n: cfg.n_layers if n == "rwkv6" else 0 for n in kernels}
-    want_gen = {n: cfg.n_layers * 64 if n == "rwkv6" else 0
+    want_fwd = {n: cfg.n_layers if n == kernel else 0 for n in kernels}
+    want_gen = {n: cfg.n_layers * gen_per_layer if n == kernel else 0
                 for n in kernels}
-    if not finite or shape != (4, 2048, cfg.vocab):
+    if not finite or shape != (batch, seq, cfg.vocab):
         raise AssertionError(f"forward logits {shape}, finite {finite}")
     if fwd_launches != want_fwd or gen_launches != want_gen:
         raise AssertionError(f"launches {fwd_launches} / {gen_launches}, "
@@ -557,22 +620,276 @@ def rwkv_path(torch, kernels) -> int:
         raise AssertionError(f"generated tokens {res.tokens}")
 
     # where a decode step's time goes: 8 warm serve_steps at batch 4
-    cache = model.init_cache(cfg, 4)
+    cache = model.init_cache(cfg, 4, 64)
     tok = torch.from_numpy(prompts[:, 0]).to(dev)
 
     def run(steps=8):
         c = cache
-        for _ in range(steps):
-            _, c = model.serve_step(params, c, {"token": tok}, cfg)
+        for t in range(steps):
+            pos = torch.full((4,), t, dtype=torch.int64, device=dev)
+            _, c = model.serve_step(params, c, {"token": tok, "pos": pos},
+                                    cfg)
 
     run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
-    print_profile("8 RWKV6-1.6B decode steps (batch 4)", run, 8,
+    print_profile(f"8 {arch} decode steps (batch 4)", run, 8,
                   (time.perf_counter() - t0) * 1e3)
-    return fwd_launches["rwkv6"] + gen_launches["rwkv6"]
+    return fwd_launches[kernel] + gen_launches[kernel]
+
+
+def gru_args(torch, gen, dev, rows, d_in, d_h):
+    """GRU inputs at the given widths and a cotangent, from ``gen``."""
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    return ((randn(rows, d_in), randn(rows, d_h),
+             randn(d_in, 3 * d_h, scale=d_in ** -0.5),
+             randn(d_h, 3 * d_h, scale=d_h ** -0.5),
+             randn(3 * d_h, scale=0.1), randn(3 * d_h, scale=0.1)),
+            randn(rows, d_h))
+
+
+def check_gru_grads(label, got, want) -> float:
+    """Raise unless each of the six grads is within GRU_REL of the largest
+    |plain| of its own (at least GRU_REL); returns the max abs error."""
+    names = ("dx", "dh", "dwx", "dwh", "dbx", "dbh")
+    for name, a, w in zip(names, got, want):
+        lim = GRU_REL * max(1.0, float(w.abs().max()))
+        if a.shape != w.shape or float((a - w).abs().max()) > lim:
+            raise AssertionError(f"fused_gru_bwd {label}: {name} differs "
+                                 f"from the plain backward (limit {lim})")
+    return max_err(got, want)
+
+
+def gru_checks(torch, dev) -> list:
+    """Phase 9: the GRU kernels against their plain versions (``gru_ref``;
+    autograd through it for the backward) at GRU_SHAPES; float32, TF32
+    off. Yardstick: ``torch.gru_cell`` (the same [r|z|n] gates, r applied
+    to W_hn h + b_hn) and its autograd."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_gru import fused_gru_bwd, fused_gru_fwd
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    recs = []
+    for label, rows, d_in, d_h in GRU_SHAPES:
+        args, g = gru_args(torch, gen, dev, rows, d_in, d_h)
+        x, h, wx, wh, bx, bh = args
+        out, want = fused_gru_fwd(*args), ref.gru_ref(*args)
+        got_b = fused_gru_bwd(g, *args)
+        want_b = ref.gru_bwd_ref(g, *args)
+        torch.cuda.synchronize()
+        err_f = max_err([out], [want])
+        if err_f > TOL:
+            raise AssertionError(f"fused_gru {label} differs from gru_ref "
+                                 f"by {err_f}")
+        err_b = check_gru_grads(label, got_b, want_b)
+        lib_out = torch.gru_cell(x, h, wx.t(), wh.t(), bx, bh)
+        print(f"torch.gru_cell {label} vs gru_ref: max abs diff "
+              f"{max_err([lib_out], [want]):.3g}")
+        xs = [a.clone().requires_grad_() for a in args]
+
+        def lib_bwd():
+            torch.autograd.grad(torch.gru_cell(
+                xs[0], xs[1], xs[2].t(), xs[3].t(), xs[4], xs[5]), xs, g)
+
+        at = f"B {rows}, d_in {d_in}, d_h {d_h}"
+        io = 4.0 * sum(a.numel() for a in args)           # each input once
+        flops = 2.0 * rows * (d_in + d_h) * 3 * d_h       # x wx and h wh
+        recs.append(dict(
+            name="fused_gru", label=label, at=at, out_dtype="float32",
+            max_abs_err=err_f,
+            kernel=timings(lambda: fused_gru_fwd(*args)),
+            plain=timings(lambda: ref.gru_ref(*args)),
+            bound=bound(io + 4.0 * h.numel(), flops),
+            library_ms=device_ms(
+                lambda: torch.gru_cell(x, h, wx.t(), wh.t(), bx, bh))))
+        # the backward reads g and the inputs, writes one grad per input;
+        # it recomputes the gates, then dx, dh, dwx, dwh and the bias sums
+        recs.append(dict(
+            name="fused_gru_bwd", label=label, at=at, out_dtype="float32",
+            max_abs_err=err_b,
+            kernel=timings(lambda: fused_gru_bwd(g, *args)),
+            plain=timings(lambda: ref.gru_bwd_ref(g, *args)),
+            bound=bound(2 * io + 4.0 * g.numel(),
+                        3 * flops + 2.0 * 2 * rows * 3 * d_h),
+            library_ms=device_ms(lib_bwd)))
+    return recs
+
+
+def gru_path(torch, kernels) -> dict:
+    """Phase 10: ``ops.gru`` forward and backward through autograd at
+    TGN's updater shape and the backward benchmark's, launch counts zeroed
+    before and read after; outputs checked against the plain versions."""
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    shapes = GRU_SHAPES[:2]
+    cases = [gru_args(torch, gen, dev, *shape[1:]) for shape in shapes]
+    reset_counts(torch, kernels)
+    results = []
+    for args, g in cases:
+        xs = [a.clone().requires_grad_() for a in args]
+        out = ops.gru(*xs)
+        results.append((out.detach(), torch.autograd.grad(out, xs, g)))
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in kernels.items()}
+    for (label, *_), (args, g), (out, grads) in zip(shapes, cases, results):
+        if max_err([out], [ref.gru_ref(*args)]) > TOL:
+            raise AssertionError(f"ops.gru {label}: forward differs")
+        check_gru_grads(label, grads, ref.gru_bwd_ref(g, *args))
+    print(f"ops.gru path (forward + autograd backward at "
+          f"{[s[1:] for s in shapes]}): launches {launches}")
+    want = {n: len(shapes) if n in ("fused_gru", "fused_gru_bwd") else 0
+            for n in kernels}
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want}")
+    return launches
+
+
+def causal_pairs(s: int, window) -> int:
+    """(query, key) pairs that attend under a causal mask with an optional
+    sliding window, per (batch row, head)."""
+    w = window or s
+    return sum(min(i + 1, w) for i in range(s))
+
+
+def head_chunks(q, k, v, heads=4):
+    """The model-layout q (B, S, H, D) and k, v (B, S, Hkv, D) one batch row
+    and ``heads`` query heads at a time, in the plain version's (1, heads,
+    S, D) with K and V repeated kv-major, so its (S, S) tables stay small;
+    yields (b, head slice, q, k, v)."""
+    group = q.shape[2] // k.shape[2]
+    for b in range(q.shape[0]):
+        for h0 in range(0, q.shape[2], heads):
+            hs = slice(h0, min(h0 + heads, q.shape[2]))
+            kv = [i // group for i in range(hs.start, hs.stop)]
+            yield (b, hs, q[b:b + 1, :, hs].transpose(1, 2),
+                   k[b:b + 1, :, kv].transpose(1, 2),
+                   v[b:b + 1, :, kv].transpose(1, 2))
+
+
+def flash_controls(torch, att, v, want, lim, window) -> dict:
+    """Faulty versions of the plain one at the path's shape, each with its
+    output rounded to bf16 as a kernel's is: P rounded to bf16 (the flash
+    kernel's first P V), P rounded to float8 e4m3, and the key tile at the
+    lower edge of each query tile's window dropped. Returns each one's
+    (max |err|, max err / limit) against the plain float32 output."""
+    pmax = att.amax(-1, keepdim=True)
+
+    def rounded(dtype):    # P rounded as a kernel rounds exp(s - max)
+        return ((att / pmax).to(dtype).float() * pmax) @ v
+
+    s = att.shape[-1]
+    qi = torch.arange(s, device=att.device)[:, None]
+    ki = torch.arange(s, device=att.device)[None, :]
+    q0 = qi // FLASH_TILE * FLASH_TILE
+    drop = (q0 >= window) & (ki // FLASH_TILE == (q0 - window + 1)
+                             // FLASH_TILE)
+    dropped = att.masked_fill(drop, 0.0)
+    out = {}
+    for name, fn in (
+            ("P bf16", lambda: rounded(torch.bfloat16)),
+            ("P e4m3", lambda: rounded(torch.float8_e4m3fn)),
+            ("edge tile dropped",
+             lambda: (dropped / dropped.sum(-1, keepdim=True)) @ v)):
+        diff = (fn().to(torch.bfloat16).float() - want).abs()
+        out[name] = (float(diff.max()), float((diff / lim).max()))
+    return out
+
+
+def flash_checks(torch, dev) -> list:
+    """Phase 11: the flash kernel against its plain version at a small
+    ragged float32 shape (to 1e-5) and at the StarCoder2-3B forward's
+    shape in bf16 (to 2^-8 |plain| + ``FLASH_P_REL`` |P| |V| of the plain
+    version's float32 output), where faulty versions of the plain one
+    must fail the same check. Yardstick: ``F.scaled_dot_product_attention``
+    with the same causal (and window) mask and ``enable_gqa=True``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    recs = []
+    cases = ((2, 300, 8, 2, 64, None, torch.float32, "ragged f32"),
+             (*FLASH_PATH, torch.bfloat16, "starcoder2 forward"))
+    for b, s, h, hkv, d, window, dtype, label in cases:
+        q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((b, s, hkv, d), generator=gen,
+                            device=dev).to(dtype) for _ in range(2))
+        args = (q, k, v)
+        got = flash_attention_fwd(*args, causal=True, window=window)
+        torch.cuda.synchronize()
+        err = ratio = 0.0
+        for bi, hs, qc, kc, vc in head_chunks(*args):
+            att = ref.flash_attention_probs(qc, kc, causal=True,
+                                            window=window)
+            vf = vc.float()
+            want = att @ vf      # the plain version before its output cast
+            diff = (got[bi:bi + 1, :, hs].transpose(1, 2).float()
+                    - want).abs()
+            lim = (torch.full_like(want, TOL) if dtype == torch.float32 else
+                   2 ** -8 * want.abs() + FLASH_P_REL * (att @ vf.abs()))
+            err = max(err, float(diff.max()))
+            ratio = max(ratio, float((diff / lim).max()))
+            if ratio > 1.0:
+                raise AssertionError(f"flash_attention {label}: batch row "
+                                     f"{bi}, heads {hs} differ from the "
+                                     f"plain version by {float(diff.max())}"
+                                     f" ({ratio:.3g} of the limit)")
+            if dtype == torch.bfloat16 and bi == 0 and hs.start == 0:
+                ctl = flash_controls(torch, att, vf, want, lim, window)
+            del att, want, diff, lim
+        print(f"flash {label}: max |kernel - plain| {err:.3g}, at most "
+              f"{ratio:.3g} of the limit")
+        if dtype == torch.bfloat16:
+            for name, (e, r) in ctl.items():
+                print(f"  control ({name}; batch row 0, heads 0-3): max "
+                      f"|err| {e:.3g}, at most {r:.3g} of the limit")
+            for name in ("P e4m3", "edge tile dropped"):
+                if ctl[name][1] <= 1.0:
+                    raise AssertionError(f"the bf16 flash check passes a "
+                                         f"faulty version ({name})")
+
+        def plain():
+            for _, _, qc, kc, vc in head_chunks(*args):
+                ref.flash_attention_ref(qc, kc, vc, causal=True,
+                                        window=window)
+
+        qi = torch.arange(s, device=dev)[:, None]
+        ki = torch.arange(s, device=dev)[None, :]
+        mask = (ki <= qi) & (ki > qi - (window or s))
+        qt, kt, vt = (x.transpose(1, 2) for x in args)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        lib_err = float((library().transpose(1, 2).float()
+                         - got.float()).abs().max())
+        print(f"SDPA {label} vs the kernel: max abs diff {lib_err:.3g}")
+        elt = q.element_size()
+        nbytes = elt * (2 * q.numel() + k.numel() + v.numel())
+        flops = 4.0 * d * b * h * causal_pairs(s, window)
+        heavy = s > 1024
+        recs.append(dict(
+            name="flash_attention", label=label,
+            at=f"B {b}, S {s}, H {h}, Hkv {hkv}, D {d}, window {window}",
+            out_dtype=str(dtype).split(".")[-1], max_abs_err=err,
+            kernel=timings(lambda: flash_attention_fwd(
+                *args, causal=True, window=window)),
+            plain=timings(plain, heavy=heavy),
+            bound=bound(nbytes, flops, BF16_FLOP_PER_S
+                        if dtype == torch.bfloat16 else FP32_FLOP_PER_S),
+            library_ms=device_ms(library, iters=5 if heavy else 20,
+                                 rounds=3 if heavy else 5)))
+        del got, args, q, k, v, mask
+        torch.cuda.empty_cache()
+    return recs
 
 
 def main() -> int:
@@ -614,9 +931,7 @@ def main() -> int:
     small_agreement(torch)
 
     # the TIG path: counts from zero, read right after
-    for kern in KERNELS.values():
-        kern.launches = 0
-    torch.cuda.reset_peak_memory_stats()
+    reset_counts(torch, KERNELS)
     t0 = time.perf_counter()
     res = train_single(g, TIG, epochs=1)
     torch.cuda.synchronize()
@@ -644,8 +959,27 @@ def main() -> int:
     wkv = wkv_checks(torch, dev)
     for r in wkv:
         print_kernel(r)
-    rwkv_small_agreement(torch)
-    launches["rwkv6"] = rwkv_path(torch, KERNELS)
+    lm_small_agreement(torch, "rwkv6-1.6b", 4, 8)
+    # 24 WKV launches per forward; 64 per layer in generate (prompt + gen)
+    launches["rwkv6"] = lm_path(torch, KERNELS, "rwkv6-1.6b", "rwkv6", 4,
+                                2048, 64)
+
+    gru = gru_checks(torch, dev)
+    for r in gru:
+        print_kernel(r)
+    gru_launches = gru_path(torch, KERNELS)
+    for name in ("fused_gru", "fused_gru_bwd"):
+        launches[name] = gru_launches[name]
+    flash = flash_checks(torch, dev)
+    for r in flash:
+        print_kernel(r)
+    # 56 prompt tokens and 16 generated: the ring buffer of the REDUCED
+    # window of 64 wraps
+    lm_small_agreement(torch, "starcoder2-3b", 56, 16)
+    # 30 flash launches per forward; decode attends through the plain
+    # decode attention, no kernel
+    launches["flash_attention"] = lm_path(torch, KERNELS, "starcoder2-3b",
+                                          "flash_attention", 2, 8192, 0)
 
     def entry(r):
         return dict(
@@ -659,14 +993,26 @@ def main() -> int:
             call_ms=r["kernel"]["call_ms"],
             plain_call_ms=r["plain"]["call_ms"])
 
-    # the WKV entry is its prompt-scoring shape; "shapes" holds all three
-    wkv_entry = entry(wkv[-1])
-    wkv_entry["at"] = wkv[-1]["at"]
-    wkv_entry["shapes"] = [
-        {k: v for k, v in entry(r).items() if k not in (
-            "name", "route", "source", "replaces", "launches")}
-        | {"label": r["label"], "at": r["at"]} for r in wkv]
-    record = {"kernels": [entry(r) for r in recs] + [wkv_entry]}
+    def shaped_entry(main, rs):
+        """The entry at the path's main shape; "shapes" holds them all."""
+        e = entry(main)
+        e["at"] = main["at"]
+        e["shapes"] = [
+            {k: v for k, v in entry(r).items() if k not in (
+                "name", "route", "source", "replaces", "launches")}
+            | {"label": r["label"], "at": r["at"]} for r in rs]
+        return e
+
+    # WKV: the prompt-scoring shape; GRU: TGN's updater shape; flash: the
+    # StarCoder2-3B forward's shape
+    record = {"kernels": [entry(r) for r in recs] + [
+        shaped_entry(wkv[-1], wkv)] + [
+        shaped_entry(next(r for r in gru if r["name"] == name),
+                     [r for r in gru if r["name"] == name])
+        for name in ("fused_gru", "fused_gru_bwd")] + [
+        shaped_entry(flash[-1], flash)]}
+    if len(record["kernels"]) != len(TPU_KERNELS):
+        raise AssertionError("the record misses a kernel")
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(record))
     print(card_line())

@@ -28,7 +28,7 @@ __all__ = ["Kernel", "KERNELS", "build_all", "SOURCES"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("neighbor_sample.cu", "fused_flush.cu", "temporal_attn.cu",
-           "rwkv6_scan.cu")
+           "rwkv6_scan.cu", "fused_gru.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -134,4 +134,13 @@ KERNELS: dict[str, Kernel] = {k.name: k for k in (
     # r k v w u s0 batch heads seq in_bf16 out_bf16 o s_out stream
     Kernel("rwkv6", "rwkv6_scan.cu", "rwkv6_wkv",
            (P, P, P, P, P, P, I, I, I, I, I, P, P, P)),
+    # x h wx wh bx bh rows d_in d_h out stream
+    Kernel("fused_gru", "fused_gru.cu", "fused_gru_fwd",
+           (P, P, P, P, P, P, I, I, I, P, P)),
+    # g x h wx wh bx bh rows d_in d_h dgx dgh dx dh dwx dwh dbx dbh stream
+    Kernel("fused_gru_bwd", "fused_gru.cu", "fused_gru_bwd",
+           (P, P, P, P, P, P, P, I, I, I, P, P, P, P, P, P, P, P, P)),
+    # q k v batch seq heads kv_heads head_dim causal window is_bf16 o stream
+    Kernel("flash_attention", "flash_attention.cu", "flash_attention_fwd",
+           (P, P, P, I, I, I, I, I, I, I, I, P, P)),
 )}

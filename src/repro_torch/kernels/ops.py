@@ -14,12 +14,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.fused_flush import FusedFlush
+from repro_torch.kernels.fused_gru import FusedGRU
 from repro_torch.kernels.neighbor_sample import neighbor_sample_fwd
 from repro_torch.kernels.rwkv6_scan import rwkv6_fwd
 from repro_torch.kernels.temporal_attn import TemporalAttention
 
-__all__ = ["temporal_attention", "fused_flush", "neighbor_sample", "rwkv6"]
+__all__ = ["temporal_attention", "fused_flush", "neighbor_sample", "rwkv6",
+           "gru", "flash_attention"]
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -28,6 +31,41 @@ def _on_card(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {x.device}")
+
+
+def gru(x, h, wx, wh, bx, bh):
+    """GRU cell h' = GRU(x, h), differentiable in all six arguments.
+    x: (B, d_in), h: (B, d_h), wx: (d_in, 3 d_h), wh: (d_h, 3 d_h), bx,
+    bh: (3 d_h,); gates [r | z | n]. On the card the forward and the
+    backward are kernels (the backward recomputes the gates); on the CPU
+    autograd goes through ``ref.gru_ref``."""
+    if _on_card(x):
+        return FusedGRU.apply(*(t.contiguous() for t in (x, h, wx, wh, bx,
+                                                          bh)))
+    return ref.gru_ref(x, h, wx, wh, bx, bh)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None):
+    """Causal or full attention with an optional sliding ``window`` (how
+    many tokens a query may look back, itself included), in the model's
+    layout: q (B, S, H, D), k and v (B, S, Hkv, D), head h reading KV head
+    h // (H // Hkv). Float32 inside; returns (B, S, H, D) in q's dtype.
+    Forward only.
+
+    (The JAX package's op takes (B, H, S, D) with equal head counts, plus
+    ``block_q`` / ``block_k``, which are TPU tiles. On the CPU the plain
+    version gets that layout: K and V repeated in kv-major order and the
+    axes moved.)"""
+    if _on_card(q):
+        return flash_attention_fwd(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal,
+                                   window=window)
+    group = q.shape[2] // k.shape[2]
+    qh, kh, vh = (t.transpose(1, 2) for t in (
+        q, k.repeat_interleave(group, dim=2),
+        v.repeat_interleave(group, dim=2)))
+    return ref.flash_attention_ref(qh, kh, vh, causal=causal,
+                                   window=window).transpose(1, 2)
 
 
 def temporal_attention(q, k, v, mask):

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the kernels on the port's paths (TGN training
-and RWKV6 serving).
+"""Plain PyTorch versions of the kernels on the port's paths (TGN training,
+RWKV6 and StarCoder2 serving, the ``ops.gru`` cell).
 
 These mirror ``repro/kernels/ref.py`` line for line and are the semantic
 ground truth of the port: the CPU executes them (``kernels/ops.py`` picks
@@ -13,9 +13,10 @@ import math
 
 import torch
 
-__all__ = ["gru_ref", "temporal_attention_ref", "segment_mean",
+__all__ = ["gru_ref", "gru_bwd_ref", "temporal_attention_ref", "segment_mean",
            "scatter_memory", "scatter_last", "flush_ref", "sample_ref",
-           "rwkv6_ref", "rwkv6_chunked_ref"]
+           "rwkv6_ref", "rwkv6_chunked_ref", "flash_attention_probs",
+           "flash_attention_ref"]
 
 
 def gru_ref(x, h, wx, wh, bx, bh):
@@ -30,6 +31,14 @@ def gru_ref(x, h, wx, wh, bx, bh):
     z = torch.sigmoid(zx + zh)
     n = torch.tanh(nx + r * nh)
     return (1.0 - z) * n + z * h
+
+
+def gru_bwd_ref(g, x, h, wx, wh, bx, bh):
+    """The GRU cell's backward: ``(dx, dh, dwx, dwh, dbx, dbh)`` for the
+    output cotangent ``g`` (B, d_h), by autograd through ``gru_ref``."""
+    with torch.enable_grad():
+        args = [a.detach().requires_grad_() for a in (x, h, wx, wh, bx, bh)]
+        return torch.autograd.grad(gru_ref(*args), args, g)
 
 
 def temporal_attention_ref(q, k, v, mask):
@@ -218,3 +227,30 @@ def rwkv6_chunked_ref(r, k, v, w, u, *, state=None, chunk: int = 64,
 
     o = (intra + bonus + inter).reshape(b, h, s, dv).to(r.dtype)
     return (o, st) if return_state else o
+
+
+def flash_attention_probs(q, k, *, causal=True, window=None):
+    """The softmax weights of ``flash_attention_ref``: (B, H, S, S)
+    float32."""
+    s, d = q.shape[-2], q.shape[-1]
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                          k.float()) * (1.0 / math.sqrt(d))
+    qi = torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(s, device=q.device)[None, :]
+    m = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= ki <= qi
+    if window is not None:
+        m &= ki > qi - window
+    return torch.softmax(logits.masked_fill(~m, -1e30), dim=-1)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=None):
+    """Dense attention, the function flash attention computes.
+
+    q, k, v: (B, H, S, D), equal head counts; ``window``: how many tokens
+    each query may look back, itself included (None: unbounded). Scores
+    (scaled by 1 / sqrt(D)), softmax and the weighted sum in float32,
+    masked with -1e30; the output has q's dtype."""
+    att = flash_attention_probs(q, k, causal=causal, window=window)
+    return torch.einsum("bhqk,bhkd->bhqd", att, v.float()).to(q.dtype)

@@ -1,6 +1,7 @@
-"""The language-model substrate of the port, so far the RWKV6 family:
-``layers`` (linear, RMSNorm), ``rwkv`` (time-mix and channel-mix),
-``transformer`` (per-family blocks), ``model`` (init, forward, decode
+"""The language-model substrate of the port, so far the RWKV6 and dense
+attention families: ``layers`` (linear, RMSNorm, RoPE, FFN, decode
+attention), ``rwkv`` (time-mix and channel-mix), ``transformer``
+(per-family blocks), ``model`` (init, forward, decode
 cache, ``serve_step``), ``sampling`` and ``serve`` (batched generation and
 its CLI). Copies of ``repro/models``; the other families raise
 ``NotImplementedError``.

@@ -1,5 +1,5 @@
 """Public LM API of the port: init / forward / init_cache / serve_step, as
-``repro/models/model.py`` for a decoder-only RWKV6.
+``repro/models/model.py`` for the decoder-only RWKV6 and dense families.
 
 Layer parameters are stacked over a leading layer axis, as the JAX package
 stacks them for ``jax.lax.scan``, so ``repro_torch.convert`` carries a JAX
@@ -9,10 +9,10 @@ the layer axis takes the scan's place.
 Entry points take ``device=None``, which means ``"cuda"``, and raise
 without a card; params and caches must already lie on that device.
 
-Batch layouts: forward ``{"tokens": (B, S)}``; serve_step ``{"token":
-(B,)}`` with the cache of ``init_cache``. (The JAX package's decode batch
-also carries ``"pos"``; RWKV6's state holds no positions, so a ``"pos"``
-entry is ignored.)
+Batch layouts: forward ``{"tokens": (B, S)}`` (positions 0..S-1);
+serve_step ``{"token": (B,), "pos": (B,)}`` with the cache of
+``init_cache``. RWKV6's state holds no positions, so it reads no
+``"pos"`` and ignores ``cache_len``.
 """
 
 from __future__ import annotations
@@ -84,31 +84,42 @@ def _logits(params, x):
 
 def forward(params, batch, cfg: ArchConfig, device=None):
     """Returns logits (B, S, vocab) in the compute dtype. (The JAX
-    package also returns an MoE aux loss, always 0 for RWKV6.)"""
+    package also returns an MoE aux loss, always 0 for these families.)"""
     device = resolve_device(device)
     _check_on("params", params, device)
     tokens = torch.as_tensor(batch["tokens"]).to(device)
     x = _embed_tokens(params, cfg, tokens)                 # (B, S, d)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=device).broadcast_to(b, s)
     # the layers in order: the JAX package's scan over stacked params
     for i in range(cfg.n_layers):
-        x = block_apply(_layer(params["layers"], i), cfg, x)
+        x = block_apply(_layer(params["layers"], i), cfg, x, positions)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _logits(params, x)
 
 
 # -------------------------------------------------------------- decode
 
-def init_cache(cfg: ArchConfig, batch: int, device=None) -> dict:
-    """Decode state, stacked over layers: each leaf (L, B, ...). RWKV6's
-    state does not grow with the sequence."""
+def init_cache(cfg: ArchConfig, batch: int, cache_len=None,
+               device=None) -> dict:
+    """Decode state, stacked over layers: each leaf (L, B, ...). Dense:
+    K and V caches of ``cache_len`` slots (the prompt plus the tokens to
+    generate), at most ``cfg.window`` (a ring buffer then). RWKV6's state
+    does not grow with the sequence and reads no ``cache_len``."""
     device = resolve_device(device)
-    one = init_block_cache(cfg, batch, device)
+    if not cfg.rwkv:
+        if cache_len is None:
+            raise ValueError(f"{cfg.name}: init_cache needs cache_len")
+        if cfg.window is not None:
+            cache_len = min(cache_len, cfg.window)
+    one = init_block_cache(cfg, batch, cache_len, device)
     return tree_map(lambda x: x[None].repeat(
         (cfg.n_layers,) + (1,) * x.dim()), one)
 
 
 def serve_step(params, cache, batch, cfg: ArchConfig, device=None):
-    """One decode step: batch {"token": (B,)}.
+    """One decode step: batch {"token": (B,), "pos": (B,)} ("pos", the
+    token's absolute position, only for the dense family).
 
     Returns (logits (B, vocab), new_cache); the cache passed in is not
     changed."""
@@ -116,10 +127,12 @@ def serve_step(params, cache, batch, cfg: ArchConfig, device=None):
     _check_on("params", params, device)
     _check_on("cache", cache, device)
     tokens = torch.as_tensor(batch["token"]).to(device)[:, None]   # (B, 1)
+    pos = None if cfg.rwkv else torch.as_tensor(batch["pos"]).to(
+        device=device, dtype=torch.int64)
     x = _embed_tokens(params, cfg, tokens)
     new = []
     for i in range(cfg.n_layers):
-        x, c = block_decode(_layer(params["layers"], i), cfg, x,
+        x, c = block_decode(_layer(params["layers"], i), cfg, x, pos,
                             _layer(cache, i))
         new.append(c)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)[:, 0]

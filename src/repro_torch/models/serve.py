@@ -1,13 +1,14 @@
 """Batched serving, as ``examples/serve_lm.py``: prefill a batch of prompts
-one token at a time through ``serve_step`` (the recurrent cache fills up),
-then decode, greedy or sampled.
+one token at a time through ``serve_step`` (the recurrent state or the KV
+cache fills up), then decode, greedy or sampled.
 
-    PYTHONPATH=src python -m repro_torch.models.serve --arch rwkv6-1.6b \\
+    PYTHONPATH=src python -m repro_torch.models.serve --arch starcoder2-3b \\
         --batch 4 --prompt-len 32 --gen 32 [--full] [--device cpu]
 
 Without ``--full`` the arch's reduced config runs, as in ``serve_lm.py``;
-``--full`` runs the published widths (RWKV6-1.6B: about 6.3 GB of float32
-params, for the card). Params are random, from seed 0.
+``--full`` runs the published widths, for the card (float32 params:
+RWKV6-1.6B about 6.3 GB, StarCoder2-3B about 12.7 GB). Params are random,
+from seed 0.
 """
 
 from __future__ import annotations
@@ -45,19 +46,25 @@ def generate(params, cfg: ArchConfig, prompts, gen: int, *,
              generator: Optional[torch.Generator] = None,
              device=None) -> Generation:
     """Prefill ``prompts`` (B, P) int, P >= 1, then decode ``gen`` tokens;
-    ``prompt_len + gen`` calls of ``serve_step`` in all. Tokens stay on
-    the device until the end."""
+    ``prompt_len + gen`` calls of ``serve_step`` in all, token t at
+    position t; a KV cache holds ``prompt_len + gen`` slots (at most the
+    window). Tokens stay on the device until the end."""
     device = resolve_device(device)
     prompts = torch.as_tensor(np.asarray(prompts)).to(device)
     b, plen = prompts.shape
     if plen < 1:
         raise ValueError("generate needs at least one prompt token")
-    cache = init_cache(cfg, b, device=device)
+    cache = init_cache(cfg, b, plen + gen, device=device)
+
+    def pos(t):
+        return torch.full((b,), t, dtype=torch.int64, device=device)
+
     _sync(device)
     t0 = time.perf_counter()
     logits = None
     for t in range(plen):
-        logits, cache = serve_step(params, cache, {"token": prompts[:, t]},
+        logits, cache = serve_step(params, cache, {"token": prompts[:, t],
+                                                   "pos": pos(t)},
                                    cfg, device=device)
     _sync(device)
     prefill_s = time.perf_counter() - t0
@@ -71,8 +78,9 @@ def generate(params, cfg: ArchConfig, prompts, gen: int, *,
     t0 = time.perf_counter()
     for i in range(gen):
         out.append(tok)
-        logits, cache = serve_step(params, cache, {"token": tok}, cfg,
-                                   device=device)
+        logits, cache = serve_step(params, cache,
+                                   {"token": tok, "pos": pos(plen + i)},
+                                   cfg, device=device)
         tok = pick(logits)
     tokens = (torch.stack(out, dim=1) if out
               else torch.zeros((b, 0), dtype=torch.int64)).cpu().numpy()

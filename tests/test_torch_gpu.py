@@ -8,7 +8,14 @@ Tolerances: sampling is exact (integer ids, copied times); the flush and
 the attention agree to 1e-5, float32 sums taken in another order. The WKV
 kernel agrees with its plain version to 1e-5 of the output's largest
 magnitude in float32 (sums in another order, and the chunked algebra),
-plus one bfloat16 unit (2^-7 relative) where the output is bfloat16.
+plus one bfloat16 unit (2^-7 relative) where the output is bfloat16. The
+GRU cell agrees to 1e-5 forward and to 1e-5 of each gradient's largest
+magnitude (at least 1e-5): the weight grads sum up to 512 rows in another
+order. Flash attention agrees to 1e-5 in float32; in bfloat16 to
+2^-7 |plain| + 2^-8 max |v|: two roundings of the output to bfloat16, and
+the kernel rounds the probabilities to bfloat16 for P V (the plain version
+keeps them in float32), which moves a row's output by at most 2^-8 of the
+largest |v| it averages.
 """
 
 import numpy as np
@@ -171,7 +178,11 @@ def test_rwkv6_kernel_matches_plain(cuda, s, with_state, dtype):
                           atol=1e-5 * float(want_s.abs().max()))
 
 
-def test_rwkv_generate_on_card_matches_cpu(cuda):
+def _reduced_lm_on_card_matches_cpu(cuda, arch, kernel, prompt, gen):
+    """A REDUCED LM in float32: ``forward`` logits to 1e-4 (``kernel``
+    against its plain version, float32 sums in another order, one launch
+    per layer), then ``gen`` greedy tokens after ``prompt`` prompt tokens
+    identical."""
     import dataclasses
 
     from repro_torch.configs.base import get_config
@@ -179,18 +190,138 @@ def test_rwkv_generate_on_card_matches_cpu(cuda):
     from repro_torch.models.serve import generate
     from repro_torch.tree import tree_map
 
-    cfg = dataclasses.replace(get_config("rwkv6-1.6b", reduced=True),
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
                               dtype="float32")
     p_cpu = model.init_params(torch.Generator().manual_seed(0), cfg,
                               device="cpu")
     p_gpu = tree_map(lambda x: x.to(cuda), p_cpu)
     tokens = torch.from_numpy(
         np.random.default_rng(0).integers(0, cfg.vocab, (2, 128)))
-    before = KERNELS["rwkv6"].launches
+    before = KERNELS[kernel].launches
     on_card = model.forward(p_gpu, {"tokens": tokens}, cfg)
-    assert KERNELS["rwkv6"].launches == before + cfg.n_layers
+    assert KERNELS[kernel].launches == before + cfg.n_layers
     on_cpu = model.forward(p_cpu, {"tokens": tokens}, cfg, device="cpu")
     assert float((on_card.cpu() - on_cpu).abs().max()) < 1e-4
-    a = generate(p_gpu, cfg, tokens[:, :4], 8)
-    c = generate(p_cpu, cfg, tokens[:, :4], 8, device="cpu")
+    a = generate(p_gpu, cfg, tokens[:, :prompt], gen)
+    c = generate(p_cpu, cfg, tokens[:, :prompt], gen, device="cpu")
     np.testing.assert_array_equal(a.tokens, c.tokens)
+
+
+def test_rwkv_generate_on_card_matches_cpu(cuda):
+    _reduced_lm_on_card_matches_cpu(cuda, "rwkv6-1.6b", "rwkv6", 4, 8)
+
+
+def _within(got, want, rel=1e-5):
+    """|got - want| <= rel * max(1, max |want|), elementwise."""
+    scale = max(1.0, float(want.abs().max()))
+    return float((got - want).abs().max()) <= rel * scale
+
+
+@pytest.mark.parametrize("rows,d_in,d_h", [(400, 616, 172), (512, 176, 128),
+                                           (37, 24, 16)])
+def test_gru_kernels_match_plain(cuda, rows, d_in, d_h):
+    """TGN's updater shape, the backward benchmark's shape, and a row
+    count that is not a multiple of the 32-row tile."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=cuda) * scale
+
+    args = [randn(rows, d_in), randn(rows, d_h),
+            randn(d_in, 3 * d_h, scale=d_in ** -0.5),
+            randn(d_h, 3 * d_h, scale=d_h ** -0.5), randn(3 * d_h, scale=0.1),
+            randn(3 * d_h, scale=0.1)]
+    g = randn(rows, d_h)
+    before = (KERNELS["fused_gru"].launches,
+              KERNELS["fused_gru_bwd"].launches)
+    xs = [a.clone().requires_grad_() for a in args]
+    out = ops.gru(*xs)
+    grads = torch.autograd.grad(out, xs, g)
+    assert (KERNELS["fused_gru"].launches,
+            KERNELS["fused_gru_bwd"].launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    assert float((out - ref.gru_ref(*args)).abs().max()) < 1e-5
+    for got, want in zip(grads, ref.gru_bwd_ref(g, *args)):
+        assert got.shape == want.shape and _within(got, want)
+
+
+def _plain_attention(q, k, v, causal, window):
+    """The plain version on the CPU in float32, before its output cast,
+    and |P| |V|, its weights applied to |v|; both (B, S, H, D)."""
+    group = q.shape[2] // k.shape[2]
+    q, k, v = (x.float().cpu().transpose(1, 2) for x in (q, k, v))
+    k, v = (x.repeat_interleave(group, dim=1) for x in (k, v))
+    att = ref.flash_attention_probs(q, k, causal=causal, window=window)
+    return (att @ v).transpose(1, 2), (att @ v.abs()).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype,b,s,h,hkv,d,causal,window", [
+    (torch.bfloat16, 1, 200, 4, 2, 128, True, 64),
+    (torch.bfloat16, 2, 333, 6, 2, 128, True, None),
+    (torch.bfloat16, 1, 130, 4, 1, 32, False, None),
+    (torch.bfloat16, 1, 257, 8, 2, 32, True, 100),
+    (torch.bfloat16, 1, 200, 4, 4, 128, False, 50),
+    (torch.float32, 2, 77, 4, 2, 32, False, None),
+    (torch.float32, 1, 77, 8, 2, 32, True, 16)])
+def test_flash_kernel_matches_plain(cuda, dtype, b, s, h, hkv, d, causal,
+                                    window):
+    """GQA, sliding windows, causal and not, S not a multiple of the
+    64-row tile, in bfloat16 and float32."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((b, s, h, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    before = KERNELS["flash_attention"].launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert KERNELS["flash_attention"].launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want, scale = _plain_attention(q, k, v, causal, window)
+    diff = (got.float().cpu() - want).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) < 1e-5
+    else:
+        # one rounding of the output, and float32 sums with P kept to
+        # 2^-17 (hi + lo bf16 parts) against |P| |V|
+        bound = 2 ** -8 * want.abs() + 2 ** -14 * scale
+        assert bool((diff <= bound).all()), float((diff / bound).max())
+
+
+def test_gru_and_flash_wrappers_reject_bad_arguments(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.fused_gru import fused_gru_fwd
+
+    x, h = torch.zeros((4, 6), device=cuda), torch.zeros((4, 3), device=cuda)
+    wx, wh = torch.zeros((6, 9), device=cuda), torch.zeros((3, 9), device=cuda)
+    bx = torch.zeros(9, device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_gru_fwd(x.cpu(), h, wx, wh, bx, bx)
+    with pytest.raises(TypeError):
+        fused_gru_fwd(x.double(), h, wx, wh, bx, bx)
+    with pytest.raises(ValueError):
+        fused_gru_fwd(x, h, wx[:5], wh, bx, bx)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_gru_fwd(x, h, torch.zeros((9, 6), device=cuda).t(), wh, bx, bx)
+
+    q = torch.zeros((1, 8, 4, 32), dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros((1, 8, 2, 32), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_fwd(q.cpu(), kv.cpu(), kv.cpu())
+    with pytest.raises(TypeError):
+        flash_attention_fwd(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_fwd(q[..., :16].contiguous(),
+                            kv[..., :16].contiguous(),
+                            kv[..., :16].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_fwd(q, kv, torch.zeros(
+            (1, 2, 8, 32), dtype=torch.bfloat16, device=cuda).transpose(1, 2))
+    with pytest.raises(ValueError, match="split"):
+        flash_attention_fwd(torch.zeros((1, 8, 3, 32), dtype=torch.bfloat16,
+                                        device=cuda), kv, kv)
+
+
+def test_starcoder2_on_card_matches_cpu(cuda):
+    """56 prompt tokens and 16 generated: the ring buffer of the REDUCED
+    window of 64 wraps."""
+    _reduced_lm_on_card_matches_cpu(cuda, "starcoder2-3b", "flash_attention",
+                                    56, 16)

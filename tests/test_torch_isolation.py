@@ -91,3 +91,15 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
         serve.generate(params, lm, tokens, 2)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--gen", "1"])
+    dense = get_config("starcoder2-3b", reduced=True)
+    dparams = model.init_params(torch.Generator(), dense, device="cpu")
+    dcache = model.init_cache(dense, 2, 8, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_cache(dense, 2, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.forward(dparams, {"tokens": tokens}, dense)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.serve_step(dparams, dcache, {"token": tokens[:, 0],
+                                           "pos": tokens[:, 0]}, dense)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "starcoder2-3b", "--gen", "1"])

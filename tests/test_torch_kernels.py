@@ -2,8 +2,9 @@
 the JAX package's oracles and its Pallas kernels in interpret mode, on the
 same numpy inputs; and the port's device dispatch on CPU tensors.
 
-Tolerances: sampling is exact (integer ids, copied times); the flush and
-the attention agree to 1e-5 forward and backward, float32 sums taken in
+Tolerances: sampling is exact (integer ids, copied times); the flush, the
+temporal attention, the GRU cell (forward and all six grads) and flash
+attention agree to 1e-5 forward and backward, float32 sums taken in
 another order.
 """
 
@@ -15,13 +16,19 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention  # noqa: E402
 from repro.kernels.fused_flush import fused_flush_fwd  # noqa: E402
 from repro.kernels.neighbor_sample import neighbor_sample_fwd  # noqa: E402
 from repro.kernels.temporal_attn import (temporal_attn,  # noqa: E402
                                          temporal_attn_bwd)
+from repro.models.layers import chunked_attention  # noqa: E402
 from repro.tig.sampler import ChronoNeighborIndex as JaxIndex  # noqa: E402
 from repro_torch.kernels import fused_flush as tflush  # noqa: E402
+from repro_torch.kernels import fused_gru as tgru  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_fwd)
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.build import KERNELS  # noqa: E402
 from repro_torch.kernels.neighbor_sample import (  # noqa: E402
@@ -238,3 +245,139 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                          ex["bat"], torch.zeros(3, dtype=torch.int32), 0, k)
     with pytest.raises(ValueError, match="CUDA"):
         tflush.fused_flush_fwd(*map(_t, _flush_case()))
+
+
+
+# ------------------------------------------------------------------ GRU
+
+def _gru_case(seed, b, d_in, d_h):
+    rng = np.random.default_rng(seed)
+
+    def f(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    return ([f(b, d_in), f(b, d_h), f(d_in, 3 * d_h, scale=d_in ** -0.5),
+             f(d_h, 3 * d_h, scale=d_h ** -0.5), f(3 * d_h, scale=0.1),
+             f(3 * d_h, scale=0.1)], f(b, d_h))
+
+
+# 130 rows: the Pallas kernels' second row block of 128 is ragged
+GRU_SHAPES = [(37, 24, 16), (130, 20, 12)]
+
+
+@pytest.mark.parametrize("b,d_in,d_h", GRU_SHAPES)
+def test_gru_forward_matches_jax(b, d_in, d_h):
+    args, _ = _gru_case(b, b, d_in, d_h)
+    before = KERNELS["fused_gru"].launches
+    got = ops.gru(*map(_t, args))
+    assert KERNELS["fused_gru"].launches == before     # CPU: plain version
+    jargs = list(map(jnp.asarray, args))
+    _close(got.numpy(), jref.gru_ref(*jargs))
+    _close(got.numpy(), jops.gru(*jargs, backend="interpret"))
+
+
+@pytest.mark.parametrize("b,d_in,d_h", GRU_SHAPES)
+def test_gru_grads_match_jax(b, d_in, d_h):
+    """All six grads against the Pallas backward kernel in interpret mode
+    (through the JAX op's custom VJP) and against JAX autodiff of the
+    oracle; the port's plain backward is autograd through ``gru_ref``."""
+    args, g = _gru_case(b + 1, b, d_in, d_h)
+    ts = [_t(a).requires_grad_() for a in args]
+    got = torch.autograd.grad(ops.gru(*ts), ts, _t(g))
+    plain = ref.gru_bwd_ref(_t(g), *map(_t, args))
+    for fn in (lambda *a: jops.gru(*a, backend="interpret", bwd="fused"),
+               jref.gru_ref):
+        _, vjp = jax.vjp(fn, *map(jnp.asarray, args))
+        want = vjp(jnp.asarray(g))
+        for x, w, p in zip(got, want, plain):
+            assert x.shape == p.shape
+            _close(x.numpy(), w)
+            _close(x.numpy(), p.numpy(), 0.0)
+
+
+def test_fused_gru_function_runs_both_kernels(monkeypatch):
+    """The autograd.Function around the GRU kernels saves the inputs and
+    hands the cotangent to the backward kernel. On the CPU the kernels are
+    stood in by their plain versions, so the glue is what is tested."""
+    calls = []
+
+    def fwd(*a):
+        calls.append("fwd")
+        return ref.gru_ref(*a).detach()
+
+    def bwd(g, *a):
+        calls.append("bwd")
+        return ref.gru_bwd_ref(g, *a)
+
+    monkeypatch.setattr(tgru, "fused_gru_fwd", fwd)
+    monkeypatch.setattr(tgru, "fused_gru_bwd", bwd)
+    args, g = _gru_case(5, 9, 7, 5)
+    a = [_t(x).requires_grad_() for x in args]
+    b = [_t(x).requires_grad_() for x in args]
+    out = tgru.FusedGRU.apply(*a)
+    want = ref.gru_ref(*b)
+    _close(out.detach().numpy(), want.detach().numpy(), 0.0)
+    for x, y in zip(torch.autograd.grad(out, a, _t(g)),
+                    torch.autograd.grad(want, b, _t(g))):
+        _close(x.numpy(), y.numpy(), 0.0)
+    assert calls == ["fwd", "bwd"]
+
+
+# ---------------------------------------------------- flash attention
+
+def _fa_case(seed, b, h, s, d, hkv=None):
+    """(B, H, S, D) q and (B, Hkv, S, D) k, v (Hkv = H by default)."""
+    rng = np.random.default_rng(seed)
+    hkv = hkv or h
+    return [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 16),
+                                           (False, None), (False, 16)])
+@pytest.mark.parametrize("s", [48, 40])
+def test_flash_attention_ref_matches_jax(s, causal, window):
+    """The plain version against JAX's dense oracle and, where S is a
+    multiple of its 16-row blocks (the Pallas kernel leaves keys past S
+    unmasked), the Pallas kernel in interpret mode, with its out-of-window
+    key blocks skipped."""
+    q, k, v = _fa_case(s, 2, 3, s, 16)
+    got = ref.flash_attention_ref(*map(_t, (q, k, v)), causal=causal,
+                                  window=window)
+    jargs = list(map(jnp.asarray, (q, k, v)))
+    _close(got.numpy(), jref.flash_attention_ref(*jargs, causal=causal,
+                                                 window=window))
+    if s % 16 == 0:
+        _close(got.numpy(), flash_attention(
+            *jargs, causal=causal, window=window, block_q=16, block_k=16,
+            interpret=True))
+
+
+@pytest.mark.parametrize("window", [None, 20])
+def test_flash_attention_op_takes_gqa_in_the_model_layout(window):
+    """``ops.flash_attention`` on (B, S, H, D) q and (B, S, Hkv, D) k, v:
+    the JAX model's ``chunked_attention`` (kv-major GQA) gives the same."""
+    q, k, v = (x.transpose(0, 2, 1, 3) for x in _fa_case(7, 2, 6, 48, 16,
+                                                         hkv=2))
+    before = KERNELS["flash_attention"].launches
+    got = ops.flash_attention(*map(_t, (q, k, v)), causal=True,
+                              window=window)
+    assert KERNELS["flash_attention"].launches == before   # CPU: plain
+    assert got.shape == q.shape
+    want = chunked_attention(*map(jnp.asarray, (q, k, v)), causal=True,
+                             window=window, chunk=16)
+    _close(got.numpy(), want)
+
+
+def test_gru_and_flash_wrappers_refuse_cpu_tensors():
+    args, g = _gru_case(0, 4, 3, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        tgru.fused_gru_fwd(*map(_t, args))
+    with pytest.raises(ValueError, match="CUDA"):
+        tgru.fused_gru_bwd(_t(g), *map(_t, args))
+    q, k, v = (_t(x.transpose(0, 2, 1, 3).copy())
+               for x in _fa_case(0, 1, 4, 8, 32, hkv=2))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_fwd(*(x[..., :24].bfloat16() for x in (q, k, v)))
