@@ -29,8 +29,12 @@ Phases, each fatal on failure:
      time goes;
   9. the GRU kernels (forward, and backward with all six grads) against
      their plain versions at TGN's updater shape (400, 616, 172), the
-     backward benchmark's (512, 176, 128) and a ragged (37, 24, 16),
-     timed beside ``torch.gru_cell`` and its autograd as a yardstick;
+     backward benchmark's (512, 176, 128), a ragged (37, 24, 16), odd
+     widths (53, 37, 13) and one row (1, 616, 172), timed beside
+     ``torch.gru_cell`` and its autograd as a yardstick; two backward
+     calls must agree bitwise, the backward's device launches per call
+     are counted, and a control (the plain version on inputs rounded to
+     tf32, one tensor-core pass) must fail the same checks;
  10. the ``ops.gru`` path: forward and backward through autograd at the
      first two shapes, launch counts read around it;
  11. the flash attention kernel against its plain version at the
@@ -76,6 +80,7 @@ FLASH_P_REL = 2.0 ** -14
 FLASH_TILE = 64           # the bf16 kernel's query and key tile
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12      # H100 SXM, dense TF32 on the tensor cores
 BF16_FLOP_PER_S = 989e12      # H100 SXM, dense bf16 on the tensor cores
 TPU_KERNELS = {               # the TPU kernel each CUDA kernel replaces
     "neighbor_sample": "src/repro/kernels/neighbor_sample.py:52",
@@ -98,6 +103,8 @@ GRU_SHAPES = (        # (label, rows, d_in, d_h)
     ("tgn", 400, 616, 172),        # TGN's updater: 2 x batch 200, msg 616
     ("bench", 512, 176, 128),      # benchmarks/kernel_backward.py:128
     ("ragged", 37, 24, 16),        # rows not a multiple of the 32-row tile
+    ("odd", 53, 37, 13),           # row strides not 16-byte multiples
+    ("one row", 1, 616, 172),
 )
 # StarCoder2-3B forward on (2, 8192) tokens: (B, S, H, Hkv, D, window)
 FLASH_PATH = (2, 8192, 24, 2, 128, 4096)
@@ -652,23 +659,59 @@ def gru_args(torch, gen, dev, rows, d_in, d_h):
             randn(rows, d_h))
 
 
-def check_gru_grads(label, got, want) -> float:
-    """Raise unless each of the six grads is within GRU_REL of the largest
-    |plain| of its own (at least GRU_REL); returns the max abs error."""
+def gru_grads_off(got, want) -> list:
+    """The names of the six grads that are not within GRU_REL of the
+    largest |plain| of their own (at least GRU_REL)."""
     names = ("dx", "dh", "dwx", "dwh", "dbx", "dbh")
-    for name, a, w in zip(names, got, want):
-        lim = GRU_REL * max(1.0, float(w.abs().max()))
-        if a.shape != w.shape or float((a - w).abs().max()) > lim:
-            raise AssertionError(f"fused_gru_bwd {label}: {name} differs "
-                                 f"from the plain backward (limit {lim})")
+    return [name for name, a, w in zip(names, got, want)
+            if a.shape != w.shape or float((a - w).abs().max())
+            > GRU_REL * max(1.0, float(w.abs().max()))]
+
+
+def check_gru_grads(label, got, want) -> float:
+    """Raise unless every grad is within GRU_REL (``gru_grads_off``);
+    returns the max abs error."""
+    off = gru_grads_off(got, want)
+    if off:
+        raise AssertionError(f"fused_gru_bwd {label}: {off} differ from "
+                             f"the plain backward")
     return max_err(got, want)
+
+
+def tf32_round(torch, t):
+    """Float32 rounded to tf32 (10 mantissa bits) to nearest, ties away
+    from zero, on the bits: what one tensor-core pass reads."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def gru_tf32_control(torch, args, g, want, want_b) -> None:
+    """The plain version on x, h, wx, wh rounded once to tf32 must fail
+    both the forward's TOL and the grads' GRU_REL: the checks tell 3xTF32
+    from a kernel that dropped the lo terms."""
+    from repro_torch.kernels import ref
+
+    x, h, wx, wh, bx, bh = args
+    rounded = (*(tf32_round(torch, a) for a in (x, h, wx, wh)), bx, bh)
+    err_f = max_err([ref.gru_ref(*rounded)], [want])
+    got_b = ref.gru_bwd_ref(g, *rounded)
+    off = gru_grads_off(got_b, want_b)
+    print(f"  control (inputs rounded to tf32): forward max |err| "
+          f"{err_f:.3g} ({err_f / TOL:.3g} of TOL), grads max |err| "
+          f"{max_err(got_b, want_b):.3g}, off the limit: {off}")
+    if err_f <= TOL or not off:
+        raise AssertionError("the GRU checks pass a one-pass tf32 version")
 
 
 def gru_checks(torch, dev) -> list:
     """Phase 9: the GRU kernels against their plain versions (``gru_ref``;
     autograd through it for the backward) at GRU_SHAPES; float32, TF32
-    off. Yardstick: ``torch.gru_cell`` (the same [r|z|n] gates, r applied
-    to W_hn h + b_hn) and its autograd."""
+    off. Two backward calls must agree bitwise. At TGN's shape, a one-pass
+    tf32 control must fail the same checks, and the backward's device
+    launches per call are counted from a profile. Yardstick:
+    ``torch.gru_cell`` (the same [r|z|n] gates, r applied to W_hn h +
+    b_hn) and its autograd. Bounds: the kernels run 3xTF32, three tf32
+    products per float32 product, on the tensor cores."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.fused_gru import fused_gru_bwd, fused_gru_fwd
 
@@ -686,6 +729,23 @@ def gru_checks(torch, dev) -> list:
             raise AssertionError(f"fused_gru {label} differs from gru_ref "
                                  f"by {err_f}")
         err_b = check_gru_grads(label, got_b, want_b)
+        again = fused_gru_bwd(g, *args)
+        if not all(torch.equal(a, b) for a, b in zip(got_b, again)):
+            raise AssertionError(f"fused_gru_bwd {label}: two calls differ")
+        if label == "tgn":
+            gru_tf32_control(torch, args, g, want, want_b)
+            # distinct kernels, which a dropped profiler event cannot hide
+            spans, _ = device_spans(
+                lambda: [fused_gru_bwd(g, *args) for _ in range(10)])
+            names = sorted({n.replace("(anonymous namespace)::", "")
+                            .split("(")[0] for _, _, n in spans})
+            print(f"fused_gru_bwd {label}: {len(names)} device launches per "
+                  f"call (3 in the first version), {len(spans)} of 10 calls' "
+                  f"recorded: {names}")
+            if len(names) != 2 or len(spans) > 20:
+                raise AssertionError(f"fused_gru_bwd runs {names} "
+                                     f"({len(spans)} launches in 10 calls), "
+                                     f"expected 2 kernels a call")
         lib_out = torch.gru_cell(x, h, wx.t(), wh.t(), bx, bh)
         print(f"torch.gru_cell {label} vs gru_ref: max abs diff "
               f"{max_err([lib_out], [want]):.3g}")
@@ -703,7 +763,7 @@ def gru_checks(torch, dev) -> list:
             max_abs_err=err_f,
             kernel=timings(lambda: fused_gru_fwd(*args)),
             plain=timings(lambda: ref.gru_ref(*args)),
-            bound=bound(io + 4.0 * h.numel(), flops),
+            bound=bound(io + 4.0 * h.numel(), 3 * flops, TF32_FLOP_PER_S),
             library_ms=device_ms(
                 lambda: torch.gru_cell(x, h, wx.t(), wh.t(), bx, bh))))
         # the backward reads g and the inputs, writes one grad per input;
@@ -714,7 +774,8 @@ def gru_checks(torch, dev) -> list:
             kernel=timings(lambda: fused_gru_bwd(g, *args)),
             plain=timings(lambda: ref.gru_bwd_ref(g, *args)),
             bound=bound(2 * io + 4.0 * g.numel(),
-                        3 * flops + 2.0 * 2 * rows * 3 * d_h),
+                        3 * (3 * flops + 2.0 * 2 * rows * 3 * d_h),
+                        TF32_FLOP_PER_S),
             library_ms=device_ms(lib_bwd)))
     return recs
 

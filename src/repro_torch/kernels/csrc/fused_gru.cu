@@ -1,6 +1,6 @@
-// GRU cell, forward and backward, float32.
+// GRU cell, forward and backward, float32 in and out.
 //
-// Replaces the TPU kernels `_gru_kernel` (entry `fused_gru`) and
+// Replaces the TPU kernels `_gru_kernel` (entry `fused_gru_fwd`) and
 // `_gru_bwd_kernel` (entry `fused_gru_bwd`) of
 // src/repro/kernels/fused_gru.py.
 //
@@ -10,231 +10,208 @@
 //
 // Layout as the JAX package's, row-major: x (B, d_in), h (B, d_h),
 // wx (d_in, 3 d_h), wh (d_h, 3 d_h), bx, bh (3 d_h,). Any B, d_in, d_h:
-// rows past B and columns past d_h are guarded, nothing is padded.
+// rows past B and columns past d_h are zero-filled in shared memory and
+// never written; rows whose stride is not a multiple of 16 bytes (odd
+// d_in or d_h) are staged one float a copy instead of 16 bytes.
 //
-// Forward (`gru_gates_kernel<false>`): one block of 256 threads per tile of
-// 32 rows x 32 hidden columns. For each column j the block needs the three
-// gate columns j, d_h + j, 2 d_h + j of wx and wh; it stages 32-deep slices
-// of the row tile (transposed, so four rows are one float4) and of the
-// three gate column groups in shared memory, and each thread keeps 4 rows
-// x 3 gates of x wx and of h wh in registers (24 accumulators, 12 fused
-// multiply-adds per 4 shared loads). The gates never leave registers: one
-// pass over x, h and the weights, one write of h'.
+// Route: every product runs on the tensor cores as 3xTF32 (gru_tile.cuh):
+// each operand split once into tf32 hi and lo parts, three mma.sync
+// m16n8k8 per product, float32 accumulation; within ~2^-20 of float32,
+// where one tf32 pass is ~2^-11. Bound on an H100 at TGN's updater shape
+// (B 400, d_in 616, d_h 172): the forward is 3 x 325 MFLOP at 495 TFLOP/s
+// of dense TF32 = 1.97 us against 3.2 MB of operands (0.95 us at 3.35
+// TB/s): operations; the backward 3 x 977 MFLOP = 5.92 us. (At float32's
+// 67 TFLOP/s without the tensor cores: 4.86 and 14.58 us.)
 //
-// Backward: the TPU kernel recomputes the gates per row block and sums
-// dwx, dwh, dbx, dbh in one output block that every grid step revisits,
-// which relies on the TPU running its grid in order. CUDA blocks run in
-// no order, so the backward is three launches with no atomics, each sum
-// taken in a fixed order (deterministic):
-//   1. `gru_gates_kernel<true>`: the forward's tiles recompute the gates
-//      and write the gate pre-activation grads dgx, dgh (B, 3 d_h) to a
+// Forward (`gru::gate_kernel`, one launch): a tile of 32 rows x 32 hidden
+// columns x the three gates; a cluster of two blocks splits the 788-deep
+// [x | h] [wx; wh] contraction at TGN's shape, and block 1 hands its
+// partial sums to block 0 through distributed shared memory, added in rank
+// order. What it does about the causes of the first version's time:
+//   * too few blocks (78 on 132 SMs): 2 x 13 x 6 = 156 blocks;
+//   * each slice copied, waited on, then used, 26 in series: a ring of
+//     three cp.async stages keeps two slices in flight while one is
+//     multiplied, and each block walks 13 slices, not 26;
+//   * the transposed staging store hit 8 banks: x, h and the weights are
+//     staged as they lie in memory, rows padded so that a warp's fragment
+//     reads hit 32 banks;
+//   * float32 FMAs only: 3xTF32 on the tensor cores at float32 parity,
+//     split on the bits (cvt.rna.tf32 cost ~20% more at TGN's shape).
+// The epilogue's operands are read before the mainloop and the gates
+// never leave registers: one write of h'. One tiling serves every batch:
+// a batch within one row tile gets 12 blocks at d_h 172 and is
+// latency-bound.
+//
+// Backward, two launches, no atomics, every sum in a fixed order
+// (bitwise deterministic):
+//   1. `gru::gate_kernel<BWD>`: the forward's tiles recompute the gates
+//      and write the pre-activation grads dgx, dgh (B, 3 d_h) to a
 //      workspace, and dh = g z;
-//   2. `gemm_kernel`, two products in one launch (blockIdx.z):
-//      dx = dgx wx^T and dh += dgh wh^T;
-//   3. `gemm_kernel`, two products in one launch: dwx = x^T dgx and
-//      dwh = h^T dgh, each output tile owned by one block that sums over
-//      all B rows in order; an extra row of ones in x^T (h^T) gives dbx
-//      (dbh), the column sums of dgx (dgh).
-//
-// Bound on an H100 at TGN's updater shape (B 400, d_in 616, d_h 172):
-// the forward does 2 B (d_in + d_h) 3 d_h = 325 MFLOP of float32 (4.9 us
-// at 67 TFLOP/s; TF32 stays off for float32 parity) against 3.2 MB of
-// operands (1 us at 3.35 TB/s): operations. The backward does three times
-// the products (~0.98 GFLOP, ~15 us). The tiles are small (78 forward
-// blocks on 132 SMs) and each block streams its weight slices from L2:
-// a first version that is right, not yet near that bound.
-#include <algorithm>
-
+//   2. `grad_products_kernel`: one grouped launch over a flat list of 64 x
+//      64 output tiles of four products, each owned by one block that sums
+//      over its depth in order: dx = dgx wx^T, dh += dgh wh^T, [dwx; dbx]
+//      = [x | 1]^T dgx, [dwh; dbh] = [h | 1]^T dgh (a row of ones under
+//      x^T gives the bias grads, the column sums of dgx). 208 tiles at
+//      TGN's shape, none idle.
 #include "common.cuh"
+#include "gru_tile.cuh"
 
 namespace {
 
-constexpr int BM = 32;                    // rows per block
-constexpr int BN = 32;                    // hidden columns per block
-constexpr int BK = 32;                    // depth of a staged slice
-constexpr int THREADS = 256;
-constexpr int RPT = BM / (THREADS / BN);  // 4 rows per thread
+using gru::BK;
+using gru::STAGES;
+using gru::THREADS;
 
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
+constexpr int GM = 64, GN = 64;  // output tile of the grad products
 
-// acc[i][g] += sum_k a[row0 + ty RPT + i][k] w[k][g d_h + col0 + tx] for
-// k in [0, kdim), g = r, z, n; a is (rows, kdim), w is (kdim, 3 dh).
-__device__ __forceinline__ void gate_products(
-    const float* __restrict__ a, int rows, int kdim,
-    const float* __restrict__ w, int dh, int row0, int col0,
-    float (*as)[BM + 4], float (*ws)[3][BN], float acc[RPT][3]) {
-  const int tid = threadIdx.x, tx = tid % BN, ty = tid / BN;
-  for (int k0 = 0; k0 < kdim; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += THREADS) {
-      const int m = e / BK, k = e % BK;  // neighbours read neighbours in k
-      const int r = row0 + m, kk = k0 + k;
-      as[k][m] = (r < rows && kk < kdim)
-                     ? a[static_cast<size_t>(r) * kdim + kk] : 0.0f;
-    }
-    for (int e = tid; e < 3 * BK * BN; e += THREADS) {
-      const int n = e % BN, k = (e / BN) % BK, g = e / (BN * BK);
-      const int c = col0 + n, kk = k0 + k;
-      ws[k][g][n] =
-          (c < dh && kk < kdim)
-              ? w[static_cast<size_t>(kk) * 3 * dh + g * dh + c] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(&as[k][ty * RPT]);
-      const float ar[RPT] = {av.x, av.y, av.z, av.w};
-      const float wr = ws[k][0][tx], wz = ws[k][1][tx], wn = ws[k][2][tx];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        acc[i][0] = fmaf(ar[i], wr, acc[i][0]);
-        acc[i][1] = fmaf(ar[i], wz, acc[i][1]);
-        acc[i][2] = fmaf(ar[i], wn, acc[i][2]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// BWD = false: out = h'. BWD = true: dgx, dgh (rows, 3 dh) and
-// dh_out = g z from the cotangent g.
-template <bool BWD>
-__global__ void __launch_bounds__(THREADS)
-gru_gates_kernel(const float* __restrict__ x, const float* __restrict__ h,
-                 const float* __restrict__ wx, const float* __restrict__ wh,
-                 const float* __restrict__ bx, const float* __restrict__ bh,
-                 const float* __restrict__ g, int rows, int din, int dh,
-                 float* __restrict__ out, float* __restrict__ dgx,
-                 float* __restrict__ dgh) {
-  __shared__ __align__(16) float as[BK][BM + 4];
-  __shared__ float ws[BK][3][BN];
-  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
-  float ax[RPT][3] = {}, ah[RPT][3] = {};
-  gate_products(x, rows, din, wx, dh, row0, col0, as, ws, ax);
-  gate_products(h, rows, dh, wh, dh, row0, col0, as, ws, ah);
-
-  const int c = col0 + threadIdx.x % BN;
-  if (c >= dh) return;
-  const float bxr = bx[c], bxz = bx[dh + c], bxn = bx[2 * dh + c];
-  const float bhr = bh[c], bhz = bh[dh + c], bhn = bh[2 * dh + c];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = row0 + (threadIdx.x / BN) * RPT + i;
-    if (r >= rows) break;
-    const size_t o = static_cast<size_t>(r) * dh + c;
-    const float hv = h[o];
-    const float rg = sigmoidf((ax[i][0] + bxr) + (ah[i][0] + bhr));
-    const float zg = sigmoidf((ax[i][1] + bxz) + (ah[i][1] + bhz));
-    const float nh = ah[i][2] + bhn;
-    const float ng = tanhf((ax[i][2] + bxn) + rg * nh);
-    if (!BWD) {
-      out[o] = (1.0f - zg) * ng + zg * hv;
-    } else {
-      const float gv = g[o];
-      const float dpre_n = gv * (1.0f - zg) * (1.0f - ng * ng);
-      const float dpre_r = (dpre_n * nh) * rg * (1.0f - rg);
-      const float dpre_z = gv * (hv - ng) * zg * (1.0f - zg);
-      const size_t o3 = static_cast<size_t>(r) * 3 * dh + c;
-      dgx[o3] = dpre_r;
-      dgx[o3 + dh] = dpre_z;
-      dgx[o3 + 2 * dh] = dpre_n;
-      dgh[o3] = dpre_r;
-      dgh[o3 + dh] = dpre_z;
-      dgh[o3 + 2 * dh] = dpre_n * rg;
-      out[o] = gv * zg;  // dh's direct term; the product is added later
-    }
-  }
-}
-
-// C (m, n) = A (m, k) B (k, n), A(i, l) at a[i sam + l sak], B(l, j) at
-// b[l sbk + j sbn]; C row-major with leading dim ldc, added to what C
-// holds if `accumulate`. With `bias` set, A has an extra row m of ones
-// whose product row (the column sums of B) goes to bias[0, n).
-struct Gemm {
+// C (m, n) (+)= A (m, k) B (k, n). Weight-grad products (`wgrad`) read A
+// as the (k, m) row-major matrix it is the transpose of and B as (k, n);
+// the others read A as (m, k) and B as the (n, k) matrix it is the
+// transpose of. With `bias`, A has a row m of ones whose product row goes
+// to bias[0, n).
+struct Product {
   const float* a;
-  long long sam, sak;
   const float* b;
-  long long sbk, sbn;
-  int m, n, k;
   float* c;
-  int ldc;
   float* bias;
-  int accumulate;
+  int lda, ldb, ldc, m, n, k, accumulate;
 };
 
-constexpr int GM = 64, GN = 64, GK = 16;  // block tile; 4 x 4 per thread
+struct Grouped {
+  Product p[4];   // dx, dh, dwx, dwh
+  int first[5];   // first[i]: index of product i's first tile; first[4]: all
+};
 
-__global__ void __launch_bounds__(THREADS)
-gemm_kernel(Gemm p0, Gemm p1) {
-  const Gemm p = blockIdx.z == 0 ? p0 : p1;
-  const int mt = p.m + (p.bias != nullptr);
-  const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
-  if (m0 >= mt || n0 >= p.n) return;  // block-uniform
-  __shared__ __align__(16) float as[GK][GM];
-  __shared__ __align__(16) float bs[GK][GN];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < p.k; k0 += GK) {
-    for (int e = tid; e < GM * GK; e += THREADS) {
-      // neighbouring threads read neighbouring addresses
-      const int mm = p.sak == 1 ? e / GK : e % GM;
-      const int kk = p.sak == 1 ? e % GK : e / GM;
-      const int i = m0 + mm, l = k0 + kk;
-      float v = 0.0f;
-      if (l < p.k) {
-        if (i < p.m)
-          v = p.a[i * p.sam + l * p.sak];
-        else if (i == p.m && p.bias != nullptr)
-          v = 1.0f;
+template <bool WGRAD>
+struct ProductTile {
+  // [k][m] / [k][n] rows padded by 8, [m][k] / [n][k] rows by 4: a warp's
+  // fragment reads hit 32 banks either way
+  static constexpr int AS = WGRAD ? GM + 8 : BK + 4;
+  static constexpr int BS = WGRAD ? GN + 8 : BK + 4;
+  static constexpr int A_FLOATS = WGRAD ? BK * AS : GM * AS;
+  static constexpr int STAGE = A_FLOATS + (WGRAD ? BK * BS : GN * BS);
+};
+static_assert(ProductTile<true>::STAGE == ProductTile<false>::STAGE, "");
+constexpr size_t PRODUCT_SMEM =
+    STAGES * ProductTile<true>::STAGE * sizeof(float);
+
+// One 64 x 64 tile of C; four warps of 32 x 32 (2 m16 x 4 n8 each).
+template <bool WGRAD, bool VEC>
+__device__ __forceinline__ void product_tile(const Product& p, int tile,
+                                             float* smem) {
+  using T = ProductTile<WGRAD>;
+  const int tiles_n = (p.n + GN - 1) / GN;
+  const int m0 = (tile / tiles_n) * GM, n0 = (tile % tiles_n) * GN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int wm = warp & 1, wn = warp >> 1;
+  // local row of A's row of ones in this tile, -1 if none
+  const int ones =
+      (p.bias != nullptr && p.m >= m0 && p.m < m0 + GM) ? p.m - m0 : -1;
+  float acc[2][4][4] = {};
+
+  auto load = [&](int slice, int stage) {
+    float* as = smem + stage * T::STAGE;
+    float* bs = as + T::A_FLOATS;
+    const int k0 = slice * BK;
+    if constexpr (WGRAD) {
+      gru::load_tile<BK, GM, T::AS, VEC>(as, p.a, p.lda, k0, m0, p.k, p.m);
+      gru::load_tile<BK, GN, T::BS, VEC>(bs, p.b, p.ldb, k0, n0, p.k, p.n);
+    } else {
+      gru::load_tile<GM, BK, T::AS, VEC>(as, p.a, p.lda, m0, k0, p.m, p.k);
+      gru::load_tile<GN, BK, T::BS, VEC>(bs, p.b, p.ldb, n0, k0, p.n, p.k);
+    }
+  };
+
+  auto compute = [&](int slice, int stage) {
+    const float* as = smem + stage * T::STAGE;
+    const float* bs = as + T::A_FLOATS;
+    float part[2][4][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8) {
+      gru::Tf32x3::A a[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int m = wm * 32 + i * 16 + gq;
+        float v[4];
+        if constexpr (WGRAD) {
+          const float* ap = as + (kk + tq) * T::AS + m;
+          v[0] = ap[0];
+          v[1] = ap[8];
+          v[2] = ap[4 * T::AS];
+          v[3] = ap[4 * T::AS + 8];
+          if (ones >= 0) {
+            const int kg = slice * BK + kk + tq;
+            if (m == ones) {
+              v[0] = kg < p.k ? 1.0f : 0.0f;
+              v[2] = kg + 4 < p.k ? 1.0f : 0.0f;
+            }
+            if (m + 8 == ones) {
+              v[1] = kg < p.k ? 1.0f : 0.0f;
+              v[3] = kg + 4 < p.k ? 1.0f : 0.0f;
+            }
+          }
+        } else {
+          const float* ap = as + m * T::AS + kk + tq;
+          v[0] = ap[0];
+          v[1] = ap[8 * T::AS];
+          v[2] = ap[4];
+          v[3] = ap[8 * T::AS + 4];
+        }
+        a[i] = gru::Tf32x3::split_a(v);
       }
-      as[kk][mm] = v;
-    }
-    for (int e = tid; e < GK * GN; e += THREADS) {
-      const int nn = p.sbn == 1 ? e % GN : e / GK;
-      const int kk = p.sbn == 1 ? e / GN : e % GK;
-      const int j = n0 + nn, l = k0 + kk;
-      bs[kk][nn] = (l < p.k && j < p.n) ? p.b[l * p.sbk + j * p.sbn] : 0.0f;
-    }
-    __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < GK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+      for (int j = 0; j < 4; ++j) {
+        const int n = wn * 32 + j * 8 + gq;
+        const float b0 = WGRAD ? bs[(kk + tq) * T::BS + n]
+                               : bs[n * T::BS + kk + tq];
+        const float b1 = WGRAD ? bs[(kk + tq + 4) * T::BS + n]
+                               : bs[n * T::BS + kk + tq + 4];
+        const gru::Tf32x3::B b = gru::Tf32x3::split_b(b0, b1);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = m0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col >= p.n) continue;
-      if (r < p.m) {
-        float* dst = p.c + static_cast<size_t>(r) * p.ldc + col;
-        *dst = p.accumulate ? *dst + acc[i][j] : acc[i][j];
-      } else if (r == p.m && p.bias != nullptr) {
-        p.bias[col] = acc[i][j];
+        for (int i = 0; i < 2; ++i) gru::Tf32x3::mma(part[i][j], a[i], b);
       }
     }
-  }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+  };
+
+  gru::pipelined((p.k + BK - 1) / BK, load, compute);
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = m0 + wm * 32 + i * 16 + gq + (e >> 1) * 8;
+        const int c = n0 + wn * 32 + j * 8 + 2 * tq + (e & 1);
+        if (c >= p.n) continue;
+        if (r < p.m) {
+          float* dst = p.c + static_cast<size_t>(r) * p.ldc + c;
+          *dst = p.accumulate ? *dst + acc[i][j][e] : acc[i][j][e];
+        } else if (r == p.m && p.bias != nullptr) {
+          p.bias[c] = acc[i][j][e];
+        }
+      }
 }
 
-int launch_gemm(const Gemm& p0, const Gemm& p1, cudaStream_t stream) {
-  const int mt = std::max(p0.m + (p0.bias != nullptr),
-                          p1.m + (p1.bias != nullptr));
-  const int nt = std::max(p0.n, p1.n);
-  if (mt == 0 || nt == 0) return 0;
-  const dim3 grid((nt + GN - 1) / GN, (mt + GM - 1) / GM, 2);
-  gemm_kernel<<<grid, THREADS, 0, stream>>>(p0, p1);
-  return static_cast<int>(cudaGetLastError());
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+grad_products_kernel(const Grouped g) {
+  extern __shared__ __align__(16) float smem[];
+  const int t = blockIdx.x;
+  int i = 0;
+  while (i < 3 && t >= g.first[i + 1]) ++i;
+  const Product p = g.p[i];
+  if (i < 2)
+    product_tile<false, VEC>(p, t - g.first[i], smem);
+  else
+    product_tile<true, VEC>(p, t - g.first[i], smem);
 }
 
 }  // namespace
@@ -246,14 +223,12 @@ extern "C" int fused_gru_fwd(const void* x, const void* h, const void* wx,
                              int rows, int din, int dh, void* out,
                              void* stream) {
   if (rows == 0 || dh == 0) return 0;
-  const dim3 grid((rows + BM - 1) / BM, (dh + BN - 1) / BN);
-  gru_gates_kernel<false><<<grid, THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(h),
+  const gru::GateArgs p{
+      static_cast<const float*>(x),  static_cast<const float*>(h),
       static_cast<const float*>(wx), static_cast<const float*>(wh),
-      static_cast<const float*>(bx), static_cast<const float*>(bh), nullptr,
-      rows, din, dh, static_cast<float*>(out), nullptr, nullptr);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const float*>(bx), static_cast<const float*>(bh),
+      nullptr, rows, din, dh, static_cast<float*>(out), nullptr, nullptr};
+  return gru::launch_gates<false>(p, static_cast<cudaStream_t>(stream));
 }
 
 // As fused_gru_fwd, plus the cotangent g (rows, dh) and two (rows, 3 dh)
@@ -266,38 +241,44 @@ extern "C" int fused_gru_bwd(const void* g, const void* x, const void* h,
                              void* dwx, void* dwh, void* dbx, void* dbh,
                              void* stream) {
   if (dh == 0) return 0;
+  const gru::GateArgs p{
+      static_cast<const float*>(x),  static_cast<const float*>(h),
+      static_cast<const float*>(wx), static_cast<const float*>(wh),
+      static_cast<const float*>(bx), static_cast<const float*>(bh),
+      static_cast<const float*>(g),  rows, din, dh,
+      static_cast<float*>(dh_out),   static_cast<float*>(dgx),
+      static_cast<float*>(dgh)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  const float* hf = static_cast<const float*>(h);
-  float* dgxf = static_cast<float*>(dgx);
-  float* dghf = static_cast<float*>(dgh);
-  const long long d3 = 3LL * dh;
   if (rows > 0) {
-    const dim3 grid((rows + BM - 1) / BM, (dh + BN - 1) / BN);
-    gru_gates_kernel<true><<<grid, THREADS, 0, st>>>(
-        xf, hf, static_cast<const float*>(wx), static_cast<const float*>(wh),
-        static_cast<const float*>(bx), static_cast<const float*>(bh),
-        static_cast<const float*>(g), rows, din, dh,
-        static_cast<float*>(dh_out), dgxf, dghf);
-    int err = static_cast<int>(cudaGetLastError());
-    if (err) return err;
-    // dx = dgx wx^T: B(l, j) = wx[j, l]; dh += dgh wh^T
-    const Gemm gx{dgxf, d3, 1, static_cast<const float*>(wx), 1, d3,
-                  rows, din, static_cast<int>(d3), static_cast<float*>(dx),
-                  din, nullptr, 0};
-    const Gemm gh{dghf, d3, 1, static_cast<const float*>(wh), 1, d3,
-                  rows, dh, static_cast<int>(d3),
-                  static_cast<float*>(dh_out), dh, nullptr, 1};
-    err = launch_gemm(gx, gh, st);
+    const int err = gru::launch_gates<true>(p, st);
     if (err) return err;
   }
-  // dwx = x^T dgx (+ dbx), dwh = h^T dgh (+ dbh); with rows == 0 these
-  // are the zeros of an empty sum
-  const Gemm wgx{xf, 1, din, dgxf, d3, 1, din, static_cast<int>(d3), rows,
-                 static_cast<float*>(dwx), static_cast<int>(d3),
-                 static_cast<float*>(dbx), 0};
-  const Gemm wgh{hf, 1, dh, dghf, d3, 1, dh, static_cast<int>(d3), rows,
-                 static_cast<float*>(dwh), static_cast<int>(d3),
-                 static_cast<float*>(dbh), 0};
-  return launch_gemm(wgx, wgh, st);
+  // with rows == 0 the weight and bias grads are the zeros of empty sums
+  const int d3 = 3 * dh;
+  Grouped gp{{
+      {p.dgx, p.wx, static_cast<float*>(dx), nullptr, d3, d3, din, rows,
+       din, d3, 0},
+      {p.dgh, p.wh, p.out, nullptr, d3, d3, dh, rows, dh, d3, 1},
+      {p.x, p.dgx, static_cast<float*>(dwx), static_cast<float*>(dbx), din,
+       d3, d3, din, d3, rows, 0},
+      {p.h, p.dgh, static_cast<float*>(dwh), static_cast<float*>(dbh), dh,
+       d3, d3, dh, d3, rows, 0}}, {}};
+  gp.first[0] = 0;
+  for (int i = 0; i < 4; ++i) {
+    const Product& q = gp.p[i];
+    const int mt = q.m + (q.bias != nullptr);
+    gp.first[i + 1] =
+        gp.first[i] + ((mt + GM - 1) / GM) * ((q.n + GN - 1) / GN);
+  }
+  if (gp.first[4] == 0) return 0;
+  // the workspaces dgx, dgh are read as the forward's operands are
+  const bool vec = gru::vec_ok(p) && gru::aligned16(p.dgx) &&
+                   gru::aligned16(p.dgh);
+  const dim3 grid(gp.first[4]);
+  return static_cast<int>(
+      vec ? gru::launch<grad_products_kernel<true>, PRODUCT_SMEM>(grid, 1,
+                                                                  st, gp)
+          : gru::launch<grad_products_kernel<false>, PRODUCT_SMEM>(grid, 1,
+                                                                   st, gp));
 }
+

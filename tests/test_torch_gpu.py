@@ -218,10 +218,12 @@ def _within(got, want, rel=1e-5):
 
 
 @pytest.mark.parametrize("rows,d_in,d_h", [(400, 616, 172), (512, 176, 128),
-                                           (37, 24, 16)])
+                                           (37, 24, 16), (53, 37, 13),
+                                           (1, 616, 172)])
 def test_gru_kernels_match_plain(cuda, rows, d_in, d_h):
-    """TGN's updater shape, the backward benchmark's shape, and a row
-    count that is not a multiple of the 32-row tile."""
+    """TGN's updater shape, the backward benchmark's shape, row counts
+    that are not a multiple of the 32-row tile, row strides that are not a
+    multiple of 16 bytes with d_h under 16, and one row."""
     gen = torch.Generator(device=cuda).manual_seed(4)
 
     def randn(*shape, scale=1.0):

@@ -295,6 +295,78 @@ def test_gru_grads_match_jax(b, d_in, d_h):
             _close(x.numpy(), p.numpy(), 0.0)
 
 
+def _tf32(t):
+    """Float32 rounded to tf32 (10 mantissa bits), to nearest with ties
+    away from zero as ``cvt.rna.tf32.f32`` rounds, on the bits."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_truncated(t):
+    """Float32 with the 13 low mantissa bits cleared: how the tensor cores
+    read a tf32 operand."""
+    return (t.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a b as the GRU kernels form it: each operand split once into tf32
+    parts, hi rounded to nearest and lo = a - hi, which the tensor cores
+    read truncated to tf32; a_lo b_lo dropped; float32 sums."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32_truncated(a - ah), _tf32_truncated(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm_tf32(a, b):
+    """a b with both operands rounded once to tf32 (one tensor-core pass)."""
+    return _tf32(a) @ _tf32(b)
+
+
+def _gru_kernel_math(mm, g, x, h, wx, wh, bx, bh):
+    """The GRU kernels' forward and backward with every product through
+    ``mm``: h' and (dx, dh, dwx, dwh, dbx, dbh), the gates recomputed, the
+    bias grads as a row of ones times the gate grads."""
+    d = h.shape[1]
+    gx, gh = mm(x, wx) + bx, mm(h, wh) + bh
+    r = torch.sigmoid(gx[:, :d] + gh[:, :d])
+    z = torch.sigmoid(gx[:, d:2 * d] + gh[:, d:2 * d])
+    nh = gh[:, 2 * d:]
+    n = torch.tanh(gx[:, 2 * d:] + r * nh)
+    dn = g * (1.0 - z) * (1.0 - n * n)
+    dr = dn * nh * r * (1.0 - r)
+    dz = g * (h - n) * z * (1.0 - z)
+    dgx = torch.cat([dr, dz, dn], 1)
+    dgh = torch.cat([dr, dz, dn * r], 1)
+    ones = torch.ones((1, x.shape[0]))
+    return ((1.0 - z) * n + z * h,
+            (mm(dgx, wx.T), g * z + mm(dgh, wh.T), mm(x.T, dgx),
+             mm(h.T, dgh), mm(ones, dgx)[0], mm(ones, dgh)[0]))
+
+
+@pytest.mark.parametrize("scheme", ["3xtf32", "tf32"])
+@pytest.mark.parametrize("b,d_in,d_h", [(400, 616, 172), (37, 24, 16)])
+def test_gru_tensor_core_scheme_keeps_float32_parity(b, d_in, d_h, scheme):
+    """The card's GRU kernels multiply by 3xTF32 on the tensor cores. Its
+    emulation here agrees with ``gru_ref`` in float64 within the limits
+    the card's checks hold the kernels to (1e-5 forward, 1e-5 of each
+    grad's largest magnitude); one tf32 pass, the control, does not."""
+    args, g = _gru_case(b + 2, b, d_in, d_h)
+    mm = _mm_3xtf32 if scheme == "3xtf32" else _mm_tf32
+    out, grads = _gru_kernel_math(mm, _t(g), *map(_t, args))
+    f64 = [_t(a).double() for a in args]
+    want = ref.gru_ref(*f64)
+    want_grads = ref.gru_bwd_ref(_t(g).double(), *f64)
+    fwd_ok = float((out.double() - want).abs().max()) <= TOL
+    grads_ok = all(
+        float((x.double() - w).abs().max())
+        <= TOL * max(1.0, float(w.abs().max()))
+        for x, w in zip(grads, want_grads))
+    if scheme == "3xtf32":
+        assert fwd_ok and grads_ok
+    else:
+        assert not fwd_ok and not grads_ok
+
+
 def test_fused_gru_function_runs_both_kernels(monkeypatch):
     """The autograd.Function around the GRU kernels saves the inputs and
     hands the cotangent to the backward kernel. On the CPU the kernels are
