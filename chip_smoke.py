@@ -5,11 +5,13 @@
 
 Phases, each fatal on failure:
   1. print the card (name, power limit) and turn TF32 off;
-  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and count
+     the flash library's wgmma (``HGMMA``) instructions in its SASS;
   3. hold each kernel against its plain PyTorch version on the card at the
      shapes of the main path (``neighbor_sample`` exactly, the others to
-     1e-5), and time kernel, plain version, and, for the attention forward,
-     ``F.scaled_dot_product_attention`` as a yardstick the port never calls;
+     1e-5), and time kernel, plain version, and, for the attention forward
+     and backward, ``F.scaled_dot_product_attention`` (under autograd for
+     the backward) as a yardstick the port never calls;
   4. small-input agreement: one ``train_single`` epoch of a narrow TGN on
      the ``tiny`` graph, on the card and on the CPU (plain versions), from
      the same initial params;
@@ -41,8 +43,9 @@ Phases, each fatal on failure:
      StarCoder2-3B forward's shape (B 2, S 8192, 24 / 2 heads, D 128,
      bf16, window 4096; the plain version a batch row and 4 heads at a
      time), where faulty versions of the plain one (P in float8, a key
-     tile dropped) must fail the same check, and at a small ragged
-     float32 shape without a window, timed beside
+     tile dropped at the kernel's tiles) must fail the same check and two
+     calls must agree bitwise, and at a small ragged float32 shape
+     without a window, timed beside
      ``F.scaled_dot_product_attention`` with the same mask;
  12. small-input agreement: REDUCED StarCoder2 in float32, ``forward``
      logits and 16 greedy ``generate`` tokens after a 56-token prompt (the
@@ -77,7 +80,6 @@ BF16_UNIT = 2.0 ** -7     # one bfloat16 unit, relative: two roundings
 # kept to 2^-17 as hi + lo bf16 parts; the P V error of a relative error d
 # in every weight is at most d |P| |V|)
 FLASH_P_REL = 2.0 ** -14
-FLASH_TILE = 64           # the bf16 kernel's query and key tile
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12      # H100 SXM, dense TF32 on the tensor cores
@@ -115,6 +117,21 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
+
+
+def sass_count(lib: Path, opcode: str):
+    """How many ``opcode`` instructions the SASS of a built library holds
+    (``cuobjdump -sass``), or None where the toolkit has no cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    return sum(line.split()[1].startswith(opcode) for line in
+               sass.splitlines() if line.strip().startswith("/*")
+               and len(line.split()) > 1)
 
 
 def call_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -357,10 +374,19 @@ def kernel_checks(torch, dev, g, cfg):
         torch.autograd.grad(ref.temporal_attention_ref(qr, kr, vr, mask),
                             (qr, kr, vr), gout)
 
+    # yardstick: SDPA forward + backward under autograd on the same live
+    # rows and mask
+    lq, lk, lv = (x.clone().requires_grad_() for x in (sq, sk, sv))
+    lg = gout[live][:, :, None, :]
+
+    def library_bwd():
+        torch.autograd.grad(sdpa(lq, lk, lv, attn_mask=sm), (lq, lk, lv), lg)
+
     recs.append(dict(name="temporal_attn_bwd", max_abs_err=err,
                      kernel=timings(lambda: temporal_attn_bwd(gout, *aargs)),
                      plain=timings(plain_bwd),
-                     bound=bound(io_bwd, 8 * dh * slots), library_ms=None))
+                     bound=bound(io_bwd, 8 * dh * slots),
+                     library_ms=device_ms(library_bwd)))
     return recs
 
 
@@ -837,8 +863,11 @@ def flash_controls(torch, att, v, want, lim, window) -> dict:
     """Faulty versions of the plain one at the path's shape, each with its
     output rounded to bf16 as a kernel's is: P rounded to bf16 (the flash
     kernel's first P V), P rounded to float8 e4m3, and the key tile at the
-    lower edge of each query tile's window dropped. Returns each one's
-    (max |err|, max err / limit) against the plain float32 output."""
+    lower edge of each query block's window dropped, at the kernel's tiles
+    (``BLOCK_Q`` rows, ``BLOCK_KV`` keys). Returns each one's (max |err|,
+    max err / limit) against the plain float32 output."""
+    from repro_torch.kernels.flash_attention import BLOCK_KV, BLOCK_Q
+
     pmax = att.amax(-1, keepdim=True)
 
     def rounded(dtype):    # P rounded as a kernel rounds exp(s - max)
@@ -847,9 +876,9 @@ def flash_controls(torch, att, v, want, lim, window) -> dict:
     s = att.shape[-1]
     qi = torch.arange(s, device=att.device)[:, None]
     ki = torch.arange(s, device=att.device)[None, :]
-    q0 = qi // FLASH_TILE * FLASH_TILE
-    drop = (q0 >= window) & (ki // FLASH_TILE == (q0 - window + 1)
-                             // FLASH_TILE)
+    q0 = qi // BLOCK_Q * BLOCK_Q
+    drop = (q0 >= window) & (ki // BLOCK_KV == (q0 - window + 1)
+                             // BLOCK_KV)
     dropped = att.masked_fill(drop, 0.0)
     out = {}
     for name, fn in (
@@ -884,6 +913,10 @@ def flash_checks(torch, dev) -> list:
                             device=dev).to(dtype) for _ in range(2))
         args = (q, k, v)
         got = flash_attention_fwd(*args, causal=True, window=window)
+        if not torch.equal(got, flash_attention_fwd(*args, causal=True,
+                                                    window=window)):
+            raise AssertionError(f"flash_attention {label}: two calls "
+                                 f"differ")
         torch.cuda.synchronize()
         err = ratio = 0.0
         for bi, hs, qc, kc, vc in head_chunks(*args):
@@ -906,7 +939,7 @@ def flash_checks(torch, dev) -> list:
                 ctl = flash_controls(torch, att, vf, want, lim, window)
             del att, want, diff, lim
         print(f"flash {label}: max |kernel - plain| {err:.3g}, at most "
-              f"{ratio:.3g} of the limit")
+              f"{ratio:.3g} of the limit; two calls bitwise equal")
         if dtype == torch.bfloat16:
             for name, (e, r) in ctl.items():
                 print(f"  control ({name}; batch row 0, heads 0-3): max "
@@ -961,7 +994,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.speed_tig import TIG
-    from repro_torch.kernels.build import KERNELS, SOURCES, build_all
+    from repro_torch.kernels.build import (KERNELS, SOURCES, build_all,
+                                           library_path)
     from repro_torch.tig.data import synthetic_tig
     from repro_torch.tig.train import train_single
 
@@ -982,6 +1016,13 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
+    hgmma = sass_count(library_path("flash_attention.cu"), "HGMMA")
+    print(f"flash_attention.cu: " + ("no cuobjdump to read its SASS"
+                                     if hgmma is None else
+                                     f"{hgmma} HGMMA (wgmma) instructions "
+                                     f"in its SASS"))
+    if hgmma == 0:
+        raise AssertionError("the flash kernels compiled without wgmma")
 
     g = synthetic_tig("wikipedia-s", scale=10.0)
     print(f"data: wikipedia-s x10, {g.num_nodes} nodes, {g.num_edges} edges")

@@ -23,7 +23,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["Kernel", "KERNELS", "build_all", "SOURCES"]
+__all__ = ["Kernel", "KERNELS", "build_all", "library_path", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -41,7 +41,8 @@ def _nvcc() -> str:
                        "toolkit (PATH or /usr/local/cuda/bin)")
 
 
-def _library_path(source: str) -> Path:
+def library_path(source: str) -> Path:
+    """Where the library of ``source`` is (or will be) built."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / source]:
         h.update(f.read_bytes())
@@ -55,7 +56,7 @@ def build_all() -> dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for src in SOURCES:
-        out = _library_path(src)
+        out = library_path(src)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -77,7 +78,7 @@ def build_all() -> dict[str, str]:
 
 @functools.cache
 def _library(source: str) -> ctypes.CDLL:
-    path = _library_path(source)
+    path = library_path(source)
     if not path.exists():
         build_all()
     lib = ctypes.CDLL(str(path))

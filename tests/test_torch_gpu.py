@@ -12,10 +12,9 @@ plus one bfloat16 unit (2^-7 relative) where the output is bfloat16. The
 GRU cell agrees to 1e-5 forward and to 1e-5 of each gradient's largest
 magnitude (at least 1e-5): the weight grads sum up to 512 rows in another
 order. Flash attention agrees to 1e-5 in float32; in bfloat16 to
-2^-7 |plain| + 2^-8 max |v|: two roundings of the output to bfloat16, and
-the kernel rounds the probabilities to bfloat16 for P V (the plain version
-keeps them in float32), which moves a row's output by at most 2^-8 of the
-largest |v| it averages.
+2^-8 |plain| + 2^-14 |P| |V|: one rounding of the output to bfloat16, and
+float32 sums with P kept to 2^-17 (hi + lo bfloat16 parts) against the
+plain version's weights applied to |v|.
 """
 
 import numpy as np
@@ -263,12 +262,20 @@ def _plain_attention(q, k, v, causal, window):
     (torch.bfloat16, 1, 130, 4, 1, 32, False, None),
     (torch.bfloat16, 1, 257, 8, 2, 32, True, 100),
     (torch.bfloat16, 1, 200, 4, 4, 128, False, 50),
+    (torch.bfloat16, 1, 1, 4, 2, 128, True, None),
+    (torch.bfloat16, 1, 17, 4, 2, 32, True, None),
+    (torch.bfloat16, 1, 300, 24, 2, 128, True, 128),
+    (torch.bfloat16, 1, 300, 4, 2, 128, True, 1),
     (torch.float32, 2, 77, 4, 2, 32, False, None),
-    (torch.float32, 1, 77, 8, 2, 32, True, 16)])
+    (torch.float32, 1, 77, 8, 2, 32, True, 16),
+    (torch.float32, 1, 100, 4, 2, 21, True, 30),
+    (torch.float32, 1, 150, 4, 2, 128, True, None)])
 def test_flash_kernel_matches_plain(cuda, dtype, b, s, h, hkv, d, causal,
                                     window):
-    """GQA, sliding windows, causal and not, S not a multiple of the
-    64-row tile, in bfloat16 and float32."""
+    """GQA (heads paired in a block, or not where a KV group is odd),
+    sliding windows down to 1, causal and not, S within one tile and not a
+    multiple of the tiles, in bfloat16; float32 at D 32, 128 and 21 (rows
+    not a multiple of 16 bytes). Two calls agree bitwise."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     q = torch.randn((b, s, h, d), generator=gen, device=cuda).to(dtype)
     k, v = (torch.randn((b, s, hkv, d), generator=gen, device=cuda).to(dtype)
@@ -277,6 +284,8 @@ def test_flash_kernel_matches_plain(cuda, dtype, b, s, h, hkv, d, causal,
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     assert KERNELS["flash_attention"].launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=causal,
+                                                window=window))
     want, scale = _plain_attention(q, k, v, causal, window)
     diff = (got.float().cpu() - want).abs()
     if dtype == torch.float32:

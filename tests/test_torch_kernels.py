@@ -441,6 +441,79 @@ def test_flash_attention_op_takes_gqa_in_the_model_layout(window):
     _close(got.numpy(), want)
 
 
+def _fa_kernel_schedule(q, k, v, causal, window, drop_edge=False):
+    """The bf16 flash kernel's loop, in plain PyTorch on (B, H, S, D)
+    float32 q and K / V already repeated to H heads: query tiles of
+    ``BLOCK_Q``, each over the key tiles of ``BLOCK_KV`` from the one
+    holding its first query's window start to its last key; a running max
+    from -1e30, masked scores -inf, P split into hi + lo bf16 parts for
+    P V, float32 sums, the output rounded to bf16. ``drop_edge``: a faulty
+    schedule that passes over the key tile at each query tile's window
+    edge."""
+    from repro_torch.kernels.flash_attention import BLOCK_KV, BLOCK_Q
+
+    s, d = q.shape[-2], q.shape[-1]
+    scale = 1.0 / np.sqrt(d)
+    out = torch.zeros_like(q)
+    for q0 in range(0, s, BLOCK_Q):
+        rows = torch.arange(q0, min(q0 + BLOCK_Q, s))[:, None]
+        k_end = min(q0 + BLOCK_Q, s) if causal else s
+        k_begin = max(0, q0 - window + 1) if window else 0
+        t_begin, t_end = k_begin // BLOCK_KV, -(-k_end // BLOCK_KV)
+        m = torch.full(q.shape[:2] + (len(rows), 1), -1e30)
+        lsum = torch.zeros_like(m)
+        acc = torch.zeros(q.shape[:2] + (len(rows), d))
+        for t in range(t_begin, t_end):
+            if drop_edge and window and q0 >= window and t == t_begin:
+                continue
+            keys = torch.arange(t * BLOCK_KV, min((t + 1) * BLOCK_KV, s))
+            sc = q[..., rows[:, 0], :] @ k[..., keys, :].transpose(-1, -2)
+            ok = torch.ones(len(rows), len(keys), dtype=torch.bool)
+            if causal:
+                ok &= keys[None, :] <= rows
+            if window:
+                ok &= keys[None, :] > rows - window
+            sc = (sc * scale).masked_fill(~ok, -torch.inf)
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            corr, p = torch.exp(m - m_new), torch.exp(sc - m_new)
+            hi = p.bfloat16().float()
+            lo = (p - hi).bfloat16().float()
+            vt = v[..., keys, :]
+            acc = acc * corr + (hi @ vt + lo @ vt)
+            lsum = lsum * corr + p.sum(-1, keepdim=True)
+            m = m_new
+        out[..., rows[:, 0], :] = acc / lsum.clamp_min(1e-30)
+    return out.bfloat16().float()
+
+
+@pytest.mark.parametrize("s,h,hkv,d,causal,window,drop_edge", [
+    (17, 2, 2, 32, True, None, False),      # within one tile
+    (333, 4, 2, 32, True, None, False),     # diagonal inside tiles, ragged
+    (300, 4, 2, 32, True, 100, False),      # window edge inside tiles
+    (300, 4, 2, 32, True, 1, False),        # window 1
+    (257, 4, 1, 32, False, 200, False),     # a window without causality
+    (300, 4, 2, 128, True, 128, False),
+    (300, 4, 2, 32, True, 100, True),       # faulty: edge tile passed over
+    (300, 4, 2, 128, True, 128, True),
+    (257, 4, 1, 32, False, 200, True)])
+def test_flash_kernel_tile_schedule_matches_plain(s, h, hkv, d, causal,
+                                                  window, drop_edge):
+    """An emulation of the bf16 kernel's tile schedule agrees with the
+    plain version (float32 inside, compared in float64) within the card's
+    bf16 limit, 2^-8 |plain| + 2^-14 |P| |V|, at ragged shapes with causal
+    and window edges inside tiles; the schedule that drops the window-edge
+    key tile does not."""
+    q, k, v = (_t(x).bfloat16().float()
+               for x in _fa_case(s + d, 1, h, s, d, hkv=hkv))
+    k, v = (x.repeat_interleave(h // hkv, dim=1) for x in (k, v))
+    got = _fa_kernel_schedule(q, k, v, causal, window, drop_edge)
+    att = ref.flash_attention_probs(q, k, causal=causal, window=window)
+    want = (att @ v).double()
+    lim = 2 ** -8 * want.abs() + 2 ** -14 * (att @ v.abs()).double()
+    ratio = float(((got.double() - want).abs() / lim).max())
+    assert (ratio <= 1.0) == (not drop_edge), ratio
+
+
 def test_gru_and_flash_wrappers_refuse_cpu_tensors():
     args, g = _gru_case(0, 4, 3, 2)
     with pytest.raises(ValueError, match="CUDA"):
