@@ -11,14 +11,22 @@ Phases, each fatal on failure:
      shapes of the main path (``neighbor_sample`` exactly, the others to
      1e-5), and time kernel, plain version, and, for the attention forward
      and backward, ``F.scaled_dot_product_attention`` (under autograd for
-     the backward) as a yardstick the port never calls;
+     the backward) as a yardstick the port never calls; the flush,
+     which writes ``mem`` / ``last`` in place, at the path's pending ids,
+     a heavy-duplicate and an all-padding set with its in-place contract
+     (returned tensors are the inputs, untouched rows bitwise unchanged,
+     dump rows zero), a faulty plain version without the segment mean
+     that must fail, and its backward (``flush_bwd_rows``) against
+     autograd of ``flush_ref`` (1e-5 of each grad's largest magnitude),
+     timed beside it;
   4. small-input agreement: one ``train_single`` epoch of a narrow TGN on
      the ``tiny`` graph, on the card and on the CPU (plain versions), from
      the same initial params;
   5. the TIG path: ``train_single(synthetic_tig("wikipedia-s",
      scale=10), TIG, epochs=1)`` — TGN at the paper's widths, ~525 train
      steps, then val and test scoring — with every kernel's launch count
-     read around it; then where a train step's time goes;
+     read around it (the flush's backward launches ``fused_gru_bwd``);
+     then where a train step's time goes;
   6. the WKV kernel against its plain version at the RWKV6 path's shapes
      (decode S 1 with a state, a ragged S 100 with a state, prompt scoring
      S 2048), timed beside its plain version;
@@ -95,7 +103,7 @@ TPU_KERNELS = {               # the TPU kernel each CUDA kernel replaces
     "flash_attention": "src/repro/kernels/flash_attention.py:30",
 }
 TIG_PATH = ("neighbor_sample", "fused_flush", "temporal_attn",
-            "temporal_attn_bwd")
+            "temporal_attn_bwd", "fused_gru_bwd")  # the flush's backward
 WKV_SHAPES = (        # (label, B, H, S, initial state): the RWKV6 path's
     ("decode", 4, 32, 1, True),          # serve_step at batch 4
     ("ragged", 4, 32, 100, True),        # a ragged prompt, with a state
@@ -152,18 +160,20 @@ def call_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_spans(fn, attempts: int = 3) -> tuple[list, float]:
+def device_spans(fn, attempts: int = 6) -> tuple[list, float]:
     """Run ``fn()`` under ``torch.profiler``; returns the device activity
     as sorted (start us, end us, name) spans, and the host wall time in ms
     from the first call to the last device completion. A profiled run that
-    recorded no device activity at all (seen once on the card, mid-script,
-    after earlier rounds had recorded) is run again, up to ``attempts``
+    recorded no device activity at all (on the card, mid-script, after
+    earlier rounds had recorded; up to 15 times in one run of this script,
+    most in phase 9) is run again after a pause, up to ``attempts``
     times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(attempts):
+    for attempt in range(attempts):
+        time.sleep(0.1 * attempt)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -188,7 +198,9 @@ def device_ms(fn, iters: int = 20, rounds: int = 5,
     and copy durations (``torch.profiler``) over ``iters``. A round is
     summed whole, not cut into calls, because the ops of one call cannot
     be told from the next's: a library call may launch a varying number
-    of them, and the profiler may miss one."""
+    of them, and the profiler may miss one. A round the profiler records
+    nothing of is left out; if it records no round, the time comes from
+    CUDA events over back-to-back calls (``call_ms``), said on stderr."""
     for _ in range(warmup):
         fn()
 
@@ -198,8 +210,16 @@ def device_ms(fn, iters: int = 20, rounds: int = 5,
 
     per_round = []
     for _ in range(rounds):
-        spans, _ = device_spans(run)
+        try:
+            spans, _ = device_spans(run)
+        except RuntimeError as err:
+            print(f"{err}; round left out", file=sys.stderr)
+            continue
         per_round.append(sum(e - s for s, e, _ in spans) / iters)
+    if not per_round:
+        print("device time from CUDA events (back to back): the profiler "
+              "recorded no round", file=sys.stderr)
+        return call_ms(fn, iters=iters, warmup=0)
     return statistics.median(per_round) / 1e3
 
 
@@ -253,7 +273,6 @@ def kernel_checks(torch, dev, g, cfg):
     import numpy as np
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.fused_flush import fused_flush_fwd
     from repro_torch.kernels.neighbor_sample import neighbor_sample_fwd
     from repro_torch.kernels.temporal_attn import (temporal_attn_bwd,
                                                     temporal_attn_fwd)
@@ -309,31 +328,8 @@ def kernel_checks(torch, dev, g, cfg):
     # --- fused_flush: pending rows of this batch (src ++ dst, duplicates)
     ids = np.concatenate([prog["src"][s], prog["dst"][s]])
     ids = np.where(np.tile(prog["valid"][s], 2), ids, n_dump)
-    ids = torch.from_numpy(ids.astype(np.int32)).to(dev)
-    dm = cfg.msg_dim
-    ts = torch.from_numpy(np.tile(prog["t"][s], 2)).to(dev)
-    mem = randn(n_dump + 1, d, scale=0.5)
-    mem[n_dump] = 0.0
-    last = torch.clamp(ts.min() - randn(n_dump + 1).abs(), min=0.0)
-    last[n_dump] = 0.0
-    fargs = (ids, randn(2 * b, dm), ts, mem, last,
-             randn(dm, 3 * d, scale=dm ** -0.5),
-             randn(d, 3 * d, scale=d ** -0.5), randn(3 * d, scale=0.1),
-             randn(3 * d, scale=0.1))
-    err = max_err(fused_flush_fwd(*fargs), ref.flush_ref(*fargs))
-    if err > TOL:
-        raise AssertionError(f"fused_flush differs from flush_ref by {err}")
-    ids_np = ids.cpu().numpy()
-    first = [i for i, x in enumerate(ids_np)
-             if x < n_dump and x not in ids_np[:i]]
-    flops = len(first) * 2 * (dm + d) * 3 * d
-    nbytes = (2 * b * (4 + dm * 4 + 4) + (dm + d + 2) * 3 * d * 4
-              + 2 * (n_dump + 1) * (d + 1) * 4 + 2 * b * dm * 4)
-    recs.append(dict(name="fused_flush", max_abs_err=err,
-                     kernel=timings(lambda: fused_flush_fwd(*fargs)),
-                     plain=timings(lambda: ref.flush_ref(*fargs)),
-                     bound=bound(nbytes, flops), library_ms=None))
-
+    recs.append(flush_checks(torch, dev, ids, np.tile(prog["t"][s], 2),
+                             n_dump, d, cfg.msg_dim, randn))
     # --- temporal attention at (3B, H, D / H) with the sampled mask
     dh = d // h
     q, kk, vv = (randn(rows, h, dh), randn(rows, k, h, dh),
@@ -388,6 +384,176 @@ def kernel_checks(torch, dev, g, cfg):
                      bound=bound(io_bwd, 8 * dh * slots),
                      library_ms=device_ms(library_bwd)))
     return recs
+
+
+def flush_no_mean(torch, ids, msg, ts, mem, last, wx, wh, bx, bh):
+    """A faulty flush for the control: each row's ``mbar`` is its own
+    message, not the mean over the rows of its id."""
+    from repro_torch.kernels import ref
+
+    mbar = torch.where((ids < mem.shape[0] - 1)[:, None], msg, 0.0)
+    s_new = ref.gru_ref(mbar, mem[ids.long()], wx, wh, bx, bh)
+    return (ref.scatter_memory(mem, ids, s_new),
+            ref.scatter_last(last, ids, ts), mbar)
+
+
+def flush_forward_check(torch, label, fargs) -> tuple[float, list]:
+    """The in-place flush kernel on its own copies of ``mem`` / ``last``
+    against ``flush_ref`` on the inputs (TOL), and its in-place contract:
+    the returned ``mem`` / ``last`` are the copies, rows not in ``ids``
+    unchanged bitwise, the dump rows zero. Returns the max abs error and
+    the kernel's outputs."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_flush import fused_flush_fwd
+
+    ids, mem, last = fargs[0], fargs[3], fargs[4]
+    n_dump = mem.shape[0] - 1
+    mine = list(fargs)
+    mine[3], mine[4] = mem.clone(), last.clone()
+    got = fused_flush_fwd(*mine)
+    want = ref.flush_ref(*fargs)
+    torch.cuda.synchronize()
+    err = max_err(got[:3], want)
+    if err > TOL:
+        raise AssertionError(f"fused_flush {label} differs from flush_ref "
+                             f"by {err}")
+    keep = torch.ones(n_dump + 1, dtype=torch.bool, device=mem.device)
+    keep[ids.long()] = False
+    keep[n_dump] = False                  # cleared, checked below
+    if not (got[0] is mine[3] and got[1] is mine[4]
+            and torch.equal(got[0][keep], mem[keep])
+            and torch.equal(got[1][keep], last[keep])
+            and not bool(got[0][n_dump].any())
+            and float(got[1][n_dump]) == 0.0):
+        raise AssertionError(f"fused_flush {label}: the in-place contract "
+                             f"does not hold")
+    return err, got
+
+
+def flush_checks(torch, dev, ids_np, ts_np, n_dump, d, dm, randn) -> dict:
+    """Phase 3's flush: the in-place forward at the path's pending ids, a
+    heavy-duplicate set and an all-padding set; a faulty plain version
+    (no aggregation) must fail the path's check; the gradients of
+    ``FusedFlush`` against autograd of ``flush_ref`` (GRU_REL of each
+    one's largest magnitude); the forward and the backward
+    (``flush_bwd_rows``) timed beside their plain versions."""
+    import numpy as np
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_flush import (FusedFlush, flush_bwd_rows,
+                                                 fused_flush_fwd)
+
+    rows = ids_np.shape[0]
+    ts = torch.from_numpy(ts_np).to(dev)
+    mem = randn(n_dump + 1, d, scale=0.5)
+    last = torch.clamp(ts.min() - randn(n_dump + 1).abs(), min=0.0)
+    mem[n_dump], last[n_dump] = 1.0, 1.0      # stale: the flush clears them
+    msg = randn(rows, dm)
+    weights = (randn(dm, 3 * d, scale=dm ** -0.5),
+               randn(d, 3 * d, scale=d ** -0.5), randn(3 * d, scale=0.1),
+               randn(3 * d, scale=0.1))
+    rng = np.random.default_rng(0)
+    id_sets = {
+        "path": ids_np,
+        "heavy duplicates": np.where(rng.uniform(size=rows) < 0.9,
+                                     rng.integers(0, 5, rows), n_dump),
+        "all padding": np.full(rows, n_dump),
+    }
+    errs = {}
+    for label, ids_set in id_sets.items():
+        ids = torch.from_numpy(ids_set.astype(np.int32)).to(dev)
+        errs[label], _ = flush_forward_check(
+            torch, label, (ids, msg, ts, mem, last, *weights))
+    ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
+    fargs = (ids, msg, ts, mem, last, *weights)
+    ctrl = max_err(flush_no_mean(torch, *fargs), ref.flush_ref(*fargs))
+    print(f"fused_flush: max abs err {errs} (TOL {TOL}); control (mbar "
+          f"without aggregation) {ctrl:.3g}, {ctrl / TOL:.3g} x TOL")
+    if ctrl <= TOL:
+        raise AssertionError("the flush check passes a flush without the "
+                             "segment mean")
+
+    # gradients, each side on its own copies of mem / last
+    diff = (1, 5, 6, 7, 8)
+    g_mem, g_mbar = randn(n_dump + 1, d), randn(rows, dm)
+    a = [x.clone().requires_grad_(i in diff) for i, x in enumerate(fargs)]
+    out = FusedFlush.apply(*a)
+    got_g = torch.autograd.grad((out[0], out[2]), [a[i] for i in diff],
+                                (g_mem, g_mbar))
+    b = [x.clone().requires_grad_(i in diff) for i, x in enumerate(fargs)]
+    out_b = ref.flush_ref(*b)
+    want_g = torch.autograd.grad((out_b[0], out_b[2]), [b[i] for i in diff],
+                                 (g_mem, g_mbar), retain_graph=True)
+    rel = [float((x - w).abs().max()) / max(1.0, float(w.abs().max()))
+           for x, w in zip(got_g, want_g)]
+    print(f"fused_flush backward: error / max(1, max |plain|) per grad "
+          f"(msg, wx, wh, bx, bh): {[f'{r:.3g}' for r in rel]} (limit "
+          f"{GRU_REL})")
+    if max(rel) > GRU_REL:
+        raise AssertionError(f"the flush gradients differ from autograd "
+                             f"of flush_ref: {rel}")
+
+    kargs = list(fargs)
+    kargs[3], kargs[4] = mem.clone(), last.clone()
+    _m, _l, mbar, h_g, orow = fused_flush_fwd(*kargs)
+    first = int((orow >= 0).sum())
+    # the function's work: the pending rows, the weights, the touched rows
+    # of mem / last read and written, mbar written; the products of the
+    # first occurrences, 3xTF32
+    nbytes = (rows * (4 + dm * 4 + 4) + (dm + d + 2) * 3 * d * 4
+              + first * (d + 1) * 4 * 2 + rows * dm * 4)
+    flops = first * 2 * (dm + d) * 3 * d
+    # backward: gather the first rows' cotangents, recompute the gates,
+    # d_mbar = dgx wx^T, dwx, dwh and the bias sums on the tensor cores
+    # (3xTF32), then d_msg = A (d_mbar + g_mbar) in float32 over A's
+    # nonzeros (cnt^2 for an id on cnt rows)
+    _, cnt = np.unique(ids_np[ids_np < n_dump], return_counts=True)
+    b_bytes = (first * d * 4 + rows * (2 * dm + d) * 4 + rows * 4 * 2
+               + 2 * (dm + d + 2) * 3 * d * 4 + rows * dm * 4)
+    b_ops_ms = (3 * (2 * flops + first * 2 * dm * 3 * d) / TF32_FLOP_PER_S
+                + 2.0 * float((cnt ** 2).sum()) * dm / FP32_FLOP_PER_S) * 1e3
+    b_bytes_ms = b_bytes / HBM_BYTES_PER_S * 1e3
+    b_bound = ((b_bytes_ms, "bytes") if b_bytes_ms >= b_ops_ms
+               else (b_ops_ms, "operations"))
+
+    def kernel_bwd():
+        flush_bwd_rows(g_mem, g_mbar, ids, mbar, h_g, orow, *weights,
+                       n_dump=n_dump)
+
+    def plain_bwd():
+        torch.autograd.grad((out_b[0], out_b[2]), [b[i] for i in diff],
+                            (g_mem, g_mbar), retain_graph=True)
+
+    bwd, bwd_plain = timings(kernel_bwd), timings(plain_bwd)
+    try:
+        spans, _ = device_spans(lambda: [kernel_bwd() for _ in range(10)])
+    except RuntimeError as err:     # a breakdown for the record, no check
+        print(f"fused_flush backward: no breakdown ({err})")
+        spans = []
+    by_name: dict = {}
+    for s0, e0, name in spans:
+        key = name.replace("(anonymous namespace)::", "").replace(
+            "void ", "").split("<")[0].split("(")[0][:48]
+        by_name[key] = by_name.get(key, 0.0) + (e0 - s0) / 10
+    print(f"fused_flush backward: {len(spans) / 10:.1f} device ops per "
+          f"call; us per call by kernel: " + ", ".join(
+              f"{k} {v:.2f}" for k, v in sorted(by_name.items(),
+                                               key=lambda kv: -kv[1])))
+    print(f"fused_flush backward (flush_bwd_rows, R {rows}, {first} first "
+          f"occurrences): device {bwd['ms'] * 1e3:.2f} us per call, "
+          f"{bwd['call_ms'] * 1e3:.2f} us back to back; autograd of "
+          f"flush_ref {bwd_plain['ms'] * 1e3:.2f} / "
+          f"{bwd_plain['call_ms'] * 1e3:.2f} us; bound "
+          f"{b_bound[0] * 1e3:.3f} us by {b_bound[1]}")
+    return dict(name="fused_flush", max_abs_err=max(errs.values()),
+                kernel=timings(lambda: fused_flush_fwd(*kargs)),
+                plain=timings(lambda: ref.flush_ref(*fargs)),
+                bound=bound(nbytes, 3 * flops, TF32_FLOP_PER_S),
+                library_ms=None,
+                extra=dict(bwd_ms=bwd["ms"], bwd_call_ms=bwd["call_ms"],
+                           bwd_plain_ms=bwd_plain["ms"],
+                           bwd_bound_ms=b_bound[0], bwd_bound_by=b_bound[1],
+                           bwd_max_rel_err=max(rel)))
 
 
 def profile_train_steps(torch, g, cfg, steps: int = 40) -> None:
@@ -1070,8 +1236,10 @@ def main() -> int:
     for r in gru:
         print_kernel(r)
     gru_launches = gru_path(torch, KERNELS)
+    # fused_gru_bwd runs on both paths: the TIG path's flush backward and
+    # ops.gru's
     for name in ("fused_gru", "fused_gru_bwd"):
-        launches[name] = gru_launches[name]
+        launches[name] += gru_launches[name]
     flash = flash_checks(torch, dev)
     for r in flash:
         print_kernel(r)
@@ -1093,7 +1261,7 @@ def main() -> int:
             plain_ms=r["plain"]["ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],
             call_ms=r["kernel"]["call_ms"],
-            plain_call_ms=r["plain"]["call_ms"])
+            plain_call_ms=r["plain"]["call_ms"]) | r.get("extra", {})
 
     def shaped_entry(main, rs):
         """The entry at the path's main shape; "shapes" holds them all."""

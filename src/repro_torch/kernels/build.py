@@ -122,8 +122,8 @@ KERNELS: dict[str, Kernel] = {k.name: k for k in (
     # rows k  ids_out t_out e_out stream
     Kernel("neighbor_sample", "neighbor_sample.cu", "neighbor_sample",
            (P, P, P, P, P, P, P, I, P, I, I, I, P, P, P, P)),
-    # ids msg ts mem last wx wh bx bh rows dm d n_dump
-    # mem_out last_out mbar_out stream
+    # ids msg ts mem last (both updated in place) wx wh bx bh rows dm d
+    # n_dump mbar h_g orow stream
     Kernel("fused_flush", "fused_flush.cu", "fused_flush",
            (P, P, P, P, P, P, P, P, P, I, I, I, I, P, P, P, P)),
     # q k v mask rows heads kn dh out stream

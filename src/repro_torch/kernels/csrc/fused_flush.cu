@@ -1,55 +1,103 @@
 // Fused TGN message flush: segment-mean of the pending messages, GRU
-// update of the touched memory rows, scatter of mem / last.
+// update of the touched memory rows, in-place update of mem / last.
 //
 // Replaces the TPU kernel `_flush_kernel` of
-// src/repro/kernels/fused_flush.py (entry `fused_flush_fwd`).
+// src/repro/kernels/fused_flush.py (entry `fused_flush_fwd`), which also
+// updates mem / last in place (`input_output_aliases`) and sends
+// non-first duplicates' writes away from the live rows.
 //
-// Two launches, because CUDA blocks run concurrently and the dump row can
-// only be cleared after every write:
-//   1. `flush_rows_kernel`, one block per pending row i (R = 2B):
+// Two launches, stream-ordered:
+//   A. `flush_gather_kernel`, one block per pending row i (R = 2B):
 //      - the block lists, in ascending order, the rows j whose live id
-//        equals ids[i] (warp ballots over the R ids held in shared memory);
-//      - it averages those rows of `msg` into mbar (written for every row);
-//      - only the first occurrence of a live id goes on: it reads mem[id],
-//        computes gx = mbar.wx + bx and gh = h.wh + bh as GEMVs (one thread
-//        per gate output), applies the [r|z|n] gates and writes mem'[id]
-//        and last'[id] = max(last[id], max ts of its rows).
-//      Duplicates and padding rows write only mbar, so no block writes a
-//      row another block writes, and every read is of the unmodified input.
-//   2. `flush_zero_dump_kernel` zeroes mem'[N] and last'[N].
-// The outputs are fresh copies of mem / last made by the wrapper (out of
-// place, so autograd can recompute from the saved inputs); writing in
-// place is later work.
+//        equals ids[i] (warp ballots over the R ids held in shared memory),
+//        so the sums are deterministic;
+//      - the mean of msg over an id's cnt rows is split by columns among
+//        its cnt blocks: the k-th of them sums columns [k dm / cnt, (k +
+//        1) dm / cnt) and writes them to mbar at all cnt rows (a padding
+//        row's block writes its own zeros). Within a block, G row groups
+//        sum a column's rows in a fixed order, then one thread adds the G
+//        partials in order: deterministic, and an id on many rows is not
+//        a chain of cnt dependent loads in one thread (the mid-epoch batch
+//        of chip_smoke.py has 74 distinct ids on its 400 rows; a block
+//        that summed all dm columns of its id alone took ~38 us there);
+//      - it copies h_g[i] = mem[ids[i]] into an (R, d) scratch, which is
+//        also what the backward keeps (the rows before the update);
+//      - it writes orow[i] = ids[i] for the first occurrence of a live id,
+//        else -1, and that block alone raises last[id] to the max of
+//        last[id] and its rows' ts, in place;
+//      - block 0 zeroes last[N] (no block reads it).
+//      A never writes mem, so every block reads the input rows.
+//   B. the GRU gate tile of fused_gru (gru_tile.cuh, 3xTF32 on the tensor
+//      cores) on x = mbar, h = h_g, with the SCATTER epilogue: row r of
+//      h' goes to mem[orow[r]] when orow[r] >= 0, and mem[N] is zeroed (A
+//      read it for padding rows). B reads only h_g, mbar and the weights,
+//      and writes distinct mem rows, so blocks of different column tiles
+//      cannot race; running the tile on mem itself would let one column
+//      tile read h columns another had already overwritten.
 //
-// Bound on an H100 at the slice's shapes (R = 400, dm = 616, d = 172,
-// N = 10,000): about 0.33 GFLOP of float32 GEMV (R x 2 x 788 x 516, at
-// 67 TFLOP/s about 5 us) and about 4 MB of rows and weights, plus the
-// out-of-place copy of mem (6.9 MB read and written, about 4 us). Per
-// block, each first occurrence streams all of wx and wh (1.6 MB) from L2,
-// so the kernel is bound by L2 bandwidth over R blocks, far above both;
-// tiling several rows per block to reuse the weights is the next step.
+// Bound on an H100 at the TGN path's shape (R = 400, dm = 616, d = 172,
+// N = 10,000): the larger of the products of the U <= R first
+// occurrences, 3 x U x 2 x 788 x 516 FLOP at 495 TFLOP/s of dense TF32,
+// and about 3.7 MB of pending rows, weights, touched memory rows and mbar
+// at 3.35 TB/s (1.1 us): bytes at the mid-epoch batch of chip_smoke.py
+// (U = 74). Launch B does fused_gru's work at (R, dm, d), all R rows.
 #include "common.cuh"
+#include "gru_tile.cuh"
 
-__device__ __forceinline__ float sigmoidf(float x) {
-  return 1.0f / (1.0f + expf(-x));
+namespace {
+
+constexpr int GATHER_THREADS = 256;
+
+// mbar[rows] = the mean of msg over rows, columns [c0, c0 + w) only.
+// part: GATHER_THREADS floats of shared memory.
+__device__ __forceinline__ void mean_columns(const float* __restrict__ msg,
+                                             const int* rows, int cnt,
+                                             int dm, int c0, int w,
+                                             float* part,
+                                             float* __restrict__ mbar) {
+  const int t = threadIdx.x;
+  const float inv = 1.0f / static_cast<float>(cnt);
+  if (w >= GATHER_THREADS) {  // few rows: a thread per column
+    for (int c = c0 + t; c < c0 + w; c += GATHER_THREADS) {
+      float s = 0.0f;
+      for (int m = 0; m < cnt; ++m)
+        s += msg[static_cast<size_t>(rows[m]) * dm + c];
+      for (int m = 0; m < cnt; ++m)
+        mbar[static_cast<size_t>(rows[m]) * dm + c] = s * inv;
+    }
+    return;
+  }
+  const int groups = GATHER_THREADS / w;  // >= 1
+  const int g = t / w, c = c0 + t % w;
+  if (g < groups) {
+    float s = 0.0f;
+    for (int m = g; m < cnt; m += groups)
+      s += msg[static_cast<size_t>(rows[m]) * dm + c];
+    part[t] = s;
+  }
+  __syncthreads();
+  if (t < w) {
+    float s = 0.0f;
+    for (int q = 0; q < groups; ++q) s += part[q * w + t];
+    part[t] = s * inv;  // read by the writes below, after the barrier
+  }
+  __syncthreads();
+  for (int e = t; e < cnt * w; e += GATHER_THREADS)
+    mbar[static_cast<size_t>(rows[e / w]) * dm + c0 + e % w] = part[e % w];
 }
 
-__global__ void flush_rows_kernel(
-    const int* __restrict__ ids, const float* __restrict__ msg,
-    const float* __restrict__ ts, const float* __restrict__ mem,
-    const float* __restrict__ last, const float* __restrict__ wx,
-    const float* __restrict__ wh, const float* __restrict__ bx,
-    const float* __restrict__ bh, int rows, int dm, int d, int n_dump,
-    float* __restrict__ mem_out, float* __restrict__ last_out,
-    float* __restrict__ mbar_out) {
-  extern __shared__ float smem[];
-  int* ids_s = reinterpret_cast<int*>(smem);  // [rows]
-  int* match = ids_s + rows;                  // [rows]
-  float* mbar_s = reinterpret_cast<float*>(match + rows);  // [dm]
-  float* h_s = mbar_s + dm;                   // [d]
-  float* gx_s = h_s + d;                      // [3d]
-  float* gh_s = gx_s + 3 * d;                 // [3d]
-  __shared__ int n_match;
+__global__ void __launch_bounds__(GATHER_THREADS)
+flush_gather_kernel(const int* __restrict__ ids, const float* __restrict__ msg,
+                    const float* __restrict__ ts,
+                    const float* __restrict__ mem, float* __restrict__ last,
+                    int rows, int dm, int d, int n_dump,
+                    float* __restrict__ mbar, float* __restrict__ h_g,
+                    int* __restrict__ orow) {
+  extern __shared__ int smem_i[];
+  int* ids_s = smem_i;         // [rows]
+  int* match = ids_s + rows;   // [rows]
+  __shared__ int n_match, pos;
+  __shared__ float part[GATHER_THREADS];
 
   const int i = blockIdx.x;
   const int id = ids[i];
@@ -65,94 +113,81 @@ __global__ void flush_rows_kernel(
       const int j = j0 + lane;
       const bool eq = live && j < rows && ids_s[j] == id;
       const unsigned m = __ballot_sync(0xffffffffu, eq);
-      if (eq) match[base + __popc(m & ((1u << lane) - 1u))] = j;
+      const int at = base + __popc(m & ((1u << lane) - 1u));
+      if (eq) match[at] = j;
+      if (eq && j == i) pos = at;
       base += __popc(m);
     }
     if (lane == 0) n_match = base;
   }
   __syncthreads();
   const int cnt = n_match;
-  const float denom = fmaxf(static_cast<float>(cnt), 1.0f);
-  for (int c = threadIdx.x; c < dm; c += blockDim.x) {
-    float s = 0.0f;
-    for (int m = 0; m < cnt; ++m)
-      s += msg[static_cast<size_t>(match[m]) * dm + c];
-    const float v = s / denom;
-    mbar_s[c] = v;
-    mbar_out[static_cast<size_t>(i) * dm + c] = v;
+  const bool first = live && match[0] == i;  // block-uniform
+  if (live) {
+    const int k = pos;
+    const int c0 = static_cast<int>(static_cast<long long>(k) * dm / cnt);
+    const int c1 =
+        static_cast<int>(static_cast<long long>(k + 1) * dm / cnt);
+    if (c1 > c0) mean_columns(msg, match, cnt, dm, c0, c1 - c0, part, mbar);
+  } else {
+    for (int c = threadIdx.x; c < dm; c += blockDim.x)
+      mbar[static_cast<size_t>(i) * dm + c] = 0.0f;
   }
-  // block-uniform: padding rows and non-first duplicates are done
-  if (!live || match[0] != i) return;
-
   for (int c = threadIdx.x; c < d; c += blockDim.x)
-    h_s[c] = mem[static_cast<size_t>(id) * d + c];
-  __syncthreads();
-
-  const int g3 = 3 * d;
-  for (int o = threadIdx.x; o < g3; o += blockDim.x) {
-    float ax = 0.0f, ah = 0.0f;
-#pragma unroll 8
-    for (int c = 0; c < dm; ++c)
-      ax = fmaf(mbar_s[c], wx[static_cast<size_t>(c) * g3 + o], ax);
-#pragma unroll 8
-    for (int c = 0; c < d; ++c)
-      ah = fmaf(h_s[c], wh[static_cast<size_t>(c) * g3 + o], ah);
-    gx_s[o] = ax + bx[o];
-    gh_s[o] = ah + bh[o];
-  }
-  __syncthreads();
-
-  for (int c = threadIdx.x; c < d; c += blockDim.x) {
-    const float r = sigmoidf(gx_s[c] + gh_s[c]);
-    const float z = sigmoidf(gx_s[d + c] + gh_s[d + c]);
-    const float n = tanhf(gx_s[2 * d + c] + r * gh_s[2 * d + c]);
-    mem_out[static_cast<size_t>(id) * d + c] = (1.0f - z) * n + z * h_s[c];
-  }
+    h_g[static_cast<size_t>(i) * d + c] = mem[static_cast<size_t>(id) * d + c];
   if (threadIdx.x == 0) {
-    float tmax = ts[match[0]];
-    for (int m = 1; m < cnt; ++m) tmax = fmaxf(tmax, ts[match[m]]);
-    last_out[id] = fmaxf(last[id], tmax);
+    orow[i] = first ? id : -1;
+    if (first) {
+      float tmax = ts[i];
+      for (int m = 1; m < cnt; ++m) tmax = fmaxf(tmax, ts[match[m]]);
+      last[id] = fmaxf(last[id], tmax);
+    }
+    if (i == 0) last[n_dump] = 0.0f;
   }
 }
 
-__global__ void flush_zero_dump_kernel(float* __restrict__ mem_out,
-                                       float* __restrict__ last_out, int d,
-                                       int n_dump) {
-  for (int c = threadIdx.x; c < d; c += blockDim.x)
-    mem_out[static_cast<size_t>(n_dump) * d + c] = 0.0f;
-  if (threadIdx.x == 0) last_out[n_dump] = 0.0f;
-}
+}  // namespace
 
-extern "C" int fused_flush(
-    const void* ids, const void* msg, const void* ts, const void* mem,
-    const void* last, const void* wx, const void* wh, const void* bx,
-    const void* bh, int rows, int dm, int d, int n_dump, void* mem_out,
-    void* last_out, void* mbar_out, void* stream) {
+// ids (rows,) int32 in [0, n_dump]; msg (rows, dm); ts (rows,); mem
+// (n_dump + 1, d) and last (n_dump + 1,), updated in place; wx (dm, 3 d),
+// wh (d, 3 d), bx, bh (3 d,); writes mbar (rows, dm), h_g (rows, d) and
+// orow (rows,) int32. float32, contiguous.
+extern "C" int fused_flush(const void* ids, const void* msg, const void* ts,
+                           void* mem, void* last, const void* wx,
+                           const void* wh, const void* bx, const void* bh,
+                           int rows, int dm, int d, int n_dump, void* mbar,
+                           void* h_g, void* orow, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows > 0) {
-    const size_t shmem = sizeof(int) * 2 * rows + sizeof(float) * (dm + 7 * d);
-    if (shmem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(
-          flush_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(shmem));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    // one thread per gate output, in whole warps, at most 1024
-    int threads = ((3 * d + 31) / 32) * 32;
-    threads = threads < 64 ? 64 : (threads > 1024 ? 1024 : threads);
-    flush_rows_kernel<<<rows, threads, shmem, s>>>(
-        static_cast<const int*>(ids), static_cast<const float*>(msg),
-        static_cast<const float*>(ts), static_cast<const float*>(mem),
-        static_cast<const float*>(last), static_cast<const float*>(wx),
-        static_cast<const float*>(wh), static_cast<const float*>(bx),
-        static_cast<const float*>(bh), rows, dm, d, n_dump,
-        static_cast<float*>(mem_out), static_cast<float*>(last_out),
-        static_cast<float*>(mbar_out));
-    cudaError_t e = cudaGetLastError();
+  float* mem_f = static_cast<float*>(mem);
+  float* last_f = static_cast<float*>(last);
+  if (rows == 0) {  // nothing pending: only the dump row is cleared
+    cudaMemsetAsync(mem_f + static_cast<size_t>(n_dump) * d, 0,
+                    sizeof(float) * d, s);
+    cudaMemsetAsync(last_f + n_dump, 0, sizeof(float), s);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t shmem = sizeof(int) * 2 * rows;
+  if (shmem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flush_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(shmem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  flush_zero_dump_kernel<<<1, 256, 0, s>>>(static_cast<float*>(mem_out),
-                                            static_cast<float*>(last_out), d,
-                                            n_dump);
-  return static_cast<int>(cudaGetLastError());
+  flush_gather_kernel<<<rows, GATHER_THREADS, shmem, s>>>(
+      static_cast<const int*>(ids), static_cast<const float*>(msg),
+      static_cast<const float*>(ts), mem_f, last_f, rows, dm, d, n_dump,
+      static_cast<float*>(mbar), static_cast<float*>(h_g),
+      static_cast<int*>(orow));
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const gru::GateArgs p{
+      static_cast<const float*>(mbar), static_cast<const float*>(h_g),
+      static_cast<const float*>(wx),   static_cast<const float*>(wh),
+      static_cast<const float*>(bx),   static_cast<const float*>(bh),
+      nullptr,                         rows,
+      dm,                              d,
+      mem_f,                           nullptr,
+      nullptr,                         static_cast<const int*>(orow),
+      n_dump};
+  return gru::launch_gates<false, true>(p, s);
 }

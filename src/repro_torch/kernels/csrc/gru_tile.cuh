@@ -21,7 +21,10 @@
 //     gates [r | z | n] of x wx and h wh, with the gate math in registers.
 //     A thread block cluster of CS blocks splits the (d_in + d_h)-deep
 //     contraction; the partial sums meet in block 0's registers through
-//     distributed shared memory in rank order (deterministic).
+//     distributed shared memory in rank order (deterministic). With
+//     SCATTER (the TGN flush's update, fused_flush.cu) the forward writes
+//     row r of the tile to row orow[r] of `out`, skips rows with orow[r]
+//     < 0, and zeroes `out` row n_dump.
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -172,10 +175,15 @@ __device__ __forceinline__ float sigmoidf(float x) {
 // x (rows, din), h (rows, dh), wx (din, 3 dh), wh (dh, 3 dh), bx, bh
 // (3 dh,). Forward: out = h'. Backward (g set): out = g z (dh's direct
 // term), dgx and dgh (rows, 3 dh) the grads of x wx + bx and h wh + bh.
+// Forward with SCATTER: out is a (n_dump + 1, dh) table, row r of h' goes
+// to out row orow[r] (none if < 0; distinct rows), out row n_dump is
+// zeroed.
 struct GateArgs {
   const float *x, *h, *wx, *wh, *bx, *bh, *g;
   int rows, din, dh;
   float *out, *dgx, *dgh;
+  const int* orow;
+  int n_dump;
 };
 
 // Four warps of a gate tile, each one m16 row block and NT n8 column
@@ -201,10 +209,12 @@ static_assert(STAGES * STAGE >= 16 * NT * THREADS,
 // rank-th of CS equal runs of them. Accumulators: r and z over both
 // products (their pre-activations are sums of both), n apart for x wx and
 // h wh (r multiplies the latter). Block 0 reads what its epilogue needs
-// (h, the biases, g) before the mainloop, so that its latency is hidden.
-template <bool BWD, bool VEC>
+// (h, the biases, g, orow) before the mainloop, so that its latency is
+// hidden.
+template <bool BWD, bool VEC, bool SCATTER = false>
 __global__ void __launch_bounds__(THREADS)
 gate_kernel(const GateArgs p) {
+  static_assert(!(BWD && SCATTER), "the scatter is the forward's");
   using namespace tile;
   extern __shared__ __align__(16) float smem[];
   auto cluster = cooperative_groups::this_cluster();
@@ -227,7 +237,13 @@ gate_kernel(const GateArgs p) {
   // the epilogue's operands: h (and g), and per column the biases of r
   // and z (bx + bh) and of n (bx, bh apart)
   float hv[NT][4] = {}, gv[NT][4] = {}, bias[NT][2][4] = {};
+  int dst[2] = {-1, -1};  // SCATTER: out rows of rows r0 and r0 + 8
   if (rank == 0) {
+    if constexpr (SCATTER) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (r0 + 8 * i < p.rows) dst[i] = p.orow[r0 + 8 * i];
+    }
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -315,6 +331,12 @@ gate_kernel(const GateArgs p) {
   }
   cluster.sync();  // block 0 has read every other block's sums
   if (rank != 0) return;
+  if constexpr (SCATTER) {
+    // no row of the tile goes to n_dump, and the tile reads h, not out
+    if (blockIdx.x / CS == 0)
+      for (int c = threadIdx.x; c < BN && col0 + c < dh; c += THREADS)
+        p.out[static_cast<size_t>(p.n_dump) * dh + col0 + c] = 0.0f;
+  }
 
 #pragma unroll
   for (int j = 0; j < NT; ++j)
@@ -329,7 +351,13 @@ gate_kernel(const GateArgs p) {
       const float nh = acc[3][j][e] + b[3];
       const float ng = tanhf((acc[2][j][e] + b[2]) + rg * nh);
       if constexpr (!BWD) {
-        p.out[o] = (1.0f - zg) * ng + zg * hv[j][e];
+        const float hn = (1.0f - zg) * ng + zg * hv[j][e];
+        if constexpr (SCATTER) {
+          const int w = dst[e >> 1];
+          if (w >= 0) p.out[static_cast<size_t>(w) * dh + c] = hn;
+        } else {
+          p.out[o] = hn;
+        }
       } else {
         const float g = gv[j][e];
         const float dpre_n = g * (1.0f - zg) * (1.0f - ng * ng);
@@ -384,13 +412,14 @@ inline bool vec_ok(const GateArgs& p) {
          aligned16(p.h) && aligned16(p.wx) && aligned16(p.wh);
 }
 
-template <bool BWD>
+template <bool BWD, bool SCATTER = false>
 int launch_gates(const GateArgs& p, cudaStream_t stream) {
   const dim3 grid(CS * ((p.rows + BM - 1) / BM), (p.dh + BN - 1) / BN);
   const cudaError_t err =
-      vec_ok(p)
-          ? launch<gate_kernel<BWD, true>, tile::SMEM>(grid, CS, stream, p)
-          : launch<gate_kernel<BWD, false>, tile::SMEM>(grid, CS, stream, p);
+      vec_ok(p) ? launch<gate_kernel<BWD, true, SCATTER>, tile::SMEM>(
+                      grid, CS, stream, p)
+                : launch<gate_kernel<BWD, false, SCATTER>, tile::SMEM>(
+                      grid, CS, stream, p);
   return static_cast<int>(err);
 }
 

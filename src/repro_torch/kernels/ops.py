@@ -78,7 +78,10 @@ def temporal_attention(q, k, v, mask):
 
 def fused_flush(ids, msg, ts, mem, last, wx, wh, bx, bh):
     """The whole message flush (segment-mean + GRU + mem/last scatter);
-    ``(mem', last', mbar)``."""
+    ``(mem', last', mbar)``. On the card the kernel writes ``mem`` and
+    ``last`` in place and returns them (so a caller that keeps the old
+    state passes a copy); on the CPU ``ref.flush_ref`` returns new
+    tensors."""
     if _on_card(msg):
         return FusedFlush.apply(*(x.contiguous() for x in (
             ids, msg, ts, mem, last, wx, wh, bx, bh)))

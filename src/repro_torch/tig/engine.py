@@ -8,6 +8,9 @@ device. Each step flushes the pending messages, embeds, decodes, takes the
 loss and its gradient with respect to the params only, and applies AdamW.
 The carried state is detached at every step boundary: it is a constant to
 the gradient, as in JAX. Losses stay on the device until the epoch ends.
+The card's flush updates ``mem`` and ``last`` in place, so each scan
+copies them once at entry: the caller's state stays as it was, as JAX's
+immutable arrays do.
 
 With ``tcsr`` (a staged ``ChronoNeighborIndex.device_export``) the batch
 program is raw edge records (``plan="device"``) and each step samples its
@@ -32,6 +35,12 @@ from repro_torch.tree import tree_map
 __all__ = ["sample_batch_neighbors", "scan_train_epoch", "scan_eval_stream"]
 
 _ROLES = ("src", "dst", "neg")
+
+
+def _own_state(state: dict) -> dict:
+    """``state`` with copies of the tensors the flush updates in place."""
+    return {**state, "mem": state["mem"].clone(),
+            "last": state["last"].clone()}
 
 
 def _to_device(batches: dict, device) -> dict:
@@ -79,6 +88,7 @@ def scan_train_epoch(params, opt_state, state, batches, tables, *,
     """
     device = resolve_device(device)
     bt = _to_device(batches, device)
+    state = _own_state(state)
     losses = []
     for s in range(bt["src"].shape[0]):
         batch = {k: v[s] for k, v in bt.items()}
@@ -108,6 +118,7 @@ def scan_eval_stream(params, state, batches, tables, *, cfg: TIGConfig,
     (steps, B) ``pos_logit`` / ``neg_logit`` on the device."""
     device = resolve_device(device)
     bt = _to_device(batches, device)
+    state = _own_state(state)
     pos, neg = [], []
     for s in range(bt["src"].shape[0]):
         batch = {k: v[s] for k, v in bt.items()}

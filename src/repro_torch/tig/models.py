@@ -149,7 +149,9 @@ def _read_memory(cfg: TIGConfig, mem, mem2, ids):
 
 def flush_pending(params: dict, cfg: TIGConfig, state: dict) -> dict:
     """Apply the stashed messages of the previous batch to memory (the
-    differentiable half of the message store), then clear them."""
+    differentiable half of the message store), then clear them. On the
+    card the GRU flavors' flush writes ``state["mem"]`` and
+    ``state["last"]`` in place (``ops.fused_flush``)."""
     n_dump = state["mem"].shape[0] - 1
     ids = state["pend_ids"]
     raw = state["pend_raw"]

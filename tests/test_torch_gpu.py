@@ -5,7 +5,9 @@ of JAX, so they run on a machine with only PyTorch:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: sampling is exact (integer ids, copied times); the flush and
-the attention agree to 1e-5, float32 sums taken in another order. The WKV
+the attention agree to 1e-5, float32 sums taken in another order; the
+flush's grads to 1e-5 of each one's largest magnitude (the weight grads sum
+every pending row through the GRU backward's 3xTF32 products). The WKV
 kernel agrees with its plain version to 1e-5 of the output's largest
 magnitude in float32 (sums in another order, and the chunked algebra),
 plus one bfloat16 unit (2^-7 relative) where the output is bfloat16. The
@@ -67,28 +69,77 @@ def test_neighbor_sample_kernel_exact(cuda, window):
         assert torch.equal(x, y)
 
 
+def _flush_args(dev, ids, n, dm, d, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = ids.shape[0]
+    args = [ids.to(dev)] + [torch.randn(s, generator=gen, device=dev)
+                            for s in ((r, dm), (r,), (n + 1, d), (n + 1,),
+                                      (dm, 3 * d), (d, 3 * d), (3 * d,),
+                                      (3 * d,))]
+    args[5] *= dm ** -0.5
+    args[6] *= d ** -0.5
+    return args
+
+
+def _grads_close(got, want, rel=1e-5):
+    """Each grad within ``rel`` of its own largest magnitude (at least
+    ``rel``): the weight grads sum every row through 3xTF32."""
+    for a, w in zip(got, want):
+        lim = rel * max(1.0, float(w.abs().max()))
+        assert float((a - w).abs().max()) <= lim
+
+
 def test_fused_flush_kernel_and_grads(cuda):
-    gen = torch.Generator(device=cuda).manual_seed(1)
-    r, n, dm, d = 24, 12, 10, 6
     ids = torch.tensor([3, 5, 3, 12, 7, 5, 5, 12, 0, 1, 2, 3] * 2,
-                       dtype=torch.int32, device=cuda)
-    args = [ids] + [torch.randn(s, generator=gen, device=cuda) for s in (
-        (r, dm), (r,), (n + 1, d), (n + 1,), (dm, 3 * d), (d, 3 * d),
-        (3 * d,), (3 * d,))]
+                       dtype=torch.int32)
+    args = _flush_args(cuda, ids, 12, 10, 6, 1)
     before = KERNELS["fused_flush"].launches
-    got = ops.fused_flush(*args)
+    got = ops.fused_flush(*[x.clone() for x in args])
     assert KERNELS["fused_flush"].launches == before + 1
     assert _max_diff(got, ref.flush_ref(*args)) < 1e-5
-    # backward: the autograd.Function recomputes through flush_ref
+    # backward from the touched rows, against autograd of flush_ref; each
+    # side on its own copies, as the kernel writes mem / last in place
     diff = (1, 5, 6, 7, 8)
-    a = [x.clone().requires_grad_(i in diff) for i, x in enumerate(args)]
-    b = [x.clone().requires_grad_(i in diff) for i, x in enumerate(args)]
+    gen = torch.Generator(device=cuda).manual_seed(2)
     cot = [torch.randn(got[i].shape, generator=gen, device=cuda)
            for i in (0, 2)]                      # last' has no gradient
+    a = [x.clone().requires_grad_(i in diff) for i, x in enumerate(args)]
+    b = [x.clone().requires_grad_(i in diff) for i, x in enumerate(args)]
+    bwd = KERNELS["fused_gru_bwd"].launches
     out_a, out_b = ops.fused_flush(*a), ref.flush_ref(*b)
     ga = torch.autograd.grad((out_a[0], out_a[2]), [a[i] for i in diff], cot)
     gb = torch.autograd.grad((out_b[0], out_b[2]), [b[i] for i in diff], cot)
-    assert _max_diff(ga, gb) < 1e-5
+    assert KERNELS["fused_gru_bwd"].launches == bwd + 1
+    _grads_close(ga, gb)
+
+
+@pytest.mark.parametrize("name", ["path-like", "heavy-duplicates",
+                                  "all-padding"])
+def test_fused_flush_in_place_contract(cuda, name):
+    """At the TGN path's widths: the returned mem / last are the inputs,
+    rows not in ids are bitwise unchanged, the dump rows are zero."""
+    rng = np.random.default_rng(3)
+    n, dm, d = 10_000, 616, 172
+    ids = {"path-like": np.where(rng.uniform(size=400) < 0.95,
+                                 rng.integers(0, 3_000, 400), n),
+           "heavy-duplicates": np.where(rng.uniform(size=400) < 0.9,
+                                        rng.integers(0, 5, 400), n),
+           "all-padding": np.full(400, n)}[name]
+    args = _flush_args(cuda, torch.from_numpy(ids.astype(np.int32)), n, dm,
+                       d, 4)
+    args[3][n], args[4][n] = 1.0, 1.0          # the dump row gets cleared
+    # the kernel writes its own copies in place; flush_ref reads the inputs
+    mine = [x.clone() for x in args]
+    got = ops.fused_flush(*mine)
+    assert got[0] is mine[3] and got[1] is mine[4]
+    want = ref.flush_ref(*args)
+    assert _max_diff(got, want) < 1e-5
+    keep = torch.ones(n + 1, dtype=torch.bool, device=cuda)
+    keep[args[0].long()] = False
+    keep[n] = False                       # cleared, checked below
+    assert torch.equal(got[0][keep], args[3][keep])
+    assert torch.equal(got[1][keep], args[4][keep])
+    assert float(got[0][n].abs().max()) == 0.0 and float(got[1][n]) == 0.0
 
 
 def test_temporal_attn_kernels(cuda):

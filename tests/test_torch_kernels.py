@@ -5,7 +5,9 @@ same numpy inputs; and the port's device dispatch on CPU tensors.
 Tolerances: sampling is exact (integer ids, copied times); the flush, the
 temporal attention, the GRU cell (forward and all six grads) and flash
 attention agree to 1e-5 forward and backward, float32 sums taken in
-another order.
+another order. The flush's backward from the touched rows is held to
+autograd of ``flush_ref`` in float64 to 1e-10 (the same function, sums in
+another order).
 """
 
 import numpy as np
@@ -146,24 +148,33 @@ def test_flush_ref_grads_match_jax():
         _close(g.numpy(), w)
 
 
+def _inplace_flush(monkeypatch):
+    """Stand the card's in-place forward in by its plain version, so the
+    ``autograd.Function`` glue runs on the CPU."""
+    monkeypatch.setattr(tflush, "fused_flush_fwd", tflush.flush_fwd_ref)
+
+
 @pytest.mark.parametrize("diff", [(1, 5, 6, 7, 8), (5, 6, 7, 8)],
                          ids=["msg-and-weights", "weights-only"])
 def test_fused_flush_function_backward_is_flush_ref(monkeypatch, diff):
-    """The autograd.Function around the flush kernel: forward as given,
-    backward recomputed through ``flush_ref``. On the CPU the kernel is
-    stood in by the plain version, so the glue is what is tested. With
-    ``message_fn="id"`` the messages are state, and only the GRU weights
-    take a gradient."""
-    monkeypatch.setattr(tflush, "fused_flush_fwd",
-                        lambda *a: tuple(o.detach() for o in
-                                         ref.flush_ref(*a)))
-    args = _flush_case(3)
+    """The autograd.Function around the flush kernel: forward in place on
+    ``mem`` / ``last``, backward from the touched rows
+    (``flush_bwd_rows``), against autograd of ``flush_ref``, in float64.
+    With ``message_fn="id"`` the messages are state, and only the GRU
+    weights take a gradient."""
+    _inplace_flush(monkeypatch)
+    args = [x if x.dtype == np.int32 else x.astype(np.float64)
+            for x in _flush_case(3)]
     a = [_t(x).requires_grad_(i in diff) for i, x in enumerate(args)]
     b = [_t(x).requires_grad_(i in diff) for i, x in enumerate(args)]
+    mem_in, last_in = a[3].data_ptr(), a[4].data_ptr()
     out_a = tflush.FusedFlush.apply(*a)
     out_b = ref.flush_ref(*b)
+    assert out_a[0].data_ptr() == mem_in and out_a[1].data_ptr() == last_in
     assert not out_a[1].requires_grad            # last' has no gradient
-    cot = [torch.randn(out_a[i].shape,
+    for x, y in zip(out_a, out_b):
+        _close(x.detach().numpy(), y.detach().numpy(), 0.0)
+    cot = [torch.randn(out_a[i].shape, dtype=torch.float64,
                        generator=torch.Generator().manual_seed(i))
            for i in (0, 2)]
     ga = torch.autograd.grad((out_a[0], out_a[2]), [a[i] for i in diff], cot,
@@ -172,10 +183,148 @@ def test_fused_flush_function_backward_is_flush_ref(monkeypatch, diff):
     gb = torch.autograd.grad([out_b[i] for i in used], [b[i] for i in diff],
                              [cot[(0, 2).index(i)] for i in used])
     for x, y in zip(ga, gb):
-        _close(x.numpy(), y.numpy(), 0.0)
+        _close(x.numpy(), y.numpy(), 1e-10)
     with pytest.raises(NotImplementedError):
         tflush.FusedFlush.apply(*(_t(x).requires_grad_(i == 3)
                                   for i, x in enumerate(args)))
+
+
+def _ids_case(name):
+    """Pending ids over N = 12 (12 is padding)."""
+    rng = np.random.default_rng(7)
+    n = 12
+    ids = {
+        "heavy-duplicates": np.concatenate([rng.integers(0, 3, 38),
+                                            [n, n]]),
+        "all-padding": np.full(16, n),
+        "one-row": np.array([5]),
+        "ragged-37": rng.integers(0, n + 1, 37),
+        "flush-case": _flush_case()[0],
+    }[name]
+    return ids.astype(np.int32), n
+
+
+@pytest.mark.parametrize("name", ["heavy-duplicates", "all-padding",
+                                  "one-row", "ragged-37", "flush-case"])
+def test_flush_bwd_rows_is_flush_ref_autograd(name):
+    """The backward from the R touched rows against autograd of
+    ``flush_ref``, float64, for msg and the four GRU weights."""
+    ids, n = _ids_case(name)
+    rng = np.random.default_rng(8)
+    r, dm, d = ids.shape[0], 10, 6
+    f = lambda *s: _t(rng.normal(size=s))  # noqa: E731
+    mem, last = f(n + 1, d), f(n + 1).abs()
+    mem[n], last[n] = 0.0, 0.0
+    args = [_t(ids), f(r, dm), f(r).abs() + 1.0, mem, last, f(dm, 3 * d),
+            f(d, 3 * d), f(3 * d), f(3 * d)]
+    g_mem, g_mbar = f(n + 1, d), f(r, dm)
+    diff = (1, 5, 6, 7, 8)
+    b = [x.clone().requires_grad_(i in diff) for i, x in enumerate(args)]
+    mem_b, _last_b, mbar_b = ref.flush_ref(*b)
+    want = torch.autograd.grad((mem_b, mbar_b), [b[i] for i in diff],
+                               (g_mem, g_mbar))
+    fwd = tflush.flush_fwd_ref(*(x.clone() for x in args))
+    _close(fwd[0].numpy(), mem_b.detach().numpy(), 0.0)
+    _close(fwd[2].numpy(), mbar_b.detach().numpy(), 0.0)
+    np.testing.assert_array_equal(fwd[4].numpy(),
+                                  tflush.first_rows(_t(ids), n).numpy())
+    got = tflush.flush_bwd_rows(g_mem, g_mbar, _t(ids), fwd[2], fwd[3],
+                                fwd[4], *args[5:], n_dump=n)
+    for x, y in zip(got, want):
+        _close(x.numpy(), y.numpy(), 1e-10)
+
+
+def _gather_kernel_mean(ids, msg, n_dump, threads=256):
+    """A plain emulation of the mean of ``csrc/fused_flush.cu``'s launch A
+    (``flush_gather_kernel`` / ``mean_columns``, ``GATHER_THREADS`` =
+    256): the k-th of an id's cnt rows owns columns [k dm / cnt, (k + 1)
+    dm / cnt); below 256 of them, 256 // w row groups sum strided rows in
+    float32, and the partials are added in group order."""
+    r, dm = msg.shape
+    mbar = np.full((r, dm), np.nan, np.float32)
+    for i in range(r):
+        if ids[i] >= n_dump:
+            mbar[i] = 0.0
+            continue
+        rows = np.flatnonzero(ids == ids[i])
+        cnt, k = len(rows), int(np.flatnonzero(rows == i)[0])
+        c0, c1 = k * dm // cnt, (k + 1) * dm // cnt
+        w, inv = c1 - c0, np.float32(1.0 / cnt)
+        if w == 0:
+            continue
+        groups = max(1, threads // w)
+        part = np.zeros((groups, w), np.float32)
+        for g in range(groups):
+            for m in rows[g::groups]:
+                part[g] += msg[m, c0:c1]
+        total = np.zeros(w, np.float32)
+        for g in range(groups):
+            total += part[g]
+        mbar[rows, c0:c1] = total * inv
+    return mbar
+
+
+@pytest.mark.parametrize("n_ids,r,dm", [(3, 60, 616), (30, 37, 616),
+                                        (2, 100, 10), (400, 5, 616)])
+def test_flush_gather_column_split_is_segment_mean(n_ids, r, dm):
+    """Launch A's schedule covers every column of every row once and
+    gives the segment mean to float32 precision, with ids heavier than
+    the row has columns (cnt > dm), ids on one row, and padding."""
+    rng = np.random.default_rng(n_ids)
+    n = 500
+    ids = np.where(rng.uniform(size=r) < 0.9, rng.integers(0, n_ids, r), n)
+    msg = rng.normal(size=(r, dm)).astype(np.float32)
+    got = _gather_kernel_mean(ids, msg, n)
+    want = ref.segment_mean(_t(ids), _t(msg), n).numpy()
+    assert not np.isnan(got).any()
+    _close(got, want)
+
+
+def test_flush_backward_allocates_no_table_of_n_rows(monkeypatch):
+    """Neither what ``FusedFlush`` saves nor any tensor its backward makes
+    has N + 1 rows (counted at dispatch); autograd of ``flush_ref`` makes
+    several, which shows the count sees them."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Shapes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for o in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(o, torch.Tensor):
+                    self.seen.append((str(func), tuple(o.shape)))
+            return out
+
+    _inplace_flush(monkeypatch)
+    rng = np.random.default_rng(9)
+    r, n, dm, d = 24, 1000, 10, 6
+    f = lambda *s: _t(rng.normal(size=s).astype(np.float32))  # noqa: E731
+    mem, last = f(n + 1, d), f(n + 1).abs()
+    mem[n], last[n] = 0.0, 0.0
+    ids = _t(rng.integers(0, 30, r).astype(np.int32))
+    args = [ids, f(r, dm), f(r).abs() + 1.0, mem, last, f(dm, 3 * d),
+            f(d, 3 * d), f(3 * d), f(3 * d)]
+    cot = (f(n + 1, d), f(r, dm))
+
+    def backward_shapes(fn):
+        diff = (1, 5, 6, 7, 8)
+        xs = [x.clone().requires_grad_(i in diff) for i, x in enumerate(args)]
+        outs = fn(*xs)
+        saved = [t.shape for t in getattr(outs[0].grad_fn,
+                                          "saved_tensors", ())]
+        with Shapes() as mode:
+            torch.autograd.grad((outs[0], outs[2]), [xs[i] for i in diff],
+                                cot)
+        return saved, [s for _, s in mode.seen if n + 1 in s]
+
+    saved, big = backward_shapes(tflush.FusedFlush.apply)
+    assert big == []
+    assert len(saved) == 8 and all(n + 1 not in s for s in saved)
+    _, big_ref = backward_shapes(ref.flush_ref)
+    assert len(big_ref) >= 2
 
 
 # ------------------------------------------------------------ attention

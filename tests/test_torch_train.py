@@ -151,3 +151,70 @@ def test_train_single_host_plan_equals_device_plan(tiny_runs):
     assert (dev.val_ap, dev.test_ap) == (host.val_ap, host.test_ap)
     for key in dev.state:
         assert torch.equal(dev.state[key], host.state[key])
+
+
+def test_scans_leave_the_callers_state_unchanged(monkeypatch):
+    """The card's flush updates ``mem`` / ``last`` in place; the scans copy
+    them once at entry, so the caller's state stays as JAX's immutable
+    arrays do (``train_single`` scores val and test from the states it
+    passed in). Run on the CPU with the flush routed through
+    ``FusedFlush`` and its in-place plain forward."""
+    from repro_torch.kernels import fused_flush as tflush
+    from repro_torch.kernels import ops
+    from repro_torch.tig.protocol import score_stream
+    from repro_torch.tig.train import train_epoch
+
+    calls = []
+
+    def inplace_flush(*a):
+        calls.append(1)
+        return tflush.FusedFlush.apply(*a)
+
+    monkeypatch.setattr(tflush, "fused_flush_fwd", tflush.flush_fwd_ref)
+    monkeypatch.setattr(ops, "fused_flush", inplace_flush)
+    g = synthetic_tig("tiny")
+    cfg = tm.TIGConfig(**SMALL)
+    tr = split_views(g).train
+    prog, _ = tb.build_batch_program(tr, cfg, epoch_rng(0, 0, 1),
+                                     plan="host")
+    prog = {k: v[:4] for k, v in prog.items()}
+    tables = {k: torch.from_numpy(v)
+              for k, v in tb.make_tables(g.edge_feat, g.node_feat).items()}
+    params = tm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    gen = torch.Generator().manual_seed(1)
+
+    def fresh_state():
+        state = tm.init_state(cfg, g.num_nodes, "cpu")
+        state["mem"] = torch.randn(state["mem"].shape, generator=gen)
+        state["mem"][-1] = 0.0
+        state["last"] = torch.rand(state["last"].shape, generator=gen)
+        state["last"][-1] = 0.0
+        # pending messages of a previous batch, so the first flush writes
+        state["pend_ids"] = torch.from_numpy(
+            np.concatenate([prog["src"][0], prog["dst"][0]]).astype(np.int32))
+        state["pend_raw"] = torch.randn(state["pend_raw"].shape,
+                                        generator=gen)
+        return state
+
+    # the stand-in does write in place: a bare step changes its input
+    state = fresh_state()
+    before = state["mem"].clone()
+    batch = {k: torch.from_numpy(v[0]) for k, v in prog.items()
+             if k != "labels"}
+    tm.step_loss(params, state, batch, tables, cfg)
+    assert calls and not torch.equal(state["mem"], before)
+
+    opt = adamw(lr=1e-3, max_grad_norm=1.0)
+    for run in (
+            lambda s: train_epoch(params, opt.init(params), s, prog, tables,
+                                  cfg=cfg, opt=opt, device="cpu")[2],
+            lambda s: score_stream(params, cfg, s, prog, tables,
+                                   device="cpu")["state"]):
+        state = fresh_state()
+        mem0, last0 = state["mem"].clone(), state["last"].clone()
+        n_calls = len(calls)
+        out = run(state)
+        assert len(calls) == n_calls + 4
+        assert torch.equal(state["mem"], mem0)
+        assert torch.equal(state["last"], last0)
+        assert not torch.equal(out["mem"], mem0)
