@@ -27,9 +27,14 @@ Phases, each fatal on failure:
      steps, then val and test scoring — with every kernel's launch count
      read around it (the flush's backward launches ``fused_gru_bwd``);
      then where a train step's time goes;
-  6. the WKV kernel against its plain version at the RWKV6 path's shapes
-     (decode S 1 with a state, a ragged S 100 with a state, prompt scoring
-     S 2048), timed beside its plain version;
+  6. the WKV kernels (``ops.rwkv6`` takes the chunked kernel for S >= 64
+     and the sequential one below) against their plain versions at the
+     RWKV6 path's shapes (decode S 1 with a state, a ragged S 100 with a
+     state, prompt scoring S 2048), each timed beside its plain version
+     and the other kernel at the same shape; two calls at S 2048 must
+     agree bitwise; at strong decays (|log w| * 64 far above 80, S 320 and
+     a ragged S 330, with a state) the chunked kernel against the token
+     scan, where the plain TPU-form chunked version must fail;
   7. small-input agreement: REDUCED RWKV6 in float32, ``forward`` logits
      and 8 greedy ``generate`` tokens on the card against the CPU;
   8. the RWKV6 path at full width: RWKV6-1.6B (24 layers, d_model 2048,
@@ -98,6 +103,7 @@ TPU_KERNELS = {               # the TPU kernel each CUDA kernel replaces
     "temporal_attn": "src/repro/kernels/temporal_attn.py:40",
     "temporal_attn_bwd": "src/repro/kernels/temporal_attn.py:84",
     "rwkv6": "src/repro/kernels/rwkv6_scan.py:39",
+    "rwkv6_seq": "src/repro/kernels/rwkv6_scan.py:39",
     "fused_gru": "src/repro/kernels/fused_gru.py:33",
     "fused_gru_bwd": "src/repro/kernels/fused_gru.py:75",
     "flash_attention": "src/repro/kernels/flash_attention.py:30",
@@ -108,6 +114,10 @@ WKV_SHAPES = (        # (label, B, H, S, initial state): the RWKV6 path's
     ("decode", 4, 32, 1, True),          # serve_step at batch 4
     ("ragged", 4, 32, 100, True),        # a ragged prompt, with a state
     ("prompt", 4, 32, 2048, False),      # forward on (4, 2048) tokens
+)
+WKV_STRONG = (        # strong decays, w = exp(-exp(N(1.5, 0.5))), a state
+    ("strong", 4, 32, 320),
+    ("strong ragged", 4, 32, 330),
 )
 GRU_SHAPES = (        # (label, rows, d_in, d_h)
     ("tgn", 400, 616, 172),        # TGN's updater: 2 x batch 200, msg 616
@@ -647,61 +657,163 @@ def small_agreement(torch):
                              f"ap {d_ap}")
 
 
+def wkv_bound(b, h, s, in_elt, out_elt, with_state) -> tuple:
+    """The least time of the WKV function on the card: its bytes (each
+    input read once, o and the state written once) at the memory rate, or
+    the chunked form's operations for this run's tokens at the rates its
+    products use (bf16 wgmma for o = (Q rho) S_0 + A V and the state's
+    update, six bfloat16 passes a float32 product, three where the B
+    operand is a bf16 v; 3xTF32 for the cross-sub-chunk weights; float32
+    for the diagonal blocks and the decay products), whichever is larger.
+    Also returns the scan's count (5 float32 operations per state element
+    per token), the bound recorded before the chunked kernel."""
+    d, c, sub = 64, 64, 8
+    nbytes = ((3 * in_elt + 4 + out_elt) * b * h * s * d + h * d * 4
+              + (2 if with_state else 1) * b * h * d * d * 4)
+    v_passes = 3 if in_elt == 2 else 6
+    bf16 = tf32 = fp32 = 0.0
+    for t0 in range(0, s, c):
+        n = min(c, s - t0)
+        subs = [min(sub, n - x) for x in range(0, n, sub)]
+        within = sum(m * (m - 1) // 2 for m in subs)     # j < i, same sub
+        cross = n * (n - 1) // 2 - within               # j < i, across
+        bf16 += 2.0 * n * d * d * (6 + v_passes)        # o's inter, state
+        bf16 += 2.0 * (n * (n + 1) // 2) * d * v_passes  # A V
+        tf32 += 2.0 * cross * d * 3
+        fp32 += 3.0 * within * d + 4.0 * n * d + 4.0 * n * d
+    ops_ms = (bf16 / BF16_FLOP_PER_S + tf32 / TF32_FLOP_PER_S
+              + fp32 / FP32_FLOP_PER_S) * 1e3 * b * h
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    fn = (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+    return fn, bound(nbytes, 5.0 * b * h * s * d * d)
+
+
 def wkv_checks(torch, dev) -> list:
-    """Phase 6: the WKV kernel (through ``ops.rwkv6``, as the model calls
-    it) against its plain version at the RWKV6 path's shapes; r, k, v in
-    bfloat16 as the model gives them, w, u and the state in float32, all
-    in the model's (B, S, H, 64) layout, which the plain versions read as
-    (B, H, S, 64) views. The
-    plain version is the token scan for S 1 and S 100 (the branch
-    ``rwkv6_chunked_ref`` takes there) and the chunked algebra for S 2048:
-    the scan's 2048 steps of small ops would take minutes to time."""
+    """Phase 6: the WKV kernels (through ``ops.rwkv6``, as the model calls
+    it: the chunked kernel for S >= 64, the sequential one below) against
+    their plain versions at the RWKV6 path's shapes; r, k, v in bfloat16 as
+    the model gives them, w, u and the state in float32, all in the model's
+    (B, S, H, 64) layout, which the plain versions read as (B, H, S, 64)
+    views. The plain version is the token scan for S 1 and S 100 (the
+    branch ``rwkv6_chunked_ref`` takes there) and the chunked algebra for S
+    2048: the scan's 2048 steps of small ops would take minutes to time.
+    At each shape the other kernel is checked and timed too. Two calls at
+    S 2048 must agree bitwise. Then strong decays (``WKV_STRONG``): the
+    chunked kernel against the token scan and ``rwkv6_subchunk_ref``,
+    where ``rwkv6_chunked_ref`` (the TPU form, exponents centred on half
+    the chunk's log-decay) must fail the same check."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rwkv6_scan import (CHUNK, rwkv6_chunked_fwd,
+                                                rwkv6_seq_fwd)
 
     gen = torch.Generator(device=dev).manual_seed(1)
     d = 64
     recs = []
-    for label, b, h, s, with_state in WKV_SHAPES:
-        def randn(*shape):
-            return torch.randn(shape, generator=gen, device=dev)
 
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def inputs(b, h, s, with_state, strong=False):
         r, k, v = (randn(b, s, h, d).bfloat16() for _ in range(3))
-        # decays in (~0.7, 1), the regime of trained RWKV models
-        w = torch.exp(-torch.exp(randn(b, s, h, d) * 0.5 - 2.0))
+        # decays in (~0.7, 1), the regime of trained RWKV models, or strong
+        w = torch.exp(-torch.exp(randn(b, s, h, d) * 0.5
+                                 + (1.5 if strong else -2.0)))
         u = randn(h, d) * 0.1
         state = randn(b, h, d, d) if with_state else None
-        args = (r, k, v, w, u)
-        fn = ref.rwkv6_ref if s <= 64 or s % 64 else ref.rwkv6_chunked_ref
+        return (r, k, v, w, u), state
 
-        def plain(r, k, v, w, u, fn=fn, state=state):
+    def plain_of(fn):
+        def plain(r, k, v, w, u, state):
             o, st = fn(*(x.transpose(1, 2) for x in (r, k, v, w)), u,
                        state=state, return_state=True)
             return o.transpose(1, 2), st
+        return plain
 
-        got_o, got_s = ops.rwkv6(*args, state=state)
-        want_o, want_s = plain(*args)
-        torch.cuda.synchronize()
-        if got_o.dtype != want_o.dtype:
-            raise AssertionError(f"rwkv6 {label}: output {got_o.dtype}, "
-                                 f"plain {want_o.dtype}")
-        err = max_err([got_o, got_s], [want_o, want_s])
+    def check(label, got, want):
+        """WKV_REL of the largest |plain| (plus one bf16 unit for a bf16
+        o) on o and on the state; returns the max abs error."""
+        got_o, got_s = got
+        want_o, want_s = want
         go, wo = got_o.double(), want_o.double()
         atol = WKV_REL * max(1.0, float(wo.abs().max()))
         rtol = BF16_UNIT if got_o.dtype == torch.bfloat16 else 0.0
         s_err = float((got_s - want_s).abs().max())
-        if not (bool(((go - wo).abs() <= atol + rtol * wo.abs()).all())
-                and s_err <= WKV_REL * max(1.0, float(want_s.abs().max()))):
+        ok = (bool(torch.isfinite(go).all())
+              and bool(((go - wo).abs() <= atol + rtol * wo.abs()).all())
+              and s_err <= WKV_REL * max(1.0, float(want_s.abs().max())))
+        return ok, max_err([got_o, got_s], [want_o, want_s])
+
+    for label, b, h, s, with_state in WKV_SHAPES:
+        args, state = inputs(b, h, s, with_state)
+        plain = plain_of(ref.rwkv6_ref if s <= 64 or s % 64
+                         else ref.rwkv6_chunked_ref)
+        got = ops.rwkv6(*args, state=state)
+        want = plain(*args, state)
+        torch.cuda.synchronize()
+        if got[0].dtype != want[0].dtype:
+            raise AssertionError(f"rwkv6 {label}: output {got[0].dtype}, "
+                                 f"plain {want[0].dtype}")
+        ok, err = check(label, got, want)
+        if not ok:
             raise AssertionError(f"rwkv6 {label} differs from its plain "
                                  f"version: max abs {err}")
-        elt = r.element_size()
-        nbytes = (3 * elt + 4 + got_o.element_size()) * b * h * s * d \
-            + u.numel() * 4 + (2 if with_state else 1) * b * h * d * d * 4
+        name, other = (("rwkv6_seq", rwkv6_chunked_fwd) if s < CHUNK
+                       else ("rwkv6", rwkv6_seq_fwd))
+        odt = got[0].dtype
+
+        def alt(other=other, args=args, state=state, odt=odt):
+            return other(*args, state, out_dtype=odt)
+
+        ok_alt, err_alt = check(label, alt(), want)
+        if not ok_alt:
+            raise AssertionError(f"rwkv6 {label}: the other kernel differs "
+                                 f"from the plain version by {err_alt}")
+        if label == "prompt":
+            again = ops.rwkv6(*args, state=state)
+            if not (torch.equal(got[0], again[0])
+                    and torch.equal(got[1], again[1])):
+                raise AssertionError("rwkv6 prompt: two calls differ")
+            print("rwkv6 prompt: two calls bitwise equal")
+        fn_bound, scan_bound = wkv_bound(b, h, s, 2, got[0].element_size(),
+                                         with_state)
+        alt_t = timings(alt)
         recs.append(dict(
-            name="rwkv6", label=label, at=f"B {b}, H {h}, S {s}",
-            max_abs_err=err, out_dtype=str(got_o.dtype).split(".")[-1],
+            name=name, label=label, at=f"B {b}, H {h}, S {s}",
+            max_abs_err=err, out_dtype=str(odt).split(".")[-1],
             kernel=timings(lambda: ops.rwkv6(*args, state=state)),
-            plain=timings(lambda: plain(*args)),
-            bound=bound(nbytes, 5.0 * b * h * s * d * d), library_ms=None))
+            plain=timings(lambda: plain(*args, state)),
+            bound=fn_bound, library_ms=None,
+            extra=dict(bound_scan_ms=scan_bound[0],
+                       other_kernel="rwkv6" if name == "rwkv6_seq"
+                       else "rwkv6_seq",
+                       other_ms=alt_t["ms"], other_call_ms=alt_t["call_ms"],
+                       other_max_abs_err=err_alt)))
+        print(f"  rwkv6 {label}: {name} {recs[-1]['kernel']['ms'] * 1e3:.2f}"
+              f" us, the other kernel {alt_t['ms'] * 1e3:.2f} us; scan's "
+              f"bound {scan_bound[0] * 1e3:.3f} us")
+
+    for label, b, h, s in WKV_STRONG:
+        args, state = inputs(b, h, s, True, strong=True)
+        lw = -torch.log(args[3].float())
+        got = ops.rwkv6(*args, state=state)
+        want = plain_of(ref.rwkv6_ref)(*args, state)
+        alg = plain_of(ref.rwkv6_subchunk_ref)(*args, state)
+        tpu = plain_of(ref.rwkv6_chunked_ref)(*args, state)
+        torch.cuda.synchronize()
+        ok, err = check(label, got, want)
+        ok_alg, err_alg = check(label, alg, want)
+        ok_tpu, err_tpu = check(label, (tpu[0].float(), tpu[1]), want)
+        print(f"rwkv6 {label} (B {b}, H {h}, S {s}, median |log w| * 64 = "
+              f"{float(lw.median()) * 64:.0f}): kernel max abs err {err:.3g}"
+              f", rwkv6_subchunk_ref {err_alg:.3g}; control "
+              f"rwkv6_chunked_ref (TPU form) finite "
+              f"{bool(torch.isfinite(tpu[0]).all())}, passes {ok_tpu}")
+        if not (ok and ok_alg):
+            raise AssertionError(f"rwkv6 {label}: the kernel or the "
+                                 f"sub-chunk algebra differs from the scan")
+        if s % 64 == 0 and ok_tpu:
+            raise AssertionError(f"rwkv6 {label}: the check passes the TPU "
+                                 f"form at strong decays")
     return recs
 
 
@@ -740,15 +852,15 @@ def lm_small_agreement(torch, arch: str, prompt: int, gen: int) -> None:
         raise AssertionError(f"{arch} on the card and on the CPU disagree")
 
 
-def lm_path(torch, kernels, arch: str, kernel: str, batch: int, seq: int,
-            gen_per_layer: int) -> int:
+def lm_path(torch, kernels, arch: str, batch: int, seq: int,
+            fwd_per_layer: dict, gen_per_layer: dict) -> dict:
     """Phases 8 and 13: an LM at its published widths, random params from
     a seed: ``forward`` on (batch, seq) tokens and where its time goes,
     then ``generate`` (batch 4, prompt 32, gen 32, greedy), launch counts
-    zeroed before and read after each: ``kernel`` once per layer in
-    ``forward`` and ``gen_per_layer`` times per layer in ``generate``, no
-    other kernel. Then a profile of decode steps. Returns ``kernel``'s
-    launches."""
+    zeroed before and read after each: each kernel of ``fwd_per_layer``
+    that many times per layer in ``forward``, each of ``gen_per_layer`` in
+    ``generate``, no other kernel. Then a profile of decode steps. Returns
+    every kernel's launches over both."""
     import numpy as np
 
     from repro_torch.configs.base import get_config
@@ -806,9 +918,8 @@ def lm_path(torch, kernels, arch: str, kernel: str, batch: int, seq: int,
           f"{res.decode_s / 32 * 1e3:.3f} ms/step), peak {gen_peak:.1f} "
           f"MiB, launches {gen_launches}; first sequence "
           f"{res.tokens[0][:16].tolist()}")
-    want_fwd = {n: cfg.n_layers if n == kernel else 0 for n in kernels}
-    want_gen = {n: cfg.n_layers * gen_per_layer if n == kernel else 0
-                for n in kernels}
+    want_fwd = {n: cfg.n_layers * fwd_per_layer.get(n, 0) for n in kernels}
+    want_gen = {n: cfg.n_layers * gen_per_layer.get(n, 0) for n in kernels}
     if not finite or shape != (batch, seq, cfg.vocab):
         raise AssertionError(f"forward logits {shape}, finite {finite}")
     if fwd_launches != want_fwd or gen_launches != want_gen:
@@ -836,7 +947,7 @@ def lm_path(torch, kernels, arch: str, kernel: str, batch: int, seq: int,
     torch.cuda.synchronize()
     print_profile(f"8 {arch} decode steps (batch 4)", run, 8,
                   (time.perf_counter() - t0) * 1e3)
-    return fwd_launches[kernel] + gen_launches[kernel]
+    return {n: fwd_launches[n] + gen_launches[n] for n in kernels}
 
 
 def gru_args(torch, gen, dev, rows, d_in, d_h):
@@ -1228,9 +1339,13 @@ def main() -> int:
     for r in wkv:
         print_kernel(r)
     lm_small_agreement(torch, "rwkv6-1.6b", 4, 8)
-    # 24 WKV launches per forward; 64 per layer in generate (prompt + gen)
-    launches["rwkv6"] = lm_path(torch, KERNELS, "rwkv6-1.6b", "rwkv6", 4,
-                                2048, 64)
+    # one chunked WKV launch per layer in forward (S 2048); generate feeds
+    # its 32 prompt and 32 new tokens one at a time (S 1): 64 launches of
+    # the sequential kernel per layer
+    rwkv_launches = lm_path(torch, KERNELS, "rwkv6-1.6b", 4, 2048,
+                            {"rwkv6": 1}, {"rwkv6_seq": 64})
+    for name in ("rwkv6", "rwkv6_seq"):
+        launches[name] = rwkv_launches[name]
 
     gru = gru_checks(torch, dev)
     for r in gru:
@@ -1248,8 +1363,9 @@ def main() -> int:
     lm_small_agreement(torch, "starcoder2-3b", 56, 16)
     # 30 flash launches per forward; decode attends through the plain
     # decode attention, no kernel
-    launches["flash_attention"] = lm_path(torch, KERNELS, "starcoder2-3b",
-                                          "flash_attention", 2, 8192, 0)
+    launches["flash_attention"] = lm_path(
+        torch, KERNELS, "starcoder2-3b", 2, 8192, {"flash_attention": 1},
+        {})["flash_attention"]
 
     def entry(r):
         return dict(
@@ -1273,10 +1389,12 @@ def main() -> int:
             | {"label": r["label"], "at": r["at"]} for r in rs]
         return e
 
-    # WKV: the prompt-scoring shape; GRU: TGN's updater shape; flash: the
-    # StarCoder2-3B forward's shape
+    # WKV: the prompt-scoring shape (the sequential kernel: decode); GRU:
+    # TGN's updater shape; flash: the StarCoder2-3B forward's shape
     record = {"kernels": [entry(r) for r in recs] + [
-        shaped_entry(wkv[-1], wkv)] + [
+        shaped_entry([r for r in wkv if r["name"] == name][-1],
+                     [r for r in wkv if r["name"] == name])
+        for name in ("rwkv6", "rwkv6_seq")] + [
         shaped_entry(next(r for r in gru if r["name"] == name),
                      [r for r in gru if r["name"] == name])
         for name in ("fused_gru", "fused_gru_bwd")] + [

@@ -135,6 +135,9 @@ KERNELS: dict[str, Kernel] = {k.name: k for k in (
     # r k v w u s0 batch heads seq in_bf16 out_bf16 o s_out stream
     Kernel("rwkv6", "rwkv6_scan.cu", "rwkv6_wkv",
            (P, P, P, P, P, P, I, I, I, I, I, P, P, P)),
+    # r k v w u s0 batch heads seq in_bf16 out_bf16 o s_out stream
+    Kernel("rwkv6_seq", "rwkv6_scan.cu", "rwkv6_wkv_seq",
+           (P, P, P, P, P, P, I, I, I, I, I, P, P, P)),
     # x h wx wh bx bh rows d_in d_h out stream
     Kernel("fused_gru", "fused_gru.cu", "fused_gru_fwd",
            (P, P, P, P, P, P, I, I, I, P, P)),

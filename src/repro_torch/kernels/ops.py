@@ -109,8 +109,11 @@ def rwkv6(r, k, v, w, u, *, state=None, chunk=64, return_state=True):
     ``o`` is float32 when ``S % chunk`` or ``S <= chunk`` (the JAX
     package's XLA path then takes the token scan) and has ``r``'s dtype
     otherwise, on both devices. On the CPU ``chunk`` also picks the plain
-    version (chunked algebra or scan); the card's kernel is sequential and
-    takes any S."""
+    version (the chunked algebra, whose exponents stay in range only for
+    |log w| * chunk below about 80, or the scan). On the card S >= 64
+    goes to the chunked kernel (chunks of 64 on the tensor cores, every
+    decay factor at most 1, any w in (0, 1]) and S < 64, decode, to the
+    sequential one; ``chunk`` sets only the output dtype there."""
     s = r.shape[1]
     if _on_card(r):
         out_dtype = torch.float32 if (s % chunk or s <= chunk) else r.dtype

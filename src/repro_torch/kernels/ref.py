@@ -15,7 +15,8 @@ import torch
 
 __all__ = ["gru_ref", "gru_bwd_ref", "temporal_attention_ref", "segment_mean",
            "scatter_memory", "scatter_last", "flush_ref", "sample_ref",
-           "rwkv6_ref", "rwkv6_chunked_ref", "flash_attention_probs",
+           "rwkv6_ref", "rwkv6_chunked_ref", "rwkv6_subchunk_ref",
+           "flash_attention_probs",
            "flash_attention_ref"]
 
 
@@ -226,6 +227,106 @@ def rwkv6_chunked_ref(r, k, v, w, u, *, state=None, chunk: int = 64,
     inter = torch.stack(inter, dim=2)                      # (B,H,NC,C,Dv)
 
     o = (intra + bonus + inter).reshape(b, h, s, dv).to(r.dtype)
+    return (o, st) if return_state else o
+
+
+def rwkv6_subchunk_ref(r, k, v, w, u, *, state=None, chunk: int = 64,
+                       sub: int = 8, return_state=False, mm=torch.matmul,
+                       mm_cross=None):
+    """The chunked WKV kernel's algebra (``csrc/rwkv6_scan.cu``), in
+    float32: the function of ``rwkv6_ref`` for any S >= 1 and any w in
+    (0, 1], with every decay factor at most 1. Shapes as ``rwkv6_ref``;
+    returns float32 ``o`` (and the final state).
+
+    Chunks of ``chunk`` tokens (a ragged last one padded with r = k = v = 0,
+    w = 1), cut into sub-chunks of ``sub``. With W(i, j) = prod_{j<s<i} w_s
+    the weight of key j at query i in a chunk:
+
+    - same sub-chunk, j < i: the product chain k_j w_{j+1} ... w_{i-1}
+      dotted with r_i, per element; the bonus r_j . (u k_j) on the
+      diagonal;
+    - key sub-chunk b before query sub-chunk a: reference points at the
+      sub-chunk edges, Q_i = r_i prod_{start(a)<=s<i} w_s, K_j = k_j
+      prod_{j<s<=end(b)} w_s, g(a, b) the product over the sub-chunks
+      strictly between: W(i, j) = Q_i g(a, b) K_j;
+    - the carried state: o += (Q_i rho_a) S_0, rho_a the product over the
+      sub-chunks before a; S_C = dec S_0 + (K kappa)^T V, kappa_b over
+      those after b, dec over the chunk.
+
+    The decays are products of w (the TPU form's exp(c_{i-1} - c_j) over
+    the cumulative log-decays c is the same number): no exponent, so
+    nothing overflows. The cross-sub-chunk weights go through
+    ``mm_cross`` (default ``mm``), the products with v and the state
+    through ``mm``: the tests pass emulations of the kernel's tensor-core
+    schemes."""
+    b, h, s, dk = r.shape
+    dv = v.shape[-1]
+    nc, ns = -(-s // chunk), chunk // sub
+    pad = nc * chunk - s
+    f32 = torch.float32
+
+    def blocks(x, fill):       # (B, H, S, D) -> (B, H, NC, NS, SUB, D)
+        x = torch.nn.functional.pad(x.to(f32), (0, 0, 0, pad), value=fill)
+        return x.reshape(b, h, nc, ns, sub, x.shape[-1])
+
+    rr, kk, vv = blocks(r, 0.0), blocks(k, 0.0), blocks(v, 0.0)
+    ww = blocks(w, 1.0)
+    u = u.to(f32)
+    ones = torch.ones_like(ww[..., :1, :])
+    pre = torch.cumprod(ww, dim=-2)                     # prod_{start..t}
+    q_f = torch.cat([ones, pre[..., :-1, :]], dim=-2)   # prod_{start..t-1}
+    k_f = torch.flip(torch.cumprod(torch.flip(ww, [-2]), dim=-2), [-2])
+    k_f = torch.cat([k_f[..., 1:, :], ones], dim=-2)    # prod_{t+1..end}
+    om = pre[..., -1, :]                                # (B, H, NC, NS, D)
+    qq, kq = rr * q_f, kk * k_f
+
+    one = torch.ones_like(om[..., :1, :])
+    ompre = torch.cumprod(om, dim=-2)
+    rho = torch.cat([one, ompre[..., :-1, :]], dim=-2)  # before a
+    dec = ompre[..., -1, :]                             # (B, H, NC, D)
+    kap = torch.flip(torch.cumprod(torch.flip(om, [-2]), dim=-2), [-2])
+    kap = torch.cat([kap[..., 1:, :], one], dim=-2)     # after b
+    # g[a, b] = prod_{b<s<a} om_s for b < a, 0 elsewhere
+    g = torch.zeros(om.shape[:-2] + (ns, ns, dk), dtype=f32,
+                    device=r.device)
+    for kb in range(ns - 1):
+        p = torch.ones_like(om[..., 0, :])
+        for qa in range(kb + 1, ns):
+            g[..., qa, kb, :] = p
+            p = p * om[..., qa, :]
+
+    # cross-sub-chunk weights (B, H, NC, NS_a, NS_b, SUB_i, SUB_j)
+    cross = (mm_cross or mm)(qq[..., :, None, :, :] * g[..., :, :, None, :],
+                             kq[..., None, :, :, :].transpose(-1, -2))
+    # diagonal blocks: the product chain of key j, carried along i
+    diag = torch.zeros(rr.shape[:-1] + (sub,), dtype=f32, device=r.device)
+    for j in range(sub):
+        p = kk[..., j, :]
+        for i in range(j + 1, sub):
+            diag[..., i, j] = (rr[..., i, :] * p).sum(-1)
+            p = p * ww[..., i, :]
+        diag[..., j, j] = (rr[..., j, :] * u[None, :, None, None, :]
+                           * kk[..., j, :]).sum(-1)
+    blk = torch.arange(ns, device=r.device)
+    a_w = torch.where((blk[:, None] > blk[None, :])[:, :, None, None],
+                      cross, 0.0)
+    eye = (blk[:, None] == blk[None, :])[:, :, None, None]
+    a_w = torch.where(eye, diag[..., :, None, :, :], a_w)
+    # (B, H, NC, NS_a, SUB_i, NS_b, SUB_j) -> (B, H, NC, C, C)
+    a_w = a_w.permute(0, 1, 2, 3, 5, 4, 6).reshape(b, h, nc, chunk, chunk)
+
+    vc = vv.reshape(b, h, nc, chunk, dv)
+    intra = mm(a_w, vc)
+    r_in = (qq * rho[..., None, :]).reshape(b, h, nc, chunk, dk)
+    k_c = (kq * kap[..., None, :]).reshape(b, h, nc, chunk, dk)
+    st = (torch.zeros((b, h, dk, dv), dtype=f32, device=r.device)
+          if state is None else state.to(f32))
+    outs = []
+    for n in range(nc):
+        outs.append(mm(r_in[:, :, n], st) + intra[:, :, n])
+        st = dec[:, :, n, :, None] * st + mm(k_c[:, :, n].transpose(-1, -2),
+                                             vc[:, :, n])
+    o = torch.stack(outs, dim=2).reshape(b, h, nc * chunk, dv)[:, :, :s]
     return (o, st) if return_state else o
 
 

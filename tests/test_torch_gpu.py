@@ -13,7 +13,9 @@ magnitude in float32 (sums in another order, and the chunked algebra),
 plus one bfloat16 unit (2^-7 relative) where the output is bfloat16. The
 GRU cell agrees to 1e-5 forward and to 1e-5 of each gradient's largest
 magnitude (at least 1e-5): the weight grads sum up to 512 rows in another
-order. Flash attention agrees to 1e-5 in float32; in bfloat16 to
+order. Both WKV kernels (the chunked one for S >= 64, the sequential one
+below) are held to the plain versions at every S they take, the chunked
+one also at strong decays against the token scan. Flash attention agrees to 1e-5 in float32; in bfloat16 to
 2^-8 |plain| + 2^-14 |P| |V|: one rounding of the output to bfloat16, and
 float32 sums with P kept to 2^-17 (hi + lo bfloat16 parts) against the
 plain version's weights applied to |v|.
@@ -197,35 +199,86 @@ def test_train_single_on_card_matches_cpu(cuda):
     assert abs(on_card.test_ap - on_cpu.test_ap) < 1e-3
 
 
-@pytest.mark.parametrize("s,with_state,dtype", [
-    (1, True, torch.float32), (1, True, torch.bfloat16),
-    (100, True, torch.bfloat16), (256, False, torch.bfloat16),
-    (256, True, torch.float32)])
-def test_rwkv6_kernel_matches_plain(cuda, s, with_state, dtype):
-    gen = torch.Generator(device=cuda).manual_seed(3)
-    b, h, d = 2, 3, 64
+def _wkv_args(dev, b, h, s, with_state, dtype, strong=False, seed=3):
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape):
-        return torch.randn(shape, generator=gen, device=cuda)
+        return torch.randn(shape, generator=gen, device=dev)
 
-    r, k, v = (randn(b, s, h, d).to(dtype) for _ in range(3))
-    w = torch.exp(-torch.exp(randn(b, s, h, d) * 0.5 - 2.0))
-    u = randn(h, d) * 0.5
-    state = randn(b, h, d, d) if with_state else None
-    before = KERNELS["rwkv6"].launches
-    got_o, got_s = ops.rwkv6(r, k, v, w, u, state=state)
-    assert KERNELS["rwkv6"].launches == before + 1
-    want_o, want_s = ref.rwkv6_chunked_ref(
-        *(x.transpose(1, 2) for x in (r, k, v, w)), u, state=state,
-        return_state=True)
-    want_o = want_o.transpose(1, 2)
-    assert got_o.dtype == want_o.dtype
+    r, k, v = (randn(b, s, h, 64).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(randn(b, s, h, 64) * 0.5
+                             + (1.5 if strong else -2.0)))
+    u = randn(h, 64) * 0.5
+    return (r, k, v, w, u), randn(b, h, 64, 64) if with_state else None
+
+
+def _assert_wkv_close(got, want):
+    """1e-5 of the largest |plain| (plus one bf16 unit for a bf16 o)."""
+    (got_o, got_s), (want_o, want_s) = got, want
     scale = float(want_o.float().abs().max())
+    assert torch.isfinite(got_o.float()).all()
     assert torch.allclose(got_o.float(), want_o.float(), rtol=(
         2 ** -7 if got_o.dtype == torch.bfloat16 else 0.0),
         atol=1e-5 * scale)
     assert torch.allclose(got_s, want_s, rtol=0.0,
                           atol=1e-5 * float(want_s.abs().max()))
+
+
+def _wkv_plain(fn, args, state):
+    r, k, v, w, u = args
+    o, st = fn(*(x.transpose(1, 2) for x in (r, k, v, w)), u, state=state,
+               return_state=True)
+    return o.transpose(1, 2), st
+
+
+@pytest.mark.parametrize("s,with_state,dtype", [
+    (1, True, torch.float32), (1, True, torch.bfloat16),
+    (100, True, torch.bfloat16), (256, False, torch.bfloat16),
+    (256, True, torch.float32), (64, True, torch.bfloat16),
+    (64, False, torch.float32), (65, True, torch.bfloat16),
+    (65, True, torch.float32)])
+def test_rwkv6_kernel_matches_plain(cuda, s, with_state, dtype):
+    """Through ``ops.rwkv6``: the chunked kernel for S >= 64, the
+    sequential one below, one launch."""
+    args, state = _wkv_args(cuda, 2, 3, s, with_state, dtype)
+    name = "rwkv6" if s >= 64 else "rwkv6_seq"
+    before = {n: KERNELS[n].launches for n in ("rwkv6", "rwkv6_seq")}
+    got = ops.rwkv6(*args, state=state)
+    assert {n: KERNELS[n].launches - before[n] for n in before} == {
+        n: int(n == name) for n in before}
+    want = _wkv_plain(ref.rwkv6_chunked_ref, args, state)
+    assert got[0].dtype == want[0].dtype
+    _assert_wkv_close(got, want)
+
+
+@pytest.mark.parametrize("s", [1, 7, 63, 64, 100, 200])
+@pytest.mark.parametrize("kernel", ["chunked", "seq"])
+def test_rwkv6_both_kernels_take_any_s(cuda, kernel, s):
+    """Each kernel is right at every S, whichever ``ops.rwkv6`` picks."""
+    from repro_torch.kernels.rwkv6_scan import (rwkv6_chunked_fwd,
+                                                rwkv6_seq_fwd)
+
+    fn = rwkv6_chunked_fwd if kernel == "chunked" else rwkv6_seq_fwd
+    args, state = _wkv_args(cuda, 2, 3, s, True, torch.bfloat16, seed=s)
+    _assert_wkv_close(fn(*args, state),
+                      _wkv_plain(ref.rwkv6_ref, args, state))
+
+
+@pytest.mark.parametrize("s,dtype", [(320, torch.bfloat16),
+                                     (330, torch.float32)])
+def test_rwkv6_kernel_at_strong_decays(cuda, s, dtype):
+    """|log w| * 64 far above 80: the chunked kernel stays within the
+    check's bound of the token scan."""
+    args, state = _wkv_args(cuda, 2, 3, s, True, dtype, strong=True)
+    assert float((-torch.log(args[3])).median()) * 64 > 200
+    _assert_wkv_close(ops.rwkv6(*args, state=state),
+                      _wkv_plain(ref.rwkv6_ref, args, state))
+
+
+def test_rwkv6_chunked_kernel_is_deterministic(cuda):
+    args, state = _wkv_args(cuda, 2, 4, 640, True, torch.bfloat16)
+    a, b = ops.rwkv6(*args, state=state), ops.rwkv6(*args, state=state)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def _reduced_lm_on_card_matches_cpu(cuda, arch, kernel, prompt, gen):

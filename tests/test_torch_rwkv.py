@@ -5,7 +5,12 @@ interpret mode, and the REDUCED RWKV6 model (``forward``, ``serve_step``,
 
 Tolerances:
 - WKV, float32: 1e-5 absolute at |o| of order 1 (float32 sums in another
-  order; the chunked algebra against the scan).
+  order; the chunked algebra against the scan). The card kernel's
+  algebra (``ref.rwkv6_subchunk_ref``) is held to the same bound, also at
+  strong decays (|log w| * 64 far above 80) where the TPU form's
+  exponents overflow; an emulation of its tensor-core products is held
+  to 1e-5 of the largest |o| (at least 1) against a float64 scan, and one
+  tf32 pass must miss that bound.
 - Model, float32: logits 1e-4 for ``forward`` and for one ``serve_step``
   from the same cache; greedy tokens identical over 16 free-running steps.
   Free-running logits are not compared to 1e-4: the token-shift carries
@@ -36,8 +41,10 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.configs.base import (ArchConfig, get_config,  # noqa: E402
                                       list_archs)
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import rwkv6_scan  # noqa: E402
 from repro_torch.kernels.build import KERNELS  # noqa: E402
-from repro_torch.kernels.rwkv6_scan import rwkv6_fwd  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import (CHUNK, rwkv6_chunked_fwd,  # noqa: E402
+                                            rwkv6_fwd, rwkv6_seq_fwd)
 from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.models import serve  # noqa: E402
 from repro_torch.models.sampling import (filter_logits,  # noqa: E402
@@ -48,12 +55,14 @@ WKV_TOL = 1e-5
 BF16_MAX, BF16_MEAN = 0.3, 0.02
 
 
-def _wkv_inputs(seed, b, h, s, d=64, state=False):
-    """Decays in (~0.7, 1), the regime of trained RWKV models; r, k, v
-    scaled so |o| is of order 1."""
+def _wkv_inputs(seed, b, h, s, d=64, state=False, strong=False):
+    """Decays in (~0.7, 1), the regime of trained RWKV models, or with
+    ``strong`` w = exp(-exp(N(1.5, 0.5))), |log w| ~ 4.5; r, k, v scaled
+    so |o| is of order 1."""
     rng = np.random.default_rng(seed)
     r, k, v = (0.3 * rng.standard_normal((b, h, s, d)) for _ in range(3))
-    w = np.exp(-np.exp(rng.standard_normal((b, h, s, d)) * 0.5 - 2.0))
+    w = np.exp(-np.exp(rng.normal(1.5, 0.5, (b, h, s, d)) if strong else
+                       rng.standard_normal((b, h, s, d)) * 0.5 - 2.0))
     u = 0.5 * rng.standard_normal((h, d))
     st = 0.3 * rng.standard_normal((b, h, d, d)) if state else None
     f32 = lambda x: None if x is None else x.astype(np.float32)  # noqa: E731
@@ -134,6 +143,201 @@ def test_wkv_kernel_wrapper_takes_only_card_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         rwkv6_fwd(*(_bshd(x).contiguous() for x in (r, k, v, w)), _t(u))
     assert KERNELS["rwkv6"].launches == before
+
+
+@pytest.mark.parametrize("s", [4, 100])
+def test_wkv_kernel_entries_take_only_card_tensors(s):
+    (r, k, v, w, u), _ = _wkv_inputs(3, 1, 2, s)
+    args = [_bshd(x).contiguous() for x in (r, k, v, w)] + [_t(u)]
+    before = {n: KERNELS[n].launches for n in ("rwkv6", "rwkv6_seq")}
+    for fn in (rwkv6_chunked_fwd, rwkv6_seq_fwd):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*args)
+    assert {n: KERNELS[n].launches for n in before} == before
+
+
+@pytest.mark.parametrize("s,kernel", [(1, "rwkv6_seq"), (CHUNK - 1, "rwkv6_seq"),
+                                      (CHUNK, "rwkv6"), (100, "rwkv6")])
+def test_wkv_kernel_dispatch_by_shape(monkeypatch, s, kernel):
+    """S below a chunk goes to the sequential kernel, the rest to the
+    chunked one."""
+    seen = []
+    monkeypatch.setattr(rwkv6_scan, "_launch",
+                        lambda kern, *a: seen.append(kern.name))
+    x = torch.zeros((1, s, 2, 64))
+    rwkv6_fwd(x, x, x, x, torch.zeros((2, 64)))
+    assert seen == [kernel]
+
+
+def _scan64(r, k, v, w, u, st):
+    """The token scan in float64 (numpy); (B, H, S, D) inputs."""
+    r, k, v, w, u = (np.asarray(x, np.float64) for x in (r, k, v, w, u))
+    st = np.zeros(r.shape[:2] + (64, 64)) if st is None else st.astype(
+        np.float64)
+    outs = []
+    for t in range(r.shape[2]):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]
+        outs.append(np.einsum("bhk,bhkv->bhv", r[:, :, t],
+                              st + u[None, :, :, None] * kv))
+        st = w[:, :, t, :, None] * st + kv
+    return np.stack(outs, 2), st
+
+
+@pytest.mark.parametrize("decay", ["trained", "strong"])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("s", [64, 100, 192])
+def test_wkv_subchunk_form_matches_jax(s, with_state, decay):
+    """The card kernel's algebra: sub-chunk reference points, decays as
+    products of w, every factor at most 1."""
+    (r, k, v, w, u), st = _wkv_inputs(s + 11, 1, 2, s, state=with_state,
+                                      strong=decay == "strong")
+    want_o, want_s = jref.rwkv6_ref(*(_j(x) for x in (r, k, v, w, u)),
+                                    state=_j(st), return_state=True)
+    got_o, got_s = ref.rwkv6_subchunk_ref(*(_t(x) for x in (r, k, v, w, u)),
+                                          state=_t(st), return_state=True)
+    assert got_o.dtype == torch.float32
+    _close(got_o, want_o)
+    _close(got_s, want_s)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_wkv_z_centred_chunk_form_fails_at_strong_decays(with_state):
+    """Control: at |log w| * 64 far above 80 the TPU form's exponents,
+    centred on half the chunk's log-decay, overflow in JAX's XLA path and
+    in the port's plain copy of it; the sub-chunk form stays within
+    WKV_TOL of the scan."""
+    s = 192
+    (r, k, v, w, u), st = _wkv_inputs(5, 1, 2, s, state=with_state,
+                                      strong=True)
+    assert np.median(-np.log(w)) * 64 > 200
+    jargs = [_j(x) for x in (r, k, v, w, u)]
+    want_o = np.asarray(jref.rwkv6_ref(*jargs, state=_j(st)))
+    xla_o = np.asarray(jref.rwkv6_chunked_xla(*jargs, state=_j(st)))
+    targs = [_t(x) for x in (r, k, v, w, u)]
+    port_o = ref.rwkv6_chunked_ref(*targs, state=_t(st)).numpy()
+    for bad in (xla_o, port_o):
+        assert not (np.isfinite(bad).all()
+                    and np.abs(bad - want_o).max() <= 1e-3)
+    _close(ref.rwkv6_subchunk_ref(*targs, state=_t(st)), want_o)
+
+
+def _top16(x):
+    """float32 with the low 16 bits cleared: a bfloat16 cut from the bits."""
+    return (x.contiguous().view(torch.int32) & ~0xFFFF).view(torch.float32)
+
+
+def _bf16_parts(x):
+    """x = hi + mid + lo exactly, each part a bfloat16 cut from the bits
+    (the kernel's split for its wgmma products)."""
+    hi = _top16(x)
+    mid = _top16(x - hi)
+    return hi, mid, (x - hi) - mid
+
+
+def _mm_bf16x3(a, b):
+    """a b as the chunked kernel's wgmma products form it: both operands in
+    three bfloat16 parts, the six terms down to 2^-16 of hi hi, float32
+    sums (a bfloat16 b is its own hi part)."""
+    (a0, a1, a2), (b0, b1, b2) = _bf16_parts(a), _bf16_parts(b)
+    return ((a2 @ b0 + a1 @ b0) + (a0 @ b2 + a1 @ b1 + a0 @ b1)) + a0 @ b0
+
+
+def _tf32(t):
+    """Float32 rounded to tf32 on the bits (ties away), as the GRU tile's
+    split rounds its hi part."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF
+            ).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a b as the chunked kernel's mma.sync cross tiles form it: hi
+    rounded to tf32, lo = x - hi read truncated, a_lo b_lo dropped."""
+    def trunc(t):
+        return (t.contiguous().view(torch.int32) & ~0x1FFF
+                ).view(torch.float32)
+    ah, bh = _tf32(a), _tf32(b)
+    return trunc(a - ah) @ bh + ah @ trunc(b - bh) + ah @ bh
+
+
+def _mm_tf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+@pytest.mark.parametrize("scheme", ["kernel", "tf32"])
+@pytest.mark.parametrize("decay", ["trained", "strong"])
+@pytest.mark.parametrize("s", [100, 192])
+def test_wkv_tensor_core_scheme_keeps_float32_parity(s, decay, scheme):
+    """The chunked kernel's products (bfloat16 parts on wgmma for those
+    with v and the state, 3xTF32 mma.sync for the cross-sub-chunk
+    weights), emulated here with r, k, v rounded to bfloat16 as the model
+    gives them, agree with a float64 scan within 1e-5 of the largest |o|
+    (at least 1), the card check's bound; one tf32 pass, the control, does
+    not."""
+    (r, k, v, w, u), st = _wkv_inputs(s + 3, 1, 2, s, state=True,
+                                      strong=decay == "strong")
+    r, k, v = (torch.from_numpy(x).bfloat16().float().numpy()
+               for x in (r, k, v))
+    want_o, want_s = _scan64(r, k, v, w, u, st)
+    mm, mm_cross = ((_mm_bf16x3, _mm_3xtf32) if scheme == "kernel"
+                    else (_mm_tf32, _mm_tf32))
+    got_o, got_s = ref.rwkv6_subchunk_ref(
+        *(_t(x) for x in (r, k, v, w, u)), state=_t(st), return_state=True,
+        mm=mm, mm_cross=mm_cross)
+    ok = all(np.abs(g.double().numpy() - x).max()
+             <= WKV_TOL * max(1.0, np.abs(x).max())
+             for g, x in ((got_o, want_o), (got_s, want_s)))
+    assert ok == (scheme == "kernel")
+
+
+def _butterfly(x, lanes=32):
+    """The kernel's reduce-scatter of a lane's 36 diagonal-block items
+    (``halve`` with masks 16, 8, 4, 2, 1, odd sizes padded with a zero):
+    returns per lane its final two slots as (item index or -1, sum)."""
+    cur = {lane: (list(x[lane]), list(range(len(x[lane]))))
+           for lane in range(lanes)}
+    for m in (16, 8, 4, 2, 1):
+        nxt = {}
+        for lane in range(lanes):
+            vals, idx = cur[lane]
+            if len(vals) % 2:
+                vals, idx = vals + [0.0], idx + [-1]
+            half = len(vals) // 2
+            up = bool(lane & m)
+            pv, _ = cur[lane ^ m]
+            if len(pv) % 2:
+                pv = pv + [0.0]
+            keep = slice(half, None) if up else slice(None, half)
+            nxt[lane] = ([a + c for a, c in zip(vals[keep], pv[keep])],
+                         idx[keep])
+        cur = nxt
+    return {lane: list(zip(cur[lane][1], cur[lane][0])) for lane in cur}
+
+
+def test_wkv_diagonal_butterfly_places_every_item():
+    """The chunked kernel sums each diagonal-block item over its 32 lanes
+    by a butterfly reduce-scatter and finds, per lane, which item it holds
+    by undoing the halvings (padding excluded); emulated here, every item
+    lands on exactly one lane with the sum over all lanes."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((32, 36))
+    got = {}
+    for lane, slots in _butterfly(x).items():
+        for f, (item, total) in enumerate(slots):
+            p = f + 2 * (lane & 1)
+            if p >= 3:
+                continue
+            p += 3 * ((lane >> 1) & 1)
+            if p >= 5:
+                continue
+            p += 5 * ((lane >> 2) & 1)
+            if p >= 9:
+                continue
+            p += 9 * ((lane >> 3) & 1) + 18 * ((lane >> 4) & 1)
+            assert item == p
+            got[p] = total
+    assert sorted(got) == list(range(36))
+    np.testing.assert_allclose([got[p] for p in range(36)], x.sum(0),
+                               rtol=1e-12)
 
 
 # ------------------------------------------------------------ configs
