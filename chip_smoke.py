@@ -10,8 +10,13 @@ Phases, each fatal on failure:
   3. hold each kernel against its plain PyTorch version on the card at the
      shapes of the main path (``neighbor_sample`` exactly, the others to
      1e-5), and time kernel, plain version, and, for the attention forward
-     and backward, ``F.scaled_dot_product_attention`` (under autograd for
-     the backward) as a yardstick the port never calls; the flush,
+     and backward, ``F.scaled_dot_product_attention`` (for the backward
+     its backward alone, from one forward graph) as a yardstick the port
+     never calls; the attention kernels also at ATTN_SHAPES (K 1 / 32,
+     K 64 x H 4 x D 128 in slices, H 3 x D 7 staged by cp.async, B 1,
+     B 37), each with exact zeros for rows without a neighbor, one launch
+     a call and two calls bitwise equal, and a faulty plain version (one
+     row's last valid slot dropped) must fail the path's check; the flush,
      which writes ``mem`` / ``last`` in place, at the path's pending ids,
      a heavy-duplicate and an all-padding set with its in-place contract
      (returned tensors are the inputs, untouched rows bitwise unchanged,
@@ -125,6 +130,14 @@ GRU_SHAPES = (        # (label, rows, d_in, d_h)
     ("ragged", 37, 24, 16),        # rows not a multiple of the 32-row tile
     ("odd", 53, 37, 13),           # row strides not 16-byte multiples
     ("one row", 1, 616, 172),
+)
+ATTN_SHAPES = (       # (label, B, K, H, D) beside the TGN path's (600, 10, 2, 86)
+    ("K 1", 600, 1, 2, 86),
+    ("K 32", 600, 32, 2, 86),
+    ("K 64 H 4 D 128, in slices", 64, 64, 4, 128),   # k, v: 256 KB a row
+    ("H 3 D 7, cp.async staging", 100, 10, 3, 7),    # H * D not 4k
+    ("B 1", 1, 10, 2, 86),
+    ("B 37", 37, 10, 2, 86),
 )
 # StarCoder2-3B forward on (2, 8192) tokens: (B, S, H, Hkv, D, window)
 FLASH_PATH = (2, 8192, 24, 2, 128, 4096)
@@ -277,24 +290,16 @@ def print_kernel(r: dict) -> None:
              else f"; library {r['library_ms'] * 1e3:.2f} us"))
 
 
-def kernel_checks(torch, dev, g, cfg):
-    """Phase 3: every kernel against its plain version at the main path's
-    shapes; returns one record per kernel."""
+def path_batch(torch, dev, g, cfg):
+    """The main path's T-CSR on the card, a batch mid-epoch ``s`` and its
+    3B queried nodes (src, dst, neg; padding as node 0), as the TIG path
+    stages and samples them."""
     import numpy as np
 
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.neighbor_sample import neighbor_sample_fwd
-    from repro_torch.kernels.temporal_attn import (temporal_attn_bwd,
-                                                    temporal_attn_fwd)
     from repro_torch.tig.batching import build_batch_program
     from repro_torch.tig.protocol import split_views
     from repro_torch.tig.sampler import ChronoNeighborIndex
     from repro_torch.tig.train import epoch_rng
-
-    gen = torch.Generator(device=dev).manual_seed(0)
-
-    def randn(*shape, scale=1.0):
-        return torch.randn(shape, generator=gen, device=dev) * scale
 
     tr = split_views(g).train
     index = ChronoNeighborIndex(tr.src, tr.dst, tr.t, tr.eidx, g.num_nodes,
@@ -304,12 +309,29 @@ def kernel_checks(torch, dev, g, cfg):
     prog, _ = build_batch_program(tr, cfg, epoch_rng(0, 0, 1),
                                   index=index, plan="device")
     s = prog["src"].shape[0] // 2             # a batch mid-epoch
-    b, k, d, h = cfg.batch_size, cfg.num_neighbors, cfg.dim, cfg.n_heads
-    n_dump = g.num_nodes
     valid = np.tile(prog["valid"][s], 3)
     ids3 = np.concatenate([prog[r][s] for r in ("src", "dst", "neg")])
     nodes = torch.from_numpy(np.where(valid & (ids3 >= 0), ids3, 0)
                              .astype(np.int32)).to(dev)
+    return tcsr, prog, s, nodes
+
+
+def kernel_checks(torch, dev, g, cfg):
+    """Phase 3: every kernel against its plain version at the main path's
+    shapes; returns one record per kernel."""
+    import numpy as np
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.neighbor_sample import neighbor_sample_fwd
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    tcsr, prog, s, nodes = path_batch(torch, dev, g, cfg)
+    k, d, h = cfg.num_neighbors, cfg.dim, cfg.n_heads
+    n_dump = g.num_nodes
     rows = nodes.shape[0]
     recs = []
 
@@ -341,17 +363,109 @@ def kernel_checks(torch, dev, g, cfg):
     recs.append(flush_checks(torch, dev, ids, np.tile(prog["t"][s], 2),
                              n_dump, d, cfg.msg_dim, randn))
     # --- temporal attention at (3B, H, D / H) with the sampled mask
-    dh = d // h
-    q, kk, vv = (randn(rows, h, dh), randn(rows, k, h, dh),
-                 randn(rows, k, h, dh))
+    recs += attn_checks(torch, dev, randn, mask, h, d // h)
+    return recs
+
+
+def attn_case(torch, dev, randn, b, kn, h, d, seed):
+    """Inputs for an attention check: q, k, v, g from ``randn``; a mask
+    like the sampler's (each row's valid slots a suffix of its K) with an
+    eighth of the rows empty, one row full and one row not a suffix (a
+    single row: full)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cnt = rng.integers(0, kn + 1, b) if b > 2 else np.full(b, kn)
+    cnt[:b // 8] = 0
+    m = np.arange(kn)[None, :] >= (kn - cnt)[:, None]
+    if b > 2:
+        m[b // 8] = True
+        m[b // 8 + 1] = rng.uniform(size=kn) < 0.5
+    mask = torch.from_numpy(m).to(dev)
+    return (randn(b, h, d), randn(b, kn, h, d), randn(b, kn, h, d),
+            randn(b, h, d), mask)
+
+
+def attn_check(torch, label, q, k, v, g, mask) -> tuple[float, float]:
+    """Both attention kernels against the plain version and its autograd
+    (TOL), one launch each, exact zeros for rows without a neighbor and
+    for masked slots' dk / dv, and two calls bitwise equal. Returns the
+    forward's and the backward's largest error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.build import KERNELS
+    from repro_torch.kernels.temporal_attn import (temporal_attn_bwd,
+                                                    temporal_attn_fwd)
+
+    before = [KERNELS[n].launches for n in ("temporal_attn",
+                                            "temporal_attn_bwd")]
+    out = temporal_attn_fwd(q, k, v, mask)
+    got = temporal_attn_bwd(g, q, k, v, mask)
+    after = [KERNELS[n].launches for n in ("temporal_attn",
+                                           "temporal_attn_bwd")]
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = ref.temporal_attention_ref(*xs, mask)
+    want_g = torch.autograd.grad(want, xs, g)
+    err = (max_err([out], [want.detach()]), max_err(got, want_g))
+    none = ~mask.any(-1)
+    zeros = all(not bool(x[none].any()) for x in (out, *got)) and all(
+        not bool(x[~mask].any()) for x in got[1:])
+    again = [temporal_attn_fwd(q, k, v, mask), *temporal_attn_bwd(
+        g, q, k, v, mask)]
+    same = all(torch.equal(x, y) for x, y in zip([out, *got], again))
+    print(f"temporal_attn {label} (B {q.shape[0]}, K {k.shape[1]}, H "
+          f"{q.shape[1]}, D {q.shape[2]}): max abs err {err[0]:.3g} "
+          f"forward, {err[1]:.3g} backward (TOL "
+          f"{TOL}); zeros {zeros}; bitwise repeatable {same}; launches "
+          f"{[y - x for x, y in zip(before, after)]}")
+    if not (max(err) <= TOL and zeros and same
+            and after == [x + 1 for x in before]):
+        raise AssertionError(f"temporal attention kernels fail at {label}")
+    return err
+
+
+def attn_checks(torch, dev, randn, mask, h, dh) -> list:
+    """Phase 3's attention: both kernels at the path's shape (3B rows, the
+    sampled mask) and at ATTN_SHAPES; a control (the plain version with one
+    row's last valid slot dropped) must fail the path's check; each kernel
+    timed beside its plain version and SDPA on the rows with a neighbor
+    (the backward: SDPA's backward alone, from one forward graph)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.temporal_attn import (temporal_attn_bwd,
+                                                    temporal_attn_fwd)
+
+    rows, k = mask.shape
+    q, kk, vv, gout = (randn(rows, h, dh), randn(rows, k, h, dh),
+                       randn(rows, k, h, dh), randn(rows, h, dh))
     aargs = (q, kk, vv, mask)
-    err = max_err([temporal_attn_fwd(*aargs)],
-                  [ref.temporal_attention_ref(*aargs)])
-    if err > TOL:
-        raise AssertionError(f"temporal_attn differs from the ref by {err}")
+    err = attn_check(torch, "path", q, kk, vv, gout, mask)
+    errs = {"path": err}
+    for i, (label, b, kn, hh, d) in enumerate(ATTN_SHAPES):
+        errs[label] = attn_check(torch, label, *attn_case(
+            torch, dev, randn, b, kn, hh, d, seed=i))
+    # control: a row's last valid slot dropped (a slot never staged)
+    row = int(mask.sum(-1).argmax())
+    faulty = mask.clone()
+    faulty[row, int(mask[row].nonzero()[-1])] = False
+    xs = [x.clone().requires_grad_() for x in (q, kk, vv)]
+    ys = [x.clone().requires_grad_() for x in (q, kk, vv)]
+    want = ref.temporal_attention_ref(*xs, mask)
+    bad = ref.temporal_attention_ref(*ys, faulty)
+    ctrl = max_err([bad.detach(), *torch.autograd.grad(bad, ys, gout)],
+                   [want.detach(), *torch.autograd.grad(want, xs, gout)])
+    print(f"temporal_attn control (row {row}'s last valid slot dropped): "
+          f"{ctrl:.3g}, {ctrl / TOL:.3g} x TOL; the path's mask: "
+          f"{int(mask.sum())} of {mask.numel()} slots valid, "
+          f"{int((~mask.any(-1)).sum())} of {rows} rows without any")
+    if ctrl <= TOL:
+        raise AssertionError("the attention check passes a dropped slot")
+
+    # the bytes the function needs: q (and g), the mask, k and v of the
+    # valid slots; out (dq, dk, dv) written whole
     slots = int(mask.sum()) * h
-    io = (q.numel() * 2 + kk.numel() * 2) * 4 + mask.numel()  # q k v m out
-    io_bwd = (q.numel() * 3 + kk.numel() * 4) * 4 + mask.numel()
+    row_b, slot_b = h * dh * 4, dh * 4
+    io = 2 * rows * row_b + mask.numel() + 2 * slots * slot_b
+    io_bwd = (3 * rows * row_b + mask.numel() + 2 * slots * slot_b
+              + 2 * kk.numel() * 4)
     # yardstick: SDPA over the rows with a neighbor, (B', H, 1, D)
     live = mask.any(-1)
     sq = q[live][:, :, None, :]
@@ -359,41 +473,34 @@ def kernel_checks(torch, dev, g, cfg):
     sv = vv[live].transpose(1, 2).contiguous()
     sm = mask[live][:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    recs.append(dict(
-        name="temporal_attn", max_abs_err=err,
+    fwd = dict(
+        name="temporal_attn", max_abs_err=err[0],
         kernel=timings(lambda: temporal_attn_fwd(*aargs)),
         plain=timings(lambda: ref.temporal_attention_ref(*aargs)),
         bound=bound(io, 4 * dh * slots),
-        library_ms=device_ms(lambda: sdpa(sq, sk, sv, attn_mask=sm))))
-
-    gout = randn(rows, h, dh)
-    got = temporal_attn_bwd(gout, *aargs)
-    qr, kr, vr = (x.clone().requires_grad_() for x in (q, kk, vv))
-    want = torch.autograd.grad(ref.temporal_attention_ref(qr, kr, vr, mask),
-                               (qr, kr, vr), gout)
-    err = max_err(got, want)
-    if err > TOL:
-        raise AssertionError(f"temporal_attn_bwd differs from autograd of "
-                             f"the ref by {err}")
+        library_ms=device_ms(lambda: sdpa(sq, sk, sv, attn_mask=sm)),
+        extra=dict(errs=errs, control_err=ctrl))
 
     def plain_bwd():
-        torch.autograd.grad(ref.temporal_attention_ref(qr, kr, vr, mask),
-                            (qr, kr, vr), gout)
+        torch.autograd.grad(ref.temporal_attention_ref(*xs, mask), xs, gout)
 
-    # yardstick: SDPA forward + backward under autograd on the same live
-    # rows and mask
+    # SDPA's backward alone: one forward graph on the same live rows and
+    # mask, its backward timed; forward + backward on a line of its own
     lq, lk, lv = (x.clone().requires_grad_() for x in (sq, sk, sv))
     lg = gout[live][:, :, None, :]
-
-    def library_bwd():
-        torch.autograd.grad(sdpa(lq, lk, lv, attn_mask=sm), (lq, lk, lv), lg)
-
-    recs.append(dict(name="temporal_attn_bwd", max_abs_err=err,
-                     kernel=timings(lambda: temporal_attn_bwd(gout, *aargs)),
-                     plain=timings(plain_bwd),
-                     bound=bound(io_bwd, 8 * dh * slots),
-                     library_ms=device_ms(library_bwd)))
-    return recs
+    lout = sdpa(lq, lk, lv, attn_mask=sm)
+    lib_both = device_ms(lambda: torch.autograd.grad(
+        sdpa(lq, lk, lv, attn_mask=sm), (lq, lk, lv), lg))
+    print(f"temporal_attn_bwd yardstick: SDPA forward + backward "
+          f"{lib_both * 1e3:.2f} us")
+    bwd = dict(
+        name="temporal_attn_bwd", max_abs_err=err[1],
+        kernel=timings(lambda: temporal_attn_bwd(gout, *aargs)),
+        plain=timings(plain_bwd), bound=bound(io_bwd, 8 * dh * slots),
+        library_ms=device_ms(lambda: torch.autograd.grad(
+            lout, (lq, lk, lv), lg, retain_graph=True)),
+        extra=dict(library_fwd_bwd_ms=lib_both))
+    return [fwd, bwd]
 
 
 def flush_no_mean(torch, ids, msg, ts, mem, last, wx, wh, bx, bh):
@@ -1331,6 +1438,12 @@ def main() -> int:
                              f"{res.test_ap}")
     if any(launches[n] == 0 for n in TIG_PATH):
         raise AssertionError(f"a kernel never ran on the TIG path: "
+                             f"{launches}")
+    # one attention launch a step (as one sampling launch), one backward a
+    # train step (as the flush's GRU backward)
+    if (launches["temporal_attn"] != launches["neighbor_sample"]
+            or launches["temporal_attn_bwd"] != launches["fused_gru_bwd"]):
+        raise AssertionError(f"attention launches per step changed: "
                              f"{launches}")
 
     profile_train_steps(torch, g, TIG)

@@ -12,7 +12,14 @@ import torch
 from repro_torch.kernels._checks import check, stream
 from repro_torch.kernels.build import KERNELS
 
-__all__ = ["temporal_attn_fwd", "temporal_attn_bwd", "TemporalAttention"]
+__all__ = ["temporal_attn_fwd", "temporal_attn_bwd", "TemporalAttention",
+           "GROUP"]
+
+# Lanes that share one (slot, head) dot product in the kernels (ATTN_GROUP
+# in csrc/temporal_attn.cu): lane l sums columns l, l + GROUP, ... and a
+# butterfly of shuffles combines them. The CPU emulation of the kernels'
+# arithmetic order reads it; change both together.
+GROUP = 4
 
 
 def _check_inputs(q, k, v, mask):

@@ -168,6 +168,91 @@ def test_temporal_attn_kernels(cuda):
                                                        before[1] + 1)
 
 
+def _attn_case(dev, b, kn, h, d, seed):
+    """q, k, v, g and a mask like the sampler's: each row's valid slots a
+    suffix of its K, an eighth of the rows without any, one row full, one
+    row's mask not a suffix (a single row: full)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, g = (torch.randn(s, generator=gen, device=dev)
+                  for s in ((b, h, d), (b, kn, h, d), (b, kn, h, d),
+                            (b, h, d)))
+    rng = np.random.default_rng(seed)
+    cnt = rng.integers(0, kn + 1, b) if b > 2 else np.full(b, kn)
+    cnt[:b // 8] = 0
+    m = np.arange(kn)[None, :] >= (kn - cnt)[:, None]
+    if b > 2:
+        m[b // 8] = True
+        m[b // 8 + 1] = rng.uniform(size=kn) < 0.5
+    return q, k, v, g, torch.from_numpy(m).to(dev)
+
+
+def _attn_kernels_hold(q, k, v, g, mask):
+    """Both kernels, one launch each, against the plain version and its
+    autograd (1e-5); exact zeros for rows without a neighbor and masked
+    slots' dk / dv; a second call bitwise equal."""
+    from repro_torch.kernels.temporal_attn import (temporal_attn_bwd,
+                                                    temporal_attn_fwd)
+
+    names = ("temporal_attn", "temporal_attn_bwd")
+    before = [KERNELS[n].launches for n in names]
+    out = temporal_attn_fwd(q, k, v, mask)
+    got = temporal_attn_bwd(g, q, k, v, mask)
+    assert [KERNELS[n].launches for n in names] == [x + 1 for x in before]
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = ref.temporal_attention_ref(*xs, mask)
+    pairs = [(out, want.detach()), *zip(got, torch.autograd.grad(want, xs,
+                                                                 g))]
+    assert all(_max_diff([x], [y]) <= 1e-5 for x, y in pairs if x.numel())
+    none = ~mask.any(-1)
+    for x in (out, *got):
+        assert not bool(x[none].any())
+    for x in got[1:]:
+        assert not bool(x[~mask].any())
+    again = [temporal_attn_fwd(q, k, v, mask),
+             *temporal_attn_bwd(g, q, k, v, mask)]
+    assert all(torch.equal(x, y) for x, y in zip([out, *got], again))
+
+
+@pytest.mark.parametrize("b,kn,h,d", [
+    (600, 10, 2, 86),       # the TGN path's shape
+    (600, 1, 2, 86),
+    (600, 32, 2, 86),
+    (64, 64, 4, 128),       # k, v take 256 KB a row: slices of slots
+    (100, 10, 3, 7),        # H * D not a multiple of 4: cp.async staging
+    (1, 10, 2, 86),
+    (37, 10, 2, 86),
+    (5, 0, 2, 8),           # no slots at all
+])
+def test_temporal_attn_kernels_at_shapes(cuda, b, kn, h, d):
+    _attn_kernels_hold(*_attn_case(cuda, b, kn, h, d, seed=b + kn))
+
+
+def test_temporal_attn_kernels_on_misaligned_views(cuda):
+    """Views 4 bytes off a 16-byte boundary take the cp.async staging."""
+    q, k, v, g, mask = _attn_case(cuda, 50, 10, 2, 86, seed=3)
+    q, k, v, g = (torch.cat([x.flatten(), x.new_zeros(1)])[1:].view(x.shape)
+                  for x in (q, k, v, g))
+    assert q.data_ptr() % 16 != 0
+    _attn_kernels_hold(q, k, v, g, mask)
+
+
+def test_temporal_attn_check_catches_a_dropped_slot(cuda):
+    """The plain version with one row's last valid slot dropped misses the
+    kernels' 1e-5 limit at the path's shape, forward and backward: the
+    checks above catch a slot that was never staged."""
+    q, k, v, g, mask = _attn_case(cuda, 600, 10, 2, 86, seed=610)
+    row = int(mask.sum(-1).argmax())
+    faulty = mask.clone()
+    faulty[row, int(mask[row].nonzero()[-1])] = False
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    ys = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = ref.temporal_attention_ref(*xs, mask)
+    bad = ref.temporal_attention_ref(*ys, faulty)
+    assert _max_diff([bad.detach()], [want.detach()]) > 1e-5
+    assert _max_diff(torch.autograd.grad(bad, ys, g),
+                     torch.autograd.grad(want, xs, g)) > 1e-5
+
+
 def test_kernel_wrappers_reject_bad_arguments(cuda):
     from repro_torch.kernels.temporal_attn import temporal_attn_fwd
 

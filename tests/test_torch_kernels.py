@@ -364,6 +364,176 @@ def test_temporal_attention_ref_backward_matches_jax():
         _close(x.numpy(), kn)
 
 
+def _fma(a, b, c):
+    """float32 ``fmaf``: one rounding of a * b + c (the product of two
+    float32 values is exact in float64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _butterfly(parts):
+    """Lane partials (..., n) combined by the xor butterfly of the
+    kernels' shuffles (offsets n / 2, ..., 1); lane 0's sum."""
+    idx = torch.arange(parts.shape[-1])
+    off = parts.shape[-1] // 2
+    while off:
+        parts = parts + parts[..., idx ^ off]
+        off //= 2
+    return parts[..., 0]
+
+
+def _split_dot(x, y):
+    """(B, H, D) . (B, K, H, D) -> (B, K, H) as the kernels take it: lane
+    l of a group of GROUP sums columns l, l + GROUP, ... by FMA, then the
+    butterfly over the group."""
+    from repro_torch.kernels.temporal_attn import GROUP
+
+    lanes = []
+    for lane in range(GROUP):
+        p = torch.zeros(y.shape[:3])
+        for c in range(lane, x.shape[-1], GROUP):
+            p = _fma(x[:, None, :, c], y[..., c], p)
+        lanes.append(p)
+    return _butterfly(torch.stack(lanes, -1))
+
+
+def _lane_sums(x, ok, by=None):
+    """Per-head sums over the valid slots as one warp takes them: the
+    valid slots listed in order, entry i on lane i % 32 (added in order,
+    or by FMA with ``by``), then the butterfly. x, by: (B, K, H); ok:
+    (B, K) -> (B, H)."""
+    b, kn, h = x.shape
+    rank = ok.long().cumsum(1) - 1
+    parts = torch.zeros(b, h, 32)
+    for j in range(kn):
+        lane = (rank[:, j] % 32).clamp_min(0)[:, None, None].expand(b, h, 1)
+        cur = parts.gather(-1, lane)[..., 0]
+        new = cur + x[:, j] if by is None else _fma(x[:, j], by[:, j], cur)
+        parts = parts.scatter(-1, lane,
+                              torch.where(ok[:, j, None], new, cur)[..., None])
+    return _butterfly(parts)
+
+
+def _attn_kernel_order(q, k, v, mask, g=None, ks=None, drop=None):
+    """A float32 emulation of the arithmetic order of the kernels in
+    ``csrc/temporal_attn.cu``: ``out`` (``g`` None) or ``(dq, dk, dv)``.
+    Slots go in slices of ``ks`` (all K when None): an online softmax in
+    the forward; in the backward a pass for the statistics, then the
+    gradients from the last slice to the first. ``drop``: a row whose last
+    valid slot is passed over (a faulty kernel)."""
+    b, kn, h, d = k.shape
+    ok = mask.clone()
+    if drop is not None:
+        ok[drop, int(torch.nonzero(mask[drop])[-1])] = False
+    ks = ks or kn
+    slices = [(j0, min(j0 + ks, kn)) for j0 in range(0, kn, ks)]
+    multi, bwd = len(slices) > 1, g is not None
+    rs = torch.sqrt(torch.tensor(float(d)))
+    scale = 1.0 / rs
+    m = torch.full((b, h), -torch.inf)
+    lsum, tsum = torch.zeros(b, h), torch.zeros(b, h)
+
+    def scores(j0, j1):
+        sc = _split_dot(q, k[:, j0:j1])
+        return (sc * scale, _split_dot(g, v[:, j0:j1])) if bwd else (
+            sc / rs, None)
+
+    def stats(sc, da, okj, m, lsum, tsum):
+        m_new = torch.maximum(m, torch.where(okj[..., None], sc,
+                                             -torch.inf).amax(1))
+        alpha = torch.where(m == -torch.inf, 0.0, torch.exp(m - m_new))
+        p = torch.where(okj[..., None], torch.exp(sc - m_new[:, None]), 0.0)
+        lsum = lsum * alpha + _lane_sums(p, okj)
+        if bwd:
+            tsum = tsum * alpha + _lane_sums(p, okj, da)
+        return p, m_new, lsum, tsum, alpha
+
+    if not bwd:
+        acc = torch.zeros(b, h, d)
+        for j0, j1 in slices:
+            okj = ok[:, j0:j1]
+            sc, _ = scores(j0, j1)
+            p, m, lsum, _, alpha = stats(sc, None, okj, m, lsum, tsum)
+            w = p if multi else p / lsum[:, None]
+            if multi:
+                acc = acc * alpha[..., None]
+            for j in range(j1 - j0):
+                acc = torch.where(okj[:, j, None, None],
+                                  _fma(w[:, j, :, None], v[:, j0 + j], acc),
+                                  acc)
+        if multi:
+            acc = torch.where(lsum[..., None] > 0, acc / lsum[..., None], 0.0)
+        return acc
+    for j0, j1 in slices:                      # pass 1: the statistics
+        sc, da = scores(j0, j1)
+        p, m, lsum, tsum, _ = stats(sc, da, ok[:, j0:j1], m, lsum, tsum)
+    tot = torch.where(lsum > 0, tsum / lsum, 0.0)
+    dq = torch.zeros(b, h, d)
+    dk, dv = torch.zeros(b, kn, h, d), torch.zeros(b, kn, h, d)
+    for i in reversed(range(len(slices))):     # pass 2: the gradients
+        j0, j1 = slices[i]
+        okj = ok[:, j0:j1, None]
+        if i != len(slices) - 1:               # the last slice kept its p
+            sc, da = scores(j0, j1)
+            p = torch.exp(sc - m[:, None])
+        att = p / lsum[:, None]
+        ds = att * (da - tot[:, None]) * scale
+        for j in range(j1 - j0):
+            dq = torch.where(okj[:, j, :, None],
+                             _fma(ds[:, j, :, None], k[:, j0 + j], dq), dq)
+        dk[:, j0:j1] = torch.where(okj[..., None], ds[..., None] * q[:, None],
+                                   0.0)
+        dv[:, j0:j1] = torch.where(okj[..., None],
+                                   att[..., None] * g[:, None], 0.0)
+    return dq, dk, dv
+
+
+def _attn_path_case(b, kn, h, d, seed):
+    """Inputs like the TGN path's: a row's valid slots are a suffix of
+    its K (the sampler front-pads), an eighth of the rows have none, one
+    row has all, one row's mask is not a suffix."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    cnt = rng.integers(0, kn + 1, b)
+    cnt[:b // 8] = 0
+    cnt[b // 8] = kn
+    mask = np.arange(kn)[None, :] >= (kn - cnt)[:, None]
+    mask[b // 8 + 1] = rng.uniform(size=kn) < 0.5
+    return f(b, h, d), f(b, kn, h, d), f(b, kn, h, d), mask, f(b, h, d)
+
+
+@pytest.mark.parametrize("b,kn,h,d,ks", [
+    (600, 10, 2, 86, None),     # the TGN path's shape
+    (600, 1, 2, 86, None),
+    (600, 32, 2, 86, None),
+    (40, 10, 3, 7, 3),          # slices of 3 slots: online softmax
+])
+@pytest.mark.parametrize("drop", [False, True])
+def test_attn_kernel_order_matches_plain(b, kn, h, d, ks, drop):
+    """The kernels' arithmetic order in float32 (split dot products in the
+    shuffle order, per-head softmax across lanes, ds) agrees with the
+    plain version and its autograd in float64 within TOL, forward and
+    backward, with exact zeros for a row without neighbors; passing over
+    one row's last valid slot breaks the agreement."""
+    q, k, v, mask, g = map(_t, _attn_path_case(b, kn, h, d, seed=kn + d))
+    row = int(torch.nonzero(mask.any(-1))[0]) if drop else None
+    out = _attn_kernel_order(q, k, v, mask, ks=ks, drop=row)
+    grads = _attn_kernel_order(q, k, v, mask, g=g, ks=ks, drop=row)
+    xs = [x.double().requires_grad_() for x in (q, k, v)]
+    want = ref.temporal_attention_ref(*xs, mask)
+    want_g = torch.autograd.grad(want, xs, g.double())
+    err_f = float((out.double() - want.detach()).abs().max())
+    err_b = max(float((x.double() - w).abs().max())
+                for x, w in zip(grads, want_g))
+    if drop:
+        assert err_f > TOL and err_b > TOL, (err_f, err_b)
+        return
+    assert err_f <= TOL and err_b <= TOL, (err_f, err_b)
+    none = ~mask.any(-1)
+    assert none.any()
+    for x in (out, *grads):
+        assert float(x[none].abs().max()) == 0.0
+
+
 # ------------------------------------------------------------- dispatch
 
 def test_ops_take_the_plain_version_on_cpu():
