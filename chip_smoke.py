@@ -12,7 +12,14 @@ Phases, each fatal on failure:
      1e-5), and time kernel, plain version, and, for the attention forward
      and backward, ``F.scaled_dot_product_attention`` (for the backward
      its backward alone, from one forward graph) as a yardstick the port
-     never calls; the attention kernels also at ATTN_SHAPES (K 1 / 32,
+     never calls; ``neighbor_sample`` also (bitwise, one launch a call,
+     two calls equal) with the batch index as a device scalar, over a
+     depth-2 export with per-row batch indices and windows and empty
+     segments at K 1 / 32 / 64, on segments at its search's round
+     boundaries, and in the roles form (the step's src ++ dst ++ neg)
+     with invalid and padded rows, where a faulty plain version (the key
+     batch_of + 2) must fail the path's check; the attention kernels
+     also at ATTN_SHAPES (K 1 / 32,
      K 64 x H 4 x D 128 in slices, H 3 x D 7 staged by cp.async, B 1,
      B 37), each with exact zeros for rows without a neighbor, one launch
      a call and two calls bitwise equal, and a faulty plain version (one
@@ -131,6 +138,7 @@ GRU_SHAPES = (        # (label, rows, d_in, d_h)
     ("odd", 53, 37, 13),           # row strides not 16-byte multiples
     ("one row", 1, 616, 172),
 )
+SAMPLE_K = (1, 32, 64)   # neighbor_sample beside the path's K 10
 ATTN_SHAPES = (       # (label, B, K, H, D) beside the TGN path's (600, 10, 2, 86)
     ("K 1", 600, 1, 2, 86),
     ("K 32", 600, 32, 2, 86),
@@ -316,13 +324,162 @@ def path_batch(torch, dev, g, cfg):
     return tcsr, prog, s, nodes
 
 
+def sample_exact(torch, label, run, want) -> tuple:
+    """Hold a sampling call to its plain version's outputs ``want``: one
+    launch a call, two calls bitwise equal, bitwise equal to ``want``.
+    Returns the outputs."""
+    from repro_torch.kernels.build import KERNELS
+
+    kern = KERNELS["neighbor_sample"]
+    before = kern.launches
+    got = run()
+    again = run()
+    torch.cuda.synchronize()
+    if kern.launches != before + 2:
+        raise AssertionError(f"neighbor_sample {label}: "
+                             f"{kern.launches - before} launches in 2 calls")
+    for x, y, z in zip(got, again, want):
+        if not torch.equal(x, y):
+            raise AssertionError(f"neighbor_sample {label}: two calls "
+                                 f"differ")
+        if not torch.equal(x, z):
+            raise AssertionError(f"neighbor_sample {label} differs from "
+                                 f"its plain version (max abs diff "
+                                 f"{max_err([x], [z])})")
+    return got
+
+
+def hub_tcsr(torch, dev, lengths, pad, seed=0):
+    """A T-CSR whose node i has ``lengths[i]`` events, keys sorted in runs
+    of about 60 (a hub's events per batch), front-padded by ``pad``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    bat = [np.zeros(pad, np.int64)] + [
+        np.sort(rng.integers(1, 2 + n // 60, n)) for n in lengths]
+    total = pad + int(sum(lengths))
+    ex = {"indptr": pad + np.concatenate([[0], np.cumsum(lengths)]),
+          "nbr": rng.integers(0, 1000, total), "t": rng.random(total),
+          "eidx": np.arange(total), "bat": np.concatenate(bat)}
+    return {key: torch.from_numpy(v.astype(
+        np.float32 if key == "t" else np.int32)).to(dev)
+        for key, v in ex.items()}
+
+
+def sample_checks(torch, dev, g, cfg, tcsr, prog, s, nodes):
+    """Phase 3's sampling checks, each bitwise against ``sample_ref`` /
+    ``sample_roles_ref`` with one launch a call and two calls equal: the
+    path's batch (the scalar batch index as an int and as a device
+    scalar); an export of the path's stream at depth 2 with per-row batch
+    indices (0 to past the last) and windows 0 / 1 at K 10 and SAMPLE_K,
+    with nodes of empty segments; segments on each side of the search's
+    round boundaries ((TPR + 1)^r +- 1 events); the roles form at the
+    path's batch with invalid slots and -1 ids put in, and at the
+    planner's padded last batch. A faulty plain version (the key
+    ``batch_of + 2``: the batch's own events leak in) must fail the path's
+    check. Returns the path's record and its outputs."""
+    import numpy as np
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.neighbor_sample import (ROW_THREADS,
+                                                     neighbor_sample_fwd,
+                                                     sample_roles_fwd)
+    from repro_torch.tig.protocol import split_views
+    from repro_torch.tig.sampler import ChronoNeighborIndex
+
+    k, rows = cfg.num_neighbors, nodes.shape[0]
+    ts = ("indptr", "nbr", "t", "eidx", "bat")
+    targs = (*(tcsr[x] for x in ts), nodes, s, k)
+    want = ref.sample_ref(*targs)
+    got = sample_exact(torch, "path", lambda: neighbor_sample_fwd(*targs),
+                       want)
+    sample_exact(torch, "path, device-scalar batch index",
+                 lambda: neighbor_sample_fwd(*targs[:6], torch.tensor(
+                     s, dtype=torch.int32, device=dev), k), want)
+    faulty = ref.sample_ref(*targs[:6], s + 1, k)
+    if all(torch.equal(x, y) for x, y in zip(got, faulty)):
+        raise AssertionError("the faulty plain version (key batch_of + 2) "
+                             "passes the path's check")
+    n_leak = int((got[2] != faulty[2]).any(1).sum())
+    print(f"neighbor_sample: exact at the path ({rows} rows, K {k}), "
+          f"with a device-scalar batch index too; the faulty key "
+          f"batch_of + 2 changes {n_leak} of {rows} rows")
+
+    rng = np.random.default_rng(0)
+    tr = split_views(g).train
+    deep = ChronoNeighborIndex(tr.src, tr.dst, tr.t, tr.eidx, g.num_nodes,
+                               max(SAMPLE_K), cfg.batch_size)
+    dtc = {x: torch.from_numpy(v).to(dev)
+           for x, v in deep.device_export(depth=2).items()}
+    empty = np.flatnonzero(np.diff(dtc["indptr"].cpu().numpy()) == 0)[:50]
+    q_nodes = np.concatenate([nodes.cpu().numpy(), empty,
+                              nodes.cpu().numpy()[:100]])
+    q_batch = rng.integers(0, deep.num_batches + 2, len(q_nodes))
+    q_batch[-100:-50], q_batch[-50:] = 0, deep.num_batches + 1
+    q_win = rng.integers(0, 2, len(q_nodes))
+    qa = [torch.from_numpy(x.astype(np.int32)).to(dev)
+          for x in (q_nodes, q_batch, q_win)]
+    for kk in sorted({k, *SAMPLE_K}):
+        a = (*(dtc[x] for x in ts), qa[0], qa[1], kk, qa[2])
+        sample_exact(torch, f"per-row, K {kk}",
+                     lambda: neighbor_sample_fwd(*a), ref.sample_ref(*a))
+    print(f"neighbor_sample: exact over the depth-2 export at K "
+          f"{sorted({k, *SAMPLE_K})}: {len(q_nodes)} rows, per-row batch "
+          f"indices 0..{deep.num_batches + 1} and windows 0 / 1, "
+          f"{len(empty)} nodes of empty segments")
+
+    p = ROW_THREADS + 1
+    lengths = sorted({0, 1, ROW_THREADS} | {
+        p ** r + d for r in range(1, 5) if p ** r <= 1 << 22
+        for d in (-1, 0, 1)})
+    htc = hub_tcsr(torch, dev, lengths, pad=4 * k)
+    top = 3 + max(lengths) // 60
+    h_nodes = np.repeat(np.arange(len(lengths)), 64)
+    h_batch = np.concatenate([np.r_[0, top, rng.integers(0, top, 62)]
+                              for _ in lengths])
+    a = (*(htc[x] for x in ts), *(torch.from_numpy(x.astype(np.int32)).to(
+        dev) for x in (h_nodes, h_batch)), k)
+    sample_exact(torch, "round boundaries", lambda: neighbor_sample_fwd(*a),
+                 ref.sample_ref(*a))
+    print(f"neighbor_sample: exact on segments of {lengths} events, 64 "
+          f"batch indices each")
+
+    raw = {x: torch.from_numpy(prog[x][s].copy()).to(dev)
+           for x in ("src", "dst", "neg", "valid")}
+    a = (*(tcsr[x] for x in ts), *raw.values(), s, k)
+    roles = timings(lambda: sample_roles_fwd(*a))      # the path's call
+    raw["valid"][::7] = False
+    raw["src"][3::11] = -1
+    last = {x: torch.from_numpy(prog[x][-1].copy()).to(dev) for x in raw}
+    n_steps = prog["src"].shape[0]
+    for label, bt, at in (("roles, path batch", raw, s),
+                          ("roles, padded last batch", last, n_steps - 1)):
+        a = (*(tcsr[x] for x in ts), bt["src"], bt["dst"], bt["neg"],
+             bt["valid"], at, k)
+        sample_exact(torch, label, lambda: sample_roles_fwd(*a),
+                     ref.sample_roles_ref(*a))
+    print(f"neighbor_sample: roles form exact at the path batch with "
+          f"{int((~raw['valid']).sum())} invalid slots and "
+          f"{int((raw['src'] < 0).sum())} -1 ids put in, and at the padded "
+          f"last batch; {roles['ms'] * 1e3:.2f} us per call at the path "
+          f"batch as it is")
+
+    seg = np.diff(tcsr["indptr"].cpu().numpy())[nodes.cpu().numpy()]
+    probes = np.ceil(np.log2(seg + 1.0)).sum()
+    n_valid = int((got[0] >= 0).sum())
+    nbytes = rows * 4 + rows * 8 + probes * 4 + n_valid * 12 + rows * k * 12
+    rec = dict(name="neighbor_sample", max_abs_err=max_err(got, want),
+               kernel=timings(lambda: neighbor_sample_fwd(*targs)),
+               plain=timings(lambda: ref.sample_ref(*targs)),
+               bound=bound(float(nbytes), 0.0), library_ms=None,
+               extra={"roles_ms": roles["ms"]})
+    return rec, got
+
+
 def kernel_checks(torch, dev, g, cfg):
     """Phase 3: every kernel against its plain version at the main path's
     shapes; returns one record per kernel."""
     import numpy as np
-
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.neighbor_sample import neighbor_sample_fwd
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -330,31 +487,13 @@ def kernel_checks(torch, dev, g, cfg):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
     tcsr, prog, s, nodes = path_batch(torch, dev, g, cfg)
-    k, d, h = cfg.num_neighbors, cfg.dim, cfg.n_heads
+    d, h = cfg.dim, cfg.n_heads
     n_dump = g.num_nodes
-    rows = nodes.shape[0]
-    recs = []
 
-    # --- neighbor_sample: exact
-    targs = (tcsr["indptr"], tcsr["nbr"], tcsr["t"], tcsr["eidx"],
-             tcsr["bat"], nodes, s, k)
-    got = neighbor_sample_fwd(*targs)
-    want = ref.sample_ref(*targs)
-    torch.cuda.synchronize()
-    exact = all(torch.equal(x, y) for x, y in zip(got, want))
-    err = max_err(got, want)
-    if not exact:
-        raise AssertionError(f"neighbor_sample differs from sample_ref "
-                             f"(max abs diff {err})")
-    indptr = tcsr["indptr"].cpu().numpy()
-    seg = (indptr[nodes.cpu().numpy() + 1] - indptr[nodes.cpu().numpy()])
-    probes = np.ceil(np.log2(seg + 1.0)).sum()
-    n_valid = int((got[0] >= 0).sum())
-    nbytes = rows * 4 + rows * 8 + probes * 4 + n_valid * 12 + rows * k * 12
-    recs.append(dict(name="neighbor_sample", max_abs_err=err,
-                     kernel=timings(lambda: neighbor_sample_fwd(*targs)),
-                     plain=timings(lambda: ref.sample_ref(*targs)),
-                     bound=bound(float(nbytes), 0.0), library_ms=None))
+    # --- neighbor_sample: exact, at the path and at SAMPLE_K, per-row
+    # batch indices and windows, the round boundaries and the roles form
+    rec, got = sample_checks(torch, dev, g, cfg, tcsr, prog, s, nodes)
+    recs = [rec]
     mask = got[0] >= 0                                    # (3B, K)
 
     # --- fused_flush: pending rows of this batch (src ++ dst, duplicates)

@@ -118,10 +118,11 @@ class Kernel:
 P, I = ctypes.c_void_p, ctypes.c_int
 
 KERNELS: dict[str, Kernel] = {k.name: k for k in (
-    # indptr nbr t eidx bat nodes batch_of(ptr, int) window(ptr, int)
-    # rows k  ids_out t_out e_out stream
+    # indptr nbr t eidx bat nodes src dst neg valid b batch_of(ptr, step,
+    # int) window(ptr, step, int) rows k ids_out t_out e_out stream
     Kernel("neighbor_sample", "neighbor_sample.cu", "neighbor_sample",
-           (P, P, P, P, P, P, P, I, P, I, I, I, P, P, P, P)),
+           (P, P, P, P, P, P, P, P, P, P, I, P, I, I, P, I, I, I, I, P, P, P,
+            P)),
     # ids msg ts mem last (both updated in place) wx wh bx bh rows dm d
     # n_dump mbar h_g orow stream
     Kernel("fused_flush", "fused_flush.cu", "fused_flush",

@@ -17,12 +17,13 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.fused_flush import FusedFlush
 from repro_torch.kernels.fused_gru import FusedGRU
-from repro_torch.kernels.neighbor_sample import neighbor_sample_fwd
+from repro_torch.kernels.neighbor_sample import (neighbor_sample_fwd,
+                                                 sample_roles_fwd)
 from repro_torch.kernels.rwkv6_scan import rwkv6_fwd
 from repro_torch.kernels.temporal_attn import TemporalAttention
 
-__all__ = ["temporal_attention", "fused_flush", "neighbor_sample", "rwkv6",
-           "gru", "flash_attention"]
+__all__ = ["temporal_attention", "fused_flush", "neighbor_sample",
+           "sample_roles", "rwkv6", "gru", "flash_attention"]
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -97,6 +98,18 @@ def neighbor_sample(tcsr: dict, nodes, batch_of, k: int, window=0):
     if _on_card(nodes):
         return neighbor_sample_fwd(*args)
     return ref.sample_ref(*args)
+
+
+def sample_roles(tcsr: dict, src, dst, neg, valid, batch_of, k: int):
+    """A step's neighbor grids in one call: ``neighbor_sample`` over the 3B
+    rows src ++ dst ++ neg, where a row whose id is < 0 or whose slot is
+    not ``valid`` samples node 0 and gets -1 ids and edge rows (its times
+    as sampled). Returns (3B, k) ids, times, edge rows."""
+    args = (tcsr["indptr"], tcsr["nbr"], tcsr["t"], tcsr["eidx"],
+            tcsr["bat"], src, dst, neg, valid, batch_of, k)
+    if _on_card(src):
+        return sample_roles_fwd(*args)
+    return ref.sample_roles_ref(*args)
 
 
 def rwkv6(r, k, v, w, u, *, state=None, chunk=64, return_state=True):

@@ -15,7 +15,7 @@ import torch
 
 __all__ = ["gru_ref", "gru_bwd_ref", "temporal_attention_ref", "segment_mean",
            "scatter_memory", "scatter_last", "flush_ref", "sample_ref",
-           "rwkv6_ref", "rwkv6_chunked_ref", "rwkv6_subchunk_ref",
+           "sample_roles_ref", "rwkv6_ref", "rwkv6_chunked_ref", "rwkv6_subchunk_ref",
            "flash_attention_probs",
            "flash_attention_ref"]
 
@@ -146,6 +146,24 @@ def sample_ref(indptr, nbr, t, eidx, bat, nodes, batch_of, k: int,
     tms = torch.where(valid, t[idx], -1.0)
     eix = torch.where(valid, eidx[idx], -1)
     return ids, tms, eix
+
+
+def sample_roles_ref(indptr, nbr, t, eidx, bat, src, dst, neg, valid,
+                     batch_of, k: int):
+    """``sample_ref`` over a batch's 3B rows src ++ dst ++ neg, as the host
+    planner fills its grids: a dead row (id < 0, or its slot not
+    ``valid``) samples node 0, then its ids and edge rows are masked to -1
+    (its times are left as sampled).
+
+    src, dst, neg: (B,) int32; valid: (B,) bool; batch_of: int or (3B,)
+    int32. Returns (3B, k) ids, times, edge rows.
+    """
+    ids3 = torch.cat([src, dst, neg])
+    alive = (ids3 >= 0) & valid.repeat(3)
+    clean = torch.where(alive, ids3, 0).to(torch.int32)
+    nb, nt, ne = sample_ref(indptr, nbr, t, eidx, bat, clean, batch_of, k)
+    return (torch.where(alive[:, None], nb, -1), nt,
+            torch.where(alive[:, None], ne, -1))
 
 
 def rwkv6_ref(r, k, v, w, u, *, state=None, return_state=False):

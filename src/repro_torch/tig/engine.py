@@ -14,7 +14,7 @@ immutable arrays do.
 
 With ``tcsr`` (a staged ``ChronoNeighborIndex.device_export``) the batch
 program is raw edge records (``plan="device"``) and each step samples its
-neighbor grids at its batch index through ``kernels.ops.neighbor_sample``.
+neighbor grids at its batch index through ``kernels.ops.sample_roles``.
 
 Not ported yet: the Alg.2 cycle and wrap-around modes
 (``cycle_length`` / ``wrap_steps``, PAC's), the multi-layer windows, and
@@ -54,19 +54,15 @@ def sample_batch_neighbors(batch: dict, tcsr: dict, batch_of: int,
                            cfg: TIGConfig) -> dict:
     """Add device-sampled neighbor grids to a raw-edge batch.
 
-    One fused (3B,) sample over src ++ dst ++ neg, with dead rows (padding
-    / invalid) sent to node 0 and their ids / edge rows re-masked to -1
-    afterwards (times are left as sampled), exactly as the host planner
-    fills its grids.
+    One (3B,) sample over src ++ dst ++ neg (``ops.sample_roles``, one
+    launch on the card), with dead rows (padding / invalid) sampling node
+    0 and their ids / edge rows masked to -1 (times are left as sampled),
+    exactly as the host planner fills its grids.
     """
-    k = cfg.num_neighbors
     b = batch["src"].shape[0]
-    ids3 = torch.cat([batch[r] for r in _ROLES])
-    alive = (ids3 >= 0) & batch["valid"].repeat(3)
-    clean = torch.where(alive, ids3, 0).to(torch.int32)
-    nb, nt, ne = ops.neighbor_sample(tcsr, clean, batch_of, k)
-    nb = torch.where(alive[:, None], nb, -1)
-    ne = torch.where(alive[:, None], ne, -1)
+    nb, nt, ne = ops.sample_roles(tcsr, *(batch[r] for r in _ROLES),
+                                  batch["valid"], batch_of,
+                                  cfg.num_neighbors)
     out = dict(batch)
     for j, role in enumerate(_ROLES):
         rows = slice(j * b, (j + 1) * b)

@@ -71,6 +71,106 @@ def test_neighbor_sample_kernel_exact(cuda, window):
         assert torch.equal(x, y)
 
 
+def _hub_tcsr(dev, lengths, pad, seed=0):
+    """A T-CSR whose node i has ``lengths[i]`` events, keys sorted with
+    runs of about 60 (a hub's events per batch), front-padded by ``pad``."""
+    rng = np.random.default_rng(seed)
+    bat = [np.zeros(pad, np.int64)] + [
+        np.sort(rng.integers(1, 2 + n // 60, n)) for n in lengths]
+    total = pad + int(sum(lengths))
+    ex = {"indptr": pad + np.concatenate([[0], np.cumsum(lengths)]),
+          "nbr": rng.integers(0, 1000, total), "t": rng.random(total),
+          "eidx": np.arange(total), "bat": np.concatenate(bat)}
+    return {key: torch.from_numpy(v.astype(
+        np.float32 if key == "t" else np.int32)).to(dev)
+        for key, v in ex.items()}
+
+
+def _sample_once(tcsr, nodes, batch_of, k, window=0):
+    """The kernel's outputs (one launch, two calls bitwise equal) after
+    ``sample_ref``'s, which they must equal bitwise."""
+    before = KERNELS["neighbor_sample"].launches
+    got = ops.neighbor_sample(tcsr, nodes, batch_of, k, window=window)
+    assert KERNELS["neighbor_sample"].launches == before + 1
+    again = ops.neighbor_sample(tcsr, nodes, batch_of, k, window=window)
+    want = ref.sample_ref(tcsr["indptr"], tcsr["nbr"], tcsr["t"],
+                          tcsr["eidx"], tcsr["bat"], nodes, batch_of, k,
+                          window)
+    for x, y, z in zip(got, again, want):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    return got
+
+
+def test_neighbor_sample_kernel_on_round_boundaries(cuda):
+    """Segments on each side of the search's round boundaries, (TPR + 1)^r
+    - 1, (TPR + 1)^r and + 1 events, each queried at every batch index
+    from 0 to past its last, once with a device-scalar batch index."""
+    from repro_torch.kernels.neighbor_sample import ROW_THREADS
+
+    p = ROW_THREADS + 1
+    lengths = sorted({0, 1, ROW_THREADS} | {p ** r + d for r in (1, 2, 3)
+                                            for d in (-1, 0, 1)})
+    tcsr = _hub_tcsr(cuda, lengths, pad=20)
+    top = 3 + max(lengths) // 60
+    nodes = np.repeat(np.arange(len(lengths)), top)
+    batch_of = np.tile(np.arange(top), len(lengths))
+    _sample_once(tcsr, torch.from_numpy(nodes.astype(np.int32)).to(cuda),
+                 torch.from_numpy(batch_of.astype(np.int32)).to(cuda), 10)
+    hub = torch.full((5,), len(lengths) - 1, dtype=torch.int32, device=cuda)
+    _sample_once(tcsr, hub, torch.tensor(top // 2, dtype=torch.int32,
+                                         device=cuda), 10)
+
+
+@pytest.mark.parametrize("k", [1, 32, 64])
+def test_neighbor_sample_kernel_at_wide_k(cuda, k):
+    """K up to 64 with per-row windows 0 / 1 over an export of depth 2."""
+    rng = np.random.default_rng(k)
+    n, e = 40, 4000
+    index = ChronoNeighborIndex(rng.integers(0, 30, e),
+                                rng.integers(0, 30, e),
+                                np.sort(rng.uniform(0, 10, e)), np.arange(e),
+                                n, k, batch_size=50)
+    tcsr = {key: torch.from_numpy(v).to(cuda)
+            for key, v in index.device_export(depth=2).items()}
+    rows = 3 * n
+    nodes = torch.from_numpy(rng.integers(0, n, rows).astype(np.int32))
+    batch_of = torch.from_numpy(
+        rng.integers(0, index.num_batches + 2, rows).astype(np.int32))
+    window = torch.from_numpy(rng.integers(0, 2, rows).astype(np.int32))
+    got = _sample_once(tcsr, nodes.to(cuda), batch_of.to(cuda), k,
+                       window.to(cuda))
+    assert (got[0] >= 0).all(1).any() and (got[0] < 0).any()
+
+
+def test_sample_roles_kernel(cuda):
+    """The roles form at a batch with -1 ids and invalid slots: one launch,
+    bitwise equal to ``sample_roles_ref`` and to itself."""
+    rng = np.random.default_rng(1)
+    n, e, b, k = 60, 3000, 200, 10
+    index = ChronoNeighborIndex(rng.integers(0, 50, e),
+                                rng.integers(0, 50, e),
+                                np.sort(rng.uniform(0, 10, e)), np.arange(e),
+                                n, k, batch_size=b)
+    tcsr = {key: torch.from_numpy(v).to(cuda)
+            for key, v in index.device_export().items()}
+    src, dst, neg = (rng.integers(-1, n, b).astype(np.int32)
+                     for _ in range(3))
+    valid = rng.random(b) > 0.2
+    args = [torch.from_numpy(x).to(cuda) for x in (src, dst, neg, valid)]
+    for batch_of in (7, torch.tensor(7, dtype=torch.int32, device=cuda)):
+        before = KERNELS["neighbor_sample"].launches
+        got = ops.sample_roles(tcsr, *args, batch_of, k)
+        assert KERNELS["neighbor_sample"].launches == before + 1
+        again = ops.sample_roles(tcsr, *args, batch_of, k)
+        want = ref.sample_roles_ref(tcsr["indptr"], tcsr["nbr"], tcsr["t"],
+                                    tcsr["eidx"], tcsr["bat"], *args, 7, k)
+        for x, y, z in zip(got, again, want):
+            assert torch.equal(x, y) and torch.equal(x, z)
+    dead = ~np.tile(valid, 3) | (np.concatenate([src, dst, neg]) < 0)
+    assert (got[0].cpu().numpy()[dead] == -1).all()
+    assert (got[0].cpu().numpy()[~dead] >= 0).any()
+
+
 def _flush_args(dev, ids, n, dm, d, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     r = ids.shape[0]

@@ -34,6 +34,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.build import KERNELS  # noqa: E402
 from repro_torch.kernels.neighbor_sample import (  # noqa: E402
+    ROW_THREADS, sample_roles_fwd)
+from repro_torch.kernels.neighbor_sample import (  # noqa: E402
     neighbor_sample_fwd as torch_sample_fwd)
 from repro_torch.tig.sampler import ChronoNeighborIndex  # noqa: E402
 
@@ -98,6 +100,173 @@ def test_sample_ref_exact(window):
         np.testing.assert_array_equal(g.numpy(), h.astype(g.numpy().dtype))
     assert (got[0] == -1).all(1)[25:].all()       # degree-0 nodes
     assert ((got[0] == -1).any(1) & (got[0] >= 0).any(1)).any()  # K > deg
+
+
+def test_sample_takes_a_0dim_batch_index():
+    """A 0-dim batch index (on the card: a device scalar the kernel reads)
+    samples as the int does, in both forms."""
+    tidx, _, _, k = _tcsr_case()
+    tcsr = {key: _t(v) for key, v in tidx.device_export().items()}
+    nodes = torch.arange(tidx.num_nodes, dtype=torch.int32)
+    s = tidx.num_batches // 2
+    scalar = torch.tensor(s, dtype=torch.int32)
+    for x, y in zip(ops.neighbor_sample(tcsr, nodes, scalar, k),
+                    ops.neighbor_sample(tcsr, nodes, s, k)):
+        assert torch.equal(x, y)
+    src, dst, neg = nodes[:10], nodes[10:20], nodes[20:]
+    valid = torch.ones(10, dtype=torch.bool)
+    for x, y in zip(ops.sample_roles(tcsr, src, dst, neg, valid, scalar, k),
+                    ops.sample_roles(tcsr, src, dst, neg, valid, s, k)):
+        assert torch.equal(x, y)
+
+
+def _kernel_search(seg, keys, tpr, below=np.less):
+    """The search of ``csrc/neighbor_sample.cu`` for every key at once: in
+    each round thread i of the row's ``tpr`` probes split point
+    lo + (i + 1) q + (i + 1) rem // (tpr + 1) of [lo, lo + n), n = q (tpr +
+    1) + rem, and the count c of probes ``below`` the key names the part
+    that holds the answer: lo = probe c - 1 plus one (or lo), hi = probe c
+    (or hi). Returns (end, rounds)."""
+    keys = np.asarray(keys, np.int64)
+    lo = np.zeros(keys.shape, np.int64)
+    hi = np.full(keys.shape, len(seg), np.int64)
+    rounds = np.zeros(keys.shape, np.int64)
+    lanes = np.arange(tpr)[None, :]
+
+    def split(lo, n, i):
+        q, rem = n // (tpr + 1), n % (tpr + 1)
+        return lo + (i + 1) * q + (i + 1) * rem // (tpr + 1)
+
+    while (lo < hi).any():
+        live = lo < hi
+        n = hi - lo
+        probes = split(lo[:, None], n[:, None], lanes)
+        probes = np.where(live[:, None], probes, 0)
+        c = below(seg[probes], keys[:, None]).sum(1)
+        new_lo = np.where(c > 0, split(lo, n, c - 1) + 1, lo)
+        new_hi = np.where(c < tpr, split(lo, n, np.minimum(c, tpr - 1)), hi)
+        lo = np.where(live, new_lo, lo)
+        hi = np.where(live, new_hi, hi)
+        rounds += live
+    return lo, rounds
+
+
+# segment lengths on each side of the kernel's round boundaries: a part of
+# (TPR + 1)^r - 1 events takes r rounds, one of (TPR + 1)^r takes r + 1
+_SEARCH_LENGTHS = [0, 1, ROW_THREADS] + [
+    (ROW_THREADS + 1) ** r + d for r in (1, 2, 3) for d in (-1, 0, 1)]
+
+
+@pytest.mark.parametrize("n", sorted(set(_SEARCH_LENGTHS)))
+def test_kernel_search_is_bisect_left(n):
+    """Sorted segments with repeated keys (runs of about 40), every key from
+    below the first to above the last: the kernel's search ends where
+    ``searchsorted(side="left")`` does, within its round bound."""
+    rng = np.random.default_rng(n)
+    seg = np.sort(rng.integers(0, max(2, n // 40), n)).astype(np.int32)
+    keys = np.arange(-1, int(seg.max(initial=0)) + 3)
+    end, rounds = _kernel_search(seg, keys, ROW_THREADS)
+    np.testing.assert_array_equal(end, np.searchsorted(seg, keys,
+                                                       side="left"))
+    bound, m = 0, n
+    while m:
+        m //= ROW_THREADS + 1
+        bound += 1
+    assert rounds.max() <= bound
+
+
+def _kernel_row(ex, node, batch_of, k, window, tpr, fault=None):
+    """One row of ``csrc/neighbor_sample.cu`` on the host, lane by lane:
+    the search's rounds; in a warp's last round (a part of n <= tpr events,
+    k <= tpr) the window's n + k candidates from lo - (w+1)k loaded two a
+    lane beside the probes, slot j taken from candidate (end - lo) + j by
+    a shuffle; else the window after the search, masked before the
+    segment start. Faults: "count" takes slot j from candidate c + j (c
+    the count of probes below the key, duplicates and all); "mask" masks
+    at the array start, so a node of fewer than K events borrows the
+    padding or the node before it."""
+    bat, start = ex["bat"], int(ex["indptr"][node])
+    lo, hi, key = start, int(ex["indptr"][node + 1]), batch_of + 1
+    first = 0 if fault == "mask" else start
+    lanes = np.arange(tpr)
+
+    def split(lo, q, rem, i):
+        return lo + (i + 1) * q + (i + 1) * rem // (tpr + 1)
+
+    def slot(idx, ok):
+        idx = np.where(ok, idx, 0)
+        return (np.where(ok, ex["nbr"][idx], -1),
+                np.where(ok, ex["t"][idx], np.float32(-1.0)),
+                np.where(ok, ex["eidx"][idx], -1))
+
+    while lo < hi:
+        n = hi - lo
+        q, rem = n // (tpr + 1), n % (tpr + 1)
+        c = int((bat[split(lo, q, rem, lanes)] < key).sum())
+        if tpr == 32 and n <= tpr and k <= tpr:
+            lim = hi - window * k
+            p0 = lo - (window + 1) * k + lanes
+            s0 = slot(p0, (p0 >= first) & (p0 < lim))
+            s1 = slot(p0 + 32, (p0 + 32 >= first) & (p0 + 32 < lim))
+            end = c if fault == "count" else (
+                split(0, q, rem, c - 1) + 1 if c else 0)
+            e = end + lanes
+            return tuple(np.where(e < 32, x0[e & 31], x1[e & 31])[:k]
+                         for x0, x1 in zip(s0, s1))
+        lo, hi = (split(lo, q, rem, c - 1) + 1 if c else lo,
+                  split(lo, q, rem, c) if c < tpr else hi)
+    idx = lo - (window + 1) * k + np.arange(k)
+    return slot(idx, idx >= first)
+
+
+@pytest.mark.parametrize("fault", [None, "count", "mask"])
+def test_kernel_rows_match_sample_ref(fault):
+    """The kernel's rows, emulated, against ``sample_ref`` bitwise: the
+    sampling case at depth 2 (windows 0 / 1, nodes without events), and
+    segments on each side of the round boundaries at K 1 / 10 / 32 / 64
+    (K 64 loads the window after the search) with window 1. Each fault of
+    ``_kernel_row`` must fail."""
+    tidx, _, batch_of, k = _tcsr_case()
+    cases = [(tidx.device_export(depth=2), np.arange(tidx.num_nodes),
+              batch_of, kk, w) for kk in (k, 1) for w in (0, 1)]
+    rng = np.random.default_rng(0)
+    lengths = [0, 1, 5, 32, 33, 34, 40, 1088, 1089, 1090, 2000]
+    bat = [np.zeros(128, np.int64)] + [
+        np.sort(rng.integers(1, 2 + n // 8, n)) for n in lengths]
+    total = 128 + sum(lengths)
+    hub = {"indptr": 128 + np.concatenate([[0], np.cumsum(lengths)]),
+           "nbr": rng.integers(0, 1000, total).astype(np.int32),
+           "t": rng.random(total).astype(np.float32),
+           "eidx": np.arange(total, dtype=np.int32),
+           "bat": np.concatenate(bat).astype(np.int32)}
+    nodes = np.repeat(np.arange(len(lengths)), 12)
+    keys = rng.integers(0, 3 + max(lengths) // 8, len(nodes))
+    cases += [(hub, nodes, keys, kk, 1) for kk in (1, 10, 32, 64)]
+    wrong = 0
+    for ex, nds, bo, kk, w in cases:
+        want = ref.sample_ref(*(_t(ex[key]) for key in
+                                ("indptr", "nbr", "t", "eidx", "bat")),
+                              _t(nds.astype(np.int32)),
+                              _t(bo.astype(np.int32)), kk, w)
+        rows = [_kernel_row(ex, int(nd), int(b), kk, w, ROW_THREADS,
+                            fault) for nd, b in zip(nds, bo)]
+        for got, wnt in zip(zip(*rows), want):
+            same = np.array_equal(np.stack(got), wnt.numpy())
+            assert same or fault
+            wrong += not same
+    assert (wrong > 0) == (fault is not None)
+
+
+def test_kernel_search_check_catches_probes_at_the_key():
+    """Counting probes <= key (bisect_right) must fail the same check."""
+    n = (ROW_THREADS + 1) ** 2 + 1
+    rng = np.random.default_rng(n)
+    seg = np.sort(rng.integers(0, n // 40, n)).astype(np.int32)
+    keys = np.arange(-1, int(seg.max()) + 3)
+    end, _ = _kernel_search(seg, keys, ROW_THREADS, below=np.less_equal)
+    assert (end != np.searchsorted(seg, keys, side="left")).any()
+    np.testing.assert_array_equal(end, np.searchsorted(seg, keys,
+                                                       side="right"))
 
 
 # ---------------------------------------------------------------- flush
@@ -553,6 +722,13 @@ def test_ops_take_the_plain_version_on_cpu():
                           tcsr["eidx"], tcsr["bat"], nodes, _t(batch_of), kk)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
+    roles = (nodes[:10], nodes[10:20] - 15, nodes[20:],
+             torch.arange(10) % 3 > 0, 4, kk)
+    got = ops.sample_roles(tcsr, *roles)
+    want = ref.sample_roles_ref(tcsr["indptr"], tcsr["nbr"], tcsr["t"],
+                                tcsr["eidx"], tcsr["bat"], *roles)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
     assert {n: kern.launches for n, kern in KERNELS.items()} == counts
 
 
@@ -562,6 +738,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         torch_sample_fwd(ex["indptr"], ex["nbr"], ex["t"], ex["eidx"],
                          ex["bat"], torch.zeros(3, dtype=torch.int32), 0, k)
+    ids = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        sample_roles_fwd(ex["indptr"], ex["nbr"], ex["t"], ex["eidx"],
+                         ex["bat"], ids, ids, ids,
+                         torch.ones(3, dtype=torch.bool), 0, k)
     with pytest.raises(ValueError, match="CUDA"):
         tflush.fused_flush_fwd(*map(_t, _flush_case()))
 

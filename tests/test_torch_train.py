@@ -20,6 +20,8 @@ from repro.tig import batching as jb  # noqa: E402
 from repro.tig import models as jm  # noqa: E402
 from repro.tig.data import synthetic_tig as jax_synthetic_tig  # noqa: E402
 from repro.tig.engine import make_train_epoch  # noqa: E402
+from repro.tig.engine import (  # noqa: E402
+    sample_batch_neighbors as jax_sample_batch_neighbors)
 from repro.tig.protocol import split_views as jax_split_views  # noqa: E402
 from repro.tig.sampler import ChronoNeighborIndex as JaxIndex  # noqa: E402
 from repro.tig.train import epoch_rng as jax_epoch_rng  # noqa: E402
@@ -29,7 +31,9 @@ from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.tig import batching as tb  # noqa: E402
 from repro_torch.tig import models as tm  # noqa: E402
 from repro_torch.tig.data import synthetic_tig  # noqa: E402
-from repro_torch.tig.engine import scan_train_epoch  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.tig.engine import (  # noqa: E402
+    sample_batch_neighbors, scan_train_epoch)
 from repro_torch.tig.protocol import split_views  # noqa: E402
 from repro_torch.tig.sampler import ChronoNeighborIndex  # noqa: E402
 from repro_torch.tig.train import epoch_rng, train_single  # noqa: E402
@@ -117,6 +121,57 @@ def test_scan_train_epoch_matches_jax():
     state = convert.state_to_numpy(ts)
     for key, v in _np(js).items():
         _close(state[key], v)
+
+
+@pytest.mark.parametrize("backend", ["xla", "interpret"])
+@pytest.mark.parametrize("step", ["mid", "last"])
+def test_sample_batch_neighbors_matches_jax(step, backend):
+    """The step's sampling (``ops.sample_roles`` on the CPU, and the engine
+    around it) against the JAX package's ``sample_batch_neighbors`` (its
+    XLA path, or its Pallas kernel in interpret mode) on the same raw
+    batch, bit for bit: a mid-epoch batch with invalid slots and -1 ids
+    put in, and the last batch, padded by the planner."""
+    g = synthetic_tig("tiny")
+    cfg_t = tm.TIGConfig(**SMALL)
+    cfg_j = jm.TIGConfig(**SMALL, use_pallas=backend != "xla",
+                         kernel_backend="interpret")
+    tr = split_views(g).train
+    index = ChronoNeighborIndex(tr.src, tr.dst, tr.t, tr.eidx, g.num_nodes,
+                                cfg_t.num_neighbors, cfg_t.batch_size)
+    prog, _ = tb.build_batch_program(tr, cfg_t, epoch_rng(0, 0, 1),
+                                     index=index, plan="device")
+    s = prog["src"].shape[0] // 2 if step == "mid" else -1
+    raw = {k: prog[k][s].copy() for k in ("src", "dst", "neg", "t",
+                                          "eidx", "valid")}
+    if step == "mid":
+        raw["valid"][::7] = False
+        raw["src"][3::11] = -1
+        raw["dst"][5::13] = -1
+    else:
+        assert (raw["src"] < 0).any() and not raw["valid"].all()
+    s %= prog["src"].shape[0]
+    ex = index.device_export()
+    want = jax_sample_batch_neighbors(
+        {k: jnp.asarray(v) for k, v in raw.items()},
+        {k: jnp.asarray(v) for k, v in ex.items()}, s, cfg_j)
+    tcsr = {k: torch.from_numpy(v) for k, v in ex.items()}
+    batch = {k: torch.from_numpy(v) for k, v in raw.items()}
+    got = sample_batch_neighbors(batch, tcsr, s, cfg_t)
+    assert got.keys() == want.keys()
+    for key in got:
+        np.testing.assert_array_equal(got[key].numpy(),
+                                      np.asarray(want[key]), err_msg=key)
+    nb, nt, ne = ops.sample_roles(tcsr, batch["src"], batch["dst"],
+                                  batch["neg"], batch["valid"], s,
+                                  cfg_t.num_neighbors)
+    for j, role in enumerate(("src", "dst", "neg")):
+        rows = slice(j * len(raw["src"]), (j + 1) * len(raw["src"]))
+        for x, name in ((nb, "nbr"), (nt, "nbrt"), (ne, "nbre")):
+            np.testing.assert_array_equal(x[rows].numpy(),
+                                          np.asarray(want[f"{name}_{role}"]))
+    dead = ~np.tile(raw["valid"], 3) | (np.concatenate(
+        [raw["src"], raw["dst"], raw["neg"]]) < 0)
+    assert dead.any() and (nb.numpy()[dead] == -1).all()
 
 
 @pytest.fixture(scope="module")
