@@ -36,9 +36,18 @@ Phases, each fatal on failure:
      the same initial params;
   5. the TIG path: ``train_single(synthetic_tig("wikipedia-s",
      scale=10), TIG, epochs=1)`` — TGN at the paper's widths, ~525 train
-     steps, then val and test scoring — with every kernel's launch count
-     read around it (the flush's backward launches ``fused_gru_bwd``);
-     then where a train step's time goes;
+     steps, then val and test scoring, each step a replay of its
+     program's captured CUDA graph — with every kernel's launch count
+     read around it, on the device: one launch of each forward kernel a
+     step, of each backward one a train step (the flush's backward
+     launches ``fused_gru_bwd``), and epoch seconds split into planning
+     and the device epoch; then the graphed programs against the eager
+     step from the same inputs (the path's first 40 train steps: losses
+     to 1e-4, params and state printed, two graphed calls, launches a
+     call; the val stream: logits to 1e-4, AP to 1e-3), with a control
+     whose step counter never advances that must fail; then where a
+     train step's time goes, graphed and eager (unprofiled wall, host
+     and device time per step, idle share, ops per step, kernels);
   6. the WKV kernels (``ops.rwkv6`` takes the chunked kernel for S >= 64
      and the sequential one below) against their plain versions at the
      RWKV6 path's shapes (decode S 1 with a state, a ragged S 100 with a
@@ -149,6 +158,7 @@ ATTN_SHAPES = (       # (label, B, K, H, D) beside the TGN path's (600, 10, 2, 8
 )
 # StarCoder2-3B forward on (2, 8192) tokens: (B, S, H, Hkv, D, window)
 FLASH_PATH = (2, 8192, 24, 2, 128, 4096)
+GRAPH_STEPS = 40      # train steps of phase 5's graph checks, profile
 
 
 def card_line() -> str:
@@ -812,51 +822,189 @@ def flush_checks(torch, dev, ids_np, ts_np, n_dump, d, dm, randn) -> dict:
                            bwd_max_rel_err=max(rel)))
 
 
-def profile_train_steps(torch, g, cfg, steps: int = 40) -> None:
-    """Phase 6, where a train step's time goes: the first ``steps`` steps
-    of the main path's epoch, warm, timed plain and then under
-    ``torch.profiler`` (device activity only): device busy share and the
-    device time by kernel."""
-    from repro_torch.optim import adamw
+def path_epochs(torch, g, cfg, steps: int = GRAPH_STEPS) -> dict:
+    """The main path's first ``steps`` train batches and its whole val
+    stream, device-planned as ``train_single`` plans epoch 0, each with
+    its T-CSR staged on the card; tables; params from seed 0; a fresh
+    state (``state()``)."""
     from repro_torch.tig.batching import build_batch_program, make_tables
-    from repro_torch.tig.engine import scan_train_epoch
     from repro_torch.tig.models import init_params, init_state
     from repro_torch.tig.protocol import split_views
     from repro_torch.tig.sampler import ChronoNeighborIndex
     from repro_torch.tig.train import epoch_rng
 
     dev = torch.device("cuda")
-    tr = split_views(g).train
-    index = ChronoNeighborIndex(tr.src, tr.dst, tr.t, tr.eidx, g.num_nodes,
-                                cfg.num_neighbors, cfg.batch_size)
-    tcsr = {k: torch.from_numpy(v).to(dev)
-            for k, v in index.device_export().items()}
-    prog, _ = build_batch_program(tr, cfg, epoch_rng(0, 0, 1), index=index,
-                                  plan="device")
-    prog = {k: v[:steps] for k, v in prog.items()}
-    tables = {k: torch.from_numpy(v).to(dev)
-              for k, v in make_tables(g.edge_feat, g.node_feat).items()}
-    params = init_params(torch.Generator().manual_seed(0), cfg, dev)
+    sp = split_views(g)
+    out = {"params": init_params(torch.Generator().manual_seed(0), cfg, dev),
+           "state": lambda: init_state(cfg, g.num_nodes, dev),
+           "tables": {k: torch.from_numpy(v).to(dev) for k, v in
+                      make_tables(g.edge_feat, g.node_feat).items()}}
+    hist = None
+    for i, (name, view) in enumerate((("train", sp.train), ("val", sp.val))):
+        index = ChronoNeighborIndex(view.src, view.dst, view.t, view.eidx,
+                                    g.num_nodes, cfg.num_neighbors,
+                                    cfg.batch_size, history=hist)
+        prog, hist = build_batch_program(view, cfg, epoch_rng(0, 0, i + 1),
+                                         neg_pool=sp.neg_pool, index=index,
+                                         plan="device")
+        if name == "train":
+            prog = {k: v[:steps] for k, v in prog.items()}
+        out[name] = prog
+        out[f"{name}_tcsr"] = {k: torch.from_numpy(v).to(dev) for k, v in
+                               index.device_export().items()}
+    return out
+
+
+def leaves(tree) -> list:
+    """The tensors of nested dicts (keys sorted), lists and tuples."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in leaves(t)]
+    return [tree]
+
+
+def tree_diff(a, b) -> float:
+    """Largest |a - b| over the leaves of two tensor trees."""
+    return max_err(leaves(a), leaves(b))
+
+
+def graph_checks(torch, kernels, p: dict, cfg) -> dict:
+    """Phase 5, after the path: the graphed programs
+    (``make_train_epoch``, one captured step replayed a batch) against
+    the eager step (``scan_train_epoch``) on the path's first train steps
+    and its val stream, from the same inputs; two graphed calls (the
+    second only replays); device launches per call; and a control
+    program whose step counter never advances (every step replays batch
+    0), which must fail the same check."""
+    import numpy as np
+
+    from repro_torch.optim import adamw
+    from repro_torch.tig import engine
+    from repro_torch.tig.evaluation import link_prediction_metrics
+
     opt = adamw(1e-3, max_grad_norm=1.0)
+    steps = p["train"]["src"].shape[0]
 
-    def run():
-        scan_train_epoch(params, opt.init(params),
-                         init_state(cfg, g.num_nodes, dev), prog, tables,
-                         cfg=cfg, opt=opt, tcsr=tcsr)
+    def inputs():
+        return (p["params"], opt.init(p["params"]), p["state"](), p["train"],
+                p["tables"])
 
-    run()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    plain_wall = (time.perf_counter() - t0) * 1e3
-    print_profile(f"{steps} train steps", run, steps, plain_wall)
+    def counted(run):
+        for kern in kernels.values():
+            kern.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        return out, {n: kernels[n].launches for n in TIG_PATH}
+
+    eager, n_eager = counted(lambda: engine.scan_train_epoch(
+        *inputs(), cfg=cfg, opt=opt, tcsr=p["train_tcsr"]))
+    fn = engine.make_train_epoch(cfg, opt)
+    first, n_first = counted(lambda: fn(*inputs(), tcsr=p["train_tcsr"]))
+    second, n_second = counted(lambda: fn(*inputs(), tcsr=p["train_tcsr"]))
+    (epoch,) = fn.graphs.values()
+    d_loss = max_err([first[3]], [eager[3]])
+    d_params = tree_diff(first[0], eager[0])
+    d_state = tree_diff(first[2], eager[2])
+    d_repeat = tree_diff(first, second)
+    print(f"graphed vs eager, {steps} train steps of the path: max |loss "
+          f"diff| {d_loss:.3g}, params {d_params:.3g}, state "
+          f"{d_state:.3g}; two graphed calls "
+          + ("bitwise equal" if d_repeat == 0.0 else
+             f"differ by {d_repeat:.3g}")
+          + f"; launches a call eager {n_eager}, graphed {n_first} / "
+          f"{n_second} (per replay {epoch.per_replay})")
+    if not d_loss <= 1e-4:
+        raise AssertionError(f"graphed and eager losses differ by {d_loss}")
+    if not n_eager == n_first == n_second or any(
+            n_eager[n] != steps for n in TIG_PATH):
+        raise AssertionError(f"launches differ: eager {n_eager}, graphed "
+                             f"{n_first}, {n_second}")
+
+    valid = np.asarray(p["val"]["valid"]).reshape(-1)
+
+    def ap(aux):
+        return link_prediction_metrics(
+            *(aux[k].cpu().numpy().reshape(-1)[valid]
+              for k in ("pos_logit", "neg_logit")))["ap"]
+
+    vargs = (eager[0], eager[2], p["val"], p["tables"])
+    e_state, e_aux = engine.scan_eval_stream(*vargs, cfg=cfg,
+                                             tcsr=p["val_tcsr"])
+    g_state, g_aux = engine.make_eval_epoch(cfg)(*vargs, tcsr=p["val_tcsr"])
+    d_logit = max_err(list(g_aux.values()), list(e_aux.values()))
+    d_ap = abs(ap(g_aux) - ap(e_aux))
+    print(f"graphed vs eager, the val stream ({p['val']['src'].shape[0]} "
+          f"steps): max |logit diff| {d_logit:.3g}, AP {ap(g_aux):.6f} vs "
+          f"{ap(e_aux):.6f}, state {tree_diff(g_state, e_state):.3g}")
+    if not (d_logit <= 1e-4 and d_ap <= 1e-3):
+        raise AssertionError(f"graphed and eager scoring differ: logits "
+                             f"{d_logit}, AP {d_ap}")
+
+    advance = engine._advance
+    engine._advance = lambda counter: None
+    try:
+        stuck = engine.make_train_epoch(cfg, opt)(*inputs(),
+                                                  tcsr=p["train_tcsr"])
+    finally:
+        engine._advance = advance
+    d_stuck = max_err([stuck[3]], [eager[3]])
+    print(f"control, a stuck step counter (batch 0 every step): max |loss "
+          f"diff| {d_stuck:.3g}")
+    if d_stuck <= 1e-4:
+        raise AssertionError("the stuck-counter control passed the check")
+    return dict(d_loss=d_loss, d_params=d_params, d_state=d_state,
+                d_repeat=d_repeat, d_logit=d_logit, d_ap=d_ap)
 
 
-def print_profile(label: str, run, steps: int, plain_wall: float) -> None:
+def profile_train_steps(torch, p: dict, cfg) -> dict:
+    """The end of phase 5, where a train step's time goes: the path's
+    first train steps, warm, through the graphed program and through the
+    eager loop, timed unprofiled in turns (eager, graphed, graphed,
+    eager) and then each under ``torch.profiler`` (device activity
+    only): host and device time per step, device busy and idle share,
+    the device time by kernel."""
+    from repro_torch.optim import adamw
+    from repro_torch.tig.engine import make_train_epoch, scan_train_epoch
+
+    opt = adamw(1e-3, max_grad_norm=1.0)
+    steps = p["train"]["src"].shape[0]
+    fn = make_train_epoch(cfg, opt)
+
+    def inputs():
+        return (p["params"], opt.init(p["params"]), p["state"](), p["train"],
+                p["tables"])
+
+    runs = {"graphed": lambda: fn(*inputs(), tcsr=p["train_tcsr"]),
+            "eager": lambda: scan_train_epoch(*inputs(), cfg=cfg, opt=opt,
+                                              tcsr=p["train_tcsr"])}
+    walls: dict = {label: [] for label in runs}
+    for label in ("eager", "graphed", "graphed", "eager"):
+        runs[label]()                   # warm (the first graphed captures)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[label]()
+        torch.cuda.synchronize()
+        walls[label].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for label, run in runs.items():
+        out[label] = print_profile(f"{steps} train steps, {label}", run,
+                                   steps, min(walls[label]))
+        print(f"  unprofiled ms/step over the two timed runs: "
+              + " / ".join(f"{w / steps:.3f}" for w in walls[label]))
+    g = out["graphed"]
+    print(f"graphed step: unprofiled wall {g['wall']:.3f} ms = "
+          f"{g['wall'] / g['busy']:.2f}x its device busy {g['busy']:.3f} "
+          f"ms (eager: {out['eager']['wall'] / out['eager']['busy']:.2f}x)")
+    return out
+
+
+def print_profile(label: str, run, steps: int, plain_wall: float) -> dict:
     """Run ``run()`` (``steps`` steps, ``plain_wall`` ms unprofiled) under
-    ``torch.profiler``; print the device busy and idle share of the
-    profiled wall and the device time by kernel name."""
+    ``torch.profiler``; print the host time per step (unprofiled wall less
+    device busy), the device busy and idle share of the profiled wall and
+    the device time by kernel name. Returns the per-step wall, busy and
+    ops."""
     spans, wall = device_spans(run)
     busy, end = 0.0, -math.inf
     by_name: dict = {}
@@ -869,13 +1017,17 @@ def print_profile(label: str, run, steps: int, plain_wall: float) -> None:
         by_name[key] = (tot + e - s, n + 1)
     busy /= 1e3
     print(f"profile: {label}, {plain_wall / steps:.3f} ms/step "
-          f"unprofiled, {wall / steps:.3f} ms/step profiled; device busy "
-          f"{busy / steps:.3f} ms/step ({busy / wall:.1%} of the profiled "
-          f"wall, idle {1 - busy / wall:.1%}); {len(spans) / steps:.0f} "
-          f"device ops/step")
+          f"unprofiled, {wall / steps:.3f} ms/step profiled; host "
+          f"{(plain_wall - busy) / steps:.3f} ms/step (unprofiled wall "
+          f"less device busy); device busy {busy / steps:.3f} ms/step "
+          f"({busy / wall:.1%} of the profiled wall, idle "
+          f"{1 - busy / wall:.1%}); {len(spans) / steps:.0f} device "
+          f"ops/step")
     for key, (tot, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
                                 )[:12]:
         print(f"  {tot / 1e3 / steps:8.4f} ms/step  {n // steps:4d}x  {key}")
+    return {"wall": plain_wall / steps, "busy": busy / steps,
+            "ops": len(spans) / steps}
 
 
 def small_agreement(torch):
@@ -1520,6 +1672,7 @@ def main() -> int:
     from repro_torch.kernels.build import (KERNELS, SOURCES, build_all,
                                            library_path)
     from repro_torch.tig.data import synthetic_tig
+    from repro_torch.tig.protocol import split_views
     from repro_torch.tig.train import train_single
 
     t_all = time.perf_counter()
@@ -1566,7 +1719,10 @@ def main() -> int:
           f"{TIG.num_neighbors}, batch {TIG.batch_size}) losses "
           f"{res.losses}, val_ap {res.val_ap:.6f}, test_ap "
           f"{res.test_ap:.6f}, test_ap_inductive {res.test_ap_inductive:.6f}"
-          f", epoch_seconds {res.epoch_seconds}, wall {wall:.3f} s, peak "
+          f", epoch_seconds {res.epoch_seconds} (plan "
+          f"{res.plan_seconds}, device epoch "
+          f"{[e - q for e, q in zip(res.epoch_seconds, res.plan_seconds)]}"
+          f"), wall {wall:.3f} s, peak "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     print(f"kernels launched on the TIG path: {launches}")
     if not all(math.isfinite(x) for x in res.losses):
@@ -1578,14 +1734,20 @@ def main() -> int:
     if any(launches[n] == 0 for n in TIG_PATH):
         raise AssertionError(f"a kernel never ran on the TIG path: "
                              f"{launches}")
-    # one attention launch a step (as one sampling launch), one backward a
-    # train step (as the flush's GRU backward)
-    if (launches["temporal_attn"] != launches["neighbor_sample"]
-            or launches["temporal_attn_bwd"] != launches["fused_gru_bwd"]):
-        raise AssertionError(f"attention launches per step changed: "
-                             f"{launches}")
+    # on the device, one launch of each forward kernel a step of the three
+    # streams, of each backward one a train step (the flush's backward
+    # runs fused_gru_bwd)
+    steps = [-(-len(v.src) // TIG.batch_size) for v in split_views(g).views]
+    want = {n: steps[0] if n in ("temporal_attn_bwd", "fused_gru_bwd")
+            else sum(steps) for n in TIG_PATH}
+    if any(launches[n] != want[n] for n in TIG_PATH):
+        raise AssertionError(f"launches on the TIG path {launches}, "
+                             f"expected {want} (steps {steps})")
 
-    profile_train_steps(torch, g, TIG)
+    p = path_epochs(torch, g, TIG)
+    graph_checks(torch, KERNELS, p, TIG)
+    profile_train_steps(torch, p, TIG)
+    del p
 
     wkv = wkv_checks(torch, dev)
     for r in wkv:

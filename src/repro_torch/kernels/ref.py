@@ -66,6 +66,13 @@ def segment_mean(ids, msg, n_dump: int):
     return (sums / cnt.clamp(min=1.0)[:, None])[ids]
 
 
+def _dump_index(n_dump: int, device) -> torch.Tensor:
+    """(1,) int64 index of the dump row, filled on ``device``: a tensor
+    built from host data would be a host-to-device copy, which a CUDA
+    graph capture refuses."""
+    return torch.full((1,), n_dump, dtype=torch.int64, device=device)
+
+
 def scatter_memory(mem, ids, rows):
     """``mem`` with ``rows`` written at ``ids`` and the dump row (the
     last) re-zeroed, out of place.
@@ -77,20 +84,20 @@ def scatter_memory(mem, ids, rows):
     n_dump = mem.shape[0] - 1
     ids = ids.long()
     dup = torch.tril(ids[:, None] == ids[None, :], diagonal=-1).any(1)
-    dump = torch.tensor([n_dump], device=mem.device)
     return mem.index_put((torch.where(dup, n_dump, ids),), rows
-                         ).index_fill(0, dump, 0.0)
+                         ).index_fill(0, _dump_index(n_dump, mem.device),
+                                      0.0)
 
 
 def scatter_last(last, ids, ts):
     """``last`` raised to the latest event time of each live id, with the
     dump row re-zeroed, out of place."""
     n_dump = last.shape[0] - 1
-    dump = torch.tensor([n_dump], device=last.device)
     live = ids < n_dump
     return last.scatter_reduce(0, ids.long(), torch.where(live, ts, 0.0),
                                "amax", include_self=True
-                               ).index_fill(0, dump, 0.0)
+                               ).index_fill(0, _dump_index(n_dump,
+                                                           last.device), 0.0)
 
 
 def flush_ref(ids, msg, ts, mem, last, wx, wh, bx, bh):

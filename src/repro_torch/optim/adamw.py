@@ -3,8 +3,11 @@ the same state layout ``{"step", "mu", "nu"}`` and the same order of float
 operations, so an update matches the JAX package's to rounding.
 
 ``opt.init(params) -> opt_state``; ``opt.update(grads, opt_state,
-params) -> (updates, opt_state)``; ``opt.apply`` adds the updates. Nothing
-is updated in place.
+params) -> (updates, opt_state)``; ``opt.apply`` adds the updates and
+returns new tensors. ``opt.apply_`` does the same float operations and
+writes the results into the given params and state, for a step that reads
+and writes only fixed tensors (the captured epoch programs of
+``tig/engine.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,17 @@ class Optimizer:
         """One-call update returning (new_params, new_state)."""
         updates, new_state = self.update(grads, opt_state, params)
         return tree_map(lambda p, u: p + u, params, updates), new_state
+
+    @torch.no_grad()
+    def apply_(self, grads, opt_state, params) -> None:
+        """``apply`` in place: the new moments and step count are copied
+        into ``opt_state`` and the updates added to ``params``, so both
+        end bitwise as ``apply`` returns them."""
+        updates, new_state = self.update(grads, opt_state, params)
+        for dst, src in zip(tree_leaves(opt_state), tree_leaves(new_state)):
+            dst.copy_(src)
+        for p, u in zip(tree_leaves(params), tree_leaves(updates)):
+            p.add_(u)
 
 
 def clip_by_global_norm(grads, max_norm: float):

@@ -2,15 +2,34 @@
 epoch and one forward-only scoring pass over a chronological batch
 program.
 
-The JAX package runs an epoch as one ``lax.scan``; PyTorch runs eagerly, so
-here an epoch is a Python loop over steps whose tensors stay on the
-device. Each step flushes the pending messages, embeds, decodes, takes the
-loss and its gradient with respect to the params only, and applies AdamW.
-The carried state is detached at every step boundary: it is a constant to
-the gradient, as in JAX. Losses stay on the device until the epoch ends.
-The card's flush updates ``mem`` and ``last`` in place, so each scan
-copies them once at entry: the caller's state stays as it was, as JAX's
-immutable arrays do.
+The JAX package compiles an epoch into one program (``jax.jit`` of a
+``lax.scan`` with donated carries). Here an epoch is one step body run
+``steps`` times over tensors the epoch owns (``_Epoch``): the params, the
+AdamW moments and step count, the model state, the (steps, ...) batch
+program staged once on the device, a 0-dim int32 step counter and the
+outputs. A step reads row ``counter`` of the batches by a device gather,
+samples its neighbor grids at ``counter`` (``ops.sample_roles``), flushes,
+embeds, decodes, takes the loss and its gradient with respect to the
+params only, applies AdamW in place, writes every new state entry, the
+loss or the logits back into the epoch's tensors, and advances the
+counter. It reads and writes nothing else, so:
+
+* ``make_train_epoch`` / ``make_eval_epoch`` on the card capture the step
+  once as a CUDA graph and replay it once a batch, the counterpart of
+  ``jax.jit`` over the scan body. The first call of a graph runs
+  ``WARMUP_STEPS`` steps eagerly on a side stream (kernel builds, their
+  shared-memory attributes, autograd's buffers), captures the step and
+  replays it for the rest; later calls replay every step. A capture that
+  fails raises: nothing runs eagerly in its place.
+* ``scan_train_epoch`` / ``scan_eval_stream`` run the same step in a plain
+  loop, with no graph. That is what the CPU runs, and on the card what
+  the graphed programs are held against. ``make_*`` on the CPU are these
+  loops.
+
+The carried state is a constant to the gradient, as in JAX. The card's
+flush updates ``mem`` and ``last`` in place, so every call copies the
+caller's tensors into the epoch's own: the caller's state stays as it
+was, as JAX's immutable arrays do, and each call returns new tensors.
 
 With ``tcsr`` (a staged ``ChronoNeighborIndex.device_export``) the batch
 program is raw edge records (``plan="device"``) and each step samples its
@@ -23,41 +42,39 @@ Not ported yet: the Alg.2 cycle and wrap-around modes
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.build import KERNELS
 from repro_torch.optim import Optimizer
+from repro_torch.tig.cache import lru_get
 from repro_torch.tig.models import TIGConfig, step_loss
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["sample_batch_neighbors", "scan_train_epoch", "scan_eval_stream"]
+__all__ = ["sample_batch_neighbors", "scan_train_epoch", "scan_eval_stream",
+           "make_train_epoch", "make_eval_epoch"]
 
 _ROLES = ("src", "dst", "neg")
+WARMUP_STEPS = 2        # eager steps before a capture (real steps)
+_GRAPHS_MAX = 4         # captured epochs a program keeps (LRU)
+_EVAL_PROGRAMS: dict = {}
+_EVAL_PROGRAMS_MAX = 32
 
 
-def _own_state(state: dict) -> dict:
-    """``state`` with copies of the tensors the flush updates in place."""
-    return {**state, "mem": state["mem"].clone(),
-            "last": state["last"].clone()}
-
-
-def _to_device(batches: dict, device) -> dict:
-    """A (steps, ...) numpy batch program as tensors on ``device``,
-    without the host-side ``labels``."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batches.items() if k != "labels"}
-
-
-def sample_batch_neighbors(batch: dict, tcsr: dict, batch_of: int,
+def sample_batch_neighbors(batch: dict, tcsr: dict, batch_of,
                            cfg: TIGConfig) -> dict:
     """Add device-sampled neighbor grids to a raw-edge batch.
 
     One (3B,) sample over src ++ dst ++ neg (``ops.sample_roles``, one
     launch on the card), with dead rows (padding / invalid) sampling node
     0 and their ids / edge rows masked to -1 (times are left as sampled),
-    exactly as the host planner fills its grids.
+    exactly as the host planner fills its grids. ``batch_of``: an int or
+    a 0-dim int32 tensor on the batch's device (read there on the card).
     """
     b = batch["src"].shape[0]
     nb, nt, ne = ops.sample_roles(tcsr, *(batch[r] for r in _ROLES),
@@ -72,9 +89,150 @@ def sample_batch_neighbors(batch: dict, tcsr: dict, batch_of: int,
     return out
 
 
+def _advance(counter: torch.Tensor) -> None:
+    """The step's last write: the next step reads the next batch."""
+    counter.add_(1)
+
+
+def _staged(batches: dict) -> dict:
+    """A (steps, ...) numpy batch program as CPU tensors, without the
+    host-side ``labels``."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in batches.items() if k != "labels"}
+
+
+class _Epoch:
+    """The tensors one epoch program owns, and its step.
+
+    ``opt`` None makes a scoring pass (no grads, (steps, B) logits out);
+    otherwise a training epoch ((steps,) losses out). ``tables`` and
+    ``tcsr`` are the caller's tensors, read in place (a captured graph
+    keeps their addresses, so ``_replayed`` keys its graphs by them)."""
+
+    def __init__(self, cfg: TIGConfig, opt, params, opt_state, state,
+                 batches: dict, tables: dict, tcsr, device):
+        self.cfg, self.opt, self.tables, self.tcsr = cfg, opt, tables, tcsr
+        self.device = device
+        train = opt is not None
+
+        def own(x):
+            return x.detach().to(device, copy=True)
+
+        self.params = tree_map(lambda x: own(x).requires_grad_(train),
+                               params)
+        self.opt_state = tree_map(own, opt_state) if train else None
+        self.state = {k: own(v) for k, v in state.items()}
+        self.batches = {k: own(v) for k, v in _staged(batches).items()}
+        self.steps, b = self.batches["src"].shape
+        self.counter = torch.zeros((), dtype=torch.int32, device=device)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.out = ({"loss": torch.zeros((self.steps,), **f32)} if train
+                    else {k: torch.zeros((self.steps, b), **f32)
+                          for k in ("pos_logit", "neg_logit")})
+        self.graph = None
+        self.per_replay: dict = {}
+
+    @torch.no_grad()
+    def load(self, params, opt_state, state, batches: dict) -> None:
+        """Copy a call's inputs into the epoch's tensors; counter to 0."""
+        for own, given in ((self.params, params),
+                           (self.opt_state, opt_state), (self.state, state)):
+            for d, s in zip(tree_leaves(own or {}), tree_leaves(given or {})):
+                d.copy_(s)
+        for k, v in _staged(batches).items():
+            self.batches[k].copy_(v)
+        self.counter.zero_()
+
+    def step(self) -> None:
+        """One step at batch ``counter``, reading and writing only the
+        epoch's tensors (and reading ``tables`` / ``tcsr``)."""
+        s = self.counter
+        at = s.view(1)
+        batch = {k: v.index_select(0, at)[0]
+                 for k, v in self.batches.items()}
+        if self.tcsr is not None:
+            batch = sample_batch_neighbors(batch, self.tcsr, s, self.cfg)
+        at = at.long()
+        # aliases of the state tensors without autograd history: the
+        # card's flush writes mem / last through them in place, and the
+        # epoch's own tensors stay plain leaves
+        state = {k: v.detach() for k, v in self.state.items()}
+        if self.opt is None:
+            with torch.no_grad():
+                _loss, (new, aux) = step_loss(self.params, state, batch,
+                                              self.tables, self.cfg)
+                for k, out in self.out.items():
+                    out.index_copy_(0, at, aux[k][None])
+        else:
+            leaves = tree_leaves(self.params)
+            with torch.enable_grad():
+                loss, (new, _aux) = step_loss(self.params, state, batch,
+                                              self.tables, self.cfg)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            # a leaf the loss does not reach (e.g. the time encoder of the
+            # memory-only flavors) has a zero gradient, as in JAX
+            it = iter(torch.zeros_like(p) if g is None else g
+                      for p, g in zip(leaves, grads))
+            self.opt.apply_(tree_map(lambda _: next(it), self.params),
+                            self.opt_state, self.params)
+            self.out["loss"].index_copy_(0, at, loss.detach()[None])
+        with torch.no_grad():
+            # the card's flush returns mem / last themselves, written in
+            # place; every other new entry is copied back
+            for k, v in new.items():
+                if v is not state[k]:
+                    self.state[k].copy_(v)
+            _advance(s)
+
+    def run_eager(self) -> None:
+        for _ in range(self.steps):
+            self.step()
+
+    def replay(self) -> None:
+        """The whole epoch through the step's CUDA graph: the first call
+        runs ``WARMUP_STEPS`` steps eagerly on a side stream and captures
+        the step; every step after those is one replay. Each replay adds
+        the kernel launches its capture recorded to ``KERNELS``."""
+        done = 0
+        if self.graph is None:
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                while done < min(WARMUP_STEPS, self.steps):
+                    self.step()
+                    done += 1
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            before = {n: k.launches for n, k in KERNELS.items()}
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self.step()
+            # the capture ran nothing: its launches count once a replay
+            for n, kern in KERNELS.items():
+                self.per_replay[n] = kern.launches - before[n]
+                kern.launches = before[n]
+            self.graph = graph
+        for _ in range(self.steps - done):
+            self.graph.replay()
+        for n, c in self.per_replay.items():
+            KERNELS[n].launches += c * (self.steps - done)
+
+    def result(self, copy: bool):
+        """The call's outputs; ``copy`` when the epoch's tensors will be
+        reused by a later call."""
+        def out(x):
+            return x.detach().clone() if copy else x.detach()
+
+        state = {k: out(v) for k, v in self.state.items()}
+        if self.opt is None:
+            return state, {k: out(v) for k, v in self.out.items()}
+        return (tree_map(out, self.params), tree_map(out, self.opt_state),
+                state, out(self.out["loss"]))
+
+
 def scan_train_epoch(params, opt_state, state, batches, tables, *,
                      cfg: TIGConfig, opt: Optimizer, tcsr=None, device=None):
-    """One training epoch over a (steps, ...) batch program.
+    """One training epoch over a (steps, ...) batch program, as a plain
+    loop of eager steps.
 
     ``params``, ``opt_state``, ``state`` and ``tables`` are tensor dicts on
     ``device`` (default ``"cuda"``; raises if there is no card and the
@@ -83,45 +241,101 @@ def scan_train_epoch(params, opt_state, state, batches, tables, *,
     with ``losses`` a (steps,) tensor on the device.
     """
     device = resolve_device(device)
-    bt = _to_device(batches, device)
-    state = _own_state(state)
-    losses = []
-    for s in range(bt["src"].shape[0]):
-        batch = {k: v[s] for k, v in bt.items()}
-        if tcsr is not None:
-            batch = sample_batch_neighbors(batch, tcsr, s, cfg)
-        state = {k: v.detach() for k, v in state.items()}
-        with torch.enable_grad():
-            p = tree_map(lambda x: x.detach().requires_grad_(), params)
-            loss, (state, _aux) = step_loss(p, state, batch, tables, cfg)
-            loss.backward()
-        # a leaf the loss does not reach (e.g. the time encoder of the
-        # memory-only flavors) has a zero gradient, as in JAX
-        grads = tree_map(
-            lambda x: torch.zeros_like(x) if x.grad is None else x.grad, p)
-        with torch.no_grad():
-            params, opt_state = opt.apply(grads, opt_state, params)
-        losses.append(loss.detach())
-    state = {k: v.detach() for k, v in state.items()}
-    return params, opt_state, state, torch.stack(losses)
+    epoch = _Epoch(cfg, opt, params, opt_state, state, batches, tables,
+                   tcsr, device)
+    epoch.run_eager()
+    return epoch.result(copy=False)
 
 
-@torch.no_grad()
 def scan_eval_stream(params, state, batches, tables, *, cfg: TIGConfig,
                      tcsr=None, device=None):
     """Forward-only pass over a chronological stream (memory keeps
-    updating, params frozen). Returns ``(state, aux)`` with ``aux`` holding
-    (steps, B) ``pos_logit`` / ``neg_logit`` on the device."""
+    updating, params frozen), as a plain loop of eager steps. Returns
+    ``(state, aux)`` with ``aux`` holding (steps, B) ``pos_logit`` /
+    ``neg_logit`` on the device."""
     device = resolve_device(device)
-    bt = _to_device(batches, device)
-    state = _own_state(state)
-    pos, neg = [], []
-    for s in range(bt["src"].shape[0]):
-        batch = {k: v[s] for k, v in bt.items()}
-        if tcsr is not None:
-            batch = sample_batch_neighbors(batch, tcsr, s, cfg)
-        _loss, (state, aux) = step_loss(params, state, batch, tables, cfg)
-        pos.append(aux["pos_logit"])
-        neg.append(aux["neg_logit"])
-    return state, {"pos_logit": torch.stack(pos),
-                   "neg_logit": torch.stack(neg)}
+    epoch = _Epoch(cfg, None, params, None, state, batches, tables, tcsr,
+                   device)
+    epoch.run_eager()
+    return epoch.result(copy=False)
+
+
+def _layout(tree) -> tuple:
+    """Shapes and dtypes of a tensor tree, in leaf order."""
+    return tuple((tuple(x.shape), x.dtype) for x in tree_leaves(tree))
+
+
+def _where(tree) -> tuple:
+    """Addresses, shapes and strides of the tensors a graph reads in
+    place (``tables``, ``tcsr``)."""
+    if tree is None:
+        return ()
+    return tuple((k, v.data_ptr(), tuple(v.shape), v.stride(), v.dtype)
+                 for k, v in sorted(tree.items()))
+
+
+def _replayed(graphs: dict, cfg, opt, params, opt_state, state, batches,
+              tables, tcsr, device):
+    """One call of a graphed program: the epoch captured for this stream
+    and shape (built on a miss), loaded with the call's inputs and
+    replayed; returns new tensors."""
+    key = (_layout(params), _layout(opt_state or {}), _layout(state),
+           tuple((k, v.shape, v.dtype.str) for k, v in sorted(
+               batches.items()) if k != "labels"),
+           _where(tables), _where(tcsr))
+    epoch = lru_get(graphs, key, _GRAPHS_MAX, lambda: _Epoch(
+        cfg, opt, params, opt_state, state, batches, tables, tcsr, device))
+    epoch.load(params, opt_state, state, batches)
+    epoch.replay()
+    return epoch.result(copy=True)
+
+
+def make_train_epoch(cfg: TIGConfig, opt: Optimizer, *, device=None):
+    """The training epoch program: ``(params, opt_state, state, batches,
+    tables, *, tcsr=None) -> (params, opt_state, state, losses)``, as
+    ``scan_train_epoch`` returns them.
+
+    On the card (``device`` defaults to ``"cuda"``; raises without one)
+    each stream and shape gets its own captured step, kept with the
+    program in ``.graphs`` (LRU, ``_GRAPHS_MAX``); on the CPU the program
+    is ``scan_train_epoch``."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return functools.partial(scan_train_epoch, cfg=cfg, opt=opt,
+                                 device=device)
+    graphs: dict = {}
+
+    def train_epoch(params, opt_state, state, batches, tables, *,
+                    tcsr=None):
+        return _replayed(graphs, cfg, opt, params, opt_state, state,
+                         batches, tables, tcsr, device)
+
+    train_epoch.graphs = graphs
+    return train_epoch
+
+
+def make_eval_epoch(cfg: TIGConfig, *, device=None):
+    """The scoring program: ``(params, state, batches, tables, *,
+    tcsr=None) -> (state, aux)``, as ``scan_eval_stream`` returns them.
+
+    Programs are cached per (cfg, device) with LRU eviction, as the JAX
+    package's: per-epoch validation and final scoring reuse one program
+    and its captured steps (train, val and test streams each get their
+    own: a graph keeps the addresses of its T-CSR). On the CPU the program
+    is ``scan_eval_stream``."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return functools.partial(scan_eval_stream, cfg=cfg, device=device)
+
+    def build():
+        graphs: dict = {}
+
+        def eval_epoch(params, state, batches, tables, *, tcsr=None):
+            return _replayed(graphs, cfg, None, params, None, state,
+                             batches, tables, tcsr, device)
+
+        eval_epoch.graphs = graphs
+        return eval_epoch
+
+    return lru_get(_EVAL_PROGRAMS, (dataclasses.astuple(cfg), str(device)),
+                   _EVAL_PROGRAMS_MAX, build)

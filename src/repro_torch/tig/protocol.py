@@ -16,7 +16,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.tig.batching import LocalStream
-from repro_torch.tig.engine import scan_eval_stream
+from repro_torch.tig.engine import make_eval_epoch
 from repro_torch.tig.evaluation import link_prediction_metrics
 from repro_torch.tig.graph import TemporalGraph
 from repro_torch.tig.models import TIGConfig
@@ -121,24 +121,29 @@ def split_views(source: TemporalGraph, train_frac: float = 0.70,
 
 
 def score_stream(params, cfg: TIGConfig, state, batches: dict, tables: dict,
-                 *, inductive_edge_mask: Optional[np.ndarray] = None,
+                 eval_epoch_fn=None, *,
+                 inductive_edge_mask: Optional[np.ndarray] = None,
                  tcsr: Optional[dict] = None, device=None) -> dict:
     """Run a chronological stream through the model (memory keeps
     updating, params frozen) and compute link-prediction metrics.
 
-    ``batches`` is a numpy (steps, ...) program that still carries the
-    host-side ``valid`` entries. ``inductive_edge_mask`` is aligned
-    THROUGH ``valid``: one entry per grid row (steps*B, filtered with
-    ``valid``) or one per scored edge (``valid.sum()``); any other length
-    raises. With ``tcsr`` (the staged T-CSR of THIS stream, history
-    included) each step samples its neighbor grids on the device.
+    ``eval_epoch_fn`` is the scoring program (``engine.make_eval_epoch``);
+    by default ``make_eval_epoch(cfg, device=device)``, on the card unless
+    ``device`` says otherwise. ``batches`` is a numpy (steps, ...)
+    program that still carries the host-side ``valid`` entries.
+    ``inductive_edge_mask`` is aligned THROUGH ``valid``: one entry per
+    grid row (steps*B, filtered with ``valid``) or one per scored edge
+    (``valid.sum()``); any other length raises. With ``tcsr`` (the staged
+    T-CSR of THIS stream, history included) each step samples its
+    neighbor grids on the device.
 
     Returns a dict with transductive AP/AUROC, inductive AP/AUROC when a
     mask is given, and the post-stream ``state`` (for continuing into the
     next split).
     """
-    state, aux = scan_eval_stream(params, state, batches, tables, cfg=cfg,
-                                  tcsr=tcsr, device=device)
+    if eval_epoch_fn is None:
+        eval_epoch_fn = make_eval_epoch(cfg, device=device)
+    state, aux = eval_epoch_fn(params, state, batches, tables, tcsr=tcsr)
     valid = np.asarray(batches["valid"]).reshape(-1)      # (steps*B,)
     pos = aux["pos_logit"].cpu().numpy().reshape(-1)[valid]
     neg = aux["neg_logit"].cpu().numpy().reshape(-1)[valid]

@@ -5,10 +5,12 @@ the paper's non-partitioned baseline ('Single-GPU' rows of Tab.III/IV).
 epoch, trains on the train split, and scores val and test continuing the
 epoch-end memory; the test split is scored whenever val AP improves. Each
 epoch plans on the host (numpy, the same RNG streams as the JAX package,
-so plans are bit-identical) and then runs ``engine.scan_train_epoch`` on
-the device. Planning and the device epoch run one after the other; the
-JAX package's prefetching worker is not ported yet, nor are checkpoints,
-node classification and ``train_sharded``.
+so plans are bit-identical) and then runs the epoch program of
+``engine.make_train_epoch`` on the device; val and test are scored by
+``engine.make_eval_epoch``'s, as in the JAX package. On the card both
+replay one captured CUDA graph a step. Planning and the device epoch run
+one after the other; the JAX package's prefetching worker is not ported
+yet, nor are checkpoints, node classification and ``train_sharded``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.optim import adamw
 from repro_torch.tig.batching import build_batch_program, make_tables
-from repro_torch.tig.engine import scan_train_epoch
+from repro_torch.tig.engine import make_eval_epoch, make_train_epoch
 from repro_torch.tig.graph import TemporalGraph
 from repro_torch.tig.models import TIGConfig, init_params, init_state
 from repro_torch.tig.protocol import score_stream, split_views
@@ -47,13 +49,13 @@ def _stage_tcsr(index: ChronoNeighborIndex, device) -> dict:
             for k, v in index.device_export().items()}
 
 
-def train_epoch(params, opt_state, state, batches, tables, *,
-                cfg: TIGConfig, opt, tcsr=None, device=None):
-    """One pass over a batch program; returns (params, opt_state, state,
-    mean loss over steps as a float)."""
-    params, opt_state, state, losses = scan_train_epoch(
-        params, opt_state, state, batches, tables, cfg=cfg, opt=opt,
-        tcsr=tcsr, device=device)
+def train_epoch(params, opt_state, state, batches, tables, epoch_fn,
+                tcsr=None):
+    """One pass over a batch program through ``epoch_fn`` (from
+    ``engine.make_train_epoch``); returns (params, opt_state, state, mean
+    loss over steps as a float)."""
+    params, opt_state, state, losses = epoch_fn(
+        params, opt_state, state, batches, tables, tcsr=tcsr)
     return params, opt_state, state, float(losses.mean())
 
 
@@ -67,6 +69,7 @@ class SingleResult:
     params: dict
     state: dict
     cfg: TIGConfig
+    plan_seconds: list[float]
 
 
 def train_single(
@@ -89,7 +92,9 @@ def train_single(
     ``init_params``' keys, e.g. converted from the JAX package); by default
     they are drawn from a ``torch.Generator`` seeded with ``seed``.
     ``device`` defaults to ``"cuda"`` and raises without a card.
-    ``epoch_seconds`` covers planning and the device epoch, synchronized.
+    ``epoch_seconds`` covers planning and the device epoch, synchronized;
+    ``plan_seconds`` is the planning part of each (the host's batch
+    program and the state reset).
     """
     if plan not in ("host", "device"):
         raise ValueError(f"plan={plan!r}: expected 'host' or 'device'")
@@ -102,12 +107,17 @@ def train_single(
     if params is None:
         params = init_params(torch.Generator().manual_seed(seed), cfg, device)
     else:
-        params = tree_map(lambda x: torch.as_tensor(x).to(device), params)
+        # copies: nothing may write into the caller's tensors
+        params = tree_map(
+            lambda x: torch.as_tensor(x).detach().to(device, copy=True),
+            params)
     opt = adamw(lr=lr, max_grad_norm=1.0)
     opt_state = opt.init(params)
+    epoch_fn = make_train_epoch(cfg, opt, device=device)
+    eval_fn = make_eval_epoch(cfg, device=device)
 
     neg_pool = splits.neg_pool
-    epoch_secs, losses = [], []
+    epoch_secs, plan_secs, losses = [], [], []
     best = {"val_ap": -1.0}
 
     # device planning: the train index is epoch-invariant (no history) and
@@ -127,9 +137,10 @@ def train_single(
             tr_stream, cfg, epoch_rng(seed, ep, 1), neg_pool=neg_pool,
             index=tr_index, plan=plan)
         state = init_state(cfg, g.num_nodes, device)  # Alg.2: reset
+        plan_secs.append(time.perf_counter() - t0)
         params, opt_state, state, loss = train_epoch(
-            params, opt_state, state, tr_batches, tables, cfg=cfg, opt=opt,
-            tcsr=tcsr.get("train"), device=device)
+            params, opt_state, state, tr_batches, tables, epoch_fn,
+            tcsr=tcsr.get("train"))
         epoch_secs.append(time.perf_counter() - t0)
         losses.append(loss)
 
@@ -145,7 +156,7 @@ def train_single(
             history=None if plan == "device" else hist,
             neg_pool=neg_pool, index=idx.get("val"), plan=plan)
         res_val = score_stream(params, cfg, state, val_batches, tables,
-                               tcsr=tcsr.get("val"), device=device)
+                               eval_fn, tcsr=tcsr.get("val"))
         if res_val["ap"] > best["val_ap"]:
             if plan == "device" and "test" not in idx:
                 idx["test"] = ChronoNeighborIndex(
@@ -158,9 +169,9 @@ def train_single(
                 history=None if plan == "device" else hist_val,
                 neg_pool=neg_pool, index=idx.get("test"), plan=plan)
             res_test = score_stream(
-                params, cfg, res_val["state"], test_batches, tables,
+                params, cfg, res_val["state"], test_batches, tables, eval_fn,
                 inductive_edge_mask=splits.inductive_edge_mask(test_stream),
-                tcsr=tcsr.get("test"), device=device)
+                tcsr=tcsr.get("test"))
             best = {
                 "val_ap": res_val["ap"],
                 "test_ap": res_test["ap"],
@@ -177,4 +188,5 @@ def train_single(
         params=params,
         state=state,
         cfg=cfg,
+        plan_seconds=plan_secs,
     )

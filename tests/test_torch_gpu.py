@@ -384,6 +384,161 @@ def test_train_single_on_card_matches_cpu(cuda):
     assert abs(on_card.test_ap - on_cpu.test_ap) < 1e-3
 
 
+TIG_KERNELS = ("neighbor_sample", "fused_flush", "temporal_attn",
+               "temporal_attn_bwd", "fused_gru_bwd")
+
+
+def _tiny_epochs(dev, flavor, plan="device"):
+    """A narrow model on ``synthetic_tig("tiny")``: the train program and
+    the val program (each with its staged T-CSR under ``plan="device"``),
+    tables, params from a seed and a fresh state."""
+    from repro_torch.tig.batching import build_batch_program, make_tables
+    from repro_torch.tig.data import synthetic_tig
+    from repro_torch.tig.models import init_state
+    from repro_torch.tig.protocol import split_views
+    from repro_torch.tig.train import epoch_rng
+
+    g = synthetic_tig("tiny")
+    cfg = TIGConfig(flavor=flavor, dim=16, dim_time=8, dim_edge=16,
+                    dim_node=16, num_neighbors=4, n_heads=2, batch_size=50)
+    sp = split_views(g)
+    out = {"cfg": cfg, "state": init_state(cfg, g.num_nodes, dev),
+           "params": init_params(torch.Generator().manual_seed(0), cfg, dev),
+           "tables": {k: torch.from_numpy(v).to(dev) for k, v in
+                      make_tables(g.edge_feat, g.node_feat).items()}}
+    hist = None
+    for i, (name, view) in enumerate((("train", sp.train), ("val", sp.val))):
+        index = ChronoNeighborIndex(view.src, view.dst, view.t, view.eidx,
+                                    g.num_nodes, cfg.num_neighbors,
+                                    cfg.batch_size, history=hist)
+        # as train_single plans: the device plan continues the staged
+        # index, the host plan the history
+        prog, hist = build_batch_program(
+            view, cfg, epoch_rng(0, 0, i + 1),
+            history=None if plan == "device" else hist,
+            neg_pool=sp.neg_pool,
+            index=index if plan == "device" else None, plan=plan)
+        out[name] = (prog, {k: torch.from_numpy(v).to(dev) for k, v in
+                            index.device_export().items()}
+                     if plan == "device" else None)
+    return out
+
+
+@pytest.mark.parametrize("flavor,plan", [(f, "device") for f in (
+    "jodie", "dyrep", "tgn", "tige")] + [("tgn", "host")])
+def test_graphed_epochs_match_eager(cuda, flavor, plan):
+    """``make_train_epoch`` / ``make_eval_epoch`` (a captured step, replayed)
+    against ``scan_train_epoch`` / ``scan_eval_stream`` (the same step,
+    eager) on the card: the same kernels in the same order, so losses,
+    params, memory and logits agree to 1e-4 (atomics in some of the
+    library's kernels may reorder sums); the attention's key bias, whose
+    gradient is float32 noise, is not compared."""
+    from repro_torch.optim import adamw
+    from repro_torch.tig import engine
+
+    t = _tiny_epochs(cuda, flavor, plan)
+    cfg, params, state, tables = t["cfg"], t["params"], t["state"], t["tables"]
+    (prog, tcsr), (vprog, vtcsr) = t["train"], t["val"]
+    opt = adamw(lr=1e-3, max_grad_norm=1.0)
+    graphed = engine.make_train_epoch(cfg, opt)(
+        params, opt.init(params), state, prog, tables, tcsr=tcsr)
+    eager = engine.scan_train_epoch(params, opt.init(params), state, prog,
+                                    tables, cfg=cfg, opt=opt, tcsr=tcsr)
+    assert _max_diff([graphed[3]], [eager[3]]) < 1e-4
+    for key in ("mem", "mem2", "last", "pend_raw"):
+        assert _max_diff([graphed[2][key]], [eager[2][key]]) < 1e-4, key
+    assert torch.equal(graphed[2]["pend_ids"], eager[2]["pend_ids"])
+    for tree_g, tree_e in ((graphed[0], eager[0]),
+                           (graphed[1]["mu"], eager[1]["mu"])):
+        for part in tree_g:
+            for name, x in _named(tree_g[part]):
+                if (part, name) != ("attn", "k/b"):
+                    assert _max_diff([x], [_get(tree_e[part], name)]
+                                     ) < 1e-4, (part, name)
+    assert int(graphed[1]["step"]) == prog["src"].shape[0]
+
+    g_state, g_aux = engine.make_eval_epoch(cfg)(
+        eager[0], eager[2], vprog, tables, tcsr=vtcsr)
+    e_state, e_aux = engine.scan_eval_stream(eager[0], eager[2], vprog,
+                                             tables, cfg=cfg, tcsr=vtcsr)
+    for key in ("pos_logit", "neg_logit"):
+        assert g_aux[key].shape == vprog["src"].shape
+        assert _max_diff([g_aux[key]], [e_aux[key]]) < 1e-4
+    assert _max_diff([g_state["mem"]], [e_state["mem"]]) < 1e-4
+
+
+def _named(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in _named(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def _get(tree, name):
+    for k in name.split("/"):
+        tree = tree[k] if isinstance(tree, dict) else tree
+    return tree
+
+
+def test_graphed_epoch_reuses_its_graph(cuda):
+    """A second call replays the graph the first captured (no new
+    capture) from the same inputs, and gives the same result: TGN's step
+    has no atomic sum, so bitwise."""
+    from repro_torch.optim import adamw
+    from repro_torch.tig import engine
+
+    t = _tiny_epochs(cuda, "tgn")
+    cfg, params, state, tables = t["cfg"], t["params"], t["state"], t["tables"]
+    prog, tcsr = t["train"]
+    opt = adamw(lr=1e-3, max_grad_norm=1.0)
+    fn = engine.make_train_epoch(cfg, opt)
+    first = fn(params, opt.init(params), state, prog, tables, tcsr=tcsr)
+    (epoch,) = fn.graphs.values()
+    graph = epoch.graph
+    second = fn(params, opt.init(params), state, prog, tables, tcsr=tcsr)
+    assert len(fn.graphs) == 1 and epoch.graph is graph
+    assert torch.equal(first[3], second[3])
+    for key in ("mem", "last", "pend_raw"):
+        assert torch.equal(first[2][key], second[2][key]), key
+    for (name, x), (_, y) in zip(_named(first[0]), _named(second[0])):
+        assert torch.equal(x, y), name
+    # another stream (the val program, its own T-CSR) gets its own graph
+    ev = engine.make_eval_epoch(cfg)
+    vprog, vtcsr = t["val"]
+    ev(first[0], first[2], vprog, tables, tcsr=vtcsr)
+    ev(first[0], first[2], prog, tables, tcsr=tcsr)
+    assert len(ev.graphs) >= 2
+
+
+def test_graphed_launch_counts_add_up_per_replay(cuda):
+    """The host counts a captured launch once; the program adds the
+    capture's launches once a replay, so the counts are the launches on
+    the device: one of each TIG kernel a train step, the backward ones
+    only in training."""
+    from repro_torch.optim import adamw
+    from repro_torch.tig import engine
+
+    t = _tiny_epochs(cuda, "tgn")
+    cfg, params, state, tables = t["cfg"], t["params"], t["state"], t["tables"]
+    (prog, tcsr), (vprog, vtcsr) = t["train"], t["val"]
+    steps, vsteps = prog["src"].shape[0], vprog["src"].shape[0]
+    opt = adamw(lr=1e-3, max_grad_norm=1.0)
+    fn = engine.make_train_epoch(cfg, opt)
+    before = {n: KERNELS[n].launches for n in TIG_KERNELS}
+    for call in (1, 2):
+        out = fn(params, opt.init(params), state, prog, tables, tcsr=tcsr)
+        torch.cuda.synchronize()
+        for n in TIG_KERNELS:
+            assert KERNELS[n].launches - before[n] == call * steps, n
+    (epoch,) = fn.graphs.values()
+    assert all(epoch.per_replay[n] == 1 for n in TIG_KERNELS)
+    before = {n: KERNELS[n].launches for n in TIG_KERNELS}
+    engine.make_eval_epoch(cfg)(out[0], out[2], vprog, tables, tcsr=vtcsr)
+    for n in TIG_KERNELS:
+        want = 0 if n in ("temporal_attn_bwd", "fused_gru_bwd") else vsteps
+        assert KERNELS[n].launches - before[n] == want, n
+
+
 def _wkv_args(dev, b, h, s, with_state, dtype, strong=False, seed=3):
     gen = torch.Generator(device=dev).manual_seed(seed)
 

@@ -74,6 +74,10 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         engine.scan_eval_stream({}, {}, {}, {}, cfg=cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
+        engine.make_train_epoch(cfg, None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.make_eval_epoch(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
         protocol.score_stream({}, cfg, {}, {}, {})
     lm = get_config("rwkv6-1.6b", reduced=True)
     params = model.init_params(torch.Generator(), lm, device="cpu")

@@ -216,6 +216,7 @@ def test_scans_leave_the_callers_state_unchanged(monkeypatch):
     ``FusedFlush`` and its in-place plain forward."""
     from repro_torch.kernels import fused_flush as tflush
     from repro_torch.kernels import ops
+    from repro_torch.tig.engine import make_train_epoch
     from repro_torch.tig.protocol import score_stream
     from repro_torch.tig.train import train_epoch
 
@@ -262,7 +263,8 @@ def test_scans_leave_the_callers_state_unchanged(monkeypatch):
     opt = adamw(lr=1e-3, max_grad_norm=1.0)
     for run in (
             lambda s: train_epoch(params, opt.init(params), s, prog, tables,
-                                  cfg=cfg, opt=opt, device="cpu")[2],
+                                  make_train_epoch(cfg, opt,
+                                                   device="cpu"))[2],
             lambda s: score_stream(params, cfg, s, prog, tables,
                                    device="cpu")["state"]):
         state = fresh_state()
