@@ -48,6 +48,24 @@ Phases, each fatal on failure:
      whose step counter never advances that must fail; then where a
      train step's time goes, graphed and eager (unprofiled wall, host
      and device time per step, idle share, ops per step, kernels);
+ 5b. SEP and PAC: the SEP partitioner on the train split for 4 and 2
+     parts, timed, with RF, EC and edges per part; a small ``pac_train``
+     (2 parts of ``tiny``, 2 epochs) on the card against the CPU; then the
+     PAC paths at the paper's widths, ``pac_train(train split, SEP parts,
+     TIG, num_devices=P, epochs=1, eval_graph=g)`` for P 4 and 2 — each
+     lockstep step one step over the union of the P partitions (P x B
+     rows), a replay of its captured CUDA graph — with launches counted
+     from zero around each and held to the steps, epoch seconds
+     (planning and device apart), AP (val above 0.7) and peak memory,
+     printed beside ``train_single``'s; the graphed PAC epoch against the
+     eager loop over the whole P 4 epoch (wrap-around and Alg.2 backups
+     included), bitwise, and a second graphed call bitwise, with a control
+     that must fail (every device read and sampled at the shared step s in
+     place of s % n_batches[k]); the kernels at a PAC step's shapes (the
+     roles-form sampling with a per-row batch index bitwise, the flush at
+     2PB rows with its backward timed, both attention kernels at 3PB
+     rows); and where a PAC step's time goes at P 4 and 2 (40 graphed
+     steps, profiled);
   6. the WKV kernels (``ops.rwkv6`` takes the chunked kernel for S >= 64
      and the sequential one below) against their plain versions at the
      RWKV6 path's shapes (decode S 1 with a state, a ragged S 100 with a
@@ -159,6 +177,8 @@ ATTN_SHAPES = (       # (label, B, K, H, D) beside the TGN path's (600, 10, 2, 8
 # StarCoder2-3B forward on (2, 8192) tokens: (B, S, H, Hkv, D, window)
 FLASH_PATH = (2, 8192, 24, 2, 128, 4096)
 GRAPH_STEPS = 40      # train steps of phase 5's graph checks, profile
+PAC_PARTS = (4, 2)    # SEP parts (= devices) of phase 5b's PAC paths
+PAC_SEP_K = 0.05      # SEP's top-k hub fraction (paper §III-B default)
 
 
 def card_line() -> str:
@@ -1030,6 +1050,302 @@ def print_profile(label: str, run, steps: int, plain_wall: float) -> dict:
             "ops": len(spans) / steps}
 
 
+def pac_partitions(g) -> tuple:
+    """Phase 5b's partitioner: SEP on the train split for each of
+    PAC_PARTS, timed, with its partition statistics (RF, EC, edges and
+    nodes per part, shared nodes, Thm.1's RF bound)."""
+    from repro_torch.core import (partition_stats, replication_factor,
+                                  sep_partition, thm1_rf_bound)
+    from repro_torch.tig.graph import chronological_split
+
+    train_g = chronological_split(g)[0]
+    parts = {}
+    for p in PAC_PARTS:
+        t0 = time.perf_counter()
+        part = sep_partition(train_g.src, train_g.dst, train_g.t,
+                             g.num_nodes, p, k=PAC_SEP_K)
+        secs = time.perf_counter() - t0
+        st = partition_stats(part)
+        print(f"SEP {p} parts (k {PAC_SEP_K}) on the train split "
+              f"({train_g.num_edges} edges): {secs:.3f} s on the host; RF "
+              f"{st.replication_factor:.4f} over placed nodes, "
+              f"{replication_factor(part, 'all'):.4f} over all (Thm.1 "
+              f"bound {thm1_rf_bound(PAC_SEP_K, p):.2f}), EC "
+              f"{st.edge_cut:.4f}, "
+              f"edges per part {part.edge_counts().tolist()}, nodes per "
+              f"part {part.node_counts().tolist()}, {st.num_shared} shared")
+        parts[p] = part
+    return train_g, parts
+
+
+def pac_path(torch, kernels, g, train_g, part, cfg) -> dict:
+    """One PAC path: ``pac_train(train_g, part, cfg, num_devices=P,
+    epochs=1, eval_graph=g)`` with the launch counts set to 0 right
+    before and read right after; epoch seconds (planning and the device
+    epoch apart), AP, peak memory; the launches must be those the steps
+    imply: one of each forward kernel a lockstep step and a scoring step
+    of val and test (host-planned: no sampling), one of each backward a
+    lockstep step."""
+    import numpy as np
+
+    from repro_torch.tig.distributed import pac_train
+    from repro_torch.tig.protocol import split_views
+
+    p = part.num_parts
+    reset_counts(torch, kernels)
+    t0 = time.perf_counter()
+    res = pac_train(train_g, part, cfg, num_devices=p, epochs=1,
+                    eval_graph=g)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: kernels[n].launches for n in TIG_PATH}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    ep, m = res.plan, res.metrics
+    device_s = [e - q for e, q in zip(res.epoch_seconds, res.plan_seconds)]
+    print(f"PAC path, P {p}: pac_train TGN (dim {cfg.dim}, batch "
+          f"{cfg.batch_size}) on {p} SEP parts, one epoch of {ep.steps} "
+          f"lockstep steps over {p} x {cfg.batch_size} rows: mean loss "
+          f"{res.mean_loss_per_epoch().tolist()}, val_ap {m['val_ap']:.6f}, "
+          f"test_ap {m['test_ap']:.6f}, test_ap_inductive "
+          f"{m['test_ap_inductive']:.6f}; epoch_seconds "
+          f"{res.epoch_seconds} (plan {res.plan_seconds}, device epoch "
+          f"and sync {device_s}), wall with scoring {wall:.3f} s, peak "
+          f"{peak:.1f} MiB")
+    print(f"  plan: cap {ep.capacity}, e_cap {ep.edge_capacity}, n_batches "
+          f"{ep.n_batches.tolist()}, edges per device "
+          f"{ep.edges_per_device.tolist()}, derived_speedup "
+          f"{res.derived_speedup:.4f}, {ep.plan_bytes() / 2**20:.1f} MiB of "
+          f"grid and T-CSR")
+    print(f"  kernels launched on the PAC path, P {p}: {launches}")
+    sp = split_views(g)
+    scored = sum(-(-len(v.src) // cfg.batch_size) for v in sp.views[1:])
+    want = {n: ep.steps if n != "fused_flush" and n != "temporal_attn"
+            else ep.steps + scored for n in TIG_PATH}
+    if launches != want:
+        raise AssertionError(f"launches on the PAC path {launches}, "
+                             f"expected {want}")
+    losses = np.concatenate([x.ravel() for x in res.losses])
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite PAC loss at P {p}")
+    if not (0.7 < m["val_ap"] <= 1.0 and 0.6 < m["test_ap"] <= 1.0):
+        raise AssertionError(f"PAC AP too low at P {p}: {m['val_ap']}, "
+                             f"{m['test_ap']}")
+    return dict(res=res, launches=launches, wall=wall, peak=peak)
+
+
+def pac_union(g, train_g, part, cfg, steps=None) -> tuple:
+    """Epoch 0's plan of a PAC path (device-planned, as ``pac_train``
+    draws it; ``steps`` cuts it to that many lockstep steps) and its
+    union."""
+    from repro_torch.tig.distributed import plan_epoch, union_plan
+    from repro_torch.tig.protocol import time_scale_of
+    from repro_torch.tig.train import epoch_rng
+
+    ep = plan_epoch(train_g, part.node_lists(), part.shared_nodes, cfg,
+                    epoch_rng(0, 0, 11), steps_override=steps,
+                    time_scale=time_scale_of(train_g.t), plan="device")
+    return ep, union_plan(ep, cfg)
+
+
+def pac_graph_checks(torch, kernels, ep, union, cfg) -> dict:
+    """The graphed PAC epoch (``make_pac_epoch``: one captured step,
+    replayed) against the eager loop (``scan_pac_epoch``) over a whole
+    epoch at P parts, wrap-around and cycle backups included, from the
+    same inputs: losses, params and states bitwise; a second graphed call
+    bitwise equal to the first; each TIG kernel launched once a lockstep
+    step in each call. Then a control must fail: every device reads and
+    samples at the shared step s (its row ``(offsets[k] + s) mod rows``)
+    in place of ``s % n_batches[k]``."""
+    from repro_torch.optim import adamw
+    from repro_torch.tig import distributed as td
+    from repro_torch.tig.models import init_params
+
+    opt = adamw(1e-3, max_grad_norm=1.0)
+    params = init_params(torch.Generator().manual_seed(0), cfg, "cuda")
+    steps, p = ep.steps, union["parts"]
+
+    def counted(run):
+        for kern in kernels.values():
+            kern.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        return out, {n: kernels[n].launches for n in TIG_PATH}
+
+    eager, n_eager = counted(lambda: td.scan_pac_epoch(
+        params, opt.init(params), union, cfg=cfg, opt=opt))
+    fn = td.make_pac_epoch(cfg, opt)
+    first, n_first = counted(lambda: fn(params, opt.init(params), union))
+    second, n_second = counted(lambda: fn(params, opt.init(params), union))
+    (epoch,) = fn.graphs.values()
+    d_loss = max_err([first[3]], [eager[3]])
+    d_all = tree_diff(first, eager)
+    d_repeat = tree_diff(first, second)
+    wraps = int((ep.n_batches < steps).sum())
+    print(f"PAC graphed vs eager, P {p}, the whole epoch ({steps} lockstep "
+          f"steps, {wraps} devices wrap round): max |loss diff| "
+          f"{d_loss:.3g}, all outputs {d_all:.3g}; two graphed calls "
+          + ("bitwise equal" if d_repeat == 0.0 else
+             f"differ by {d_repeat:.3g}")
+          + f"; launches a call eager {n_eager}, graphed {n_first} / "
+          f"{n_second} (per replay {epoch.per_replay})")
+    if d_all != 0.0 or d_repeat != 0.0:
+        raise AssertionError(f"graphed and eager PAC epochs differ: "
+                             f"{d_all}, repeat {d_repeat}")
+    if not n_eager == n_first == n_second or any(
+            n_eager[n] != steps for n in TIG_PATH):
+        raise AssertionError(f"PAC launches differ: eager {n_eager}, "
+                             f"graphed {n_first}, {n_second}")
+
+    class SharedIndex(td._PACEpoch):
+        def _batch_index(self, s):
+            rows = (self.offsets + s) % self.batches["src"].shape[0]
+            return s.expand(self.parts), rows.long()
+
+    ctrl = SharedIndex(cfg, opt, params, opt.init(params), union,
+                       torch.device("cuda"))
+    ctrl.run_eager()
+    d_ctrl = max_err([ctrl.result(copy=False)[3]], [eager[3]])
+    print(f"control, the shared step s for every device in place of "
+          f"s % n_batches[k]: max |loss diff| {d_ctrl:.3g}")
+    if d_ctrl <= 1e-4:
+        raise AssertionError("the shared-index control passed the check")
+    return dict(d_loss=d_loss, d_repeat=d_repeat, d_ctrl=d_ctrl)
+
+
+def pac_profile(torch, union, cfg) -> dict:
+    """Where a PAC step's time goes: GRAPH_STEPS lockstep steps through
+    the graphed program, warm, unprofiled then under ``torch.profiler``
+    (host and device time per step, idle share, ops, kernels)."""
+    from repro_torch.optim import adamw
+    from repro_torch.tig.distributed import make_pac_epoch
+    from repro_torch.tig.models import init_params
+
+    opt = adamw(1e-3, max_grad_norm=1.0)
+    params = init_params(torch.Generator().manual_seed(0), cfg, "cuda")
+    fn = make_pac_epoch(cfg, opt)
+
+    def run():
+        return fn(params, opt.init(params), union)
+
+    walls = []
+    for _ in range(3):
+        run()                            # the first captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    steps = union["steps"]
+    out = print_profile(f"{steps} PAC steps, P {union['parts']}, graphed",
+                        run, steps, min(walls))
+    print(f"  unprofiled ms/step over the timed runs: "
+          + " / ".join(f"{w / steps:.3f}" for w in walls))
+    return out
+
+
+def pac_kernel_checks(torch, dev, ep, union, cfg) -> dict:
+    """The TIG kernels at a PAC step's shapes (P x B rows), each against
+    its plain version on the card: the roles-form sampling with a per-row
+    batch index (a step where a device has wrapped round) bitwise, one
+    launch a call, two calls equal; the flush at the step's 2PB pending
+    rows (``flush_checks``: forward, gradients, and the backward's time,
+    whose R x R product grows as P^2); both attention kernels at its 3PB
+    rows with the sampled mask."""
+    import numpy as np
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.neighbor_sample import sample_roles_fwd
+    from repro_torch.kernels.temporal_attn import (temporal_attn_bwd,
+                                                    temporal_attn_fwd)
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    p, cap, b, k = union["parts"], union["capacity"], cfg.batch_size, \
+        cfg.num_neighbors
+    s = int(ep.n_batches.min())            # a device has wrapped round
+    at = s % ep.n_batches
+    rows = ep.offsets + at
+    bt = {x: union["batches"][x][rows].reshape(-1)
+          for x in ("src", "dst", "neg", "valid", "t")}
+    tcsr = {x: torch.from_numpy(v).to(dev)
+            for x, v in union["tcsr"].items()}
+    ts = ("indptr", "nbr", "t", "eidx", "bat")
+    raw = {x: torch.from_numpy(np.ascontiguousarray(bt[x])).to(dev)
+           for x in ("src", "dst", "neg", "valid")}
+    batch_of = torch.from_numpy(np.tile(np.repeat(at, b), 3).astype(
+        np.int32)).to(dev)
+    a = (*(tcsr[x] for x in ts), *raw.values(), batch_of, k)
+    got = sample_exact(torch, f"roles, PAC step {s}, per-row batch index",
+                       lambda: sample_roles_fwd(*a),
+                       ref.sample_roles_ref(*a))
+    roles = timings(lambda: sample_roles_fwd(*a))
+    print(f"neighbor_sample: roles form exact at PAC step {s} (P {p}, "
+          f"{3 * p * b} rows, batch indices {at.tolist()}); "
+          f"{roles['ms'] * 1e3:.2f} us per call")
+
+    n_dump = p * cap
+    ids = np.concatenate([bt["src"], bt["dst"]])
+    ids = np.where(np.tile(bt["valid"], 2) & (ids >= 0), ids, n_dump)
+    flush = flush_checks(torch, dev, ids, np.tile(bt["t"], 2), n_dump,
+                         cfg.dim, cfg.msg_dim, randn)
+    mask = got[0] >= 0
+    h, dh = cfg.n_heads, cfg.dim // cfg.n_heads
+    q, kk, vv, gout = (randn(3 * p * b, h, dh), randn(3 * p * b, k, h, dh),
+                       randn(3 * p * b, k, h, dh), randn(3 * p * b, h, dh))
+    attn_check(torch, f"PAC P {p}", q, kk, vv, gout, mask)
+    fwd = timings(lambda: temporal_attn_fwd(q, kk, vv, mask))
+    bwd = timings(lambda: temporal_attn_bwd(gout, q, kk, vv, mask))
+    print(f"temporal_attn at PAC P {p} ({3 * p * b} rows): forward "
+          f"{fwd['ms'] * 1e3:.2f} us, backward {bwd['ms'] * 1e3:.2f} us "
+          f"per call")
+    return {"neighbor_sample": {"pac_roles_ms": roles["ms"]},
+            "fused_flush": {"pac_ms": flush["kernel"]["ms"],
+                            "pac_bwd_ms": flush["extra"]["bwd_ms"],
+                            "pac_rows": int(ids.shape[0])},
+            "temporal_attn": {"pac_ms": fwd["ms"]},
+            "temporal_attn_bwd": {"pac_ms": bwd["ms"]}}
+
+
+def pac_small_agreement(torch) -> None:
+    """Phase 5b's small run: ``pac_train`` on 2 SEP parts of ``tiny`` on
+    2 devices, a narrow TGN, two epochs, on the card and on the CPU
+    (plain versions) from the same params."""
+    import numpy as np
+
+    from repro_torch.core import sep_partition
+    from repro_torch.tig.data import synthetic_tig
+    from repro_torch.tig.distributed import pac_train
+    from repro_torch.tig.graph import chronological_split
+    from repro_torch.tig.models import TIGConfig, init_params
+
+    g = synthetic_tig("tiny")
+    tr = chronological_split(g)[0]
+    cfg = TIGConfig(flavor="tgn", dim=16, dim_time=8, dim_edge=16,
+                    dim_node=16, num_neighbors=4, n_heads=2, batch_size=50)
+    part = sep_partition(tr.src, tr.dst, tr.t, g.num_nodes, 2, k=PAC_SEP_K)
+    p0 = init_params(torch.Generator().manual_seed(0), cfg)
+    kw = dict(num_devices=2, epochs=2, eval_graph=g, params=p0)
+    gpu = pac_train(tr, part, cfg, **kw)
+    cpu = pac_train(tr, part, cfg, device="cpu", **kw)
+    d_loss = max(float(np.abs(a - b).max())
+                 for a, b in zip(gpu.losses, cpu.losses))
+    d_mem = tree_diff({k: v.cpu() for k, v in gpu.memory_states.items()},
+                      cpu.memory_states)
+    d_ap = max(abs(gpu.metrics[k] - cpu.metrics[k])
+               for k in ("val_ap", "test_ap"))
+    print(f"PAC small agreement (card vs CPU, P 2, 2 epochs of "
+          f"{gpu.plan.steps} steps): max |loss diff| {d_loss:.3g}, memory "
+          f"{d_mem:.3g}, val_ap {gpu.metrics['val_ap']:.6f} vs "
+          f"{cpu.metrics['val_ap']:.6f}, test_ap "
+          f"{gpu.metrics['test_ap']:.6f} vs {cpu.metrics['test_ap']:.6f}")
+    if not (d_loss <= 1e-4 and d_mem <= 1e-4 and d_ap <= 1e-3):
+        raise AssertionError(f"PAC card and CPU disagree: loss {d_loss}, "
+                             f"memory {d_mem}, AP {d_ap}")
+
+
 def small_agreement(torch):
     """Phase 4: the port on the card (kernels) against the port on the CPU
     (plain versions), one epoch of a narrow TGN on ``tiny``."""
@@ -1749,6 +2065,35 @@ def main() -> int:
     profile_train_steps(torch, p, TIG)
     del p
 
+    # phase 5b: SEP, then PAC on one card at P = 4 and 2, each path
+    # counted from zero
+    train_g, parts = pac_partitions(g)
+    pac_small_agreement(torch)
+    by_path = {"train_single": {n: launches[n] for n in TIG_PATH}}
+    pac = {}
+    for n_parts in PAC_PARTS:
+        pac[n_parts] = pac_path(torch, KERNELS, g, train_g, parts[n_parts],
+                                TIG)
+        by_path[f"pac_p{n_parts}"] = pac[n_parts]["launches"]
+    print("PAC beside train_single (one epoch, NVIDIA card above): "
+          + "; ".join(
+              [f"train_single {res.epoch_seconds[0]:.4f} s, val_ap "
+               f"{res.val_ap:.6f}, test_ap {res.test_ap:.6f}"]
+              + [f"P {n} {r['res'].epoch_seconds[0]:.4f} s (plan "
+                 f"{r['res'].plan_seconds[0]:.4f} s), val_ap "
+                 f"{r['res'].metrics['val_ap']:.6f}, test_ap "
+                 f"{r['res'].metrics['test_ap']:.6f}, peak "
+                 f"{r['peak']:.1f} MiB" for n, r in pac.items()]))
+    ep4, union4 = pac_union(g, train_g, parts[PAC_PARTS[0]], TIG)
+    pac_graph_checks(torch, KERNELS, ep4, union4, TIG)
+    pac_extra = pac_kernel_checks(torch, dev, ep4, union4, TIG)
+    del ep4, union4
+    for n_parts in PAC_PARTS:
+        pac_profile(torch, pac_union(g, train_g, parts[n_parts], TIG,
+                                     steps=GRAPH_STEPS)[1], TIG)
+    for n in TIG_PATH:
+        launches[n] = sum(c[n] for c in by_path.values())
+
     wkv = wkv_checks(torch, dev)
     for r in wkv:
         print_kernel(r)
@@ -1769,6 +2114,8 @@ def main() -> int:
     # ops.gru's
     for name in ("fused_gru", "fused_gru_bwd"):
         launches[name] += gru_launches[name]
+    by_path["ops_gru"] = {n: gru_launches[n]
+                          for n in ("fused_gru", "fused_gru_bwd")}
     flash = flash_checks(torch, dev)
     for r in flash:
         print_kernel(r)
@@ -1791,7 +2138,11 @@ def main() -> int:
             plain_ms=r["plain"]["ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],
             call_ms=r["kernel"]["call_ms"],
-            plain_call_ms=r["plain"]["call_ms"]) | r.get("extra", {})
+            plain_call_ms=r["plain"]["call_ms"]) | r.get("extra", {}) | (
+                {"launches_by_path": {k: c[r["name"]] for k, c in
+                                      by_path.items() if r["name"] in c}}
+                if r["name"] in TIG_PATH else {}) | pac_extra.get(
+                    r["name"], {})
 
     def shaped_entry(main, rs):
         """The entry at the path's main shape; "shapes" holds them all."""

@@ -24,8 +24,8 @@ import numpy as np
 
 from repro_torch.tig.sampler import ChronoNeighborIndex, NeighborSnapshot
 
-__all__ = ["LocalStream", "build_batch_program", "stack_batches",
-           "make_tables"]
+__all__ = ["LocalStream", "build_batch_program", "concat_batch_programs",
+           "stack_batches", "make_tables"]
 
 
 @dataclasses.dataclass
@@ -147,6 +147,21 @@ def build_batch_program(
         batches[f"nbre_{role}"] = ne.astype(np.int32)
 
     return batches, index.final_snapshot()
+
+
+def concat_batch_programs(programs: list[dict]) -> tuple[dict, np.ndarray]:
+    """Concatenate per-device (steps_k, ...) batch programs into ONE flat
+    grid plus per-device row offsets (PAC's transfer-minimal layout: device
+    k reads row ``offsets[k] + s % steps_k`` at lockstep step s).
+
+    Returns ``(flat, offsets)`` with ``offsets`` int32 (N_dev,).
+    """
+    lengths = np.array([len(p["src"]) for p in programs], dtype=np.int64)
+    offsets = np.concatenate(
+        [[0], np.cumsum(lengths)[:-1]]).astype(np.int32)
+    flat = {k: np.concatenate([p[k] for p in programs])
+            for k in programs[0]}
+    return flat, offsets
 
 
 def stack_batches(batches: list[dict]) -> dict:

@@ -35,9 +35,10 @@ With ``tcsr`` (a staged ``ChronoNeighborIndex.device_export``) the batch
 program is raw edge records (``plan="device"``) and each step samples its
 neighbor grids at its batch index through ``kernels.ops.sample_roles``.
 
-Not ported yet: the Alg.2 cycle and wrap-around modes
-(``cycle_length`` / ``wrap_steps``, PAC's), the multi-layer windows, and
-``collect_embeddings``.
+PAC's epoch (the Alg.2 cycle and wrap-around of ``cycle_length`` /
+``wrap_steps``, over the union of the partitions) is
+``distributed._PACEpoch``, on this step's pieces. Not ported yet: the
+multi-layer windows and ``collect_embeddings``.
 """
 
 from __future__ import annotations
@@ -153,10 +154,7 @@ class _Epoch:
         if self.tcsr is not None:
             batch = sample_batch_neighbors(batch, self.tcsr, s, self.cfg)
         at = at.long()
-        # aliases of the state tensors without autograd history: the
-        # card's flush writes mem / last through them in place, and the
-        # epoch's own tensors stay plain leaves
-        state = {k: v.detach() for k, v in self.state.items()}
+        state = self._aliases()
         if self.opt is None:
             with torch.no_grad():
                 _loss, (new, aux) = step_loss(self.params, state, batch,
@@ -164,25 +162,44 @@ class _Epoch:
                 for k, out in self.out.items():
                     out.index_copy_(0, at, aux[k][None])
         else:
-            leaves = tree_leaves(self.params)
-            with torch.enable_grad():
-                loss, (new, _aux) = step_loss(self.params, state, batch,
-                                              self.tables, self.cfg)
-                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            # a leaf the loss does not reach (e.g. the time encoder of the
-            # memory-only flavors) has a zero gradient, as in JAX
-            it = iter(torch.zeros_like(p) if g is None else g
-                      for p, g in zip(leaves, grads))
-            self.opt.apply_(tree_map(lambda _: next(it), self.params),
-                            self.opt_state, self.params)
-            self.out["loss"].index_copy_(0, at, loss.detach()[None])
-        with torch.no_grad():
-            # the card's flush returns mem / last themselves, written in
-            # place; every other new entry is copied back
-            for k, v in new.items():
-                if v is not state[k]:
-                    self.state[k].copy_(v)
-            _advance(s)
+            loss, new = self._update(state, batch,
+                                     lambda loss, _aux: (loss, loss))
+            self.out["loss"].index_copy_(0, at, loss[None])
+        self._write_back(state, new)
+        _advance(s)
+
+    def _aliases(self) -> dict:
+        """Aliases of the state tensors without autograd history: the
+        card's flush writes mem / last through them in place, and the
+        epoch's own tensors stay plain leaves."""
+        return {k: v.detach() for k, v in self.state.items()}
+
+    def _update(self, state: dict, batch: dict, objective):
+        """``step_loss``, then AdamW in place on the gradient with respect
+        to the params of the scalar that ``objective(loss, aux)`` returns
+        first. Returns the second thing it returns (what the epoch
+        records), detached, and the new state."""
+        leaves = tree_leaves(self.params)
+        with torch.enable_grad():
+            loss, (new, aux) = step_loss(self.params, state, batch,
+                                         self.tables, self.cfg)
+            target, record = objective(loss, aux)
+            grads = torch.autograd.grad(target, leaves, allow_unused=True)
+        # a leaf the loss does not reach (e.g. the time encoder of the
+        # memory-only flavors) has a zero gradient, as in JAX
+        it = iter(torch.zeros_like(p) if g is None else g
+                  for p, g in zip(leaves, grads))
+        self.opt.apply_(tree_map(lambda _: next(it), self.params),
+                        self.opt_state, self.params)
+        return record.detach(), new
+
+    @torch.no_grad()
+    def _write_back(self, state: dict, new: dict) -> None:
+        """The card's flush returns mem / last themselves, written in
+        place; every other new entry is copied back."""
+        for k, v in new.items():
+            if v is not state[k]:
+                self.state[k].copy_(v)
 
     def run_eager(self) -> None:
         for _ in range(self.steps):

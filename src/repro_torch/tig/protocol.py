@@ -1,11 +1,11 @@
 """The evaluation protocol, as ``repro/tig/protocol.py``: the paper's
 chronological 70/15/15 edge split (§III-A) as zero-copy row-range views,
 never-seen-in-train node discovery, and forward-only scoring of one
-stream with transductive and inductive AP / AUROC.
+stream with transductive and inductive AP / AUROC, and ``run_protocol``,
+the replay-to-warm-memory scoring driver.
 
-Not ported yet: ``run_protocol`` (replay-to-warm-memory scoring), the
-``ShardedStream`` branch of ``split_views``, and the node-classification
-head.
+Not ported yet: the ``ShardedStream`` branch of ``split_views``, the
+restarter warm-up, prefetching and the node-classification head.
 """
 
 from __future__ import annotations
@@ -15,14 +15,17 @@ from typing import Optional
 
 import numpy as np
 
-from repro_torch.tig.batching import LocalStream
+from repro_torch.device import resolve_device
+from repro_torch.tig.batching import LocalStream, build_batch_program
 from repro_torch.tig.engine import make_eval_epoch
 from repro_torch.tig.evaluation import link_prediction_metrics
 from repro_torch.tig.graph import TemporalGraph
-from repro_torch.tig.models import TIGConfig
+from repro_torch.tig.models import TIGConfig, init_state
+from repro_torch.tig.sampler import ChronoNeighborIndex
 
 __all__ = ["ProtocolSplits", "split_bounds", "split_views",
-           "inductive_node_mask", "time_scale_of", "score_stream"]
+           "inductive_node_mask", "time_scale_of", "score_stream",
+           "run_protocol"]
 
 def time_scale_of(t: np.ndarray) -> float:
     """Mean inter-event gap: timestamps are divided by it so Δt is O(1)
@@ -160,3 +163,70 @@ def score_stream(params, cfg: TIGConfig, state, batches: dict, tables: dict,
     out = link_prediction_metrics(pos, neg, inductive_mask=mask)
     out["state"] = state
     return out
+
+
+def run_protocol(params, cfg: TIGConfig, splits: ProtocolSplits,
+                 tables: dict, *, seed: int = 0, state=None,
+                 warm: str = "replay", device=None) -> dict:
+    """The replay-to-warm-memory scoring driver (paper Tab.IV protocol),
+    serially: replay the train split through the scoring program to build
+    node memory (no parameter updates), then score val and test, each
+    continuing the previous split's memory and neighbor history. Each
+    split's program is host-planned from one generator seeded with
+    ``seed``, in the JAX package's order, so the plans are its plans.
+
+    ``warm``: ``"replay"`` (the default) or ``"state"`` (the caller's
+    post-train memory ``state``, e.g. PAC's merged memories; only the
+    neighbor history of the train rows is rebuilt on the host, and
+    ``train_ap`` is NaN). ``tables`` are tensors on ``device`` (default
+    ``"cuda"``; raises without a card).
+
+    Returns ``train_ap``, ``val_ap`` / ``val_auc`` / ``test_ap`` /
+    ``test_auc`` with their ``*_inductive`` versions, and ``node_auroc``
+    (NaN: node classification is not ported yet).
+    """
+    if warm not in ("replay", "state"):
+        raise ValueError(f"warm={warm!r}: expected 'replay' or 'state' "
+                         "(the restarter is not ported yet)")
+    if warm == "state" and state is None:
+        raise ValueError("warm='state' needs the post-train memory via "
+                         "state=")
+    device = resolve_device(device)
+    replay_train = warm == "replay"
+    rng = np.random.default_rng(seed)
+    eval_fn = make_eval_epoch(cfg, device=device)
+    views, names = list(splits.views), ["train", "val", "test"]
+    hist = None
+    if not replay_train:
+        tr = views[0]
+        hist = ChronoNeighborIndex(
+            tr.src, tr.dst, tr.t, tr.eidx, splits.num_nodes,
+            cfg.num_neighbors, cfg.batch_size).final_snapshot()
+        views, names = views[1:], names[1:]
+    if state is None:
+        state = init_state(cfg, splits.num_nodes, device)
+    results = {}
+    for name, view in zip(names, views):
+        batches, hist = build_batch_program(view, cfg, rng, history=hist,
+                                            neg_pool=splits.neg_pool)
+        res = score_stream(
+            params, cfg, state, batches, tables, eval_fn,
+            inductive_edge_mask=None if name == "train"
+            else splits.inductive_edge_mask(view), device=device)
+        state = res["state"]
+        results[name] = res
+
+    nan = float("nan")
+    va, te = results["val"], results["test"]
+    return {
+        "train_ap": results["train"]["ap"] if replay_train else nan,
+        "val_ap": va["ap"],
+        "val_auc": va["auc"],
+        "val_ap_inductive": va.get("ap_inductive", nan),
+        "val_auc_inductive": va.get("auc_inductive", nan),
+        "test_ap": te["ap"],
+        "test_auc": te["auc"],
+        "test_ap_inductive": te.get("ap_inductive", nan),
+        "test_auc_inductive": te.get("auc_inductive", nan),
+        "node_auroc": nan,
+    }

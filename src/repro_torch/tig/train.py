@@ -11,6 +11,8 @@ so plans are bit-identical) and then runs the epoch program of
 replay one captured CUDA graph a step. Planning and the device epoch run
 one after the other; the JAX package's prefetching worker is not ported
 yet, nor are checkpoints, node classification and ``train_sharded``.
+``evaluate_params`` scores given (e.g. PAC-trained) params on the
+protocol.
 """
 
 from __future__ import annotations
@@ -28,11 +30,12 @@ from repro_torch.tig.batching import build_batch_program, make_tables
 from repro_torch.tig.engine import make_eval_epoch, make_train_epoch
 from repro_torch.tig.graph import TemporalGraph
 from repro_torch.tig.models import TIGConfig, init_params, init_state
-from repro_torch.tig.protocol import score_stream, split_views
+from repro_torch.tig.protocol import run_protocol, score_stream, split_views
 from repro_torch.tig.sampler import ChronoNeighborIndex
 from repro_torch.tree import tree_map
 
-__all__ = ["epoch_rng", "train_epoch", "train_single", "SingleResult"]
+__all__ = ["epoch_rng", "train_epoch", "train_single", "SingleResult",
+           "evaluate_params"]
 
 
 def epoch_rng(seed: int, epoch: int, role: int = 0) -> np.random.Generator:
@@ -57,6 +60,21 @@ def train_epoch(params, opt_state, state, batches, tables, epoch_fn,
     params, opt_state, state, losses = epoch_fn(
         params, opt_state, state, batches, tables, tcsr=tcsr)
     return params, opt_state, state, float(losses.mean())
+
+
+def evaluate_params(g: TemporalGraph, cfg: TIGConfig, params: dict, *,
+                    seed: int = 0, device=None) -> dict:
+    """Score trained (e.g. PAC-trained) params on the standard protocol:
+    replay the train split to build memory (no parameter updates), then
+    score val / test link prediction (``protocol.run_protocol`` on the
+    split views). ``device`` defaults to ``"cuda"``; raises without a
+    card."""
+    device = resolve_device(device)
+    splits = split_views(g)
+    tables = {k: torch.from_numpy(v).to(device)
+              for k, v in make_tables(g.edge_feat, g.node_feat).items()}
+    return run_protocol(params, cfg, splits, tables, seed=seed,
+                        device=device)
 
 
 @dataclasses.dataclass

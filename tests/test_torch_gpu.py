@@ -467,6 +467,90 @@ def test_graphed_epochs_match_eager(cuda, flavor, plan):
     assert _max_diff([g_state["mem"]], [e_state["mem"]]) < 1e-4
 
 
+def _tiny_pac(parts):
+    """SEP parts of ``synthetic_tig("tiny")``'s train split, a narrow
+    config and the JAX package's initial-params seed."""
+    from repro_torch.core import sep_partition
+    from repro_torch.tig.data import synthetic_tig
+    from repro_torch.tig.graph import chronological_split
+
+    g = synthetic_tig("tiny")
+    tr = chronological_split(g)[0]
+    cfg = TIGConfig(flavor="tgn", dim=16, dim_time=8, dim_edge=16,
+                    dim_node=16, num_neighbors=4, n_heads=2, batch_size=50)
+    part = sep_partition(tr.src, tr.dst, tr.t, g.num_nodes, parts, k=0.05)
+    return g, tr, part, cfg
+
+
+@pytest.mark.parametrize("plan", ["device", "host"])
+def test_graphed_pac_epoch_matches_eager(cuda, plan):
+    """``make_pac_epoch`` (one captured PAC step, replayed) against
+    ``scan_pac_epoch`` (the same step, eager) on the card, 4 SEP parts
+    shuffle-combined onto 2 devices: losses (P, steps), params and the
+    devices' states bitwise equal (the TGN step sums in a fixed order),
+    a second graphed call of the same shapes replays the same graph
+    bitwise, and each TIG kernel launches once a lockstep step."""
+    from repro_torch.core import shuffle_combine
+    from repro_torch.optim import adamw
+    from repro_torch.tig import distributed as td
+
+    g, tr, part, cfg = _tiny_pac(4)
+    lists = shuffle_combine(part.node_lists(), 2, np.random.default_rng(0))
+    ep = td.plan_epoch(tr, lists, part.shared_nodes, cfg,
+                       np.random.default_rng(1), plan=plan)
+    union = td.union_plan(ep, cfg)
+    opt = adamw(lr=1e-3, max_grad_norm=1.0)
+    params = init_params(torch.Generator().manual_seed(0), cfg, cuda)
+    fn = td.make_pac_epoch(cfg, opt)
+    outs = []
+    for run in (lambda: td.scan_pac_epoch(params, opt.init(params), union,
+                                          cfg=cfg, opt=opt),
+                lambda: fn(params, opt.init(params), union),
+                lambda: fn(params, opt.init(params), union)):
+        for kern in KERNELS.values():
+            kern.launches = 0
+        outs.append(run())
+        torch.cuda.synchronize()
+        n = ep.steps
+        want = {"neighbor_sample": n if plan == "device" else 0,
+                "fused_flush": n, "temporal_attn": n,
+                "temporal_attn_bwd": n, "fused_gru_bwd": n}
+        assert {k: KERNELS[k].launches for k in want} == want
+    eager, first, second = outs
+    assert len(fn.graphs) == 1
+    assert first[3].shape == (2, ep.steps)
+    for got in (first, second):
+        for x, y in zip(_leaves_of(got), _leaves_of(eager)):
+            assert torch.equal(x, y)
+
+
+def test_pac_train_on_card_matches_cpu(cuda):
+    """``pac_train`` with 2 SEP parts on 2 devices, two epochs, on the
+    card against the CPU (plain versions) from the same params."""
+    from repro_torch.tig import distributed as td
+
+    g, tr, part, cfg = _tiny_pac(2)
+    p0 = init_params(torch.Generator().manual_seed(0), cfg)
+    kw = dict(num_devices=2, epochs=2, eval_graph=g, params=p0)
+    on_card = td.pac_train(tr, part, cfg, **kw)
+    on_cpu = td.pac_train(tr, part, cfg, device="cpu", **kw)
+    for a, b in zip(on_card.losses, on_cpu.losses):
+        assert np.abs(a - b).max() < 1e-4
+    for key in ("mem", "last"):
+        assert _max_diff([on_card.memory_states[key]],
+                         [on_cpu.memory_states[key]]) < 1e-4
+    for key in ("val_ap", "test_ap"):
+        assert abs(on_card.metrics[key] - on_cpu.metrics[key]) < 1e-3
+
+
+def _leaves_of(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves_of(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in _leaves_of(t)]
+    return [tree]
+
+
 def _named(tree, prefix=""):
     if isinstance(tree, dict):
         return [kv for k in sorted(tree)

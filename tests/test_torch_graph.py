@@ -11,7 +11,7 @@ to 1e-4 (float32 sums in another order, which AdamW's division by the
 root of the second moment magnifies), the attention's key bias excepted.
 
 The capture probe runs a train step (with the in-place AdamW) and a
-scoring step of each flavor under a dispatch mode that fails on what a
+scoring step of each flavor, and two PAC steps, under a dispatch mode that fails on what a
 capture cannot take: a read of a device value on the host
 (``_local_scalar_dense``), a tensor built from host data (``lift_fresh``),
 and data-dependent shapes (``nonzero``, a boolean-mask index). The mode is
@@ -36,13 +36,15 @@ from repro.tig import engine as jengine  # noqa: E402
 from repro.tig import models as jm  # noqa: E402
 from repro.tig.sampler import ChronoNeighborIndex as JaxIndex  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.core import sep_partition, shuffle_combine  # noqa: E402
 from repro_torch.kernels import fused_flush as tflush  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.tig import batching as tb  # noqa: E402
-from repro_torch.tig import engine  # noqa: E402
+from repro_torch.tig import distributed, engine  # noqa: E402
 from repro_torch.tig import models as tm  # noqa: E402
 from repro_torch.tig.data import synthetic_tig  # noqa: E402
+from repro_torch.tig.graph import chronological_split  # noqa: E402
 from repro_torch.tig.protocol import split_views  # noqa: E402
 from repro_torch.tig.sampler import ChronoNeighborIndex  # noqa: E402
 from repro_torch.tig.train import epoch_rng  # noqa: E402
@@ -286,6 +288,36 @@ def test_steps_are_capture_safe(flavor, kernels_unprobed):
     assert int(score.counter) == 2
     assert torch.isfinite(train.out["loss"]).all()
     assert torch.isfinite(score.out["pos_logit"]).all()
+
+
+@pytest.mark.parametrize("plan", ["device", "host"])
+def test_pac_step_is_capture_safe(plan, kernels_unprobed):
+    """The PAC step (``distributed._PACEpoch.step``: Alg.2's row-masked
+    reset and backup, each device's grid row and batch index, the
+    per-device losses) under the probe, over 4 SEP parts of ``tiny``
+    shuffle-combined onto 2 devices: a step where one device wraps round
+    (its cycle ends, the next step resets it) and the next."""
+    g = synthetic_tig("tiny")
+    cfg = tm.TIGConfig(flavor="tgn", **SMALL)
+    tr = chronological_split(g)[0]
+    part = sep_partition(tr.src, tr.dst, tr.t, g.num_nodes, 4)
+    lists = shuffle_combine(part.node_lists(), 2, np.random.default_rng(0))
+    ep = distributed.plan_epoch(tr, lists, part.shared_nodes, cfg,
+                                np.random.default_rng(1), plan=plan)
+    union = distributed.union_plan(ep, cfg)
+    params = tm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    opt = adamw(lr=1e-3, max_grad_norm=1.0)
+    epoch = distributed._PACEpoch(cfg, opt, params, opt.init(params), union,
+                                  torch.device("cpu"))
+    s = int(ep.n_batches.min()) - 1
+    assert s + 2 < ep.steps
+    epoch.counter.fill_(s)
+    with CaptureProbe():
+        for _ in range(2):
+            epoch.step()
+    assert int(epoch.counter) == s + 2
+    assert torch.isfinite(epoch.out["loss"][s:s + 2]).all()
+    assert (epoch.out["loss"][s:s + 2] > 0).all()
 
 
 @pytest.mark.parametrize("flush", ["plain", "in place"])

@@ -15,7 +15,8 @@ torch = pytest.importorskip("torch")
 import repro_torch  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.models import model, serve  # noqa: E402
-from repro_torch.tig import engine, protocol, train  # noqa: E402
+from repro_torch.core import sep_partition  # noqa: E402
+from repro_torch.tig import distributed, engine, protocol, train  # noqa: E402
 from repro_torch.tig.data import synthetic_tig  # noqa: E402
 from repro_torch.tig.models import TIGConfig  # noqa: E402
 
@@ -79,6 +80,15 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
         engine.make_eval_epoch(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         protocol.score_stream({}, cfg, {}, {}, {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        protocol.run_protocol({}, cfg, protocol.split_views(g), {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.evaluate_params(g, cfg, {})
+    part = sep_partition(g.src, g.dst, g.t, g.num_nodes, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        distributed.pac_train(g, part, cfg, num_devices=2, epochs=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        distributed.make_pac_epoch(cfg, None)
     lm = get_config("rwkv6-1.6b", reduced=True)
     params = model.init_params(torch.Generator(), lm, device="cpu")
     cache = model.init_cache(lm, 2, device="cpu")
