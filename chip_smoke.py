@@ -66,6 +66,22 @@ Phases, each fatal on failure:
      2PB rows with its backward timed, both attention kernels at 3PB
      rows); and where a PAC step's time goes at P 4 and 2 (40 graphed
      steps, profiled);
+  5c. the out-of-core data plane: phase 5's stream written as 10 shards
+     of 16,384 rows, ``train_sharded(protocol=True)`` against
+     ``train_single`` from the same params over two epochs (losses
+     bitwise equal, its metrics those of ``evaluate_params``, prefetch on
+     and off bitwise, a control with one shard's edge rows shifted by a
+     row that must fail); the out-of-core path at Reddit's size,
+     ``synthetic_tig("reddit-s", scale=10)`` as 3 shards of 262,144
+     rows, ``train_sharded(protocol=True, eval_node_class=True)`` for two
+     epochs with launches counted from zero and held to its steps, epoch
+     seconds and the wait for each plan, shard writing, T-CSR build and
+     staging seconds, the val curve, test AP, node AUROC and peak memory;
+     ``pac_train`` at P 4 from the train split as shards, scored on the
+     full stream's shards, bitwise equal to phase 5b's in-memory run, and
+     again with node classification; ``train_single(eval_node_class=True)``
+     on ``tiny`` on the card against the CPU (embeddings, the head on the
+     same embeddings, each run's AUROC);
   6. the WKV kernels (``ops.rwkv6`` takes the chunked kernel for S >= 64
      and the sequential one below) against their plain versions at the
      RWKV6 path's shapes (decode S 1 with a state, a ragged S 100 with a
@@ -119,6 +135,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -177,6 +194,8 @@ ATTN_SHAPES = (       # (label, B, K, H, D) beside the TGN path's (600, 10, 2, 8
 # StarCoder2-3B forward on (2, 8192) tokens: (B, S, H, Hkv, D, window)
 FLASH_PATH = (2, 8192, 24, 2, 128, 4096)
 GRAPH_STEPS = 40      # train steps of phase 5's graph checks, profile
+SHARD_PARITY_EDGES = 16_384   # phase 5c's shards of phase 5's stream: 10,
+                              # none a multiple of the batch
 PAC_PARTS = (4, 2)    # SEP parts (= devices) of phase 5b's PAC paths
 PAC_SEP_K = 0.05      # SEP's top-k hub fraction (paper §III-B default)
 
@@ -1346,6 +1365,276 @@ def pac_small_agreement(torch) -> None:
                              f"memory {d_mem}, AP {d_ap}")
 
 
+def same_metrics(a: dict, b: dict) -> bool:
+    """Two metric dicts equal key for key, bit for bit (NaN equals NaN)."""
+    return a.keys() == b.keys() and all(
+        a[k] == b[k] or (math.isnan(a[k]) and math.isnan(b[k])) for k in a)
+
+
+def write_shards(g, path: Path, shard_edges: int):
+    """``g`` as ``tig-shards-v1`` under ``path``, timed."""
+    from repro_torch.tig.stream import write_graph_shards
+
+    t0 = time.perf_counter()
+    sh = write_graph_shards(g, str(path), shard_edges=shard_edges)
+    return sh, time.perf_counter() - t0
+
+
+def sharded_parity(torch, g, tmp: Path) -> None:
+    """Phase 5c (1): phase 5's stream as shards of SHARD_PARITY_EDGES rows
+    (none a multiple of the batch), ``train_sharded(protocol=True)``
+    against ``train_single`` from the same params over two epochs: the
+    same plans, T-CSR and table bytes, so the per-epoch losses bitwise
+    equal; its ``metrics`` equal ``evaluate_params`` of its params;
+    prefetch on and off bitwise equal. A control must fail the loss
+    check: the edge table staged with one shard's rows shifted by a row."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.speed_tig import TIG
+    from repro_torch.tig.models import init_params
+    from repro_torch.tig.train import (evaluate_params, train_sharded,
+                                       train_single)
+
+    sh, secs = write_shards(g, tmp / "parity", SHARD_PARITY_EDGES)
+    print(f"shards: wikipedia-s x10 in {sh.num_shards} shards of "
+          f"{SHARD_PARITY_EDGES} rows (sizes {sh.shard_edges}), written in "
+          f"{secs:.3f} s")
+    p0 = init_params(torch.Generator().manual_seed(0), TIG)
+    kw = dict(epochs=2, params=p0)
+    runs = {}
+    print(f"  {torch.cuda.memory_allocated() / 2**20:.1f} MiB live before "
+          f"the runs")
+    for name, run in (
+            ("train_sharded", lambda: train_sharded(sh, TIG, protocol=True,
+                                                    **kw)),
+            ("train_sharded, no prefetch", lambda: train_sharded(
+                sh, TIG, protocol=True, prefetch=False, **kw)),
+            ("train_single", lambda: train_single(g, TIG, **kw))):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runs[name] = run()
+        torch.cuda.synchronize()
+        r = runs[name]
+        print(f"  {name}: losses {r.losses}, epoch_seconds "
+              f"{r.epoch_seconds} (waited for the plan "
+              f"{r.plan_seconds}), wall {time.perf_counter() - t0:.3f} s, "
+              f"peak {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    shd, off, sgl = (runs[k] for k in ("train_sharded",
+                                       "train_sharded, no prefetch",
+                                       "train_single"))
+    want = evaluate_params(g, TIG, shd.params)
+    print(f"  train_sharded metrics {shd.metrics}; evaluate_params of its "
+          f"params " + ("equal" if same_metrics(want, shd.metrics) else
+                        f"{want}"))
+    if shd.losses != sgl.losses:
+        raise AssertionError(f"train_sharded losses {shd.losses} are not "
+                             f"train_single's {sgl.losses}")
+    if not same_metrics(want, shd.metrics):
+        raise AssertionError("train_sharded metrics are not "
+                             "evaluate_params'")
+    if off.losses != shd.losses or not same_metrics(off.metrics,
+                                                    shd.metrics):
+        raise AssertionError("prefetch on and off differ")
+
+    # the control: one shard's feature rows shifted down by one row
+    lo, hi = sh.shard_offsets()[3:5]
+    feat = g.edge_feat.copy()
+    feat[lo:hi] = np.roll(feat[lo:hi], 1, axis=0)
+    bad, _ = write_shards(dataclasses.replace(g, edge_feat=feat),
+                          tmp / "shifted", SHARD_PARITY_EDGES)
+    ctrl = train_sharded(bad, TIG, epochs=1, protocol=True, params=p0)
+    d = abs(ctrl.losses[0] - sgl.losses[0])
+    print(f"control, shard 3's edge rows shifted by one: loss "
+          f"{ctrl.losses[0]} against {sgl.losses[0]} (|diff| {d:.3g})")
+    if d == 0.0:
+        raise AssertionError("the shifted-shard control passed the check")
+
+
+def sharded_path(torch, kernels, tmp: Path) -> dict:
+    """Phase 5c (2), the out-of-core path at Reddit's size (paper Tab.II:
+    10,984 nodes, 672,447 edges, 172-d edge features, 2 classes):
+    ``synthetic_tig("reddit-s", scale=10)`` as shards of the default
+    262,144 rows, then ``train_sharded(protocol=True,
+    eval_node_class=True)`` for two epochs, counts from zero around it.
+    The launches must be those the steps imply: per epoch a train step
+    and a val step (device-planned), then ``run_protocol``'s train, val
+    and test scoring (host-planned: no sampling launch)."""
+    from repro_torch.configs.speed_tig import TIG
+    from repro_torch.tig.data import synthetic_tig
+    from repro_torch.tig.protocol import split_views
+    from repro_torch.tig.stream import DEFAULT_SHARD_EDGES, ShardedStream
+    from repro_torch.tig.train import train_sharded
+
+    t0 = time.perf_counter()
+    g = synthetic_tig("reddit-s", scale=10.0)
+    gen = time.perf_counter() - t0
+    sh, secs = write_shards(g, tmp / "reddit", DEFAULT_SHARD_EDGES)
+    steps = [-(-len(v.src) // TIG.batch_size)
+             for v in split_views(g).views]
+    print(f"data: reddit-s x10, {g.num_nodes} nodes, {g.num_edges} edges, "
+          f"generated in {gen:.3f} s; {sh.num_shards} shards "
+          f"{sh.shard_edges}, "
+          f"{sh.num_edges * sh.dim_edge * 4 / 1e6:.1f} MB of edge "
+          f"features, written in {secs:.3f} s; split steps {steps}")
+    del g
+    epochs = 2
+    reset_counts(torch, kernels)
+    live = torch.cuda.memory_allocated() / 2**20
+    t0 = time.perf_counter()
+    res = train_sharded(ShardedStream.open(sh.path), TIG, epochs=epochs,
+                        protocol=True, eval_node_class=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: kernels[n].launches for n in TIG_PATH}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    m = res.metrics
+    print(f"out-of-core path: train_sharded TGN (dim {TIG.dim}, batch "
+          f"{TIG.batch_size}) from {sh.num_shards} shards, {epochs} "
+          f"epochs: losses {res.losses}; T-CSR from chunks "
+          f"{res.setup_seconds['index']:.3f} s, edge table staged "
+          f"{res.setup_seconds['stage']:.3f} s; per epoch seconds "
+          f"{res.epoch_seconds}, waited for the plan {res.plan_seconds}; "
+          f"val curve {res.val_curve} (best epoch {res.best_epoch}); "
+          f"test_ap {m['test_ap']:.6f}, test_ap_inductive "
+          f"{m['test_ap_inductive']:.6f}, val_ap {m['val_ap']:.6f}, "
+          f"train_ap {m['train_ap']:.6f}, node_auroc "
+          f"{m['node_auroc']:.6f}; wall {wall:.3f} s, peak {peak:.1f} MiB "
+          f"({live:.1f} MiB live before the run)")
+    print(f"  kernels launched on the out-of-core path: {launches}")
+    train, val, test = steps
+    scored = train + val + test
+    want = {"neighbor_sample": epochs * (train + val),
+            "fused_flush": epochs * (train + val) + scored,
+            "temporal_attn": epochs * (train + val) + scored,
+            "temporal_attn_bwd": epochs * train,
+            "fused_gru_bwd": epochs * train}
+    if launches != want:
+        raise AssertionError(f"launches on the out-of-core path "
+                             f"{launches}, expected {want}")
+    if not all(math.isfinite(x) for x in res.losses):
+        raise AssertionError(f"non-finite loss: {res.losses}")
+    if not (0.6 < m["val_ap"] <= 1.0 and 0.6 < m["test_ap"] <= 1.0
+            and 0.0 <= m["node_auroc"] <= 1.0):
+        raise AssertionError(f"out-of-core metrics out of range: {m}")
+    return dict(res=res, launches=launches, wall=wall, peak=peak)
+
+
+def sharded_pac(torch, kernels, train_g, part, pac4, tmp: Path) -> dict:
+    """Phase 5c (3): ``pac_train`` at P parts from the train split as
+    shards, scored on the full stream's shards (phase 5c (1)'s), against
+    phase 5b's in-memory run from the same params: losses and metrics
+    bitwise; counts from zero around it. Then again with
+    ``eval_node_class=True``, for the node AUROC."""
+    import numpy as np
+
+    from repro_torch.configs.speed_tig import TIG
+    from repro_torch.tig.distributed import pac_train
+    from repro_torch.tig.stream import ShardedStream
+
+    sh_tr, _ = write_shards(train_g, tmp / "pac_train", SHARD_PARITY_EDGES)
+    full = ShardedStream.open(str(tmp / "parity"))
+    p = part.num_parts
+    kw = dict(num_devices=p, epochs=1, eval_graph=full)
+    reset_counts(torch, kernels)
+    live = torch.cuda.memory_allocated() / 2**20
+    t0 = time.perf_counter()
+    res = pac_train(sh_tr, part, TIG, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: kernels[n].launches for n in TIG_PATH}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    mem = pac4["res"]
+    same = (len(res.losses) == len(mem.losses) and all(
+        np.array_equal(a, b) for a, b in zip(res.losses, mem.losses))
+        and same_metrics(res.metrics, mem.metrics))
+    print(f"PAC from shards, P {p}: {sh_tr.num_shards} train shards, "
+          f"epoch_seconds {res.epoch_seconds} (waited for the plan "
+          f"{res.plan_seconds}), val_ap {res.metrics['val_ap']:.6f}, "
+          f"test_ap {res.metrics['test_ap']:.6f}; wall {wall:.3f} s, peak "
+          f"{peak:.1f} MiB ({live:.1f} live before); against phase 5b's "
+          f"in-memory run: "
+          + ("losses and metrics bitwise equal" if same else "DIFFERENT"))
+    print(f"  kernels launched on PAC from shards, P {p}: {launches}")
+    if not same:
+        raise AssertionError("PAC from shards differs from in-memory PAC")
+    if launches != pac4["launches"]:
+        raise AssertionError(f"PAC from shards launched {launches}, the "
+                             f"in-memory run {pac4['launches']}")
+    nc = pac_train(sh_tr, part, TIG, eval_node_class=True, **kw)
+    torch.cuda.synchronize()
+    print(f"  with eval_node_class: node_auroc "
+          f"{nc.metrics['node_auroc']:.6f}, test_ap "
+          f"{nc.metrics['test_ap']:.6f}")
+    if not 0.0 <= nc.metrics["node_auroc"] <= 1.0:
+        raise AssertionError(f"PAC node AUROC {nc.metrics['node_auroc']}")
+    return dict(res=res, launches=launches, wall=wall, peak=peak)
+
+
+def node_class_agreement(torch) -> None:
+    """Phase 5c (4): ``train_single(eval_node_class=True)`` of a narrow TGN
+    on ``tiny`` (labels: each edge's source parity), on the card against
+    the CPU from the same params. The test split's collected embeddings,
+    scored from the same params and memory on both, agree within 1e-4,
+    and the head trained on the same embeddings gives AUROCs within 1e-4.
+    The two runs' own AUROCs (each head on its own run's embeddings) agree
+    within 1e-3 or one swapped pair of the head's test rows (1 / (n_pos
+    n_neg): 1.4e-3 on ``tiny``, coarser than 1e-3)."""
+    import numpy as np
+
+    from repro_torch.tig.batching import build_batch_program, make_tables
+    from repro_torch.tig.data import synthetic_tig
+    from repro_torch.tig.models import TIGConfig, init_params, init_state
+    from repro_torch.tig.protocol import (score_stream, split_views,
+                                          train_classifier_head)
+    from repro_torch.tig.train import epoch_rng, train_single
+
+    g = synthetic_tig("tiny")
+    g.labels = (g.src % 2).astype(np.int64)
+    cfg = TIGConfig(flavor="tgn", dim=16, dim_time=8, dim_edge=16,
+                    dim_node=16, num_neighbors=4, n_heads=2, batch_size=50)
+    p0 = init_params(torch.Generator().manual_seed(0), cfg)
+    kw = dict(epochs=2, params=p0, eval_node_class=True)
+    gpu = train_single(g, cfg, **kw)
+    cpu = train_single(g, cfg, device="cpu", **kw)
+    sp = split_views(g)
+    prog, _ = build_batch_program(sp.test, cfg, epoch_rng(0, 0, 3),
+                                  neg_pool=sp.neg_pool)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        tables = {k: torch.from_numpy(v).to(dev) for k, v in
+                  make_tables(g.edge_feat, g.node_feat).items()}
+        res[dev] = score_stream(
+            tree_to(cpu.params, dev), cfg, init_state(cfg, g.num_nodes, dev),
+            prog, tables, collect_embeddings=True, device=dev)
+    emb, labels = res["cpu"]["embeddings"], res["cpu"]["labels"]
+    d_emb = float(np.abs(res["cuda"]["embeddings"] - emb).max())
+    head = {dev: train_classifier_head(emb, labels, 2, device=dev)
+            for dev in ("cuda", "cpu")}
+    d_head = abs(head["cuda"] - head["cpu"])
+    test = labels[int(len(labels) * 0.7):]
+    swap = 1.0 / max(int((test == 1).sum()) * int((test == 0).sum()), 1)
+    d_auc = abs(gpu.node_auroc - cpu.node_auroc)
+    print(f"node classification (card vs CPU, tiny, 2 epochs): collected "
+          f"test embeddings {emb.shape}, max |diff| {d_emb:.3g}; the head "
+          f"on the same embeddings {head['cuda']:.6f} vs "
+          f"{head['cpu']:.6f}; each run's node_auroc {gpu.node_auroc:.6f} "
+          f"vs {cpu.node_auroc:.6f} (one swapped pair: {swap:.3g})")
+    if not (d_emb <= 1e-4 and d_head <= 1e-4
+            and d_auc <= max(1e-3, swap) + 1e-12):
+        raise AssertionError(f"node classification: card and CPU disagree "
+                             f"(embeddings {d_emb}, head on the same "
+                             f"embeddings {d_head}, runs' AUROC {d_auc})")
+
+
+def tree_to(tree, dev):
+    """A tensor tree copied to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.detach().to(dev, copy=True)
+
+
 def small_agreement(torch):
     """Phase 4: the port on the card (kernels) against the port on the CPU
     (plain versions), one epoch of a narrow TGN on ``tiny``."""
@@ -1988,6 +2277,7 @@ def main() -> int:
     from repro_torch.kernels.build import (KERNELS, SOURCES, build_all,
                                            library_path)
     from repro_torch.tig.data import synthetic_tig
+    from repro_torch.tig import engine
     from repro_torch.tig.protocol import split_views
     from repro_torch.tig.train import train_single
 
@@ -2063,6 +2353,7 @@ def main() -> int:
     p = path_epochs(torch, g, TIG)
     graph_checks(torch, KERNELS, p, TIG)
     profile_train_steps(torch, p, TIG)
+    engine.release(p["tables"])
     del p
 
     # phase 5b: SEP, then PAC on one card at P = 4 and 2, each path
@@ -2091,6 +2382,19 @@ def main() -> int:
     for n_parts in PAC_PARTS:
         pac_profile(torch, pac_union(g, train_g, parts[n_parts], TIG,
                                      steps=GRAPH_STEPS)[1], TIG)
+
+    # phase 5c: the out-of-core data plane, each path counted from zero
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_shards_") as tmp:
+        sharded_parity(torch, g, Path(tmp))
+        by_path["train_sharded"] = sharded_path(torch, KERNELS,
+                                                Path(tmp))["launches"]
+        p4 = PAC_PARTS[0]
+        by_path[f"pac_p{p4}_shards"] = sharded_pac(
+            torch, KERNELS, train_g, parts[p4], pac[p4], Path(tmp)
+        )["launches"]
+    node_class_agreement(torch)
+    print(f"phase 5c: {time.perf_counter() - t0:.1f} s ({card})")
     for n in TIG_PATH:
         launches[n] = sum(c[n] for c in by_path.values())
 

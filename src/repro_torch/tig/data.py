@@ -1,6 +1,6 @@
 """Shape-faithful synthetic TIG datasets, copied from ``repro/tig/data.py``
 (same generator, same numpy RNG use, so a seed gives the same graph in
-both packages).
+both packages), and the JODIE CSV loader.
 
 The paper's datasets (Tab.II) are not redistributable offline, so the
 generator matches their *shape*: bipartite interaction streams (user ->
@@ -21,11 +21,14 @@ Wikipedia, 9,227 nodes / 157,474 edges):
 
 from __future__ import annotations
 
+import os
+from typing import Optional
+
 import numpy as np
 
 from repro_torch.tig.graph import TemporalGraph
 
-__all__ = ["synthetic_tig", "PRESETS"]
+__all__ = ["synthetic_tig", "load_jodie_csv", "PRESETS"]
 
 PRESETS: dict[str, dict] = {
     # scale-reduced mirrors of paper Tab.II
@@ -125,4 +128,43 @@ def synthetic_tig(
         src=src, dst=dst, t=t,
         edge_feat=edge_feat, node_feat=node_feat,
         labels=labels, name=name,
+    )
+
+
+def load_jodie_csv(path: str, *, d_n: int = 172,
+                   name: Optional[str] = None) -> TemporalGraph:
+    """Load the JODIE / TGN ``ml_<name>.csv`` interaction format::
+
+        user_id, item_id, timestamp, state_label, feat_0, ..., feat_k
+
+    Item ids are moved after the user ids (the bipartite convention).
+    Parsing goes through the block reader of ``stream``, which takes
+    integer timestamps, missing label columns and ragged feature columns
+    (short rows zero-padded to the sniffed width; never an (E, 0) feature
+    table). For streams too large to materialize, use
+    ``stream.write_jodie_shards``.
+    """
+    from repro_torch.tig.stream import iter_jodie_blocks
+
+    cols: list[tuple] = list(iter_jodie_blocks(path))
+    if not cols:
+        raise ValueError(f"{path}: no data rows")
+    users = np.concatenate([c[0] for c in cols])
+    items = np.concatenate([c[1] for c in cols])
+    t = np.concatenate([c[2] for c in cols])
+    labels = np.concatenate([c[3] for c in cols])
+    feats = np.concatenate([c[4] for c in cols])
+    if feats.shape[1] == 0:
+        feats = np.zeros((len(users), 1), dtype=np.float32)
+    nu = int(users.max()) + 1
+    ni = int(items.max()) + 1
+    order = np.argsort(t, kind="stable")
+    return TemporalGraph(
+        src=users[order],
+        dst=(nu + items)[order],
+        t=t[order],
+        edge_feat=feats[order],
+        node_feat=np.zeros((nu + ni, d_n), dtype=np.float32),
+        labels=labels[order],
+        name=name or os.path.basename(path),
     )

@@ -29,19 +29,22 @@ epoch, outside the graph, on the states unstacked to the JAX package's
 
 Host planning (``EpochPlan``, ``plan_epoch``) is a copy of the JAX
 package's, drawing from the same numpy generators in the same order, so
-the plans are equal array for array. Ported: an in-memory
-``TemporalGraph`` source, the replicated flat layout, ``plan="host"`` and
-``"device"``. Not ported yet (they raise): the ``host_replay`` oracle,
-``layout="sharded"`` / ``local_ranks``, ``ShardedStream`` sources, a mesh
-of several cards, prefetching and the overlapped epoch boundary,
-checkpoints, ``eval_warm="restart"`` and node classification.
+the plans are equal array for array; ``pac_train`` builds the next
+epoch's plan on an ``EpochPrefetcher`` worker while the current epoch
+replays. Ported: an in-memory ``TemporalGraph`` source and an out-of-core
+``ShardedStream`` one (localized shard by shard, the graph never
+materialized), the replicated flat layout, ``plan="host"`` and
+``"device"``, and node classification. Not ported yet (they raise): the
+``host_replay`` oracle, ``layout="sharded"`` / ``local_ranks``, a mesh of
+several cards, the overlapped epoch boundary, checkpoints and ``resume``,
+faults and ``eval_warm="restart"``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Literal, Optional
+from typing import Literal, Optional, Union
 
 import numpy as np
 import torch
@@ -49,7 +52,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.pac import (build_subgraph, cycle_schedule,
                                   derived_speedup, make_local_indices,
-                                  shuffle_combine)
+                                  shuffle_combine, subgraph_mask)
 from repro_torch.core.sep import PartitionResult
 from repro_torch.device import resolve_device
 from repro_torch.optim import Optimizer, adamw
@@ -58,10 +61,12 @@ from repro_torch.tig.batching import (LocalStream, build_batch_program,
                                       concat_batch_programs, make_tables)
 from repro_torch.tig.cache import lru_get
 from repro_torch.tig.graph import TemporalGraph
-from repro_torch.tig.models import TIGConfig, init_params, init_state
+from repro_torch.tig.models import TIGConfig, init_state
 from repro_torch.tig.protocol import run_protocol, split_views, time_scale_of
 from repro_torch.tig.sampler import ChronoNeighborIndex
-from repro_torch.tig.train import epoch_rng
+from repro_torch.tig.stream import (EpochPrefetcher, ShardedStream,
+                                    stage_device_tables)
+from repro_torch.tig.train import _initial_params, epoch_rng
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["EpochPlan", "plan_epoch", "union_plan", "unstack_states",
@@ -69,6 +74,7 @@ __all__ = ["EpochPlan", "plan_epoch", "union_plan", "unstack_states",
            "globalize_memory", "PACResult", "pac_train"]
 
 _GRAPHS_MAX = 4          # captured PAC epochs a program keeps (LRU)
+StreamSource = Union[TemporalGraph, ShardedStream]
 
 
 def _not_ported(what: str) -> ValueError:
@@ -146,8 +152,80 @@ def _localize_in_memory(g: TemporalGraph, node_lists: list[np.ndarray],
     return streams, edges_per_device, nfeat_local, efeat_local
 
 
+def _localize_sharded(shards: ShardedStream, node_lists: list[np.ndarray],
+                      local, cap: int, cfg: TIGConfig, time_scale: float):
+    """Per-device localized streams, their T-CSRs and feature gathers
+    straight from ``tig-shards-v1`` row-range chunks; the graph is never
+    materialized. One pass over ``edge_chunks(features=True)`` classifies
+    each shard's edges against every device's membership, localizes their
+    ids and gathers their feature rows, so the host holds one shard plus
+    the devices' own streams and rows. Each device's index is built by
+    ``ChronoNeighborIndex.from_chunks`` over its pieces (the one-shot
+    build's arrays); edge ids are LOCAL, into its own feature table."""
+    n_dev = len(node_lists)
+    members = [li.to_local >= 0 for li in local]
+    pieces: list[list[tuple]] = [[] for _ in range(n_dev)]
+    feat_parts: list[list[np.ndarray]] = [[] for _ in range(n_dev)]
+    cursors = np.zeros(n_dev, dtype=np.int64)
+
+    for src, dst, t, _eidx, efeat in shards.edge_chunks(features=True):
+        src = np.asarray(src, np.int64)
+        dst = np.asarray(dst, np.int64)
+        for k, li in enumerate(local):
+            keep = subgraph_mask(members[k], src, dst)
+            m = int(keep.sum())
+            if m == 0:
+                continue
+            # rows are appended in stream order: local ids are the cursor
+            eidx_local = np.arange(cursors[k], cursors[k] + m,
+                                   dtype=np.int64)
+            cursors[k] += m
+            pieces[k].append((
+                li.to_local[src[keep]].astype(np.int64),
+                li.to_local[dst[keep]].astype(np.int64),
+                np.asarray(t, np.float64)[keep] / time_scale,
+                eidx_local,
+            ))
+            feat_parts[k].append(efeat[keep])
+
+    streams: list[LocalStream] = []
+    indexes: list[Optional[ChronoNeighborIndex]] = []
+    edges_per_device = cursors.copy()
+    e_cap = int(edges_per_device.max()) if n_dev else 0
+    efeat_local = np.zeros((n_dev, e_cap + 1, shards.dim_edge), np.float32)
+    for k in range(n_dev):
+        chunks = pieces[k]
+
+        def cat(i, chunks=chunks):
+            return (np.concatenate([c[i] for c in chunks]) if chunks
+                    else np.zeros(0, np.int64 if i != 2 else np.float64))
+
+        streams.append(LocalStream(
+            src=cat(0), dst=cat(1), t=cat(2), eidx=cat(3),
+            num_local_nodes=cap, labels=None))
+        # an edge-less device is one padding batch, which the one-shot
+        # build handles (from_chunks would count 0 batches)
+        indexes.append(ChronoNeighborIndex.from_chunks(
+            chunks, cap, cfg.num_neighbors, cfg.batch_size)
+            if chunks else None)
+        if feat_parts[k]:
+            efeat_local[k, : edges_per_device[k]] = \
+                np.concatenate(feat_parts[k])
+        # the device's stream and index own new arrays: free the pieces
+        feat_parts[k] = []
+        pieces[k] = []
+
+    nfeat_local = np.zeros((n_dev, cap + 1, shards.dim_node), np.float32)
+    nfeat = shards.node_feat()          # memory-mapped (or zeros)
+    for k, li in enumerate(local):
+        real_ids = li.globals_[: li.num_real]
+        nfeat_local[k, : li.num_real] = np.asarray(nfeat[real_ids],
+                                                   np.float32)
+    return streams, indexes, edges_per_device, nfeat_local, efeat_local
+
+
 def plan_epoch(
-    source: TemporalGraph,
+    source: StreamSource,
     node_lists: list[np.ndarray],
     shared_nodes: np.ndarray,
     cfg: TIGConfig,
@@ -161,11 +239,13 @@ def plan_epoch(
     local_ranks=None,
 ) -> EpochPlan:
     """Localize each device's sub-graph and build its batch program, as
-    the JAX package's ``plan_epoch`` does for an in-memory source: one
-    child seed per device drawn from ``rng`` first, then each device's
-    negatives from its own generator. ``plan="device"`` ships raw-edge
-    programs and the per-device T-CSRs; ``plan="host"`` pre-samples the
-    neighbor grids. ``steps_override`` cuts the lockstep epoch short.
+    the JAX package's ``plan_epoch`` does: one child seed per device drawn
+    from ``rng`` first, then each device's negatives from its own
+    generator. ``source`` is an in-memory ``TemporalGraph`` or an
+    out-of-core ``ShardedStream`` (localized shard by shard; the same
+    plan). ``plan="device"`` ships raw-edge programs and the per-device
+    T-CSRs; ``plan="host"`` pre-samples the neighbor grids.
+    ``steps_override`` cuts the lockstep epoch short.
     """
     if plan not in ("host", "device"):
         raise ValueError(f"plan={plan!r}: expected 'host' or 'device'")
@@ -175,26 +255,37 @@ def plan_epoch(
         raise _not_ported(f"layout={layout!r}")
     if local_ranks is not None:
         raise _not_ported("local_ranks")
-    if not isinstance(source, TemporalGraph):
+    if not isinstance(source, (TemporalGraph, ShardedStream)):
         raise _not_ported(f"a {type(source).__name__} source")
     n_dev = len(node_lists)
     local = make_local_indices(node_lists, source.num_nodes)
     cap = local[0].capacity if local else 0
     seeds = rng.integers(0, 2**63, size=n_dev) if n_dev else []
-    time_scale = time_scale or time_scale_of(source.t)
-    streams, edges_per_device, nfeat_local, efeat_local = \
-        _localize_in_memory(source, node_lists, local, cap, time_scale)
+    if isinstance(source, ShardedStream):
+        if time_scale is None:
+            time_scale = time_scale_of(source.column("t"))
+        streams, indexes, edges_per_device, nfeat_local, efeat_local = \
+            _localize_sharded(source, node_lists, local, cap, cfg,
+                              time_scale)
+    else:
+        time_scale = time_scale or time_scale_of(source.t)
+        streams, edges_per_device, nfeat_local, efeat_local = \
+            _localize_in_memory(source, node_lists, local, cap, time_scale)
+        indexes = [None] * n_dev
 
     sched = cycle_schedule(edges_per_device, cfg.batch_size)
     steps = steps_override or sched.steps_per_epoch
 
     programs, exports = [], []
     for k, stream in enumerate(streams):
-        idx = None
-        if plan == "device":
+        idx = indexes[k]
+        if plan == "device" and idx is None:
+            # the device plan exports the index itself (an edge-less
+            # stream gives the empty index: all -1 samples)
             idx = ChronoNeighborIndex(
                 stream.src, stream.dst, stream.t, stream.eidx,
                 cap, cfg.num_neighbors, cfg.batch_size)
+        if plan == "device":
             exports.append(idx.device_export(depth=cfg.n_layers))
         real, _ = build_batch_program(
             stream, cfg, np.random.default_rng(int(seeds[k])),
@@ -643,7 +734,7 @@ class PACResult:
 
 
 def pac_train(
-    g_train: TemporalGraph,
+    g_train: StreamSource,
     partition: PartitionResult,
     cfg: TIGConfig,
     *,
@@ -653,45 +744,58 @@ def pac_train(
     seed: int = 0,
     shuffle_parts: bool = True,
     sync_mode: Literal["latest", "mean"] = "latest",
+    prefetch: bool = True,
+    depth: int = 1,
+    epoch_boundary: Literal["overlap", "serial"] = "serial",
     plan: str = "device",
-    eval_graph: Optional[TemporalGraph] = None,
+    eval_graph: Optional[StreamSource] = None,
     eval_warm: Literal["memory", "replay"] = "memory",
+    eval_node_class: bool = False,
     params: Optional[dict] = None,
     device=None,
     mesh=None,
-    eval_node_class: bool = False,
     ckpt_dir: Optional[str] = None,
     resume: bool = False,
     faults=None,
 ) -> PACResult:
     """Train a TIG model with SEP partitions and PAC (the paper's
-    pipeline) on one card, serially: each epoch plans on the host
-    (shuffle-combine when the partition has more parts than devices,
-    ``plan_epoch``, ``union_plan``), runs the ``make_pac_epoch`` program
-    and the shared-node sync. The same generators as the JAX package's
+    pipeline) on one card: each epoch plans on the host (shuffle-combine
+    when the partition has more parts than devices, ``plan_epoch``,
+    ``union_plan``), runs the ``make_pac_epoch`` program and the
+    shared-node sync. The same generators as the JAX package's
     ``pac_train``, so with ``params`` converted from its
     ``init_params(PRNGKey(seed), cfg)`` both compute the same thing;
     by default params are drawn from a ``torch.Generator`` seeded with
     ``seed``.
 
-    ``eval_graph`` (the full stream of which ``g_train`` is the train
-    split) scores val and test through ``protocol.run_protocol`` into
-    ``PACResult.metrics``, from PAC's synchronized memories merged to
-    global rows (``eval_warm="memory"``; ``train_ap`` NaN) or from a
-    replay of the train split (``"replay"``). ``epoch_seconds`` covers
-    planning, the device epoch and the sync, synchronized;
-    ``plan_seconds`` is the planning part.
+    ``g_train`` is the train split, an in-memory ``TemporalGraph`` or an
+    out-of-core ``ShardedStream`` (localized shard by shard; the same
+    plans). With ``prefetch`` (the default) epoch e+1's plan is built on
+    an ``EpochPrefetcher`` worker while epoch e replays (``depth`` plans
+    ahead; per-epoch generators keep it bitwise equal to serial
+    planning).
 
-    A ``mesh``, ``eval_warm="restart"``, ``eval_node_class``, checkpoints
-    (``ckpt_dir`` / ``resume``) and ``faults`` are not ported yet and
-    raise.
+    ``eval_graph`` (the full stream of which ``g_train`` is the train
+    split, a ``TemporalGraph`` or a ``ShardedStream``) scores val and
+    test through ``protocol.run_protocol`` into ``PACResult.metrics``,
+    from PAC's synchronized memories merged to global rows
+    (``eval_warm="memory"``; ``train_ap`` NaN) or from a replay of the
+    train split (``"replay"``); ``eval_node_class`` adds the node
+    classification AUROC. ``epoch_seconds`` covers the wait for the plan,
+    the device epoch and the sync, synchronized; ``plan_seconds`` is the
+    wait (all of the planning without prefetch).
+
+    A ``mesh``, ``epoch_boundary="overlap"`` (the JAX package's default;
+    its ``"serial"`` oracle is what runs here), ``eval_warm="restart"``,
+    checkpoints (``ckpt_dir`` / ``resume``) and ``faults`` are not ported
+    yet and raise.
     """
     if mesh is not None:
         raise _not_ported("PAC over a mesh of several cards")
+    if epoch_boundary != "serial":
+        raise _not_ported(f"epoch_boundary={epoch_boundary!r}")
     if eval_warm not in ("memory", "replay"):
         raise _not_ported(f"eval_warm={eval_warm!r}")
-    if eval_node_class:
-        raise _not_ported("eval_node_class")
     if ckpt_dir is not None or resume:
         raise _not_ported("checkpointing (ckpt_dir / resume)")
     if faults is not None:
@@ -700,21 +804,16 @@ def pac_train(
         raise ValueError(f"plan={plan!r}: expected 'host' or 'device'")
     device = resolve_device(device)
     small_parts = partition.node_lists()
-    time_scale = time_scale_of(g_train.t)
-    if params is None:
-        params = init_params(torch.Generator().manual_seed(seed), cfg, device)
+    if isinstance(g_train, ShardedStream):
+        time_scale = time_scale_of(g_train.column("t"))
     else:
-        params = tree_map(
-            lambda x: torch.as_tensor(x).detach().to(device, copy=True),
-            params)
+        time_scale = time_scale_of(g_train.t)
+    params = _initial_params(params, cfg, seed, device)
     opt = adamw(lr=lr, max_grad_norm=1.0)
     opt_state = opt.init(params)
     program = make_pac_epoch(cfg, opt, device=device)
 
-    all_losses, epoch_secs, plan_secs = [], [], []
-    last_plan, states = None, None
-    for ep in range(epochs):
-        t0 = time.perf_counter()
+    def build(ep: int) -> tuple:
         rng_ep = epoch_rng(seed, ep, 11)
         if shuffle_parts and len(small_parts) > num_devices:
             node_lists = shuffle_combine(small_parts, num_devices, rng_ep)
@@ -725,31 +824,44 @@ def pac_train(
                 small_parts, num_devices, np.random.default_rng(seed))
         ep_plan = plan_epoch(g_train, node_lists, partition.shared_nodes,
                              cfg, rng_ep, time_scale=time_scale, plan=plan)
-        union = union_plan(ep_plan, cfg)
-        plan_secs.append(time.perf_counter() - t0)
-        params, opt_state, states, losses = program(params, opt_state, union)
-        states = sync_shared_memory(states, ep_plan.shared_local,
-                                    sync_mode=sync_mode)
-        all_losses.append(losses.cpu().numpy())
-        epoch_secs.append(time.perf_counter() - t0)
-        last_plan = ep_plan
+        return ep_plan, union_plan(ep_plan, cfg)
+
+    all_losses, epoch_secs, plan_secs = [], [], []
+    last_plan, states = None, None
+    with EpochPrefetcher(build, epochs, enabled=prefetch, depth=depth) as pf:
+        for ep in range(epochs):
+            t0 = time.perf_counter()
+            ep_plan, union = pf.get(ep)
+            plan_secs.append(time.perf_counter() - t0)
+            params, opt_state, states, losses = program(params, opt_state,
+                                                        union)
+            states = sync_shared_memory(states, ep_plan.shared_local,
+                                        sync_mode=sync_mode)
+            all_losses.append(losses.cpu().numpy())
+            epoch_secs.append(time.perf_counter() - t0)
+            last_plan = ep_plan
     if last_plan is None:
         raise ValueError("epochs must be >= 1")
 
     metrics = None
     if eval_graph is not None:
         splits = split_views(eval_graph)
-        tables = {k: torch.from_numpy(v).to(device) for k, v in make_tables(
-            eval_graph.edge_feat, eval_graph.node_feat).items()}
-        if eval_warm == "memory":
-            warm = globalize_memory(
-                states, last_plan, splits.num_nodes, cfg,
-                time_rescale=time_scale / splits.time_scale, device=device)
-            metrics = run_protocol(params, cfg, splits, tables, seed=seed,
-                                   state=warm, warm="state", device=device)
+        if isinstance(eval_graph, ShardedStream):
+            tables = stage_device_tables(eval_graph, device=device)
         else:
-            metrics = run_protocol(params, cfg, splits, tables, seed=seed,
-                                   warm="replay", device=device)
+            tables = {k: torch.from_numpy(v).to(device)
+                      for k, v in make_tables(eval_graph.edge_feat,
+                                              eval_graph.node_feat).items()}
+        warm = {"warm": "replay"}
+        if eval_warm == "memory":
+            warm = {"warm": "state", "state": globalize_memory(
+                states, last_plan, splits.num_nodes, cfg,
+                time_rescale=time_scale / splits.time_scale, device=device)}
+        metrics = run_protocol(params, cfg, splits, tables, seed=seed,
+                               eval_node_class=eval_node_class,
+                               prefetch=prefetch, depth=depth,
+                               device=device, **warm)
+        engine.release(tables)
 
     return PACResult(
         params=params,

@@ -35,10 +35,14 @@ With ``tcsr`` (a staged ``ChronoNeighborIndex.device_export``) the batch
 program is raw edge records (``plan="device"``) and each step samples its
 neighbor grids at its batch index through ``kernels.ops.sample_roles``.
 
+A scoring pass built with ``collect_embeddings`` also owns (steps, B,
+dim) ``src_embed`` / ``dst_embed`` outputs, written at the counter like
+the logits (node classification trains its head on them).
+
 PAC's epoch (the Alg.2 cycle and wrap-around of ``cycle_length`` /
 ``wrap_steps``, over the union of the partitions) is
 ``distributed._PACEpoch``, on this step's pieces. Not ported yet: the
-multi-layer windows and ``collect_embeddings``.
+multi-layer windows.
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ from repro_torch.tig.models import TIGConfig, step_loss
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["sample_batch_neighbors", "scan_train_epoch", "scan_eval_stream",
-           "make_train_epoch", "make_eval_epoch"]
+           "make_train_epoch", "make_eval_epoch", "release"]
 
 _ROLES = ("src", "dst", "neg")
 WARMUP_STEPS = 2        # eager steps before a capture (real steps)
@@ -90,6 +94,14 @@ def sample_batch_neighbors(batch: dict, tcsr: dict, batch_of,
     return out
 
 
+@functools.cache
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream of every warm-up before a capture on ``device``. One for
+    all: cuBLAS keeps a workspace for each stream it runs on for the life
+    of the process, so a new stream per capture held one more each."""
+    return torch.cuda.Stream(device)
+
+
 def _advance(counter: torch.Tensor) -> None:
     """The step's last write: the next step reads the next batch."""
     counter.add_(1)
@@ -105,13 +117,15 @@ def _staged(batches: dict) -> dict:
 class _Epoch:
     """The tensors one epoch program owns, and its step.
 
-    ``opt`` None makes a scoring pass (no grads, (steps, B) logits out);
+    ``opt`` None makes a scoring pass (no grads, (steps, B) logits out,
+    and with ``collect`` the (steps, B, dim) embeddings of src and dst);
     otherwise a training epoch ((steps,) losses out). ``tables`` and
     ``tcsr`` are the caller's tensors, read in place (a captured graph
     keeps their addresses, so ``_replayed`` keys its graphs by them)."""
 
     def __init__(self, cfg: TIGConfig, opt, params, opt_state, state,
-                 batches: dict, tables: dict, tcsr, device):
+                 batches: dict, tables: dict, tcsr, device,
+                 collect: bool = False):
         self.cfg, self.opt, self.tables, self.tcsr = cfg, opt, tables, tcsr
         self.device = device
         train = opt is not None
@@ -127,9 +141,15 @@ class _Epoch:
         self.steps, b = self.batches["src"].shape
         self.counter = torch.zeros((), dtype=torch.int32, device=device)
         f32 = dict(dtype=torch.float32, device=device)
-        self.out = ({"loss": torch.zeros((self.steps,), **f32)} if train
-                    else {k: torch.zeros((self.steps, b), **f32)
-                          for k in ("pos_logit", "neg_logit")})
+        if train:
+            self.out = {"loss": torch.zeros((self.steps,), **f32)}
+        else:
+            self.out = {k: torch.zeros((self.steps, b), **f32)
+                        for k in ("pos_logit", "neg_logit")}
+            if collect:
+                self.out.update({k: torch.zeros((self.steps, b, cfg.dim),
+                                                **f32)
+                                 for k in ("src_embed", "dst_embed")})
         self.graph = None
         self.per_replay: dict = {}
 
@@ -212,7 +232,7 @@ class _Epoch:
         the kernel launches its capture recorded to ``KERNELS``."""
         done = 0
         if self.graph is None:
-            side = torch.cuda.Stream(self.device)
+            side = _side_stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
                 while done < min(WARMUP_STEPS, self.steps):
@@ -265,14 +285,17 @@ def scan_train_epoch(params, opt_state, state, batches, tables, *,
 
 
 def scan_eval_stream(params, state, batches, tables, *, cfg: TIGConfig,
-                     tcsr=None, device=None):
+                     collect_embeddings: bool = False, tcsr=None,
+                     device=None):
     """Forward-only pass over a chronological stream (memory keeps
     updating, params frozen), as a plain loop of eager steps. Returns
     ``(state, aux)`` with ``aux`` holding (steps, B) ``pos_logit`` /
-    ``neg_logit`` on the device."""
+    ``neg_logit`` on the device, and with ``collect_embeddings`` (steps,
+    B, dim) ``src_embed`` / ``dst_embed`` (off by default: only node
+    classification needs them)."""
     device = resolve_device(device)
     epoch = _Epoch(cfg, None, params, None, state, batches, tables, tcsr,
-                   device)
+                   device, collect=collect_embeddings)
     epoch.run_eager()
     return epoch.result(copy=False)
 
@@ -292,7 +315,7 @@ def _where(tree) -> tuple:
 
 
 def _replayed(graphs: dict, cfg, opt, params, opt_state, state, batches,
-              tables, tcsr, device):
+              tables, tcsr, device, collect: bool = False):
     """One call of a graphed program: the epoch captured for this stream
     and shape (built on a miss), loaded with the call's inputs and
     replayed; returns new tensors."""
@@ -301,7 +324,8 @@ def _replayed(graphs: dict, cfg, opt, params, opt_state, state, batches,
                batches.items()) if k != "labels"),
            _where(tables), _where(tcsr))
     epoch = lru_get(graphs, key, _GRAPHS_MAX, lambda: _Epoch(
-        cfg, opt, params, opt_state, state, batches, tables, tcsr, device))
+        cfg, opt, params, opt_state, state, batches, tables, tcsr, device,
+        collect=collect))
     epoch.load(params, opt_state, state, batches)
     epoch.replay()
     return epoch.result(copy=True)
@@ -331,28 +355,44 @@ def make_train_epoch(cfg: TIGConfig, opt: Optimizer, *, device=None):
     return train_epoch
 
 
-def make_eval_epoch(cfg: TIGConfig, *, device=None):
+def make_eval_epoch(cfg: TIGConfig, *, collect_embeddings: bool = False,
+                    device=None):
     """The scoring program: ``(params, state, batches, tables, *,
-    tcsr=None) -> (state, aux)``, as ``scan_eval_stream`` returns them.
+    tcsr=None) -> (state, aux)``, as ``scan_eval_stream`` returns them
+    (with ``collect_embeddings``, the embeddings too).
 
-    Programs are cached per (cfg, device) with LRU eviction, as the JAX
-    package's: per-epoch validation and final scoring reuse one program
-    and its captured steps (train, val and test streams each get their
-    own: a graph keeps the addresses of its T-CSR). On the CPU the program
-    is ``scan_eval_stream``."""
+    Programs are cached per (cfg, collect_embeddings, device) with LRU
+    eviction, as the JAX package's: per-epoch validation and final
+    scoring reuse one program and its captured steps (train, val and test
+    streams each get their own: a graph keeps the addresses of its
+    T-CSR). On the CPU the program is ``scan_eval_stream``."""
     device = resolve_device(device)
     if device.type != "cuda":
-        return functools.partial(scan_eval_stream, cfg=cfg, device=device)
+        return functools.partial(scan_eval_stream, cfg=cfg,
+                                 collect_embeddings=collect_embeddings,
+                                 device=device)
 
     def build():
         graphs: dict = {}
 
         def eval_epoch(params, state, batches, tables, *, tcsr=None):
             return _replayed(graphs, cfg, None, params, None, state,
-                             batches, tables, tcsr, device)
+                             batches, tables, tcsr, device,
+                             collect=collect_embeddings)
 
         eval_epoch.graphs = graphs
         return eval_epoch
 
-    return lru_get(_EVAL_PROGRAMS, (dataclasses.astuple(cfg), str(device)),
-                   _EVAL_PROGRAMS_MAX, build)
+    key = (dataclasses.astuple(cfg), collect_embeddings, str(device))
+    return lru_get(_EVAL_PROGRAMS, key, _EVAL_PROGRAMS_MAX, build)
+
+
+def release(tables: dict) -> None:
+    """Drop every cached scoring graph that reads ``tables``, with its
+    copies of state and batches and its memory pool: for a run whose
+    tables are its own, once it is done no later call can replay them."""
+    ptrs = {v.data_ptr() for v in tables.values()}
+    for program in _EVAL_PROGRAMS.values():
+        for key in [k for k, ep in program.graphs.items()
+                    if ptrs & {v.data_ptr() for v in ep.tables.values()}]:
+            del program.graphs[key]

@@ -467,6 +467,98 @@ def test_graphed_epochs_match_eager(cuda, flavor, plan):
     assert _max_diff([g_state["mem"]], [e_state["mem"]]) < 1e-4
 
 
+def test_graphed_eval_collects_embeddings(cuda):
+    """A scoring program built with ``collect_embeddings`` captures the
+    step with its (steps, B, dim) embedding outputs and replays it: the
+    same logits as without, and logits and embeddings as the eager pass
+    gives them, with one launch of each forward kernel a step."""
+    from repro_torch.tig import engine
+
+    t = _tiny_epochs(cuda, "tgn")
+    cfg, params, state, tables = t["cfg"], t["params"], t["state"], t["tables"]
+    vprog, vtcsr = t["val"]
+    steps, b = vprog["src"].shape
+    plain = engine.make_eval_epoch(cfg)(params, state, vprog, tables,
+                                        tcsr=vtcsr)[1]
+    before = {n: KERNELS[n].launches for n in TIG_KERNELS}
+    _, got = engine.make_eval_epoch(cfg, collect_embeddings=True)(
+        params, state, vprog, tables, tcsr=vtcsr)
+    torch.cuda.synchronize()
+    assert {n: KERNELS[n].launches - before[n] for n in TIG_KERNELS} == {
+        "neighbor_sample": steps, "fused_flush": steps,
+        "temporal_attn": steps, "temporal_attn_bwd": 0, "fused_gru_bwd": 0}
+    _, want = engine.scan_eval_stream(params, state, vprog, tables, cfg=cfg,
+                                      collect_embeddings=True, tcsr=vtcsr)
+    for key in ("src_embed", "dst_embed"):
+        assert got[key].shape == (steps, b, cfg.dim)
+        assert _max_diff([got[key]], [want[key]]) < 1e-4, key
+    for key in ("pos_logit", "neg_logit"):
+        assert torch.equal(got[key], plain[key]), key
+        assert _max_diff([got[key]], [want[key]]) < 1e-4, key
+
+
+def test_prefetch_during_capture_is_bitwise(cuda):
+    """The prefetch worker plans the next epochs while the main thread
+    captures the epoch programs' steps: captures do not fail, and losses,
+    AP and params equal serial planning's bit for bit at depth 1 and 2,
+    for ``train_single`` and for ``train_sharded`` from shards."""
+    import tempfile
+
+    from repro_torch.tig.data import synthetic_tig
+    from repro_torch.tig.stream import write_graph_shards
+    from repro_torch.tig.train import train_sharded, train_single
+
+    g = synthetic_tig("small")
+    cfg = TIGConfig(flavor="tgn", dim=16, dim_time=8, dim_edge=32,
+                    dim_node=32, num_neighbors=4, n_heads=2, batch_size=50)
+    p0 = init_params(torch.Generator().manual_seed(0), cfg)
+    with tempfile.TemporaryDirectory() as d:
+        sh = write_graph_shards(g, d, shard_edges=777)
+        for run in (
+                lambda **kw: train_single(g, cfg, epochs=3, params=p0, **kw),
+                lambda **kw: train_sharded(sh, cfg, epochs=3, params=p0,
+                                           protocol=True, patience=3,
+                                           eval_node_class=True, **kw)):
+            serial = run(prefetch=False)
+            for depth in (1, 2):
+                got = run(depth=depth)
+                assert got.losses == serial.losses, depth
+                for x, y in zip(_leaves_of(got.params),
+                                _leaves_of(serial.params)):
+                    assert torch.equal(x, y)
+                for key in ("val_ap", "test_ap"):
+                    if hasattr(serial, key):
+                        assert getattr(got, key) == getattr(serial, key)
+                for key, v in (getattr(serial, "metrics", None)
+                               or {}).items():
+                    assert got.metrics[key] == v or (
+                        np.isnan(v) and np.isnan(got.metrics[key])), key
+
+
+def test_train_sharded_on_card_matches_cpu(cuda):
+    """``train_sharded`` from shards with the protocol and node
+    classification, on the card against the CPU from the same params."""
+    import tempfile
+
+    from repro_torch.tig.data import synthetic_tig
+    from repro_torch.tig.stream import write_graph_shards
+    from repro_torch.tig.train import train_sharded
+
+    g = synthetic_tig("tiny")
+    g.labels = (g.src % 2).astype(np.int64)
+    cfg = TIGConfig(flavor="tgn", dim=16, dim_time=8, dim_edge=16,
+                    dim_node=16, num_neighbors=4, n_heads=2, batch_size=50)
+    p0 = init_params(torch.Generator().manual_seed(0), cfg)
+    with tempfile.TemporaryDirectory() as d:
+        sh = write_graph_shards(g, d, shard_edges=333)
+        kw = dict(epochs=2, protocol=True, eval_node_class=True, params=p0)
+        on_card = train_sharded(sh, cfg, **kw)
+        on_cpu = train_sharded(sh, cfg, device="cpu", **kw)
+    assert np.abs(np.subtract(on_card.losses, on_cpu.losses)).max() < 1e-4
+    for key in ("val_ap", "test_ap", "node_auroc"):
+        assert abs(on_card.metrics[key] - on_cpu.metrics[key]) < 1e-3, key
+
+
 def _tiny_pac(parts):
     """SEP parts of ``synthetic_tig("tiny")``'s train split, a narrow
     config and the JAX package's initial-params seed."""

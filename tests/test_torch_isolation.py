@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -17,6 +18,7 @@ from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.models import model, serve  # noqa: E402
 from repro_torch.core import sep_partition  # noqa: E402
 from repro_torch.tig import distributed, engine, protocol, train  # noqa: E402
+from repro_torch.tig import stream  # noqa: E402
 from repro_torch.tig.data import synthetic_tig  # noqa: E402
 from repro_torch.tig.models import TIGConfig  # noqa: E402
 
@@ -61,7 +63,7 @@ def test_sources_name_no_jax_import(path):
     assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names
 
 
-def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
+def test_entry_points_refuse_to_run_without_a_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g = synthetic_tig("tiny")
     cfg = TIGConfig(dim=16, dim_time=8, dim_edge=16, dim_node=16,
@@ -89,6 +91,17 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
         distributed.pac_train(g, part, cfg, num_devices=2, epochs=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         distributed.make_pac_epoch(cfg, None)
+    shards = stream.write_graph_shards(g, str(tmp_path / "shards"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.train_sharded(shards, cfg, epochs=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.train_sharded(shards, cfg, epochs=1, protocol=True,
+                            device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stream.stage_device_tables(shards)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        protocol.train_classifier_head(np.zeros((20, 4), np.float32),
+                                       np.arange(20) % 2, 2)
     lm = get_config("rwkv6-1.6b", reduced=True)
     params = model.init_params(torch.Generator(), lm, device="cpu")
     cache = model.init_cache(lm, 2, device="cpu")
