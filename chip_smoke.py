@@ -82,6 +82,30 @@ Phases, each fatal on failure:
      again with node classification; ``train_single(eval_node_class=True)``
      on ``tiny`` on the card against the CPU (embeddings, the head on the
      same embeddings, each run's AUROC);
+  5d. two attention layers at the paper's widths:
+     ``train_single(wikipedia-s x10, replace(TIG, n_layers=2),
+     epochs=1)`` with val and test scoring, launches counted from zero
+     and held exactly (one nodes-form sampling launch a step over the
+     two windows' 1,200 rows, two launches of each attention kernel a
+     step); the sampling kernel at those rows bitwise against
+     ``sample_ref`` (the batch index an int and a device scalar) and
+     through ``sample_batch_neighbors`` (one launch, its window-0 layer
+     the one-layer grids); the graphed program against the eager step
+     over 40 train steps and the val stream as in phase 5, with a
+     control that must fail (every layer sampled at window 0); 40
+     profiled graphed and eager steps, the gathers' backward share at one
+     layer and at two; ``pac_train`` at P 4 and two layers, launches held
+     to its steps; ``train_sharded`` at two layers on phase 5c's 10
+     shards, losses bitwise ``train_single``'s; card against CPU on
+     ``tiny`` at two layers;
+  5e. TIGER's restarter from phase 5's trained params:
+     ``collect_bank`` and ``fit_restarter`` timed apart;
+     ``run_protocol(warm="restart")`` against ``warm="state"`` with the
+     replayed memory (val / test AP and AUROC within 0.05, launches
+     counted); ``restart_memory``'s seconds beside the replay warm-up's
+     (host plan + device replay); the bundle saved and loaded,
+     ``restart_memory`` bitwise after; ``pac_train(eval_warm="restart")``
+     at P 4;
   6. the WKV kernels (``ops.rwkv6`` takes the chunked kernel for S >= 64
      and the sequential one below) against their plain versions at the
      RWKV6 path's shapes (decode S 1 with a state, a ragged S 100 with a
@@ -348,9 +372,9 @@ def print_kernel(r: dict) -> None:
 
 
 def path_batch(torch, dev, g, cfg):
-    """The main path's T-CSR on the card, a batch mid-epoch ``s`` and its
-    3B queried nodes (src, dst, neg; padding as node 0), as the TIG path
-    stages and samples them."""
+    """The main path's T-CSR on the card (at the model's depth), a batch
+    mid-epoch ``s`` and its 3B queried nodes (src, dst, neg; padding as
+    node 0), as the TIG path stages and samples them."""
     import numpy as np
 
     from repro_torch.tig.batching import build_batch_program
@@ -362,7 +386,7 @@ def path_batch(torch, dev, g, cfg):
     index = ChronoNeighborIndex(tr.src, tr.dst, tr.t, tr.eidx, g.num_nodes,
                                 cfg.num_neighbors, cfg.batch_size)
     tcsr = {k: torch.from_numpy(v).to(dev)
-            for k, v in index.device_export().items()}
+            for k, v in index.device_export(depth=cfg.n_layers).items()}
     prog, _ = build_batch_program(tr, cfg, epoch_rng(0, 0, 1),
                                   index=index, plan="device")
     s = prog["src"].shape[0] // 2             # a batch mid-epoch
@@ -864,8 +888,8 @@ def flush_checks(torch, dev, ids_np, ts_np, n_dump, d, dm, randn) -> dict:
 def path_epochs(torch, g, cfg, steps: int = GRAPH_STEPS) -> dict:
     """The main path's first ``steps`` train batches and its whole val
     stream, device-planned as ``train_single`` plans epoch 0, each with
-    its T-CSR staged on the card; tables; params from seed 0; a fresh
-    state (``state()``)."""
+    its T-CSR staged on the card (at the model's depth); tables; params
+    from seed 0; a fresh state (``state()``)."""
     from repro_torch.tig.batching import build_batch_program, make_tables
     from repro_torch.tig.models import init_params, init_state
     from repro_torch.tig.protocol import split_views
@@ -890,7 +914,8 @@ def path_epochs(torch, g, cfg, steps: int = GRAPH_STEPS) -> dict:
             prog = {k: v[:steps] for k, v in prog.items()}
         out[name] = prog
         out[f"{name}_tcsr"] = {k: torch.from_numpy(v).to(dev) for k, v in
-                               index.device_export().items()}
+                               index.device_export(
+                                   depth=cfg.n_layers).items()}
     return out
 
 
@@ -956,7 +981,7 @@ def graph_checks(torch, kernels, p: dict, cfg) -> dict:
     if not d_loss <= 1e-4:
         raise AssertionError(f"graphed and eager losses differ by {d_loss}")
     if not n_eager == n_first == n_second or any(
-            n_eager[n] != steps for n in TIG_PATH):
+            n_eager[n] != steps * per_step(n, cfg) for n in TIG_PATH):
         raise AssertionError(f"launches differ: eager {n_eager}, graphed "
                              f"{n_first}, {n_second}")
 
@@ -993,7 +1018,14 @@ def graph_checks(torch, kernels, p: dict, cfg) -> dict:
     if d_stuck <= 1e-4:
         raise AssertionError("the stuck-counter control passed the check")
     return dict(d_loss=d_loss, d_params=d_params, d_state=d_state,
-                d_repeat=d_repeat, d_logit=d_logit, d_ap=d_ap)
+                d_repeat=d_repeat, d_logit=d_logit, d_ap=d_ap,
+                eager_loss=eager[3])
+
+
+def per_step(name: str, cfg) -> int:
+    """Launches of a TIG kernel a step: one of each, but the attention
+    kernels launch once a layer."""
+    return cfg.n_layers if name.startswith("temporal_attn") else 1
 
 
 def profile_train_steps(torch, p: dict, cfg) -> dict:
@@ -1066,7 +1098,9 @@ def print_profile(label: str, run, steps: int, plain_wall: float) -> dict:
                                 )[:12]:
         print(f"  {tot / 1e3 / steps:8.4f} ms/step  {n // steps:4d}x  {key}")
     return {"wall": plain_wall / steps, "busy": busy / steps,
-            "ops": len(spans) / steps}
+            "ops": len(spans) / steps,
+            "kernels": {k: tot / 1e3 / steps for k, (tot, _) in
+                        by_name.items()}}
 
 
 def pac_partitions(g) -> tuple:
@@ -1121,7 +1155,8 @@ def pac_path(torch, kernels, g, train_g, part, cfg) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**20
     ep, m = res.plan, res.metrics
     device_s = [e - q for e, q in zip(res.epoch_seconds, res.plan_seconds)]
-    print(f"PAC path, P {p}: pac_train TGN (dim {cfg.dim}, batch "
+    print(f"PAC path, P {p}: pac_train TGN (dim {cfg.dim}, "
+          f"{cfg.n_layers} attention layer(s), batch "
           f"{cfg.batch_size}) on {p} SEP parts, one epoch of {ep.steps} "
           f"lockstep steps over {p} x {cfg.batch_size} rows: mean loss "
           f"{res.mean_loss_per_epoch().tolist()}, val_ap {m['val_ap']:.6f}, "
@@ -1138,8 +1173,9 @@ def pac_path(torch, kernels, g, train_g, part, cfg) -> dict:
     print(f"  kernels launched on the PAC path, P {p}: {launches}")
     sp = split_views(g)
     scored = sum(-(-len(v.src) // cfg.batch_size) for v in sp.views[1:])
-    want = {n: ep.steps if n != "fused_flush" and n != "temporal_attn"
-            else ep.steps + scored for n in TIG_PATH}
+    want = {n: (ep.steps if n != "fused_flush" and n != "temporal_attn"
+                else ep.steps + scored) * per_step(n, cfg)
+            for n in TIG_PATH}
     if launches != want:
         raise AssertionError(f"launches on the PAC path {launches}, "
                              f"expected {want}")
@@ -1635,23 +1671,26 @@ def tree_to(tree, dev):
     return tree.detach().to(dev, copy=True)
 
 
-def small_agreement(torch):
-    """Phase 4: the port on the card (kernels) against the port on the CPU
-    (plain versions), one epoch of a narrow TGN on ``tiny``."""
+def small_agreement(torch, n_layers: int = 1):
+    """Phase 4 (and phase 5d at two layers): the port on the card
+    (kernels) against the port on the CPU (plain versions), one epoch of
+    a narrow TGN on ``tiny``."""
     from repro_torch.tig.data import synthetic_tig
     from repro_torch.tig.models import TIGConfig, init_params
     from repro_torch.tig.train import train_single
 
     g = synthetic_tig("tiny")
     cfg = TIGConfig(flavor="tgn", dim=16, dim_time=8, dim_edge=16,
-                    dim_node=16, num_neighbors=4, n_heads=2, batch_size=50)
+                    dim_node=16, num_neighbors=4, n_heads=2, batch_size=50,
+                    n_layers=n_layers)
     p0 = init_params(torch.Generator().manual_seed(0), cfg)
     gpu = train_single(g, cfg, epochs=1, params=p0, device="cuda")
     cpu = train_single(g, cfg, epochs=1, params=p0, device="cpu")
     # float32 sums in another order, compounded over 17 AdamW steps
     d_loss = abs(gpu.losses[0] - cpu.losses[0])
     d_ap = max(abs(gpu.val_ap - cpu.val_ap), abs(gpu.test_ap - cpu.test_ap))
-    print(f"small agreement (card vs CPU): loss {gpu.losses[0]:.6f} vs "
+    print(f"small agreement (card vs CPU, {n_layers} attention "
+          f"layer(s)): loss {gpu.losses[0]:.6f} vs "
           f"{cpu.losses[0]:.6f}, val_ap {gpu.val_ap:.6f} vs "
           f"{cpu.val_ap:.6f}, test_ap {gpu.test_ap:.6f} vs "
           f"{cpu.test_ap:.6f}")
@@ -2266,6 +2305,293 @@ def flash_checks(torch, dev) -> list:
     return recs
 
 
+def multilayer_sample_check(torch, dev, g, cfg) -> dict:
+    """Phase 5d (2): the sampling kernel's nodes form at a two-layer
+    step's rows: one launch over the 3B queried nodes repeated for each
+    layer, per-row windows L-1 .. 0 (3B rows each), over the train
+    split's T-CSR exported at depth L, bitwise against ``sample_ref`` at
+    a batch mid-epoch (the batch index an int and a device scalar);
+    ``engine.sample_batch_neighbors`` at that batch, one launch, its
+    window-0 layer the one-layer grids. Times the kernel and its plain
+    version at those rows."""
+    import dataclasses
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.build import KERNELS
+    from repro_torch.kernels.neighbor_sample import neighbor_sample_fwd
+    from repro_torch.tig import engine
+
+    tcsr, prog, s, nodes = path_batch(torch, dev, g, cfg)
+    n_l, k, rows = cfg.n_layers, cfg.num_neighbors, nodes.shape[0]
+    win = torch.arange(n_l - 1, -1, -1, dtype=torch.int32, device=dev
+                       ).repeat_interleave(rows)
+    ts = ("indptr", "nbr", "t", "eidx", "bat")
+    a = (*(tcsr[x] for x in ts), nodes.repeat(n_l), s, k, win)
+    want = ref.sample_ref(*a)
+    got = sample_exact(torch, f"{n_l} windows", lambda: neighbor_sample_fwd(
+        *a), want)
+    sample_exact(torch, f"{n_l} windows, device-scalar batch index",
+                 lambda: neighbor_sample_fwd(*a[:6], torch.tensor(
+                     s, dtype=torch.int32, device=dev), k, win), want)
+    older = got[1][:rows][(got[1][:rows] >= 0).all(1)
+                          & (got[1][rows:] >= 0).all(1)]
+    batch = {x: torch.from_numpy(prog[x][s]).to(dev)
+             for x in ("src", "dst", "neg", "valid")}
+    before = KERNELS["neighbor_sample"].launches
+    grids = engine.sample_batch_neighbors(batch, tcsr, s, cfg)
+    one = engine.sample_batch_neighbors(
+        batch, tcsr, s, dataclasses.replace(cfg, n_layers=1))
+    torch.cuda.synchronize()
+    if KERNELS["neighbor_sample"].launches != before + 2:
+        raise AssertionError("sample_batch_neighbors: not one launch a call")
+    if not all(torch.equal(grids[f"{x}_{r}"][-1], one[f"{x}_{r}"])
+               for x in ("nbr", "nbrt", "nbre")
+               for r in ("src", "dst", "neg")):
+        raise AssertionError("the window-0 layer is not the one-layer grid")
+    kern = timings(lambda: neighbor_sample_fwd(*a))
+    plain = timings(lambda: ref.sample_ref(*a))
+    print(f"neighbor_sample: nodes form exact at a {n_l}-layer step's "
+          f"{n_l * rows} rows (windows {n_l - 1}..0, depth-{n_l} export), "
+          f"with a device-scalar batch index too; {len(older)} rows with "
+          f"both windows full; sample_batch_neighbors one launch, its "
+          f"window-0 layer the one-layer grids; {kern['ms'] * 1e3:.2f} us "
+          f"per call (plain {plain['ms'] * 1e3:.2f} us)")
+    del tcsr, prog, nodes
+    return {"windowed_rows": n_l * rows, "windowed_ms": kern["ms"],
+            "windowed_call_ms": kern["call_ms"],
+            "windowed_plain_ms": plain["ms"]}
+
+
+def window_control(torch, p: dict, cfg, eager_loss) -> float:
+    """Phase 5d's control: the graphed program with every layer sampled
+    at window 0 (the layer-0 grid a copy of the last layer's) must fail
+    the graphed-vs-eager loss check."""
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.tig import engine
+
+    opt = adamw(1e-3, max_grad_norm=1.0)
+    sample = ops.neighbor_sample
+
+    def window_zero(tcsr, nodes, batch_of, k, window=0):
+        return sample(tcsr, nodes, batch_of, k, window=0)
+
+    ops.neighbor_sample = window_zero
+    try:
+        bad = engine.make_train_epoch(cfg, opt)(
+            p["params"], opt.init(p["params"]), p["state"](), p["train"],
+            p["tables"], tcsr=p["train_tcsr"])
+    finally:
+        ops.neighbor_sample = sample
+    d = max_err([bad[3]], [eager_loss])
+    print(f"control, every layer sampled at window 0: max |loss diff| "
+          f"{d:.3g}")
+    if d <= 1e-4:
+        raise AssertionError("the window-0 control passed the check")
+    return d
+
+
+def multilayer_phase(torch, kernels, dev, g, train_g, part, pac4, shards,
+                     prof1: dict) -> tuple:
+    """Phase 5d: ``n_layers`` 2 at the paper's widths. Returns the
+    launches of each of its paths and the sampler's windowed timing."""
+    import dataclasses
+
+    from repro_torch.configs.speed_tig import TIG
+    from repro_torch.tig import engine
+    from repro_torch.tig.protocol import split_views
+    from repro_torch.tig.stream import ShardedStream
+    from repro_torch.tig.train import train_sharded, train_single
+
+    cfg = dataclasses.replace(TIG, n_layers=2)
+    t_phase = time.perf_counter()
+    by_path = {}
+    # (1) the path: train_single at two layers, counts from zero
+    reset_counts(torch, kernels)
+    t0 = time.perf_counter()
+    res = train_single(g, cfg, epochs=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: kernels[n].launches for n in TIG_PATH}
+    by_path["train_single_l2"] = launches
+    print(f"phase 5d path: train_single TGN, 2 attention layers (dim "
+          f"{cfg.dim}, K {cfg.num_neighbors}, batch {cfg.batch_size}) "
+          f"losses {res.losses}, val_ap {res.val_ap:.6f}, test_ap "
+          f"{res.test_ap:.6f}, test_ap_inductive "
+          f"{res.test_ap_inductive:.6f}, epoch_seconds {res.epoch_seconds} "
+          f"(plan {res.plan_seconds}, device epoch "
+          f"{[e - q for e, q in zip(res.epoch_seconds, res.plan_seconds)]}"
+          f"), wall {wall:.3f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    print(f"kernels launched on the two-layer path: {launches}")
+    steps = [-(-len(v.src) // cfg.batch_size) for v in split_views(g).views]
+    want = {n: (steps[0] if n in ("temporal_attn_bwd", "fused_gru_bwd")
+                else sum(steps)) * per_step(n, cfg) for n in TIG_PATH}
+    if launches != want:
+        raise AssertionError(f"launches on the two-layer path {launches}, "
+                             f"expected {want} (steps {steps})")
+    if not all(math.isfinite(x) for x in res.losses):
+        raise AssertionError(f"non-finite two-layer loss: {res.losses}")
+    if not (0.6 < res.val_ap <= 1.0 and 0.6 < res.test_ap <= 1.0):
+        raise AssertionError(f"two-layer AP not above chance: "
+                             f"{res.val_ap}, {res.test_ap}")
+
+    # (2) the sampler at the path's windowed rows
+    sampled = multilayer_sample_check(torch, dev, g, cfg)
+
+    # (3) graphed against eager, the window-0 control, the profile
+    p = path_epochs(torch, g, cfg)
+    checks = graph_checks(torch, kernels, p, cfg)
+    window_control(torch, p, cfg, checks["eager_loss"])
+    prof2 = profile_train_steps(torch, p, cfg)
+    engine.release(p["tables"])
+    del p, checks
+    for label, prof in (("1 layer (phase 5)", prof1),
+                        ("2 layers", prof2)):
+        gr = prof["graphed"]
+        ib = sum(v for k, v in gr["kernels"].items()
+                 if "indexing_backward" in k)
+        print(f"graphed train step, {label}: device busy {gr['busy']:.3f} "
+              f"ms, {gr['ops']:.0f} ops; indexing_backward_kernel "
+              f"{ib:.3f} ms ({ib / gr['busy']:.1%} of busy)")
+
+    # (4) PAC at P 4, two layers, launches held to its lockstep steps
+    pac = pac_path(torch, kernels, g, train_g, part, cfg)
+    by_path["pac_p4_l2"] = pac["launches"]
+    print(f"PAC P 4 at two layers beside one (NVIDIA card above): epoch "
+          f"{pac['res'].epoch_seconds[0]:.4f} s vs "
+          f"{pac4['res'].epoch_seconds[0]:.4f} s, val_ap "
+          f"{pac['res'].metrics['val_ap']:.6f} vs "
+          f"{pac4['res'].metrics['val_ap']:.6f}")
+
+    # (5) out of core: phase 5c's 10 shards, one epoch, bitwise
+    reset_counts(torch, kernels)
+    t0 = time.perf_counter()
+    shd = train_sharded(ShardedStream.open(str(shards)), cfg, epochs=1,
+                        protocol=True)
+    torch.cuda.synchronize()
+    by_path["train_sharded_l2"] = {n: kernels[n].launches for n in TIG_PATH}
+    print(f"train_sharded at two layers on phase 5c's shards: losses "
+          f"{shd.losses} (train_single {res.losses}), "
+          f"epoch_seconds {shd.epoch_seconds}, test_ap "
+          f"{shd.metrics['test_ap']:.6f}, wall "
+          f"{time.perf_counter() - t0:.3f} s; launches "
+          f"{by_path['train_sharded_l2']}")
+    if shd.losses != res.losses:
+        raise AssertionError(f"two-layer train_sharded losses {shd.losses} "
+                             f"are not train_single's {res.losses}")
+
+    # (6) card against CPU on tiny
+    small_agreement(torch, n_layers=2)
+    print(f"phase 5d: {time.perf_counter() - t_phase:.1f} s "
+          f"({card_line()})")
+    return by_path, sampled
+
+
+def restart_phase(torch, kernels, g, train_g, part, params, tmp: Path
+                  ) -> dict:
+    """Phase 5e: TIGER's restarter at the paper's widths, from phase 5's
+    trained params. Returns the launches of its two paths."""
+    import numpy as np
+
+    from repro_torch.configs.speed_tig import TIG
+    from repro_torch.tig import engine
+    from repro_torch.tig.batching import build_batch_program, make_tables
+    from repro_torch.tig.distributed import pac_train
+    from repro_torch.tig.models import init_state
+    from repro_torch.tig.protocol import run_protocol, split_views
+    from repro_torch.tig.restart import (collect_bank, fit_restarter,
+                                         load_restarter, restart_memory,
+                                         save_restarter)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    splits = split_views(g)
+    tables = {k: torch.from_numpy(v).to(dev) for k, v in
+              make_tables(g.edge_feat, g.node_feat).items()}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (1) build: collect the bank, fit the head, timed apart
+    (bank, replay_state), t_collect = timed(
+        lambda: collect_bank(params, TIG, splits, tables))
+    rst, t_fit = timed(lambda: fit_restarter(bank, replay_state, TIG,
+                                             tables))
+    print(f"restarter: collect_bank {t_collect:.3f} s (a replay of "
+          f"{splits.train.num_edges} train edges, {int(bank.seen.sum())} of "
+          f"{splits.num_nodes} nodes seen), fit_restarter {t_fit:.3f} s "
+          f"(400 AdamW steps, fit MSE {rst.fit_mse:.6g})")
+
+    # (2) score: the restart against the replayed state, counts from zero
+    reset_counts(torch, kernels)
+    restart, t_rp = timed(lambda: run_protocol(
+        params, TIG, splits, tables, warm="restart", restarter=rst))
+    launches = {n: kernels[n].launches for n in TIG_PATH}
+    oracle, t_sp = timed(lambda: run_protocol(
+        params, TIG, splits, tables, warm="state", state=replay_state))
+    print(f"run_protocol warm='restart' {t_rp:.3f} s: val_ap "
+          f"{restart['val_ap']:.6f}, test_ap {restart['test_ap']:.6f}, "
+          f"val_auc {restart['val_auc']:.6f}, test_auc "
+          f"{restart['test_auc']:.6f}; warm='state' (the replayed memory) "
+          f"{t_sp:.3f} s: val_ap {oracle['val_ap']:.6f}, test_ap "
+          f"{oracle['test_ap']:.6f}, val_auc {oracle['val_auc']:.6f}, "
+          f"test_auc {oracle['test_auc']:.6f}; launches {launches}")
+    gaps = {k: abs(restart[k] - oracle[k])
+            for k in ("val_ap", "test_ap", "val_auc", "test_auc")}
+    if not all(v <= 0.05 for v in gaps.values()):
+        raise AssertionError(f"restart metrics off the replayed state's "
+                             f"by more than 0.05: {gaps}")
+    if launches["temporal_attn"] == 0:
+        raise AssertionError("the restart scoring launched no attention")
+
+    # (3) the warm-up's cost: restart_memory against the train replay
+    # (its host plan and the device replay; the second call, captured)
+    for _ in range(2):
+        state_r, t_restart = timed(lambda: restart_memory(
+            rst, splits.num_nodes, tables))
+    batches, t_plan = timed(lambda: build_batch_program(
+        splits.train, TIG, np.random.default_rng(0),
+        neg_pool=splits.neg_pool)[0])
+    eval_fn = engine.make_eval_epoch(TIG)
+    replays = [timed(lambda: eval_fn(params, init_state(
+        TIG, splits.num_nodes, dev), batches, tables))[1] for _ in range(2)]
+    engine.release(tables)
+    print(f"warm-up: restart_memory {t_restart:.4f} s against the replay "
+          f"{t_plan + replays[1]:.4f} s (host plan {t_plan:.4f} s + device "
+          f"replay {replays[1]:.4f} s; first replay with its capture "
+          f"{replays[0]:.4f} s) ({card_line()})")
+
+    # (4) the bundle's round trip
+    path = save_restarter(str(tmp / "restarter.npz"), rst)
+    again = restart_memory(load_restarter(path, TIG), splits.num_nodes,
+                           tables)
+    if not all(torch.equal(state_r[k], again[k]) for k in state_r):
+        raise AssertionError("restart_memory differs after save / load")
+    print(f"restarter bundle: {Path(path).stat().st_size} bytes, "
+          f"restart_memory bitwise equal after save / load")
+
+    # (5) PAC at P 4 scored through the restarter
+    reset_counts(torch, kernels)
+    res, t_pac = timed(lambda: pac_train(
+        train_g, part, TIG, num_devices=part.num_parts, epochs=1,
+        eval_graph=g, eval_warm="restart"))
+    pac_launches = {n: kernels[n].launches for n in TIG_PATH}
+    m = res.metrics
+    print(f"pac_train P {part.num_parts} eval_warm='restart': val_ap "
+          f"{m['val_ap']:.6f}, test_ap {m['test_ap']:.6f}, wall "
+          f"{t_pac:.3f} s; launches {pac_launches}")
+    if not (0.6 < m["val_ap"] <= 1.0 and 0.6 < m["test_ap"] <= 1.0):
+        raise AssertionError(f"PAC restart AP too low: {m}")
+    print(f"phase 5e: {time.perf_counter() - t_phase:.1f} s "
+          f"({card_line()})")
+    return {"run_protocol_restart": launches, "pac_p4_restart": pac_launches}
+
+
 def main() -> int:
     import torch
 
@@ -2352,7 +2678,7 @@ def main() -> int:
 
     p = path_epochs(torch, g, TIG)
     graph_checks(torch, KERNELS, p, TIG)
-    profile_train_steps(torch, p, TIG)
+    prof1 = profile_train_steps(torch, p, TIG)
     engine.release(p["tables"])
     del p
 
@@ -2393,8 +2719,16 @@ def main() -> int:
         by_path[f"pac_p{p4}_shards"] = sharded_pac(
             torch, KERNELS, train_g, parts[p4], pac[p4], Path(tmp)
         )["launches"]
-    node_class_agreement(torch)
-    print(f"phase 5c: {time.perf_counter() - t0:.1f} s ({card})")
+        node_class_agreement(torch)
+        print(f"phase 5c: {time.perf_counter() - t0:.1f} s ({card})")
+
+        # phase 5d: two attention layers; phase 5e: the restarter
+        ml_paths, ml_extra = multilayer_phase(
+            torch, KERNELS, dev, g, train_g, parts[p4], pac[p4],
+            Path(tmp) / "parity", prof1)
+        by_path.update(ml_paths)
+        by_path.update(restart_phase(torch, KERNELS, g, train_g, parts[p4],
+                                     res.params, Path(tmp)))
     for n in TIG_PATH:
         launches[n] = sum(c[n] for c in by_path.values())
 
@@ -2446,7 +2780,9 @@ def main() -> int:
                 {"launches_by_path": {k: c[r["name"]] for k, c in
                                       by_path.items() if r["name"] in c}}
                 if r["name"] in TIG_PATH else {}) | pac_extra.get(
-                    r["name"], {})
+                    r["name"], {}) | ({"multilayer": ml_extra}
+                                      if r["name"] == "neighbor_sample"
+                                      else {})
 
     def shaped_entry(main, rs):
         """The entry at the path's main shape; "shapes" holds them all."""

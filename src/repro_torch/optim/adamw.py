@@ -7,7 +7,7 @@ params) -> (updates, opt_state)``; ``opt.apply`` adds the updates and
 returns new tensors. ``opt.apply_`` does the same float operations and
 writes the results into the given params and state, for a step that reads
 and writes only fixed tensors (the captured epoch programs of
-``tig/engine.py``).
+``tig/engine.py``). ``opt.minimize`` runs a full-batch fit of a loss.
 """
 
 from __future__ import annotations
@@ -42,6 +42,23 @@ class Optimizer:
             dst.copy_(src)
         for p, u in zip(tree_leaves(params), tree_leaves(updates)):
             p.add_(u)
+
+    def minimize(self, params, loss_fn: Callable, steps: int):
+        """``steps`` full-batch updates from fresh optimizer state, each
+        on the gradient of the scalar ``loss_fn(params)`` with respect to
+        every leaf. ``params`` must be leaf tensors. Returns the new
+        params and the loss before the last update (0 with no step)."""
+        state = self.init(params)
+        loss = torch.zeros(())
+        for _ in range(steps):
+            leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+            loss = loss_fn(params)
+            grads = iter(torch.autograd.grad(loss, leaves))
+            with torch.no_grad():
+                params, state = self.apply(
+                    tree_map(lambda _: next(grads), params), state,
+                    tree_map(torch.Tensor.detach, params))
+        return params, loss.detach()
 
 
 def clip_by_global_norm(grads, max_norm: float):

@@ -7,6 +7,10 @@ Modules, each the counterpart of the one of the same name in ``repro.tig``:
   * ``evaluation``       — AP / AUROC (numpy).
   * ``time_encode``, ``modules``, ``models`` — the TIG architecture.
   * ``engine``           — one training epoch / one scoring pass.
-  * ``protocol``         — chronological splits and stream scoring.
-  * ``train``            — ``train_single``.
+  * ``protocol``         — chronological splits, stream scoring and
+                           ``run_protocol``.
+  * ``restart``          — TIGER's restarter (replayless memory warm-up).
+  * ``stream``           — out-of-core shards and the epoch prefetcher.
+  * ``distributed``      — PAC over SEP partitions on one card.
+  * ``train``            — ``train_single``, ``train_sharded``.
 """

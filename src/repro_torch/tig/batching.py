@@ -76,7 +76,8 @@ def build_batch_program(
     arrays.
 
     Args:
-      cfg: a ``TIGConfig`` (``batch_size`` and ``num_neighbors`` are read).
+      cfg: a ``TIGConfig`` (``batch_size``, ``num_neighbors`` and
+        ``n_layers`` are read).
       history: neighbor index state carried over from an earlier stream
         (e.g. train -> val continuation); defaults to an empty history.
       neg_pool: candidate local ids for negative sampling (defaults to the
@@ -84,8 +85,9 @@ def build_batch_program(
       index: pre-built neighbor index for this stream (e.g. one reused
         across epochs); mutually exclusive with ``history`` and checked
         against the stream/cfg shape. Defaults to a fresh build.
-      plan: ``"host"`` pre-samples the (steps, b, k) neighbor grids here;
-        ``"device"`` ships only the raw edge records.
+      plan: ``"host"`` pre-samples the (steps, b, k) neighbor grids here
+        ((steps, L, b, k) with ``n_layers`` L > 1); ``"device"`` ships
+        only the raw edge records.
 
     Returns ``(batches, final_history)``: ``batches`` maps each
     ``models.step_loss`` key to a (steps, batch, ...) array;
@@ -133,15 +135,29 @@ def build_batch_program(
 
     # neighbors as of each row's own batch boundary (strictly-before-batch)
     batch_of = np.broadcast_to(np.arange(steps)[:, None], (steps, b))
+    n_l = cfg.n_layers
     for role, ids in (("src", src), ("dst", dst), ("neg", neg)):
         alive = (ids >= 0) & valid
         clean = np.where(alive, ids, 0)
-        nb, nt, ne = index.sample(clean.ravel(), batch_of.ravel())
-        nb = nb.reshape(steps, b, k)
-        nt = nt.reshape(steps, b, k)
-        ne = ne.reshape(steps, b, k)
-        nb[~alive] = -1
-        ne[~alive] = -1
+        if n_l == 1:
+            nb, nt, ne = index.sample(clean.ravel(), batch_of.ravel())
+            nb = nb.reshape(steps, b, k)
+            nt = nt.reshape(steps, b, k)
+            ne = ne.reshape(steps, b, k)
+            nb[~alive] = -1
+            ne[~alive] = -1
+        else:
+            # (steps, L, B, K) grids: layer l gets the (L-1-l)-th most
+            # recent K-window, as the device sampler lays them out
+            grids = [index.sample(clean.ravel(), batch_of.ravel(),
+                                  window=w)
+                     for w in range(n_l - 1, -1, -1)]
+            nb = np.stack([g[0].reshape(steps, b, k) for g in grids], 1)
+            nt = np.stack([g[1].reshape(steps, b, k) for g in grids], 1)
+            ne = np.stack([g[2].reshape(steps, b, k) for g in grids], 1)
+            dead = ~alive[:, None, :, None]
+            nb = np.where(dead, -1, nb)
+            ne = np.where(dead, -1, ne)
         batches[f"nbr_{role}"] = nb.astype(np.int32)
         batches[f"nbrt_{role}"] = nt.astype(np.float32)
         batches[f"nbre_{role}"] = ne.astype(np.int32)

@@ -34,10 +34,11 @@ epoch's plan on an ``EpochPrefetcher`` worker while the current epoch
 replays. Ported: an in-memory ``TemporalGraph`` source and an out-of-core
 ``ShardedStream`` one (localized shard by shard, the graph never
 materialized), the replicated flat layout, ``plan="host"`` and
-``"device"``, and node classification. Not ported yet (they raise): the
+``"device"``, ``n_layers`` > 1, node classification and the restarter
+warm-up of the scoring. Not ported yet (they raise): the
 ``host_replay`` oracle, ``layout="sharded"`` / ``local_ranks``, a mesh of
 several cards, the overlapped epoch boundary, checkpoints and ``resume``,
-faults and ``eval_warm="restart"``.
+and faults.
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ from repro_torch.tig.cache import lru_get
 from repro_torch.tig.graph import TemporalGraph
 from repro_torch.tig.models import TIGConfig, init_state
 from repro_torch.tig.protocol import run_protocol, split_views, time_scale_of
+from repro_torch.tig.restart import build_restarter
 from repro_torch.tig.sampler import ChronoNeighborIndex
 from repro_torch.tig.stream import (EpochPrefetcher, ShardedStream,
                                     stage_device_tables)
@@ -448,6 +450,15 @@ def unstack_states(state: dict, parts: int, cap: int, b: int) -> dict:
 # the epoch program
 # ======================================================================
 
+def _union_rows(x: torch.Tensor) -> torch.Tensor:
+    """The P devices' grid rows of one lockstep step, (P, B, ...), as the
+    union's (P B, ...); the multi-layer host grids (P, L, B, K) as
+    (L, P B, K), the layer axis first as ``step_loss`` takes it."""
+    if x.dim() == 4:
+        return x.transpose(0, 1).flatten(1, 2)
+    return x.flatten(0, 1)
+
+
 class _PACEpoch(engine._Epoch):
     """One PAC epoch over the union of P partitions: the tensors it owns
     (params, AdamW state, the union state and its Alg.2 backup, the flat
@@ -478,6 +489,7 @@ class _PACEpoch(engine._Epoch):
         self.tables = {k: own(union[k]) for k in ("nfeat", "efeat")}
         self.tcsr = None if union["tcsr"] is None else {
             k: own(v) for k, v in union["tcsr"].items()}
+        engine.check_depth(self.tcsr, cfg)
         # the device of each union row (the dump row: P) and of each
         # pending row (src rows of every device, then dst rows)
         rows = torch.arange(p * cap + 1, device=device)
@@ -552,9 +564,11 @@ class _PACEpoch(engine._Epoch):
         at, rows = self._batch_index(s)
         with torch.no_grad():
             self._fresh(self.state, torch.cat([at == 0, self.no]))
-        batch = {k: v.index_select(0, rows).flatten(0, 1)
+        batch = {k: _union_rows(v.index_select(0, rows))
                  for k, v in self.batches.items()}
         if self.tcsr is not None:
+            # one batch index a sampled row: (3 P B,), repeated for each
+            # layer's window by the sampler
             batch_of = at[:, None].expand(self.parts, self.b).reshape(-1)
             batch = engine.sample_batch_neighbors(
                 batch, self.tcsr, batch_of.repeat(3), self.cfg)
@@ -749,7 +763,7 @@ def pac_train(
     epoch_boundary: Literal["overlap", "serial"] = "serial",
     plan: str = "device",
     eval_graph: Optional[StreamSource] = None,
-    eval_warm: Literal["memory", "replay"] = "memory",
+    eval_warm: Literal["memory", "replay", "restart"] = "memory",
     eval_node_class: bool = False,
     params: Optional[dict] = None,
     device=None,
@@ -779,23 +793,27 @@ def pac_train(
     split, a ``TemporalGraph`` or a ``ShardedStream``) scores val and
     test through ``protocol.run_protocol`` into ``PACResult.metrics``,
     from PAC's synchronized memories merged to global rows
-    (``eval_warm="memory"``; ``train_ap`` NaN) or from a replay of the
-    train split (``"replay"``); ``eval_node_class`` adds the node
-    classification AUROC. ``epoch_seconds`` covers the wait for the plan,
+    (``eval_warm="memory"``; ``train_ap`` NaN), from a replay of the
+    train split (``"replay"``) or from TIGER's restarter, fitted on an
+    embedding bank of the train split (``"restart"``,
+    ``restart.build_restarter``; ``train_ap`` NaN); ``eval_node_class``
+    adds the node classification AUROC. ``epoch_seconds`` covers the wait
+    for the plan,
     the device epoch and the sync, synchronized; ``plan_seconds`` is the
     wait (all of the planning without prefetch).
 
     A ``mesh``, ``epoch_boundary="overlap"`` (the JAX package's default;
-    its ``"serial"`` oracle is what runs here), ``eval_warm="restart"``,
-    checkpoints (``ckpt_dir`` / ``resume``) and ``faults`` are not ported
-    yet and raise.
+    its ``"serial"`` oracle is what runs here), checkpoints (``ckpt_dir``
+    / ``resume``; so the restarter bundle is not saved) and ``faults``
+    are not ported yet and raise.
     """
     if mesh is not None:
         raise _not_ported("PAC over a mesh of several cards")
     if epoch_boundary != "serial":
         raise _not_ported(f"epoch_boundary={epoch_boundary!r}")
-    if eval_warm not in ("memory", "replay"):
-        raise _not_ported(f"eval_warm={eval_warm!r}")
+    if eval_warm not in ("memory", "replay", "restart"):
+        raise ValueError(f"eval_warm={eval_warm!r}: expected 'memory', "
+                         "'replay' or 'restart'")
     if ckpt_dir is not None or resume:
         raise _not_ported("checkpointing (ckpt_dir / resume)")
     if faults is not None:
@@ -857,6 +875,10 @@ def pac_train(
             warm = {"warm": "state", "state": globalize_memory(
                 states, last_plan, splits.num_nodes, cfg,
                 time_rescale=time_scale / splits.time_scale, device=device)}
+        elif eval_warm == "restart":
+            rst, _ = build_restarter(params, cfg, splits, tables, seed=seed,
+                                     device=device)
+            warm = {"warm": "restart", "restarter": rst}
         metrics = run_protocol(params, cfg, splits, tables, seed=seed,
                                eval_node_class=eval_node_class,
                                prefetch=prefetch, depth=depth,

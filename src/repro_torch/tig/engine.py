@@ -33,7 +33,9 @@ was, as JAX's immutable arrays do, and each call returns new tensors.
 
 With ``tcsr`` (a staged ``ChronoNeighborIndex.device_export``) the batch
 program is raw edge records (``plan="device"``) and each step samples its
-neighbor grids at its batch index through ``kernels.ops.sample_roles``.
+neighbor grids at its batch index through ``kernels.ops.sample_roles``
+(with ``n_layers`` L > 1: ``ops.neighbor_sample`` over L windows, the
+export's depth at least L).
 
 A scoring pass built with ``collect_embeddings`` also owns (steps, B,
 dim) ``src_embed`` / ``dst_embed`` outputs, written at the counter like
@@ -41,8 +43,7 @@ the logits (node classification trains its head on them).
 
 PAC's epoch (the Alg.2 cycle and wrap-around of ``cycle_length`` /
 ``wrap_steps``, over the union of the partitions) is
-``distributed._PACEpoch``, on this step's pieces. Not ported yet: the
-multi-layer windows.
+``distributed._PACEpoch``, on this step's pieces.
 """
 
 from __future__ import annotations
@@ -61,8 +62,9 @@ from repro_torch.tig.cache import lru_get
 from repro_torch.tig.models import TIGConfig, step_loss
 from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["sample_batch_neighbors", "scan_train_epoch", "scan_eval_stream",
-           "make_train_epoch", "make_eval_epoch", "release"]
+__all__ = ["sample_batch_neighbors", "check_depth", "scan_train_epoch",
+           "scan_eval_stream", "make_train_epoch", "make_eval_epoch",
+           "release"]
 
 _ROLES = ("src", "dst", "neg")
 WARMUP_STEPS = 2        # eager steps before a capture (real steps)
@@ -78,20 +80,58 @@ def sample_batch_neighbors(batch: dict, tcsr: dict, batch_of,
     One (3B,) sample over src ++ dst ++ neg (``ops.sample_roles``, one
     launch on the card), with dead rows (padding / invalid) sampling node
     0 and their ids / edge rows masked to -1 (times are left as sampled),
-    exactly as the host planner fills its grids. ``batch_of``: an int or
-    a 0-dim int32 tensor on the batch's device (read there on the card).
+    exactly as the host planner fills its grids. ``batch_of``: an int, a
+    0-dim int32 tensor on the batch's device (read there on the card) or
+    a (3B,) int32 tensor, one a row.
+
+    With ``cfg.n_layers`` L > 1 the grids come back (L, B, K) from one
+    nodes-form launch (``ops.neighbor_sample``) over L x 3B rows with
+    per-row windows L-1, ..., 0 (each 3B rows), so layer l's grid holds
+    the (L-1-l)-th most recent K-window; the T-CSR must be exported with
+    ``depth >= L``. The windows are built on the device: the step stays
+    capturable.
     """
     b = batch["src"].shape[0]
-    nb, nt, ne = ops.sample_roles(tcsr, *(batch[r] for r in _ROLES),
-                                  batch["valid"], batch_of,
-                                  cfg.num_neighbors)
+    n_l, k = cfg.n_layers, cfg.num_neighbors
+    if n_l == 1:
+        nb, nt, ne = ops.sample_roles(tcsr, *(batch[r] for r in _ROLES),
+                                      batch["valid"], batch_of, k)
+    else:
+        ids3 = torch.cat([batch[r] for r in _ROLES])
+        alive = (ids3 >= 0) & batch["valid"].repeat(3)
+        clean = torch.where(alive, ids3, 0).to(torch.int32)
+        win = torch.arange(n_l - 1, -1, -1, dtype=torch.int32,
+                           device=ids3.device)[:, None].expand(n_l, 3 * b)
+        if isinstance(batch_of, torch.Tensor) and batch_of.dim() == 1:
+            batch_of = batch_of.repeat(n_l)
+        nb, nt, ne = ops.neighbor_sample(tcsr, clean.repeat(n_l), batch_of,
+                                         k, window=win.reshape(-1))
+        keep = alive[:, None]
+        nb = torch.where(keep, nb.view(n_l, 3 * b, k), -1)
+        nt = nt.view(n_l, 3 * b, k)
+        ne = torch.where(keep, ne.view(n_l, 3 * b, k), -1)
     out = dict(batch)
     for j, role in enumerate(_ROLES):
         rows = slice(j * b, (j + 1) * b)
-        out[f"nbr_{role}"] = nb[rows]
-        out[f"nbrt_{role}"] = nt[rows]
-        out[f"nbre_{role}"] = ne[rows]
+        out[f"nbr_{role}"] = nb[..., rows, :]
+        out[f"nbrt_{role}"] = nt[..., rows, :]
+        out[f"nbre_{role}"] = ne[..., rows, :]
     return out
+
+
+def check_depth(tcsr, cfg: TIGConfig) -> None:
+    """Refuse a staged T-CSR exported shallower than ``cfg.n_layers``: the
+    window-w gather reaches ``(w + 1) K`` events back, into the front pad
+    of ``K * depth`` events (``indptr[0]``) for the first node. Read once
+    when an epoch program takes the T-CSR, never inside the step."""
+    if tcsr is None:
+        return
+    pad = int(tcsr["indptr"][0])
+    if pad < cfg.num_neighbors * cfg.n_layers:
+        raise ValueError(
+            f"the staged T-CSR's front pad holds {pad} events, under "
+            f"K * n_layers = {cfg.num_neighbors * cfg.n_layers}: export it "
+            f"with device_export(depth >= {cfg.n_layers})")
 
 
 @functools.cache
@@ -126,6 +166,7 @@ class _Epoch:
     def __init__(self, cfg: TIGConfig, opt, params, opt_state, state,
                  batches: dict, tables: dict, tcsr, device,
                  collect: bool = False):
+        check_depth(tcsr, cfg)
         self.cfg, self.opt, self.tables, self.tcsr = cfg, opt, tables, tcsr
         self.device = device
         train = opt is not None

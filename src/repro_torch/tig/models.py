@@ -28,7 +28,10 @@ through ``kernels.ops.fused_flush`` and the attention core goes through
 ``kernels.ops.temporal_attention``: on the card the hand-written kernels,
 on the CPU their plain versions.
 
-Only one attention layer is ported so far: ``n_layers > 1`` raises.
+With ``n_layers`` L > 1 the TGN / TIGE embedding is L stacked attention
+layers (``modules.stacked_temporal_attention``): the neighbor grids come
+(L, B, K), layer l's grid the (L-1-l)-th most recent K-window, and the
+params of ``attn`` carry a leading (L,) axis.
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ from repro_torch.kernels.ref import (scatter_last, scatter_memory,
                                      segment_mean)
 from repro_torch.tig.modules import (attn_init, dense, dense_init, gru_init,
                                      mlp, mlp_init, rnn, rnn_init,
+                                     stacked_attn_init,
+                                     stacked_temporal_attention,
                                      temporal_attention)
 from repro_torch.tig.time_encode import init_time_encoder, time_encode
 
@@ -68,16 +73,15 @@ class TIGConfig:
     dim_msg: int = 64          # MSG output dim when message_fn == "mlp"
     batch_size: int = 200
     n_classes: int = 0         # >0 adds the node-classification head
-    n_layers: int = 1          # attention layers
+    n_layers: int = 1          # attention layers (TGN / TIGE)
 
     def __post_init__(self):
         if self.flavor not in FLAVORS:
             raise ValueError(f"flavor={self.flavor!r}: expected {FLAVORS}")
         if self.message_fn not in ("id", "mlp"):
             raise ValueError(f"message_fn={self.message_fn!r}")
-        if self.n_layers != 1:
-            raise NotImplementedError(
-                "the port runs one attention layer so far (n_layers=1)")
+        if self.n_layers < 1:
+            raise ValueError(f"n_layers={self.n_layers}: expected >= 1")
 
     @property
     def raw_msg_dim(self) -> int:
@@ -115,7 +119,12 @@ def init_params(gen: torch.Generator, cfg: TIGConfig, device=None) -> dict:
     if cfg.uses_attention:
         d_q = cfg.dim + cfg.dim_node + cfg.dim_time
         d_kv = cfg.dim + cfg.dim_edge + cfg.dim_time
-        p["attn"] = attn_init(gen, d_q, d_kv, cfg.dim, cfg.n_heads, device)
+        if cfg.n_layers == 1:
+            p["attn"] = attn_init(gen, d_q, d_kv, cfg.dim, cfg.n_heads,
+                                  device)
+        else:
+            p["attn"] = stacked_attn_init(gen, cfg.n_layers, d_q, d_kv,
+                                          cfg.dim, cfg.n_heads, device)
     else:
         if cfg.flavor == "jodie":
             p["jodie_w"] = torch.zeros(cfg.dim, device=device)
@@ -215,12 +224,13 @@ def embed_nodes(
     tables: dict,                # {"efeat": (E+1, d_e), "nfeat": (N+1, d_n)}
     ids: torch.Tensor,           # (B,) local ids (dump row for padding)
     t: torch.Tensor,             # (B,)
-    nbr_ids: torch.Tensor,       # (B, K) — -1 for empty slots
-    nbr_t: torch.Tensor,         # (B, K)
-    nbr_eidx: torch.Tensor,      # (B, K) — -1 for empty slots
+    nbr_ids: torch.Tensor,       # (B, K) or (L, B, K) — -1: empty slot
+    nbr_t: torch.Tensor,         # (B, K) or (L, B, K)
+    nbr_eidx: torch.Tensor,      # (B, K) or (L, B, K) — -1: empty slot
 ) -> torch.Tensor:
     """The Embedding module: emb_i(t) from current memory + temporal
-    neighborhood (paper Fig.6, right)."""
+    neighborhood (paper Fig.6, right). (L, B, K) grids, one a layer,
+    go through the L-layer fold."""
     n_dump = state["mem"].shape[0] - 1
     s = _read_memory(cfg, state["mem"], state["mem2"], ids)
     nf = tables["nfeat"][ids]
@@ -235,6 +245,7 @@ def embed_nodes(
         return dense(params["emb"], torch.cat([s, nf], dim=-1))
 
     # TGN / TIGE: temporal graph attention over the K recent neighbors
+    # (t[:, None] broadcasts over (B, K) and (L, B, K) grids alike)
     mask = nbr_ids >= 0
     nids = torch.where(mask, nbr_ids, n_dump)
     eids = torch.where(nbr_eidx >= 0, nbr_eidx, tables["efeat"].shape[0] - 1)
@@ -244,9 +255,12 @@ def embed_nodes(
                           torch.where(mask, t[:, None] - nbr_t, 0.0))
     phi_self = time_encode(params["time"], torch.zeros_like(t))
     kv_in = torch.cat([s_nbr, e_nbr, phi_nbr], dim=-1)
-    q_in = torch.cat([s, nf, phi_self], dim=-1)
-    return temporal_attention(params["attn"], q_in, kv_in, mask,
-                              n_heads=cfg.n_heads)
+    extra = torch.cat([nf, phi_self], dim=-1)
+    if nbr_ids.dim() == 3:
+        return stacked_temporal_attention(params["attn"], s, extra, kv_in,
+                                          mask, n_heads=cfg.n_heads)
+    return temporal_attention(params["attn"], torch.cat([s, extra], dim=-1),
+                              kv_in, mask, n_heads=cfg.n_heads)
 
 
 # -------------------------------------------------------------------- step
@@ -259,7 +273,8 @@ def step_loss(params: dict, state: dict, batch: dict, tables: dict,
     ``batch`` keys: src, dst, neg (B,) int32 local ids (-1 = padding);
     t (B,) float32; eidx (B,) int32; valid (B,) bool; and per role r in
     {src, dst, neg}: nbr_{r} (B,K) ids, nbrt_{r} (B,K) times, nbre_{r}
-    (B,K) edge rows.
+    (B,K) edge rows, or (L,B,K) each when ``cfg.n_layers`` L > 1 (the
+    roles join on dim -2 either way).
     """
     n_dump = state["mem"].shape[0] - 1
     valid = batch["valid"]
@@ -281,7 +296,8 @@ def step_loss(params: dict, state: dict, batch: dict, tables: dict,
         params, cfg, state, tables,
         torch.cat([ids_s, ids_d, ids_n]),
         batch["t"].repeat(3),
-        *(torch.cat([batch[f"{key}_{r}"] for r in ("src", "dst", "neg")])
+        *(torch.cat([batch[f"{key}_{r}"] for r in ("src", "dst", "neg")],
+                    dim=-2)
           for key in ("nbr", "nbrt", "nbre")),
     )
     e_src, e_dst, e_neg = emb_all[:b], emb_all[b:2 * b], emb_all[2 * b:]

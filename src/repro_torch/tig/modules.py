@@ -1,7 +1,8 @@
 """Neural building blocks for TIG models (functional params), as
 ``repro/tig/modules.py``: Message (MSG), State Update (UPD: GRU / RNN
-cells), the temporal graph attention of the Embedding module, and the link
-decoder, each an ``init`` / ``apply`` pair over a dict of tensors.
+cells), the temporal graph attention of the Embedding module (one layer,
+or L layers stacked), the link decoder and TIGER's restarter head, each
+an ``init`` / ``apply`` pair over a dict of tensors.
 
 ``init`` functions draw from an explicit ``torch.Generator``; they keep the
 JAX package's shapes and scales, not its numbers.
@@ -15,9 +16,12 @@ from typing import Sequence
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.tree import tree_map
 
-__all__ = ["dense_init", "dense", "mlp_init", "mlp", "gru_init", "gru",
-           "rnn_init", "rnn", "attn_init", "temporal_attention"]
+__all__ = ["dense_init", "dense", "mlp_init", "mlp", "restarter_init",
+           "restarter", "gru_init", "gru", "rnn_init", "rnn", "attn_init",
+           "temporal_attention", "stacked_attn_init",
+           "stacked_temporal_attention"]
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -45,6 +49,22 @@ def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
         if i + 1 < n:
             x = torch.relu(x)
     return x
+
+
+def restarter_init(gen: torch.Generator, d_in: int, d_mem: int,
+                   n_mem: int = 1, d_hidden: int | None = None,
+                   device=None) -> dict:
+    """TIGER's restarter head: an MLP from a node's last collected
+    embedding (++ static features ++ Phi(dt since it)) back to its memory
+    row(s); ``n_mem`` 2 regresses TIGE's dual memory in one head."""
+    d_hidden = d_hidden if d_hidden is not None else max(2 * d_mem, d_in)
+    return mlp_init(gen, [d_in, d_hidden, n_mem * d_mem], device)
+
+
+def restarter(p: dict, x: torch.Tensor, d_mem: int,
+              n_mem: int = 1) -> torch.Tensor:
+    """Apply the restarter head: (..., d_in) -> (..., n_mem, d_mem)."""
+    return mlp(p, x).reshape(x.shape[:-1] + (n_mem, d_mem))
 
 
 def gru_init(gen: torch.Generator, d_in: int, d_h: int, device=None) -> dict:
@@ -105,3 +125,36 @@ def temporal_attention(
     vv = dense(p["v"], kv_in).reshape(b, k, n_heads, -1)
     ctx = ops.temporal_attention(q, kk, vv, mask).reshape(b, -1)
     return dense(p["o"], torch.cat([query_in, ctx], dim=-1))
+
+
+def stacked_attn_init(gen: torch.Generator, n_layers: int, d_node: int,
+                      d_kv: int, d_out: int, n_heads: int,
+                      device=None) -> dict:
+    """``attn_init``'s params for ``n_layers`` layers, every leaf stacked
+    on a leading (L,) axis under the same keys (``q/w`` is (L, d_node,
+    d_out)), the JAX package's layout. Every layer maps d_node -> d_out:
+    layer l's query is layer l-1's output ++ the static query tail."""
+    layers = [attn_init(gen, d_node, d_kv, d_out, n_heads, device)
+              for _ in range(n_layers)]
+    return tree_map(lambda *xs: torch.stack(xs), *layers)
+
+
+def stacked_temporal_attention(
+    p_stack: dict,            # attn params, every leaf (L, ...)
+    h0: torch.Tensor,         # (B, d) initial query state (memory read-out)
+    extra: torch.Tensor,      # (B, d_extra) static query tail [nfeat ; Phi(0)]
+    kv_in: torch.Tensor,      # (L, B, K, d_kv) per-layer neighbor features
+    mask: torch.Tensor,       # (L, B, K) bool
+    n_heads: int = 2,
+) -> torch.Tensor:
+    """L-layer temporal attention, the JAX package's ``lax.scan`` fold as
+    a loop: layer l attends over its own neighbor grid with the query
+    ``[h ; extra]``, h the previous layer's output (``h0`` first). At
+    L = 1 this is ``temporal_attention`` on ``[h0 ; extra]``, bit for
+    bit."""
+    h = h0
+    for layer in range(kv_in.shape[0]):
+        p_l = tree_map(lambda x: x[layer], p_stack)
+        h = temporal_attention(p_l, torch.cat([h, extra], dim=-1),
+                               kv_in[layer], mask[layer], n_heads=n_heads)
+    return h

@@ -5,8 +5,6 @@ train node discovery in one chunked pass, forward-only scoring of one
 stream with transductive and inductive AP / AUROC, ``run_protocol``, the
 replay-to-warm-memory scorer, and ``train_classifier_head``, the
 Tab.V node-classification head on frozen embeddings.
-
-Not ported yet: the restarter warm-up (``warm="restart"``).
 """
 
 from __future__ import annotations
@@ -25,9 +23,10 @@ from repro_torch.tig.evaluation import link_prediction_metrics, roc_auc
 from repro_torch.tig.graph import TemporalGraph
 from repro_torch.tig.models import TIGConfig, init_state
 from repro_torch.tig.modules import mlp, mlp_init
+from repro_torch.tig.restart import restart_memory
 from repro_torch.tig.sampler import ChronoNeighborIndex
 from repro_torch.tig.stream import EpochPrefetcher, ShardedStream
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_map
 
 __all__ = ["DEFAULT_CHUNK_EDGES", "ProtocolSplits", "split_bounds",
            "split_views", "inductive_node_mask", "time_scale_of",
@@ -209,7 +208,8 @@ def run_protocol(params, cfg: TIGConfig, splits: ProtocolSplits,
                  tables: dict, *, seed: int = 0,
                  eval_node_class: bool = False, prefetch: bool = True,
                  depth: int = 1, state=None, warm: str = "replay",
-                 head_params: Optional[dict] = None, device=None) -> dict:
+                 restarter=None, head_params: Optional[dict] = None,
+                 device=None) -> dict:
     """The replay-to-warm-memory scorer (paper Tab.IV / V
     protocol): replay the train split through the scoring program to
     build node memory (no parameter updates), then score val and test,
@@ -220,11 +220,14 @@ def run_protocol(params, cfg: TIGConfig, splits: ProtocolSplits,
     worker while split e runs (``depth`` plans ahead; planning stays
     serial on the one worker, so on and off are bitwise equal).
 
-    ``warm``: ``"replay"`` (the default) or ``"state"`` (the caller's
-    post-train memory ``state``, e.g. PAC's merged memories; only the
-    neighbor history of the train rows is rebuilt on the host, and
-    ``train_ap`` is NaN). ``tables`` are tensors on ``device`` (default
-    ``"cuda"``; raises without a card).
+    ``warm``: ``"replay"`` (the default), ``"state"`` (the caller's
+    post-train memory ``state``, e.g. PAC's merged memories) or
+    ``"restart"`` (TIGER's replayless warm-up: the memory rebuilt in O(N)
+    by the fitted ``restarter`` bundle, ``restart.build_restarter``; its
+    metrics agree with the replay's within a tolerance, not bitwise).
+    Without the replay only the neighbor history of the train rows is
+    rebuilt on the host, and ``train_ap`` is NaN. ``tables`` are tensors
+    on ``device`` (default ``"cuda"``; raises without a card).
 
     Returns ``train_ap``, ``val_ap`` / ``val_auc`` / ``test_ap`` /
     ``test_auc`` with their ``*_inductive`` versions, and ``node_auroc``:
@@ -232,10 +235,15 @@ def run_protocol(params, cfg: TIGConfig, splits: ProtocolSplits,
     ``train_classifier_head`` on the test split's src embeddings (from
     ``head_params`` when given), else NaN.
     """
-    if warm not in ("replay", "state"):
-        raise ValueError(f"warm={warm!r}: expected 'replay' or 'state' "
-                         "(the restarter is not ported yet)")
-    if warm == "state" and state is None:
+    if warm not in ("replay", "state", "restart"):
+        raise ValueError(f"warm={warm!r}: expected 'replay', 'state' or "
+                         "'restart'")
+    if warm == "restart":
+        if restarter is None:
+            raise ValueError("warm='restart' needs a fitted restarter "
+                             "bundle (tig.restart.build_restarter)")
+        state = restart_memory(restarter, splits.num_nodes, tables)
+    elif warm == "state" and state is None:
         raise ValueError("warm='state' needs the post-train memory via "
                          "state=")
     device = resolve_device(device)
@@ -335,17 +343,12 @@ def train_classifier_head(embeds: np.ndarray, labels: np.ndarray,
                           [embeds.shape[1], 64, n_classes], device)
     params = tree_map(
         lambda v: torch.as_tensor(v).detach().to(device, copy=True), params)
-    opt = adamw(lr=lr)
-    opt_state = opt.init(params)
-    for _ in range(steps):
-        leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
-        logp = torch.log_softmax(mlp(params, x_tr), dim=-1)
-        loss = -torch.take_along_dim(logp, y_tr[:, None], 1).mean()
-        grads = iter(torch.autograd.grad(loss, leaves))
-        with torch.no_grad():
-            params, opt_state = opt.apply(
-                tree_map(lambda _: next(grads), params), opt_state,
-                tree_map(torch.Tensor.detach, params))
+
+    def loss_fn(p):
+        logp = torch.log_softmax(mlp(p, x_tr), dim=-1)
+        return -torch.take_along_dim(logp, y_tr[:, None], 1).mean()
+
+    params, _ = adamw(lr=lr).minimize(params, loss_fn, steps)
 
     with torch.no_grad():
         x_te = torch.from_numpy(np.ascontiguousarray(embeds[cut:])).to(

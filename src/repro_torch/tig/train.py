@@ -57,11 +57,12 @@ def epoch_rng(seed: int, epoch: int, role: int = 0) -> np.random.Generator:
         np.random.SeedSequence([seed, role, epoch]))
 
 
-def _stage_tcsr(index: ChronoNeighborIndex, device) -> dict:
+def _stage_tcsr(index: ChronoNeighborIndex, cfg: TIGConfig, device) -> dict:
     """A stream's T-CSR (``device_export``) as tensors on ``device``,
-    staged once per run."""
+    staged once per run, front-padded for the model's ``n_layers``
+    windows (``depth = n_layers``)."""
     return {k: torch.from_numpy(v).to(device)
-            for k, v in index.device_export().items()}
+            for k, v in index.device_export(depth=cfg.n_layers).items()}
 
 
 def _initial_params(params, cfg: TIGConfig, seed: int, device) -> dict:
@@ -181,7 +182,7 @@ def train_single(
         tr_index = ChronoNeighborIndex(
             tr_stream.src, tr_stream.dst, tr_stream.t, tr_stream.eidx,
             g.num_nodes, cfg.num_neighbors, cfg.batch_size)
-        tcsr["train"] = _stage_tcsr(tr_index, device)
+        tcsr["train"] = _stage_tcsr(tr_index, cfg, device)
 
     with EpochPrefetcher(
         lambda ep: build_batch_program(
@@ -211,7 +212,7 @@ def train_single(
                     val_stream.src, val_stream.dst, val_stream.t,
                     val_stream.eidx, g.num_nodes, cfg.num_neighbors,
                     cfg.batch_size, history=hist)
-                tcsr["val"] = _stage_tcsr(idx["val"], device)
+                tcsr["val"] = _stage_tcsr(idx["val"], cfg, device)
             val_batches, hist_val = build_batch_program(
                 val_stream, cfg, epoch_rng(seed, ep, 2),
                 history=None if plan == "device" else hist,
@@ -224,7 +225,7 @@ def train_single(
                         test_stream.src, test_stream.dst, test_stream.t,
                         test_stream.eidx, g.num_nodes, cfg.num_neighbors,
                         cfg.batch_size, history=hist_val)
-                    tcsr["test"] = _stage_tcsr(idx["test"], device)
+                    tcsr["test"] = _stage_tcsr(idx["test"], cfg, device)
                 test_batches, _ = build_batch_program(
                     test_stream, cfg, epoch_rng(seed, ep, 3),
                     history=None if plan == "device" else hist_val,
@@ -385,7 +386,7 @@ def train_sharded(
 
     # device planning: the T-CSR (and under protocol the val
     # continuation's) is staged once; epochs reuse it
-    tcsr_tr = _stage_tcsr(index, device) if plan == "device" else None
+    tcsr_tr = _stage_tcsr(index, cfg, device) if plan == "device" else None
     train_hist = index.final_snapshot() if protocol else None
     val_index, tcsr_val = None, None
     if plan == "device" and protocol:
@@ -393,7 +394,7 @@ def train_sharded(
             splits.val.src, splits.val.dst, splits.val.t, splits.val.eidx,
             shards.num_nodes, cfg.num_neighbors, cfg.batch_size,
             history=train_hist)
-        tcsr_val = _stage_tcsr(val_index, device)
+        tcsr_val = _stage_tcsr(val_index, cfg, device)
 
     own_tmp = None
     if protocol and ckpt_dir is None:

@@ -384,14 +384,104 @@ def test_train_single_on_card_matches_cpu(cuda):
     assert abs(on_card.test_ap - on_cpu.test_ap) < 1e-3
 
 
+def test_two_layers_on_card_match_cpu(cuda):
+    """``train_single`` at ``n_layers`` 2 (the windowed nodes-form
+    sampling, two attention launches a step) on the card against the CPU
+    from the same params; and one graphed epoch at L = 2 against the
+    eager one on the card, with the launches a step: one sampling, two
+    of each attention kernel."""
+    from repro_torch.optim import adamw
+    from repro_torch.tig import engine
+    from repro_torch.tig.data import synthetic_tig
+    from repro_torch.tig.train import train_single
+
+    g = synthetic_tig("tiny")
+    cfg = TIGConfig(flavor="tgn", dim=16, dim_time=8, dim_edge=16,
+                    dim_node=16, num_neighbors=4, n_heads=2, batch_size=50,
+                    n_layers=2)
+    p0 = init_params(torch.Generator().manual_seed(0), cfg)
+    on_card = train_single(g, cfg, epochs=1, params=p0)
+    on_cpu = train_single(g, cfg, epochs=1, params=p0, device="cpu")
+    assert abs(on_card.losses[0] - on_cpu.losses[0]) < 1e-4
+    assert abs(on_card.val_ap - on_cpu.val_ap) < 1e-3
+    assert abs(on_card.test_ap - on_cpu.test_ap) < 1e-3
+
+    t = _tiny_epochs(cuda, "tgn", n_layers=2)
+    cfg, params, state, tables = t["cfg"], t["params"], t["state"], t["tables"]
+    prog, tcsr = t["train"]
+    steps = prog["src"].shape[0]
+    opt = adamw(lr=1e-3, max_grad_norm=1.0)
+    before = {n: KERNELS[n].launches for n in TIG_KERNELS}
+    graphed = engine.make_train_epoch(cfg, opt)(
+        params, opt.init(params), state, prog, tables, tcsr=tcsr)
+    torch.cuda.synchronize()
+    assert {n: KERNELS[n].launches - before[n] for n in TIG_KERNELS} == {
+        "neighbor_sample": steps, "fused_flush": steps,
+        "temporal_attn": 2 * steps, "temporal_attn_bwd": 2 * steps,
+        "fused_gru_bwd": steps}
+    eager = engine.scan_train_epoch(params, opt.init(params), state, prog,
+                                    tables, cfg=cfg, opt=opt, tcsr=tcsr)
+    assert _max_diff([graphed[3]], [eager[3]]) < 1e-4
+    assert _max_diff([graphed[2]["mem"]], [eager[2]["mem"]]) < 1e-4
+
+
+def test_restarter_on_card_matches_cpu(cuda):
+    """TIGER's restarter on the card against the CPU from the same
+    params: the bank (embeddings to 1e-4, times and seen mask exactly),
+    the replay memory, the fit from the same bank, target and initial
+    head over 20 steps (it turns chaotic later, as between the packages:
+    ``tests/test_torch_restart.py``), and ``run_protocol(warm="restart")``
+    through one bundle on both (AP / AUROC to 1e-3)."""
+    from repro_torch.tig.batching import make_tables
+    from repro_torch.tig.data import synthetic_tig
+    from repro_torch.tig.protocol import run_protocol, split_views
+    from repro_torch.tig.restart import (collect_bank, fit_restarter,
+                                         restart_memory)
+    from repro_torch.tig.train import train_single
+    from repro_torch.tree import tree_map
+
+    g = synthetic_tig("tiny")
+    cfg = TIGConfig(flavor="tgn", dim=16, dim_time=8, dim_edge=16,
+                    dim_node=16, num_neighbors=4, n_heads=2, batch_size=50)
+    params = train_single(g, cfg, epochs=1, device="cpu").params
+    splits = split_views(g)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tables = {k: torch.from_numpy(v).to(dev) for k, v in
+                  make_tables(g.edge_feat, g.node_feat).items()}
+        p = tree_map(lambda x: x.to(dev), params)
+        bank, state = collect_bank(p, cfg, splits, tables, device=dev)
+        out[dev] = dict(tables=tables, params=p, bank=bank, state=state)
+    bc, bp = out["cuda"]["bank"], out["cpu"]["bank"]
+    assert np.array_equal(bc.seen, bp.seen) and np.array_equal(bc.t, bp.t)
+    assert np.abs(bc.emb - bp.emb).max() < 1e-4
+    assert _max_diff([out["cuda"]["state"]["mem"]],
+                     [out["cpu"]["state"]["mem"]]) < 1e-4
+    fits = {dev: fit_restarter(bp, out["cpu"]["state"], cfg,
+                               out[dev]["tables"], steps=20)
+            for dev in ("cuda", "cpu")}
+    mems = {dev: restart_memory(fits[dev], splits.num_nodes,
+                                out[dev]["tables"])["mem"].cpu()
+            for dev in fits}
+    scale = float(mems["cpu"].abs().max())
+    assert float((mems["cuda"] - mems["cpu"]).abs().max()) <= 1e-3 * scale
+    metrics = {dev: run_protocol(out[dev]["params"], cfg, splits,
+                                 out[dev]["tables"], warm="restart",
+                                 restarter=fits["cpu"], device=dev)
+               for dev in ("cuda", "cpu")}
+    for key in ("val_ap", "test_ap", "val_auc", "test_auc"):
+        assert abs(metrics["cuda"][key] - metrics["cpu"][key]) < 1e-3, key
+
+
 TIG_KERNELS = ("neighbor_sample", "fused_flush", "temporal_attn",
                "temporal_attn_bwd", "fused_gru_bwd")
 
 
-def _tiny_epochs(dev, flavor, plan="device"):
+def _tiny_epochs(dev, flavor, plan="device", n_layers=1):
     """A narrow model on ``synthetic_tig("tiny")``: the train program and
-    the val program (each with its staged T-CSR under ``plan="device"``),
-    tables, params from a seed and a fresh state."""
+    the val program (each with its staged T-CSR under ``plan="device"``,
+    exported at depth ``n_layers``), tables, params from a seed and a
+    fresh state."""
     from repro_torch.tig.batching import build_batch_program, make_tables
     from repro_torch.tig.data import synthetic_tig
     from repro_torch.tig.models import init_state
@@ -400,7 +490,8 @@ def _tiny_epochs(dev, flavor, plan="device"):
 
     g = synthetic_tig("tiny")
     cfg = TIGConfig(flavor=flavor, dim=16, dim_time=8, dim_edge=16,
-                    dim_node=16, num_neighbors=4, n_heads=2, batch_size=50)
+                    dim_node=16, num_neighbors=4, n_heads=2, batch_size=50,
+                    n_layers=n_layers)
     sp = split_views(g)
     out = {"cfg": cfg, "state": init_state(cfg, g.num_nodes, dev),
            "params": init_params(torch.Generator().manual_seed(0), cfg, dev),
@@ -419,7 +510,7 @@ def _tiny_epochs(dev, flavor, plan="device"):
             neg_pool=sp.neg_pool,
             index=index if plan == "device" else None, plan=plan)
         out[name] = (prog, {k: torch.from_numpy(v).to(dev) for k, v in
-                            index.device_export().items()}
+                            index.device_export(depth=n_layers).items()}
                      if plan == "device" else None)
     return out
 

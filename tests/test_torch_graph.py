@@ -15,10 +15,10 @@ scoring step of each flavor, and two PAC steps, under a dispatch mode that fails
 capture cannot take: a read of a device value on the host
 (``_local_scalar_dense``), a tensor built from host data (``lift_fresh``),
 and data-dependent shapes (``nonzero``, a boolean-mask index). The mode is
-suspended inside the three kernel entry points (``ops.sample_roles``,
-``ops.fused_flush``, ``ops.temporal_attention``): on the card those are
-the hand-written kernels; on the CPU their plain versions run, which no
-graph captures.
+suspended inside the kernel entry points (``ops.sample_roles``,
+``ops.neighbor_sample``, ``ops.fused_flush``, ``ops.temporal_attention``):
+on the card those are the hand-written kernels; on the CPU their plain
+versions run, which no graph captures.
 """
 
 import numpy as np
@@ -54,7 +54,8 @@ SMALL = dict(dim=16, dim_time=8, dim_edge=16, dim_node=16, num_neighbors=4,
              n_heads=2, batch_size=50)
 TOL = 1e-4
 FLAVORS = ("jodie", "dyrep", "tgn", "tige")
-KERNEL_ENTRIES = ("sample_roles", "fused_flush", "temporal_attention")
+KERNEL_ENTRIES = ("sample_roles", "neighbor_sample", "fused_flush",
+                  "temporal_attention")
 
 
 def _np(tree):
@@ -239,7 +240,7 @@ class CaptureProbe(TorchDispatchMode):
 
 @pytest.fixture
 def kernels_unprobed(monkeypatch):
-    """The three kernel entry points run with the probe suspended."""
+    """The kernel entry points run with the probe suspended."""
     def suspended(fn):
         def run(*args, **kwargs):
             with _disable_current_modes():

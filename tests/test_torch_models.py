@@ -119,5 +119,7 @@ def test_convert_round_trips_every_tree():
 
 
 def test_multi_layer_config_raises():
-    with pytest.raises(NotImplementedError):
-        tm.TIGConfig(n_layers=2)
+    """Any depth from one layer up is a model; none below."""
+    with pytest.raises(ValueError, match="n_layers"):
+        tm.TIGConfig(n_layers=0)
+    assert tm.TIGConfig(n_layers=2).n_layers == 2

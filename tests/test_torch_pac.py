@@ -320,13 +320,12 @@ def test_plan_epoch_refuses_what_is_not_ported(option):
                       np.random.default_rng(0), **kw)
 
 
-@pytest.mark.parametrize("option", ["mesh", "eval_warm", "epoch_boundary",
+@pytest.mark.parametrize("option", ["mesh", "epoch_boundary",
                                     "ckpt_dir", "resume", "faults"])
 def test_pac_train_refuses_what_is_not_ported(option):
     g, tr, _, _ = _graphs()
     part = sep_partition(tr.src, tr.dst, tr.t, g.num_nodes, 2)
-    kw = {"mesh": dict(mesh=object()), "eval_warm": dict(
-        eval_warm="restart"), "epoch_boundary": dict(
+    kw = {"mesh": dict(mesh=object()), "epoch_boundary": dict(
         epoch_boundary="overlap"),
         "ckpt_dir": dict(ckpt_dir="ckpt"), "resume": dict(resume=True),
         "faults": dict(faults=object())}[option]
