@@ -106,6 +106,22 @@ Phases, each fatal on failure:
      (host plan + device replay); the bundle saved and loaded,
      ``restart_memory`` bitwise after; ``pac_train(eval_warm="restart")``
      at P 4;
+  5f. PAC over a mesh of ranks on an NCCL world of one rank in this
+     process (the machine has one card, and NCCL refuses two ranks on
+     one): ``pac_train(train split, SEP P 4, TIG, num_devices=4, epochs=1,
+     mesh=make_tig_mesh(4), eval_graph=g)`` with the sharded layout, from
+     phase 5b's params, launches counted from zero; losses, params,
+     post-sync memories and metrics bitwise phase 5b's P 4 run, launches
+     equal to its; 40 lockstep steps of the mesh's graphed program, the
+     gradient all-reduce called in the eager warm-up and the capture only
+     (replayed with the graph), its NCCL kernels a replayed step (1) and
+     step / busy ms beside phase 5b's; epoch seconds beside 5b's; the
+     planning bytes and seconds of each rank's ``local_ranks=[k]`` plan
+     against the full plan, the bytes one device receives in the
+     replicated and the sharded layout; ``python -m
+     repro_torch.launch.pac_cluster`` as a subprocess (one NCCL rank on
+     ``tiny``), exit 0 and its npz bitwise the same run in process with
+     ``mesh=None``;
   6. the WKV kernels (``ops.rwkv6`` takes the chunked kernel for S >= 64
      and the sequential one below) against their plain versions at the
      RWKV6 path's shapes (decode S 1 with a state, a ragged S 100 with a
@@ -1099,6 +1115,7 @@ def print_profile(label: str, run, steps: int, plain_wall: float) -> dict:
         print(f"  {tot / 1e3 / steps:8.4f} ms/step  {n // steps:4d}x  {key}")
     return {"wall": plain_wall / steps, "busy": busy / steps,
             "ops": len(spans) / steps,
+            "counts": {k: n / steps for k, (_, n) in by_name.items()},
             "kernels": {k: tot / 1e3 / steps for k, (tot, _) in
                         by_name.items()}}
 
@@ -2592,6 +2609,267 @@ def restart_phase(torch, kernels, g, train_g, part, params, tmp: Path
     return {"run_protocol_restart": launches, "pac_p4_restart": pac_launches}
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def same_pac(torch, a, b) -> bool:
+    """Two ``pac_train`` results equal bit for bit: losses, params, the
+    post-sync memories and the metrics."""
+    import numpy as np
+
+    return (len(a.losses) == len(b.losses)
+            and all(np.array_equal(x, y) for x, y in zip(a.losses, b.losses))
+            and all(torch.equal(x, y) for x, y in
+                    zip(leaves(a.params), leaves(b.params)))
+            and a.memory_states.keys() == b.memory_states.keys()
+            and all(torch.equal(a.memory_states[k], b.memory_states[k])
+                    for k in a.memory_states)
+            and same_metrics(a.metrics, b.metrics))
+
+
+def mesh_profile(torch, mesh, train_g, part, cfg, prof4: dict) -> None:
+    """Phase 5f (b): GRAPH_STEPS lockstep steps of the mesh's epoch
+    program (the rank's union of the sharded plan), captured and replayed:
+    the all-reduce runs once a step in the eager warm-up and once in the
+    capture, never again in Python (it is replayed with the graph); the
+    collective's device kernels a step under ``torch.profiler``; step and
+    busy ms beside phase 5b's P 4 profile."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import local_part_ranks
+    from repro_torch.optim import adamw
+    from repro_torch.tig import engine
+    from repro_torch.tig.distributed import (make_pac_epoch, plan_epoch,
+                                             union_plan)
+    from repro_torch.tig.models import init_params
+    from repro_torch.tig.protocol import time_scale_of
+    from repro_torch.tig.train import epoch_rng
+
+    ep = plan_epoch(train_g, part.node_lists(), part.shared_nodes, cfg,
+                    epoch_rng(0, 0, 11), steps_override=GRAPH_STEPS,
+                    time_scale=time_scale_of(train_g.t), plan="device",
+                    layout="sharded")
+    union = union_plan(ep, cfg, local_part_ranks(mesh))
+    opt = adamw(1e-3, max_grad_norm=1.0)
+    params = init_params(torch.Generator().manual_seed(0), cfg, "cuda")
+    fn = make_pac_epoch(cfg, opt, mesh=mesh)
+    calls = []
+    all_reduce = dist.all_reduce
+
+    def counted(*args, **kw):
+        calls.append(kw.get("op"))
+        return all_reduce(*args, **kw)
+
+    def run():
+        return fn(params, opt.init(params), union)
+
+    dist.all_reduce = counted
+    try:
+        run()                               # warm-up and capture
+        torch.cuda.synchronize()
+        n_first = len(calls)
+        run()                               # replays only
+        torch.cuda.synchronize()
+        n_second = len(calls) - n_first
+    finally:
+        dist.all_reduce = all_reduce
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    steps = union["steps"]
+    out = print_profile(f"{steps} PAC steps over the mesh (NCCL world of "
+                        f"one, P {mesh.num_parts}), graphed", run, steps,
+                        min(walls))
+    coll = {k: n for k, n in out["counts"].items()
+            if "nccl" in k.lower() or "onerank" in k.lower()}
+    per_step = sum(coll.values())
+    coll_us = sum(out["kernels"][k] for k in coll) * 1e3
+    print(f"  the gradient all-reduce: {n_first} Python calls in the first "
+          f"call ({engine.WARMUP_STEPS} eager warm-up steps and the "
+          f"capture, op {calls[0]}), {n_second} in the second ({steps} "
+          f"replays); NCCL kernels a replayed step {per_step:g} {coll}, "
+          f"{coll_us:.2f} us a step")
+    print(f"  step over the mesh vs phase 5b's P 4 (no mesh): unprofiled "
+          f"{min(walls) / steps:.3f} vs {prof4['wall']:.3f} ms, device "
+          f"busy {out['busy']:.3f} vs {prof4['busy']:.3f} ms, "
+          f"{out['ops']:.0f} vs {prof4['ops']:.0f} device ops")
+    if n_first != engine.WARMUP_STEPS + 1 or n_second != 0:
+        raise AssertionError(f"the all-reduce is not in the captured step: "
+                             f"{n_first} / {n_second} calls")
+    if per_step != 1:
+        raise AssertionError(f"NCCL kernels a replayed step {per_step}, "
+                             f"expected 1: {coll}")
+
+
+def mesh_planning(train_g, part, cfg) -> None:
+    """Phase 5f (b): what a rank plans. Epoch 0's plan at P parts in the
+    replicated and the sharded layout and each rank's ``local_ranks=[k]``
+    plan, timed, with their host bytes, and the bytes one device
+    receives (``device_input_bytes``)."""
+    from repro_torch.tig.distributed import plan_epoch
+    from repro_torch.tig.protocol import time_scale_of
+    from repro_torch.tig.train import epoch_rng
+
+    scale = time_scale_of(train_g.t)
+    p = part.num_parts
+
+    def timed(**kw):
+        t0 = time.perf_counter()
+        ep = plan_epoch(train_g, part.node_lists(), part.shared_nodes, cfg,
+                        epoch_rng(0, 0, 11), time_scale=scale,
+                        plan="device", **kw)
+        return ep, time.perf_counter() - t0
+
+    rep, s_rep = timed()
+    full, s_full = timed(layout="sharded")
+    print(f"planning, P {p}: replicated {rep.plan_bytes() / 2**20:.2f} MiB "
+          f"in {s_rep:.3f} s, {rep.device_input_bytes() / 2**20:.2f} MiB "
+          f"to each device; sharded {full.plan_bytes() / 2**20:.2f} MiB in "
+          f"{s_full:.3f} s, {full.device_input_bytes() / 2**20:.2f} MiB to "
+          f"each device")
+    for k in range(p):
+        loc, secs = timed(layout="sharded", local_ranks=[k])
+        print(f"  local_ranks=[{k}]: {loc.plan_bytes() / 2**20:.2f} MiB in "
+              f"{secs:.3f} s ({loc.plan_bytes() / full.plan_bytes():.3f} "
+              f"of the full sharded plan's bytes, {secs / s_full:.3f} of "
+              f"its seconds)")
+    if not full.device_input_bytes() < rep.device_input_bytes():
+        raise AssertionError("the sharded layout ships a device no less "
+                             "than the replicated one")
+
+
+def launcher_agreement(torch, tmp: Path) -> None:
+    """Phase 5f (c): ``python -m repro_torch.launch.pac_cluster`` as a
+    subprocess, one NCCL rank of 2 partition slots on ``tiny`` (8 SEP
+    parts, 2 epochs), killed with its session past 300 s; it must exit 0
+    and its npz equal the same run in this process with ``mesh=None``."""
+    import os
+    import signal
+
+    import numpy as np
+
+    from repro_torch.core import sep_partition
+    from repro_torch.tig.data import synthetic_tig
+    from repro_torch.tig.distributed import pac_train
+    from repro_torch.tig.graph import chronological_split
+    from repro_torch.tig.models import TIGConfig
+    from repro_torch.tree import tree_leaves
+
+    out = tmp / "launcher.npz"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.pac_cluster",
+         "--num-processes", "1", "--process-id", "0", "--coordinator",
+         f"127.0.0.1:{free_port()}", "--local-devices", "2", "--epochs",
+         "2", "--parts", "8", "--timeout", "120", "--out", str(out)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    try:
+        log = proc.communicate(timeout=300)[0]
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"pac_cluster exited {proc.returncode}:\n"
+                             f"{log[-3000:]}")
+    g = synthetic_tig("tiny", seed=0)
+    tr = chronological_split(g)[0]
+    cfg = TIGConfig(flavor="tgn", dim=16, dim_time=8, dim_edge=16,
+                    dim_node=16, num_neighbors=4, batch_size=50)
+    part = sep_partition(tr.src, tr.dst, tr.t, g.num_nodes, 8, k=0.05)
+    res = pac_train(tr, part, cfg, num_devices=2, epochs=2, seed=0,
+                    eval_graph=g)
+    want = {f"loss_{e}": x for e, x in enumerate(res.losses)}
+    want.update({f"param_{i}": x.cpu().numpy()
+                 for i, x in enumerate(tree_leaves(res.params))})
+    want.update({f"state_{k}": res.memory_states[k].cpu().numpy()
+                 for k in ("mem", "mem2", "last")})
+    want.update({f"metric_{k}": np.asarray(v)
+                 for k, v in res.metrics.items()})
+    got = np.load(out)
+    same = sorted(got.files) == sorted(want) and all(
+        np.array_equal(got[k], v, equal_nan=True) for k, v in want.items())
+    print(f"launcher: pac_cluster, one NCCL rank, 2 partition slots, tiny, "
+          f"exit {proc.returncode} in {secs:.1f} s "
+          f"({log.strip().splitlines()[-1]}); its npz ({len(got.files)} "
+          f"arrays) against the in-process mesh=None run: "
+          + ("bitwise equal" if same else "DIFFERENT"))
+    if not same:
+        raise AssertionError("the launcher's npz differs from mesh=None's")
+
+
+def mesh_phase(torch, kernels, g, train_g, part, pac4, prof4: dict,
+               tmp: Path) -> dict:
+    """Phase 5f: PAC over a mesh of ranks (``launch.mesh.make_tig_mesh``)
+    on an NCCL world of one rank in this process holding all P partition
+    slots (the card is one: NCCL refuses two ranks on it). Returns the
+    launches of its path."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.speed_tig import TIG
+    from repro_torch.launch.mesh import make_tig_mesh
+    from repro_torch.tig.distributed import pac_train
+
+    t_phase = time.perf_counter()
+    p = part.num_parts
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_tig_mesh(p)
+        # (a) the path at phase 5b's P 4, from its params: bitwise
+        reset_counts(torch, kernels)
+        t0 = time.perf_counter()
+        res = pac_train(train_g, part, TIG, num_devices=p, epochs=1,
+                        mesh=mesh, eval_graph=g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: kernels[n].launches for n in TIG_PATH}
+        ref = pac4["res"]
+        same = same_pac(torch, res, ref)
+        print(f"phase 5f path: pac_train over the mesh (NCCL world of one, "
+              f"{p} partition slots, layout {res.plan.layout}), one epoch "
+              f"of {res.plan.steps} steps: val_ap "
+              f"{res.metrics['val_ap']:.6f}, test_ap "
+              f"{res.metrics['test_ap']:.6f}; epoch_seconds "
+              f"{res.epoch_seconds} (plan {res.plan_seconds}) vs phase "
+              f"5b's {ref.epoch_seconds} (plan {ref.plan_seconds}), wall "
+              f"{wall:.3f} s vs {pac4['wall']:.3f} s; against phase 5b's "
+              f"P {p} run: losses, params, memories and metrics "
+              + ("bitwise equal" if same else "DIFFERENT"))
+        print(f"  kernels launched over the mesh: {launches}")
+        if not same:
+            raise AssertionError("PAC over the mesh differs from phase "
+                                 "5b's run")
+        if launches != pac4["launches"]:
+            raise AssertionError(f"PAC over the mesh launched {launches}, "
+                                 f"phase 5b {pac4['launches']}")
+        # (b) where the time goes, and what a rank plans
+        mesh_profile(torch, mesh, train_g, part, TIG, prof4)
+        mesh_planning(train_g, part, TIG)
+    finally:
+        dist.destroy_process_group()
+    # (c) the launcher
+    launcher_agreement(torch, tmp)
+    print(f"phase 5f: {time.perf_counter() - t_phase:.1f} s ({card_line()})")
+    return {f"pac_p{p}_mesh": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2705,9 +2983,9 @@ def main() -> int:
     pac_graph_checks(torch, KERNELS, ep4, union4, TIG)
     pac_extra = pac_kernel_checks(torch, dev, ep4, union4, TIG)
     del ep4, union4
-    for n_parts in PAC_PARTS:
-        pac_profile(torch, pac_union(g, train_g, parts[n_parts], TIG,
-                                     steps=GRAPH_STEPS)[1], TIG)
+    pac_prof = {n_parts: pac_profile(torch, pac_union(
+        g, train_g, parts[n_parts], TIG, steps=GRAPH_STEPS)[1], TIG)
+        for n_parts in PAC_PARTS}
 
     # phase 5c: the out-of-core data plane, each path counted from zero
     t0 = time.perf_counter()
@@ -2729,6 +3007,9 @@ def main() -> int:
         by_path.update(ml_paths)
         by_path.update(restart_phase(torch, KERNELS, g, train_g, parts[p4],
                                      res.params, Path(tmp)))
+        # phase 5f: PAC over a mesh of ranks (NCCL, a world of one)
+        by_path.update(mesh_phase(torch, KERNELS, g, train_g, parts[p4],
+                                  pac[p4], pac_prof[p4], Path(tmp)))
     for n in TIG_PATH:
         launches[n] = sum(c[n] for c in by_path.values())
 

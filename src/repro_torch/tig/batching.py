@@ -25,7 +25,7 @@ import numpy as np
 from repro_torch.tig.sampler import ChronoNeighborIndex, NeighborSnapshot
 
 __all__ = ["LocalStream", "build_batch_program", "concat_batch_programs",
-           "stack_batches", "make_tables"]
+           "pad_batch_programs", "stack_batches", "make_tables"]
 
 
 @dataclasses.dataclass
@@ -178,6 +178,28 @@ def concat_batch_programs(programs: list[dict]) -> tuple[dict, np.ndarray]:
     flat = {k: np.concatenate([p[k] for p in programs])
             for k in programs[0]}
     return flat, offsets
+
+
+def pad_batch_programs(programs: list[dict], rows_cap: int) -> dict:
+    """Stack per-device (rows_k, ...) batch programs into one zero-padded
+    (N_held, rows_cap, ...) grid: PAC's row-range-sharded layout, where
+    each device owns its own leading row, so a rank stages only its own
+    devices' rows. ``rows_cap`` is the global ``max_k n_batches_k``; the
+    padding rows are zeros and never read (device k reads row
+    ``s % n_batches_k``).
+    """
+    out = {}
+    for key in programs[0]:
+        parts = []
+        for p in programs:
+            v = np.asarray(p[key])
+            if len(v) > rows_cap:
+                raise ValueError(
+                    f"batch program has {len(v)} rows > rows_cap={rows_cap}")
+            pad = [(0, rows_cap - len(v))] + [(0, 0)] * (v.ndim - 1)
+            parts.append(np.pad(v, pad))
+        out[key] = np.stack(parts)
+    return out
 
 
 def stack_batches(batches: list[dict]) -> dict:

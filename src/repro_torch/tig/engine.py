@@ -248,11 +248,16 @@ class _Epoch:
             grads = torch.autograd.grad(target, leaves, allow_unused=True)
         # a leaf the loss does not reach (e.g. the time encoder of the
         # memory-only flavors) has a zero gradient, as in JAX
-        it = iter(torch.zeros_like(p) if g is None else g
-                  for p, g in zip(leaves, grads))
+        it = iter(self._reduce([torch.zeros_like(p) if g is None else g
+                                for p, g in zip(leaves, grads)]))
         self.opt.apply_(tree_map(lambda _: next(it), self.params),
                         self.opt_state, self.params)
         return record.detach(), new
+
+    def _reduce(self, grads: list) -> list:
+        """The gradients AdamW applies, in leaf order: the step's own (PAC
+        over several ranks averages them across the ranks here)."""
+        return grads
 
     @torch.no_grad()
     def _write_back(self, state: dict, new: dict) -> None:

@@ -37,8 +37,9 @@ only ``meta.json``. Shards are row ranges of ONE chronological order, so
 shard boundaries carry no meaning and any re-chunking is valid
 (``ChronoNeighborIndex.from_chunks`` relies on it).
 
-Not ported yet: ``stage_partitioned`` / ``stage_replicated`` (staging
-across several cards).
+Staging over a mesh of ranks (``launch.mesh.make_tig_mesh``):
+``stage_partitioned`` puts this rank's rows of a partitioned array on its
+device, ``stage_replicated`` rank 0's value on every rank's.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.tig.graph import TemporalGraph
@@ -65,6 +67,8 @@ __all__ = [
     "write_jodie_shards",
     "iter_jodie_blocks",
     "stage_device_tables",
+    "stage_partitioned",
+    "stage_replicated",
     "EpochPrefetcher",
 ]
 
@@ -448,6 +452,35 @@ def stage_device_tables(shards: ShardedStream, *, device=None) -> dict:
         step = max(1, DEFAULT_SHARD_EDGES // max(shards.dim_node, 1))
         chunks = (nf[lo: lo + step] for lo in range(0, n, step))
     return {"efeat": efeat, "nfeat": staged(n, shards.dim_node, chunks)}
+
+
+# ======================================================================
+# staging over a mesh of ranks
+# ======================================================================
+
+def stage_partitioned(local_rows: np.ndarray, mesh,
+                      n_global: int) -> torch.Tensor:
+    """This rank's rows of an (n_global, ...) array partitioned over the
+    mesh's partition slots, on the rank's device. A rank owns its rows by
+    construction (it planned them: ``plan_epoch(local_ranks=...)``), so
+    no rank ever holds another's; the JAX package stitches the global
+    array from each process's rows here."""
+    if n_global != mesh.num_parts:
+        raise ValueError(f"n_global={n_global}, but the mesh has "
+                         f"{mesh.num_parts} partition slots")
+    rows = np.ascontiguousarray(local_rows)
+    if len(rows) != len(mesh.ranks):
+        raise ValueError(f"{len(rows)} rows given; this rank holds "
+                         f"partitions {mesh.ranks.tolist()}")
+    return torch.from_numpy(rows).to(mesh.device)
+
+
+def stage_replicated(x, mesh) -> torch.Tensor:
+    """``x`` on this rank's device with rank 0's value (a broadcast over
+    the mesh's group): every rank starts from the same tensor."""
+    t = torch.as_tensor(x).detach().to(mesh.device, copy=True).contiguous()
+    dist.broadcast(t, src=0, group=mesh.group)
+    return t
 
 
 # ======================================================================

@@ -726,6 +726,39 @@ def test_pac_train_on_card_matches_cpu(cuda):
         assert abs(on_card.metrics[key] - on_cpu.metrics[key]) < 1e-3
 
 
+@pytest.mark.parametrize("plan", ["device", "host"])
+def test_pac_mesh_world_of_one_matches_no_mesh(cuda, plan, tmp_path):
+    """An NCCL world of one rank in this process holding 2 partition
+    slots: ``pac_train(mesh=...)`` (the sharded plan, the gradient
+    all-reduce captured with the step, the sync's collectives) bitwise
+    equal to ``mesh=None`` on ``tiny``, 4 SEP parts onto 2, two epochs."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_tig_mesh
+    from repro_torch.tig import distributed as td
+
+    g, tr, part, cfg = _tiny_pac(4)
+    kw = dict(num_devices=2, epochs=2, eval_graph=g, plan=plan)
+    alone = td.pac_train(tr, part, cfg, **kw)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        on_mesh = td.pac_train(tr, part, cfg, mesh=make_tig_mesh(2), **kw)
+    finally:
+        dist.destroy_process_group()
+    assert on_mesh.plan.layout == "sharded"
+    for a, b in zip(on_mesh.losses, alone.losses):
+        assert np.array_equal(a, b)
+    for a, b in zip(_leaves_of(on_mesh.params), _leaves_of(alone.params)):
+        assert torch.equal(a, b)
+    for k in alone.memory_states:
+        assert torch.equal(on_mesh.memory_states[k], alone.memory_states[k])
+    assert on_mesh.metrics.keys() == alone.metrics.keys()
+    for k, v in alone.metrics.items():
+        assert on_mesh.metrics[k] == v or (np.isnan(v) and np.isnan(
+            on_mesh.metrics[k])), k
+
+
 def _leaves_of(tree) -> list:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves_of(tree[k])]

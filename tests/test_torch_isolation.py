@@ -13,10 +13,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch.distributed as dist  # noqa: E402
+
 import repro_torch  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.models import model, serve  # noqa: E402
 from repro_torch.core import sep_partition  # noqa: E402
+from repro_torch.launch import mesh, pac_cluster  # noqa: E402
 from repro_torch.tig import distributed, engine, protocol, train  # noqa: E402
 from repro_torch.tig import stream  # noqa: E402
 from repro_torch.tig.data import synthetic_tig  # noqa: E402
@@ -91,6 +94,16 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch, tmp_path):
         distributed.pac_train(g, part, cfg, num_devices=2, epochs=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         distributed.make_pac_epoch(cfg, None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pac_cluster.main(["--out", str(tmp_path / "never.npz")])
+    # an NCCL group (a CPU-only torch build has no NCCL: its queries are
+    # stood in for) finds no card before any collective
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda: 1)
+    monkeypatch.setattr(dist, "get_rank", lambda: 0)
+    monkeypatch.setattr(dist, "get_backend", lambda: "nccl")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_tig_mesh()
     shards = stream.write_graph_shards(g, str(tmp_path / "shards"))
     with pytest.raises(RuntimeError, match="CUDA"):
         train.train_sharded(shards, cfg, epochs=1)

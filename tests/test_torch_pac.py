@@ -308,28 +308,45 @@ def test_evaluate_params_matches_jax():
 @pytest.mark.parametrize("option", ["host_replay", "layout", "local_ranks",
                                     "source"])
 def test_plan_epoch_refuses_what_is_not_ported(option):
+    """What is not ported raises "not ported"; the layouts that are
+    ported refuse an invalid layout or combination with JAX's
+    ValueError."""
     g, tr, _, _ = _graphs()
     cfg = tm.TIGConfig(**SMALL)
     lists = [np.arange(10), np.arange(10, 20)]
-    kw = {"host_replay": dict(host_replay=True),
-          "layout": dict(layout="sharded"),
-          "local_ranks": dict(local_ranks=[0]), "source": {}}[option]
+    kw, match = {
+        "host_replay": (dict(host_replay=True), "not ported"),
+        "layout": (dict(layout="bogus"),
+                   "expected 'replicated' or 'sharded'"),
+        "local_ranks": (dict(local_ranks=[0]),
+                        "local_ranks requires layout='sharded'"),
+        "source": ({}, "not ported")}[option]
     source = object() if option == "source" else tr
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match=match):
         td.plan_epoch(source, lists, np.zeros(0, np.int64), cfg,
                       np.random.default_rng(0), **kw)
 
 
-@pytest.mark.parametrize("option", ["mesh", "epoch_boundary",
+@pytest.mark.parametrize("option", ["mesh", "plan", "epoch_boundary",
                                     "ckpt_dir", "resume", "faults"])
 def test_pac_train_refuses_what_is_not_ported(option):
+    """What is not ported raises "not ported"; a mesh whose partition
+    slots are not ``num_devices`` and an unknown plan raise
+    ValueErrors."""
+    from repro_torch.launch.mesh import TIGMesh
+
     g, tr, _, _ = _graphs()
     part = sep_partition(tr.src, tr.dst, tr.t, g.num_nodes, 2)
-    kw = {"mesh": dict(mesh=object()), "epoch_boundary": dict(
-        epoch_boundary="overlap"),
-        "ckpt_dir": dict(ckpt_dir="ckpt"), "resume": dict(resume=True),
-        "faults": dict(faults=object())}[option]
-    with pytest.raises(ValueError, match="not ported"):
+    mesh = TIGMesh(group=None, world=1, rank=0, num_parts=4,
+                   ranks=np.arange(4), device=torch.device("cpu"))
+    kw, match = {
+        "mesh": (dict(mesh=mesh), "the mesh has 4 partition slots"),
+        "plan": (dict(plan="bogus"), "plan='bogus'"),
+        "epoch_boundary": (dict(epoch_boundary="overlap"), "not ported"),
+        "ckpt_dir": (dict(ckpt_dir="ckpt"), "not ported"),
+        "resume": (dict(resume=True), "not ported"),
+        "faults": (dict(faults=object()), "not ported")}[option]
+    with pytest.raises(ValueError, match=match):
         td.pac_train(tr, part, tm.TIGConfig(**SMALL), num_devices=2,
                      device="cpu", **kw)
 
