@@ -122,6 +122,25 @@ Phases, each fatal on failure:
      repro_torch.launch.pac_cluster`` as a subprocess (one NCCL rank on
      ``tiny``), exit 0 and its npz bitwise the same run in process with
      ``mesh=None``;
+  5g. PAC's fault tolerance and overlapped epoch boundary at phase 5b's
+     P 4 path: (a) two epochs of ``pac_train(epoch_boundary="overlap")``
+     against ``"serial"``, launches counted from zero: losses, params,
+     post-sync memories and metrics bitwise, launches equal to each
+     other's and to phase 5b's steps; each run's epoch seconds, the
+     sync's device µs (CUDA events around ``sync_shared_memory``) and
+     whether it ran inside the next epoch's span; (b) an uninterrupted
+     3-epoch run against a run with ``ckpt_every=1`` crashed by
+     ``staging_oom@at=3`` and resumed: params, memories and epoch 2's
+     losses bitwise, each snapshot's seconds and MiB; (c) the resumed
+     run's ``eval_warm="restart"`` writes ``restarter.npz`` beside the
+     checkpoints, and ``load_restarter`` of it is bitwise the head fitted
+     in memory; (d) ``python -m repro_torch.launch.pac_cluster`` on one
+     NCCL rank at ``tiny``: killed by ``host_kill@epoch=1`` (SIGKILL,
+     epoch 0's checkpoint on disk), then ``--resume``d (``PAC_RESUME:
+     step 0``) bitwise an undisturbed launcher run, and ``--elastic``
+     with no fault exits 0 bitwise the plain run; (e) the ``speed-tig``
+     CLI (``python -m repro_torch.launch.train --arch speed-tig
+     --dataset small``) exits 0;
   6. the WKV kernels (``ops.rwkv6`` takes the chunked kernel for S >= 64
      and the sequential one below) against their plain versions at the
      RWKV6 path's shapes (decode S 1 with a state, a ragged S 100 with a
@@ -280,20 +299,22 @@ def call_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_spans(fn, attempts: int = 6) -> tuple[list, float]:
+def device_spans(fn, attempts: int = 6,
+                 pause: float = 0.1) -> tuple[list, float]:
     """Run ``fn()`` under ``torch.profiler``; returns the device activity
     as sorted (start us, end us, name) spans, and the host wall time in ms
     from the first call to the last device completion. A profiled run that
     recorded no device activity at all (on the card, mid-script, after
     earlier rounds had recorded; up to 15 times in one run of this script,
-    most in phase 9) is run again after a pause, up to ``attempts``
-    times."""
+    most in phase 9, once 6 in a row there) is run again after a pause
+    growing by ``pause`` seconds an attempt, up to ``attempts`` times. A
+    check with no other source of its spans asks for more attempts."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(attempts):
-        time.sleep(0.1 * attempt)
+        time.sleep(pause * attempt)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -871,7 +892,8 @@ def flush_checks(torch, dev, ids_np, ts_np, n_dump, d, dm, randn) -> dict:
 
     bwd, bwd_plain = timings(kernel_bwd), timings(plain_bwd)
     try:
-        spans, _ = device_spans(lambda: [kernel_bwd() for _ in range(10)])
+        spans, _ = device_spans(lambda: [kernel_bwd() for _ in range(10)],
+                                attempts=12, pause=0.25)
     except RuntimeError as err:     # a breakdown for the record, no check
         print(f"fused_flush backward: no breakdown ({err})")
         spans = []
@@ -1092,7 +1114,7 @@ def print_profile(label: str, run, steps: int, plain_wall: float) -> dict:
     device busy), the device busy and idle share of the profiled wall and
     the device time by kernel name. Returns the per-step wall, busy and
     ops."""
-    spans, wall = device_spans(run)
+    spans, wall = device_spans(run, attempts=12, pause=0.25)
     busy, end = 0.0, -math.inf
     by_name: dict = {}
     for s, e, name in spans:
@@ -2098,7 +2120,8 @@ def gru_checks(torch, dev) -> list:
             gru_tf32_control(torch, args, g, want, want_b)
             # distinct kernels, which a dropped profiler event cannot hide
             spans, _ = device_spans(
-                lambda: [fused_gru_bwd(g, *args) for _ in range(10)])
+                lambda: [fused_gru_bwd(g, *args) for _ in range(10)],
+                attempts=12, pause=0.25)
             names = sorted({n.replace("(anonymous namespace)::", "")
                             .split("(")[0] for _, _, n in spans})
             print(f"fused_gru_bwd {label}: {len(names)} device launches per "
@@ -2870,6 +2893,301 @@ def mesh_phase(torch, kernels, g, train_g, part, pac4, prof4: dict,
     return {f"pac_p{p}_mesh": launches}
 
 
+def same_run(torch, a, b) -> bool:
+    """Two ``pac_train`` results equal bit for bit: losses, params, the
+    post-sync memories, and the metrics where both have them."""
+    import numpy as np
+
+    return (len(a.losses) == len(b.losses)
+            and all(np.array_equal(x, y) for x, y in zip(a.losses, b.losses))
+            and all(torch.equal(x, y) for x, y in
+                    zip(leaves(a.params), leaves(b.params)))
+            and a.memory_states.keys() == b.memory_states.keys()
+            and all(torch.equal(a.memory_states[k], b.memory_states[k])
+                    for k in a.memory_states)
+            and (a.metrics is None or b.metrics is None
+                 or same_metrics(a.metrics, b.metrics)))
+
+
+class BoundarySpans:
+    """CUDA events around each ``sync_shared_memory`` call (on the stream
+    it runs on: the sync stream under the overlapped boundary) and each
+    PAC epoch program call (load, replays and result copies, on the main
+    stream) inside ``pac_train``; with ``saves``, the host seconds of each
+    checkpoint write. Patched into ``tig.distributed`` while in use."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.syncs, self.epochs, self.saves = [], [], []
+
+    def _span(self, out: list, fn):
+        def timed(*args, **kw):
+            a = self.torch.cuda.Event(enable_timing=True)
+            b = self.torch.cuda.Event(enable_timing=True)
+            a.record()
+            res = fn(*args, **kw)
+            b.record()
+            out.append((a, b))
+            return res
+        return timed
+
+    def __enter__(self):
+        from repro_torch.tig import distributed as td
+
+        self.td = td
+        self.orig = (td.sync_shared_memory, td.make_pac_epoch,
+                     td.save_checkpoint)
+        sync, make, save = self.orig
+        td.sync_shared_memory = self._span(self.syncs, sync)
+
+        def make_timed(*args, **kw):
+            return self._span(self.epochs, make(*args, **kw))
+
+        def save_timed(*args, **kw):
+            t0 = time.perf_counter()
+            path = save(*args, **kw)
+            self.saves.append((time.perf_counter() - t0,
+                               Path(path).stat().st_size / 2**20))
+            return path
+
+        td.make_pac_epoch = make_timed
+        td.save_checkpoint = save_timed
+        return self
+
+    def __exit__(self, *exc):
+        (self.td.sync_shared_memory, self.td.make_pac_epoch,
+         self.td.save_checkpoint) = self.orig
+
+    def report(self) -> tuple[list, list]:
+        """Each sync's device µs, and for each sync but the last the share
+        of its span inside the next epoch program's span."""
+        self.torch.cuda.synchronize()
+        ref = self.epochs[0][0]
+
+        def at(ev):
+            return ref.elapsed_time(ev)
+
+        sync_us = [1e3 * a.elapsed_time(b) for a, b in self.syncs]
+        inside = []
+        for (a, b), (c, d) in zip(self.syncs, self.epochs[1:]):
+            s0, s1, e0, e1 = at(a), at(b), at(c), at(d)
+            inside.append(max(0.0, min(s1, e1) - max(s0, e0))
+                          / max(s1 - s0, 1e-9))
+        return sync_us, inside
+
+
+def run_logged(cmds: list, timeout: float = 300) -> list:
+    """Run the commands at once, each in its own session (killed with its
+    group past ``timeout``); their (return code, log, seconds from the
+    start until it was collected, in order: a run that ended before an
+    earlier one reads that one's time)."""
+    import os
+    import signal
+
+    env = {k: v for k, v in os.environ.items() if k != "REPRO_FAULTS"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-u", "-m", *cmd], cwd=ROOT, env={**env, **extra},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True) for cmd, extra in cmds]
+    out = []
+    try:
+        for p in procs:
+            log = p.communicate(timeout=timeout)[0]
+            out.append((p.returncode, log, time.perf_counter() - t0))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    return out
+
+
+def boundary_launchers(tmp: Path) -> None:
+    """Phase 5g (d) and (e): the launcher on one NCCL rank at ``tiny``
+    killed and resumed, its elastic supervisor with no fault, beside an
+    undisturbed run; then the ``speed-tig`` CLI."""
+    import numpy as np
+
+    run, el = tmp / "launch_run", tmp / "launch_elastic"
+
+    def launcher(*args):
+        return ["repro_torch.launch.pac_cluster", "--num-processes", "1",
+                "--process-id", "0", "--coordinator",
+                f"127.0.0.1:{free_port()}", "--local-devices", "2",
+                "--epochs", "2", "--parts", "8", "--timeout", "120", *args]
+
+    [(rc, log, secs)] = run_logged([(launcher(
+        "--run-dir", str(run), "--ckpt-every", "1"),
+        {"REPRO_FAULTS": "host_kill@epoch=1"})])
+    ckpts = sorted(p.name for p in (run / "ckpt").iterdir())
+    print(f"launcher killed: exit {rc} in {secs:.1f} s, checkpoints "
+          f"{ckpts}")
+    if rc != -9 or ckpts != ["ckpt_00000000.json", "ckpt_00000000.npz"]:
+        raise AssertionError(f"the launcher was not killed after epoch "
+                             f"0's checkpoint (exit {rc}):\n{log[-3000:]}")
+    outs = {k: tmp / f"launch_{k}.npz" for k in ("resumed", "plain",
+                                                 "elastic")}
+    runs = run_logged([
+        (launcher("--run-dir", str(run), "--resume", "--out",
+                  str(outs["resumed"])), {}),
+        (launcher("--out", str(outs["plain"])), {}),
+        (launcher("--elastic", "--run-dir", str(el), "--out",
+                  str(outs["elastic"])), {}),
+        (["repro_torch.launch.train", "--arch", "speed-tig", "--dataset",
+          "small"], {})])
+    for (rc, log, secs), name in zip(runs, ("resumed", "plain", "elastic",
+                                            "CLI")):
+        print(f"  {name}: exit {rc}, collected {secs:.1f} s after the "
+              f"four started")
+        if rc != 0:
+            raise AssertionError(f"{name} exited {rc}:\n{log[-3000:]}")
+    if "PAC_RESUME: step 0" not in runs[0][1]:
+        raise AssertionError("the resumed launcher did not resume step 0")
+    got = {k: np.load(v) for k, v in outs.items()}
+    plain = got["plain"]
+    resumed_same = sorted(got["resumed"].files) == sorted(
+        k for k in plain.files if k != "loss_1") and all(
+        np.array_equal(got["resumed"][k],
+                       plain["loss_1" if k == "loss_0" else k],
+                       equal_nan=True) for k in got["resumed"].files)
+    elastic_same = sorted(got["elastic"].files) == sorted(plain.files) \
+        and all(np.array_equal(got["elastic"][k], plain[k], equal_nan=True)
+                for k in plain.files)
+    print(f"launcher, one NCCL rank, tiny: killed by host_kill@epoch=1 "
+          f"(SIGKILL, epoch 0's checkpoint kept), resumed (PAC_RESUME: "
+          f"step 0): epoch 1 and the result against the undisturbed run "
+          + ("bitwise equal" if resumed_same else "DIFFERENT")
+          + "; --elastic with no fault against the plain run "
+          + ("bitwise equal" if elastic_same else "DIFFERENT"))
+    cli = [line for line in runs[3][1].splitlines()
+           if line.startswith(("PAC:", "eval:", "total"))]
+    print("  speed-tig CLI (small, card): " + " | ".join(cli))
+    if not (resumed_same and elastic_same):
+        raise AssertionError("a launcher run differs from the plain run")
+
+
+def boundary_phase(torch, kernels, g, train_g, part, pac4,
+                   tmp: Path) -> dict:
+    """Phase 5g: PAC's overlapped epoch boundary, checkpoints and resume,
+    the restarter bundle, the launchers' kill-and-resume and elastic
+    supervisor, and the ``speed-tig`` CLI, at phase 5b's P 4 path.
+    Returns the launches of the overlapped path."""
+    import numpy as np
+
+    from repro_torch.configs.speed_tig import TIG
+    from repro_torch.faults import FaultInjector
+    from repro_torch.tig import distributed as td
+    from repro_torch.tig.protocol import split_views
+    from repro_torch.tig.restart import load_restarter
+
+    t_phase = time.perf_counter()
+    p = part.num_parts
+    # (a) overlap against serial, two epochs, launches from zero
+    runs, counts = {}, {}
+    for boundary in ("serial", "overlap"):
+        reset_counts(torch, kernels)
+        with BoundarySpans(torch) as spans:
+            t0 = time.perf_counter()
+            res = td.pac_train(train_g, part, TIG, num_devices=p, epochs=2,
+                               eval_graph=g, epoch_boundary=boundary)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts[boundary] = {n: kernels[n].launches for n in TIG_PATH}
+        sync_us, inside = spans.report()
+        runs[boundary] = res
+        print(f"phase 5g path: pac_train P {p}, epoch_boundary="
+              f"{boundary!r}, 2 epochs: epoch_seconds {res.epoch_seconds} "
+              f"(plan {res.plan_seconds}), wall with scoring {wall:.3f} s; "
+              f"the sync's device µs {[round(x, 1) for x in sync_us]}; "
+              f"share of sync e inside epoch e+1's program span "
+              f"{[round(x, 3) for x in inside]} ("
+              + ("overlapped" if inside and inside[0] > 0.5 else
+                 "not overlapped") + f"); val_ap "
+              f"{res.metrics['val_ap']:.6f}")
+    same = same_run(torch, runs["serial"], runs["overlap"])
+    sp = split_views(g)
+    scored = sum(-(-len(v.src) // TIG.batch_size) for v in sp.views[1:])
+    steps = sum(x.shape[1] for x in runs["overlap"].losses)
+    want = {n: (steps if n not in ("fused_flush", "temporal_attn")
+                else steps + scored) * per_step(n, TIG) for n in TIG_PATH}
+    print(f"  overlap against serial: losses, params, memories and "
+          f"metrics " + ("bitwise equal" if same else "DIFFERENT")
+          + f"; launches {counts['overlap']} / {counts['serial']}, from "
+          f"phase 5b's steps {want} (phase 5b, one epoch: "
+          f"{pac4['launches']})")
+    if not same:
+        raise AssertionError("the overlapped boundary differs from the "
+                             "serial one")
+    if not counts["overlap"] == counts["serial"] == want:
+        raise AssertionError(f"launches {counts}, expected {want}")
+
+    # (b) resume, and (c) the restarter bundle of the resumed run
+    d = tmp / "pac_ckpt"
+    full = td.pac_train(train_g, part, TIG, num_devices=p, epochs=3)
+    with BoundarySpans(torch) as spans:
+        try:
+            td.pac_train(train_g, part, TIG, num_devices=p, epochs=3,
+                         ckpt_dir=str(d), ckpt_every=1,
+                         faults=FaultInjector.parse("staging_oom@at=3"))
+            crashed = None
+        except MemoryError as exc:
+            crashed = exc
+    if crashed is None:
+        raise AssertionError("staging_oom@at=3 did not fire")
+    fitted = []
+    build = td.build_restarter
+
+    def keep(*args, **kw):
+        fitted.append(build(*args, **kw))
+        return fitted[-1]
+
+    td.build_restarter = keep
+    try:
+        t0 = time.perf_counter()
+        res = td.pac_train(train_g, part, TIG, num_devices=p, epochs=3,
+                           ckpt_dir=str(d), resume=True, eval_graph=g,
+                           eval_warm="restart")
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+    finally:
+        td.build_restarter = build
+    full.losses = full.losses[2:]
+    same = same_run(torch, full, res)
+    print(f"resume: 3 epochs uninterrupted against 2 checkpointed epochs "
+          f"crashed by staging_oom@at=3 and resumed (1 epoch and the "
+          f"restart scoring, {resumed_s:.3f} s): params, memories and "
+          f"epoch 2's losses " + ("bitwise equal" if same else "DIFFERENT")
+          + "; snapshots (host s, MiB) "
+          + str([(round(s_, 4), round(m, 2)) for s_, m in spans.saves]))
+    if not same:
+        raise AssertionError("the resumed PAC run differs from the "
+                             "uninterrupted one")
+    rst = fitted[0][0]
+    loaded = load_restarter(str(d / "restarter.npz"), TIG)
+    bundle = (len(leaves(rst.params)) == len(leaves(loaded.params))
+              and all(torch.equal(x, y) for x, y in
+                      zip(leaves(rst.params), leaves(loaded.params)))
+              and np.array_equal(rst.bank.emb, loaded.bank.emb)
+              and np.array_equal(rst.bank.t, loaded.bank.t)
+              and np.array_equal(rst.bank.seen, loaded.bank.seen)
+              and rst.fit_mse == loaded.fit_mse)
+    print(f"restarter bundle: {sorted(q.name for q in d.iterdir())}; "
+          f"load_restarter against the head fitted in memory: "
+          + ("bitwise equal" if bundle else "DIFFERENT")
+          + f"; restart val_ap {res.metrics['val_ap']:.6f}")
+    if not bundle:
+        raise AssertionError("the saved restarter differs from the fitted "
+                             "one")
+
+    # (d) the launchers, (e) the CLI
+    boundary_launchers(tmp)
+    print(f"phase 5g: {time.perf_counter() - t_phase:.1f} s "
+          f"({card_line()})")
+    return {f"pac_p{p}_overlap": counts["overlap"]}
+
+
 def main() -> int:
     import torch
 
@@ -3010,6 +3328,9 @@ def main() -> int:
         # phase 5f: PAC over a mesh of ranks (NCCL, a world of one)
         by_path.update(mesh_phase(torch, KERNELS, g, train_g, parts[p4],
                                   pac[p4], pac_prof[p4], Path(tmp)))
+        # phase 5g: the overlapped boundary and fault tolerance
+        by_path.update(boundary_phase(torch, KERNELS, g, train_g,
+                                      parts[p4], pac[p4], Path(tmp)))
     for n in TIG_PATH:
         launches[n] = sum(c[n] for c in by_path.values())
 

@@ -12,6 +12,9 @@ block as one union step (``tig.distributed``).
 
 The mesh is made over the default process group, which the caller starts
 (``torch.distributed.init_process_group``; ``launch.pac_cluster`` does).
+The epoch boundary's collectives run on a second group over the same
+ranks (``TIGMesh.boundary``), never on the one whose gradient all-reduce
+is captured in the step.
 ``make_production_mesh`` (the LM pods) is not ported.
 """
 
@@ -33,8 +36,20 @@ __all__ = ["TIGMesh", "make_tig_mesh", "local_part_ranks"]
 @dataclasses.dataclass(frozen=True)
 class TIGMesh:
     """One rank's view of the mesh: its process group, the world size,
-    its rank, the number of partition slots, its own contiguous slots and
-    the device it runs on."""
+    its rank, the number of partition slots, its own contiguous slots,
+    the device it runs on, and the group of the epoch boundary's
+    collectives.
+
+    ``boundary`` is a second group over the same ranks, for the epoch
+    boundary's collectives (the shared-node sync, the loss and state
+    gathers); the step's gradient all-reduce, captured in its CUDA graph,
+    runs on ``group``. The overlapped boundary issues its collectives on
+    a side stream beside the next epoch's steps, and so they never share
+    a communicator with the captured all-reduce. That alone does not rule
+    out a hang: NCCL's kernels block while they wait for their peers, and
+    two communicators whose kernels reach the cards in a different order
+    on different ranks can deadlock unless both are resident at once. No
+    run over several cards has tested it."""
 
     group: object
     world: int
@@ -42,6 +57,7 @@ class TIGMesh:
     num_parts: int
     ranks: np.ndarray
     device: torch.device
+    boundary: object
 
 
 def make_tig_mesh(num_parts: Optional[int] = None) -> TIGMesh:
@@ -84,14 +100,19 @@ def make_tig_mesh(num_parts: Optional[int] = None) -> TIGMesh:
         raise ValueError(f"backend {backend!r}: expected 'nccl' (cards) "
                          f"or 'gloo' (CPU)")
     per = num_parts // world
+    # every rank makes the mesh at the same point of the same program, so
+    # every rank makes the boundary's group in the same order, as
+    # ``new_group`` requires
     return TIGMesh(group=dist.group.WORLD, world=world, rank=rank,
                    num_parts=num_parts,
                    ranks=np.arange(rank * per, (rank + 1) * per,
                                    dtype=np.int64),
-                   device=device)
+                   device=device,
+                   boundary=dist.new_group(ranks=list(range(world))))
 
 
 def local_part_ranks(mesh: TIGMesh) -> np.ndarray:
     """The partition slots this rank holds, contiguous on the "part"
     axis (the rows ``plan_epoch(local_ranks=...)`` builds here)."""
     return mesh.ranks.copy()
+

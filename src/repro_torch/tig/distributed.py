@@ -46,14 +46,25 @@ of the P partitions. A rank plans only its own partitions' rows
 step; the ranks meet in one all-reduce (an average) of the gradients a
 lockstep step (inside the captured step on the card) and in the
 shared-node sync at each epoch boundary, through ``torch.distributed``
-(NCCL on the cards, gloo on the CPU). Not ported yet (they raise): the
-``host_replay`` oracle, the overlapped epoch boundary, checkpoints and
-``resume``, and faults.
+(NCCL on the cards, gloo on the CPU).
+
+The epoch boundary is overlapped by default (``epoch_boundary=
+"overlap"``): on the card the shared-node sync of epoch e runs on a side
+stream of its own while epoch e+1 replays, and the loss reads are
+collected after the loop. ``pac_train`` also snapshots ``{params,
+opt_state, states}`` every ``ckpt_every`` epochs in the JAX package's
+checkpoint format, resumes from the newest one (``resume``), fires the
+fault sites of ``repro_torch.faults`` and, over several ranks, reports a
+lost peer as ``faults.HostLossError`` (what ``launch.pac_cluster``'s
+elastic supervisor re-forms the world on). Not ported yet (it raises):
+the ``host_replay`` oracle.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import os
 import time
 from typing import Literal, Optional, Union
 
@@ -65,8 +76,11 @@ import torch.nn.functional as F
 from repro_torch.core.pac import (build_subgraph, cycle_schedule,
                                   derived_speedup, make_local_indices,
                                   shuffle_combine, subgraph_mask)
+from repro_torch.checkpoint import (latest_step, restore_checkpoint,
+                                    save_checkpoint)
 from repro_torch.core.sep import PartitionResult
 from repro_torch.device import resolve_device
+from repro_torch.faults import FaultInjector, HostLossError, is_host_loss
 from repro_torch.launch.mesh import local_part_ranks
 from repro_torch.optim import Optimizer, adamw
 from repro_torch.tig import engine
@@ -77,11 +91,11 @@ from repro_torch.tig.cache import lru_get
 from repro_torch.tig.graph import TemporalGraph
 from repro_torch.tig.models import TIGConfig, init_state
 from repro_torch.tig.protocol import run_protocol, split_views, time_scale_of
-from repro_torch.tig.restart import build_restarter
+from repro_torch.tig.restart import build_restarter, save_restarter
 from repro_torch.tig.sampler import ChronoNeighborIndex
-from repro_torch.tig.stream import (EpochPrefetcher, ShardedStream,
-                                    stage_device_tables, stage_partitioned,
-                                    stage_replicated)
+from repro_torch.tig.stream import (EpochPrefetcher, RowStager,
+                                    ShardedStream, stage_device_tables,
+                                    stage_partitioned, stage_replicated)
 from repro_torch.tig.train import _initial_params, epoch_rng
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -789,7 +803,7 @@ def scan_pac_epoch(params, opt_state, union: dict, *, cfg: TIGConfig,
 
 
 def make_pac_epoch(cfg: TIGConfig, opt: Optimizer, *, device=None,
-                   mesh=None):
+                   mesh=None, before_capture=None):
     """The PAC epoch program: ``(params, opt_state, union) -> (params,
     opt_state, states, losses)``, as ``scan_pac_epoch`` returns them.
 
@@ -799,7 +813,10 @@ def make_pac_epoch(cfg: TIGConfig, opt: Optimizer, *, device=None,
     epoch of that shape copies its plan into the captured epoch's tensors
     and replays it; on the CPU the program is ``scan_pac_epoch``. With a
     ``mesh`` each rank runs its own partitions' union, and the gradient
-    all-reduce is part of the captured step."""
+    all-reduce is part of the captured step. ``before_capture()``, when
+    given, is called before a new shape's epoch is built and captured
+    (``pac_train`` waits there for a sync still running on its side
+    stream)."""
     device = _mesh_device(device, mesh)
     group = None if mesh is None else mesh.group
     if device.type != "cuda":
@@ -818,8 +835,13 @@ def make_pac_epoch(cfg: TIGConfig, opt: Optimizer, *, device=None,
                    union["batches"].items())),
                tuple((k, v.shape) for k, v in sorted(
                    (union["tcsr"] or {}).items())))
-        epoch = lru_get(graphs, key, _GRAPHS_MAX, lambda: _PACEpoch(
-            cfg, opt, params, opt_state, union, device, group))
+        def build():
+            if before_capture is not None:
+                before_capture()
+            return _PACEpoch(cfg, opt, params, opt_state, union, device,
+                             group)
+
+        epoch = lru_get(graphs, key, _GRAPHS_MAX, build)
         epoch.load(params, opt_state, union)
         epoch.replay()
         return epoch.result(copy=True)
@@ -835,18 +857,19 @@ def make_pac_epoch(cfg: TIGConfig, opt: Optimizer, *, device=None,
 def _all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
     """Every rank's (P_held, ...) block of ``x`` in rank order, (P, ...):
     the partitions in their global order (a rank holds a contiguous
-    block). Without a mesh, ``x``."""
+    block), over the mesh's boundary group. Without a mesh, ``x``."""
     if mesh is None:
         return x
     parts = [torch.empty_like(x) for _ in range(mesh.world)]
-    dist.all_gather(parts, x.contiguous(), group=mesh.group)
+    dist.all_gather(parts, x.contiguous(), group=mesh.boundary)
     return torch.cat(parts)
 
 
 def _all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
-    """``x`` summed over the ranks, in place. Without a mesh, ``x``."""
+    """``x`` summed over the ranks, in place, over the mesh's boundary
+    group. Without a mesh, ``x``."""
     if mesh is not None:
-        dist.all_reduce(x, group=mesh.group)
+        dist.all_reduce(x, group=mesh.boundary)
     return x
 
 
@@ -869,7 +892,9 @@ def sync_shared_memory(states: dict, shared_local, *,
     ``shared_local`` are this rank's (P_held, ...) rows and the sync
     spans the ranks: the times are all-gathered into (P, S) in global
     partition order (so ties go to the lowest partition), and the masked
-    or plain sums are all-reduced; every rank returns its own rows."""
+    or plain sums are all-reduced; every rank returns its own rows. The
+    collectives run on the mesh's boundary group (``TIGMesh.boundary``),
+    not on the group of the step's gradient all-reduce."""
     if sync_mode not in ("latest", "mean"):
         raise ValueError(f"sync_mode={sync_mode!r}")
     mem = states["mem"]
@@ -888,8 +913,9 @@ def sync_shared_memory(states: dict, shared_local, *,
     if sync_mode == "latest":
         all_t = _all_gather(rows_t, mesh)                 # (P, S)
         win = all_t.argmax(0)                             # (S,)
-        me = torch.as_tensor(held, device=mem.device)[:, None]
-        mine = win[None] == me                            # (P_held, S)
+        # a rank's partitions are contiguous: no host array to copy (a
+        # copy from pageable memory would block the host on the stream)
+        mine = win[None] == dev + int(held[0])            # (P_held, S)
 
         def pick(x):
             rows = x[dev, shared]
@@ -955,6 +981,74 @@ def stage_replicated_tree(tree, mesh):
     return tree_map(lambda x: stage_replicated(x, mesh), tree)
 
 
+@functools.cache
+def _sync_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream of the overlapped epoch boundary on ``device``, made
+    once. Not ``engine._side_stream`` (the captures' warm-up stream), and
+    never one a call: each stream a library runs on may keep its own
+    workspace for the life of the process."""
+    return torch.cuda.Stream(device)
+
+
+class _Boundary:
+    """Where ``pac_train``'s epoch boundary runs. Serial, or on the CPU:
+    inline, in program order. Overlapped on the card: on the device's
+    sync stream (``_sync_stream``), which first waits for everything
+    issued so far on the main stream, so the sync of epoch e runs beside
+    epoch e+1's steps; its losses stay where they are until ``drain``
+    reads them after the loop."""
+
+    def __init__(self, device: torch.device, overlap: bool):
+        self.device, self.overlap = device, overlap
+        self.side = _sync_stream(device) if (
+            overlap and device.type == "cuda") else None
+        self.pending = None          # the event of the last sync
+
+    def run(self, fn, reads: list):
+        """``fn()`` at the boundary. On the sync stream ``reads`` (the main
+        stream's tensors it reads) are marked used there, so the main
+        stream's allocator does not hand them out before it is done."""
+        if self.side is None:
+            return fn()
+        self.side.wait_stream(torch.cuda.current_stream(self.device))
+        for t in reads:
+            t.record_stream(self.side)
+        with torch.cuda.stream(self.side):
+            out = fn()
+        self.pending = torch.cuda.Event()
+        self.pending.record(self.side)
+        return out
+
+    def to_host(self, x: torch.Tensor):
+        """``x`` on its way to the host: serial, a numpy array now;
+        overlapped, the tensor, left for ``drain`` (a read now would wait
+        for the sync)."""
+        return x.cpu().numpy() if not self.overlap else x
+
+    def quiesce(self) -> None:
+        """Wait on the host until the last sync is done: nothing may run on
+        the sync stream while the main stream captures a new step."""
+        if self.pending is not None:
+            self.pending.synchronize()
+
+    def join(self, tensors) -> None:
+        """Make the main stream wait for the boundary before it reads
+        ``tensors`` (made on the sync stream), and mark them used there."""
+        if self.side is None:
+            return
+        main = torch.cuda.current_stream(self.device)
+        main.wait_stream(self.side)
+        for t in tensors:
+            t.record_stream(main)
+
+    def drain(self, losses: list) -> list:
+        """The per-epoch losses as numpy arrays, once the last sync is
+        done."""
+        self.quiesce()
+        return [x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+                for x in losses]
+
+
 @dataclasses.dataclass
 class PACResult:
     params: dict
@@ -984,7 +1078,7 @@ def pac_train(
     sync_mode: Literal["latest", "mean"] = "latest",
     prefetch: bool = True,
     depth: int = 1,
-    epoch_boundary: Literal["overlap", "serial"] = "serial",
+    epoch_boundary: Literal["overlap", "serial"] = "overlap",
     plan: str = "device",
     eval_graph: Optional[StreamSource] = None,
     eval_warm: Literal["memory", "replay", "restart"] = "memory",
@@ -993,8 +1087,9 @@ def pac_train(
     device=None,
     mesh=None,
     ckpt_dir: Optional[str] = None,
+    ckpt_every: int = 0,
     resume: bool = False,
-    faults=None,
+    faults: Optional[FaultInjector] = None,
 ) -> PACResult:
     """Train a TIG model with SEP partitions and PAC (the paper's
     pipeline) on one card: each epoch plans on the host (shuffle-combine
@@ -1013,6 +1108,23 @@ def pac_train(
     ahead; per-epoch generators keep it bitwise equal to serial
     planning).
 
+    ``epoch_boundary="overlap"`` (the default, as in the JAX package)
+    makes the boundary asynchronous: on the card the shared-node sync of
+    epoch e and the loss gather run on a side stream of their own
+    (``_sync_stream``) beside epoch e+1's steps, the shared rows staged
+    through one pinned buffer (``stream.RowStager``), and the losses stay
+    on the card until they are read after the loop; on the CPU
+    it is the same arithmetic in the same order, with the loss reads
+    deferred. ``"serial"`` syncs and reads each epoch's losses before the
+    next begins: the oracle, which ``"overlap"`` equals bit for bit.
+    ``epoch_seconds[e]`` is the wall time from epoch e's wait for its
+    plan to epoch e+1's (the last: to the end of the loop, the losses
+    collected), so the list sums to the loop's wall time in both modes;
+    under ``"serial"`` an entry holds its whole device epoch and sync,
+    overlapped the sync of epoch e may finish inside entry e+1.
+    ``plan_seconds`` is the wait for each plan (all of the planning
+    without prefetch).
+
     ``eval_graph`` (the full stream of which ``g_train`` is the train
     split, a ``TemporalGraph`` or a ``ShardedStream``) scores val and
     test through ``protocol.run_protocol`` into ``PACResult.metrics``,
@@ -1020,11 +1132,10 @@ def pac_train(
     (``eval_warm="memory"``; ``train_ap`` NaN), from a replay of the
     train split (``"replay"``) or from TIGER's restarter, fitted on an
     embedding bank of the train split (``"restart"``,
-    ``restart.build_restarter``; ``train_ap`` NaN); ``eval_node_class``
-    adds the node classification AUROC. ``epoch_seconds`` covers the wait
-    for the plan,
-    the device epoch and the sync, synchronized; ``plan_seconds`` is the
-    wait (all of the planning without prefetch).
+    ``restart.build_restarter``; ``train_ap`` NaN; with ``ckpt_dir`` the
+    restarter is also saved there as ``restarter.npz``, so a relaunch can
+    warm memory without a replay); ``eval_node_class`` adds the node
+    classification AUROC.
 
     ``mesh`` (``launch.mesh.make_tig_mesh``, over ``torch.distributed``)
     runs the P = ``num_devices`` partitions over its ranks, one card (or
@@ -1038,30 +1149,47 @@ def pac_train(
     and runs the scoring itself. A mesh plans the sharded layout, no
     mesh the replicated one; the two give the same union, so the same
     result (the JAX package's ``grid_layout`` is not an option here).
+    The boundary's collectives (the sync, the loss and state gathers) run
+    on the mesh's boundary group (``TIGMesh.boundary``), not on the group
+    of the step's captured all-reduce.
 
-    ``epoch_boundary="overlap"`` (the JAX package's default; its
-    ``"serial"`` oracle is what runs here), checkpoints (``ckpt_dir`` /
-    ``resume``; so the restarter bundle is not saved) and ``faults`` are
-    not ported yet and raise.
+    Fault tolerance: ``ckpt_dir`` + ``ckpt_every=k`` saves ``{params,
+    opt_state, states}`` (the post-sync states, (P, cap + 1, ...)) every
+    k epochs in the JAX package's checkpoint format, crash-atomic, with
+    ``metadata={"epoch": ep}`` (over a mesh every rank joins the states'
+    gather and rank 0 writes). ``resume=True`` restores params and AdamW
+    state from the newest complete step and continues at the next epoch:
+    bitwise an uninterrupted run, since each epoch's plan generator and
+    its fresh memory depend on ``(seed, ep)`` alone. With nothing left to
+    train (``epochs=0``, or a resume past the last epoch) the result
+    holds the plan of epoch 0, fresh memories and no losses. ``faults``
+    (default: ``FaultInjector.from_env()``, ``$REPRO_FAULTS``) fires
+    ``prefetch_worker`` in the plan build, ``host_kill`` at the top of
+    each epoch, ``staging_oom`` where an epoch's plan is staged (just
+    before its program) and ``sync_fail`` before the sync. Over several
+    ranks an exception that ``faults.is_host_loss`` classifies as a lost
+    peer is raised as ``faults.HostLossError``.
     """
     if mesh is not None and num_devices != mesh.num_parts:
         raise ValueError(f"num_devices={num_devices}, but the mesh has "
                          f"{mesh.num_parts} partition slots")
-    if epoch_boundary != "serial":
-        raise _not_ported(f"epoch_boundary={epoch_boundary!r}")
+    if epoch_boundary not in ("overlap", "serial"):
+        raise ValueError(f"epoch_boundary={epoch_boundary!r}: expected "
+                         "'overlap' or 'serial'")
     if eval_warm not in ("memory", "replay", "restart"):
         raise ValueError(f"eval_warm={eval_warm!r}: expected 'memory', "
                          "'replay' or 'restart'")
-    if ckpt_dir is not None or resume:
-        raise _not_ported("checkpointing (ckpt_dir / resume)")
-    if faults is not None:
-        raise _not_ported("fault injection")
     if plan not in ("host", "device"):
         raise ValueError(f"plan={plan!r}: expected 'host' or 'device'")
+    if resume and not ckpt_dir:
+        raise ValueError("resume=True needs ckpt_dir")
+    injector = faults if faults is not None else FaultInjector.from_env()
     device = _mesh_device(device, mesh)
     # a rank plans only its own partitions' rows
     held = None if mesh is None else local_part_ranks(mesh)
     layout = "replicated" if mesh is None else "sharded"
+    multirank = mesh is not None and mesh.world > 1
+    writer = mesh is None or mesh.rank == 0
     small_parts = partition.node_lists()
     if isinstance(g_train, ShardedStream):
         time_scale = time_scale_of(g_train.column("t"))
@@ -1073,9 +1201,13 @@ def pac_train(
     if mesh is not None:
         params = stage_replicated_tree(params, mesh)
         opt_state = stage_replicated_tree(opt_state, mesh)
-    program = make_pac_epoch(cfg, opt, device=device, mesh=mesh)
+    boundary = _Boundary(device, epoch_boundary == "overlap")
+    stager = RowStager(device)       # the shared rows, an epoch at a time
+    program = make_pac_epoch(cfg, opt, device=device, mesh=mesh,
+                             before_capture=boundary.quiesce)
 
     def build(ep: int) -> tuple:
+        injector.fire("prefetch_worker", epoch=ep)
         rng_ep = epoch_rng(seed, ep, 11)
         if shuffle_parts and len(small_parts) > num_devices:
             node_lists = shuffle_combine(small_parts, num_devices, rng_ep)
@@ -1089,28 +1221,81 @@ def pac_train(
                              layout=layout, local_ranks=held)
         return ep_plan, union_plan(ep_plan, cfg, held)
 
-    all_losses, epoch_secs, plan_secs = [], [], []
-    last_plan, states = None, None
-    with EpochPrefetcher(build, epochs, enabled=prefetch, depth=depth) as pf:
-        for ep in range(epochs):
-            t0 = time.perf_counter()
-            ep_plan, union = pf.get(ep)
-            plan_secs.append(time.perf_counter() - t0)
-            params, opt_state, states, losses = program(params, opt_state,
-                                                        union)
-            shared = ep_plan.shared_local[union["ranks"]]
+    def gathered(states: dict) -> dict:
+        # every rank holds the (P, ...) states, as the JAX package's
+        # replicating gather gives every process
+        return {k: _all_gather(v, mesh) for k, v in states.items()}
+
+    start_epoch = 0
+    if resume:
+        step = latest_step(ckpt_dir)
+        if step is not None:
+            fresh = {"params": params, "opt_state": opt_state}
+            # in the fresh trees' dtypes (a captured step's tensors keep
+            # theirs: load copies into them)
+            restored = tree_map(lambda new, old: new.to(old.dtype),
+                                restore_checkpoint(ckpt_dir, step, fresh),
+                                fresh)
+            params, opt_state = restored["params"], restored["opt_state"]
             if mesh is not None:
-                shared = stage_partitioned(shared, mesh, mesh.num_parts)
-            states = sync_shared_memory(states, shared, sync_mode=sync_mode,
-                                        mesh=mesh)
-            all_losses.append(_all_gather(losses, mesh).cpu().numpy())
-            epoch_secs.append(time.perf_counter() - t0)
-            last_plan = ep_plan
-    if last_plan is None:
-        raise ValueError("epochs must be >= 1")
-    # every rank holds the (P, ...) states, as the JAX package's
-    # replicating gather gives every process
-    states = {k: _all_gather(v, mesh) for k, v in states.items()}
+                params = stage_replicated_tree(params, mesh)
+                opt_state = stage_replicated_tree(opt_state, mesh)
+            start_epoch = step + 1
+            print(f"PAC_RESUME: step {step} restored from {ckpt_dir}, "
+                  f"continuing at epoch {start_epoch}", flush=True)
+
+    all_losses, marks, plan_secs = [], [], []
+    last_plan, states = None, None
+    try:
+        with EpochPrefetcher(build, epochs, enabled=prefetch,
+                             depth=depth) as pf:
+            for ep in range(start_epoch, epochs):
+                injector.fire("host_kill", epoch=ep)
+                marks.append(time.perf_counter())
+                ep_plan, union = pf.get(ep)
+                plan_secs.append(time.perf_counter() - marks[-1])
+                injector.fire("staging_oom")
+                params, opt_state, raw, losses = program(params, opt_state,
+                                                         union)
+                injector.fire("sync_fail", epoch=ep)
+                shared = ep_plan.shared_local[union["ranks"]]
+
+                def sync():
+                    rows = (stager(shared) if mesh is None else
+                            stage_partitioned(shared, mesh, num_devices,
+                                              stager))
+                    out = sync_shared_memory(raw, rows, sync_mode=sync_mode,
+                                             mesh=mesh)
+                    return out, boundary.to_host(_all_gather(losses, mesh))
+
+                states, host_losses = boundary.run(
+                    sync, list(raw.values()) + [losses])
+                all_losses.append(host_losses)
+                last_plan = ep_plan
+                if ckpt_dir and ckpt_every and (ep + 1) % ckpt_every == 0:
+                    boundary.join(states.values())
+                    snap = {"params": params, "opt_state": opt_state,
+                            "states": gathered(states)}
+                    if writer:
+                        save_checkpoint(ckpt_dir, ep, snap,
+                                        metadata={"epoch": ep})
+        all_losses = boundary.drain(all_losses)
+        marks.append(time.perf_counter())
+        if last_plan is None:
+            # nothing trained (epochs=0, or a resume past the end): the
+            # plan of the epoch that would have run, fresh memories
+            last_plan = build(0)[0]
+            states = {k: v.expand((num_devices,) + v.shape).clone()
+                      for k, v in init_state(cfg, last_plan.capacity,
+                                             device).items()}
+        else:
+            boundary.join(states.values())
+            states = gathered(states)
+    except Exception as exc:
+        if multirank and is_host_loss(exc):
+            raise HostLossError(
+                f"peer lost during PAC training: {exc}") from exc
+        raise
 
     metrics = None
     if eval_graph is not None:
@@ -1129,6 +1314,9 @@ def pac_train(
         elif eval_warm == "restart":
             rst, _ = build_restarter(params, cfg, splits, tables, seed=seed,
                                      device=device)
+            if ckpt_dir and writer:
+                os.makedirs(ckpt_dir, exist_ok=True)
+                save_restarter(os.path.join(ckpt_dir, "restarter.npz"), rst)
             warm = {"warm": "restart", "restarter": rst}
         metrics = run_protocol(params, cfg, splits, tables, seed=seed,
                                eval_node_class=eval_node_class,
@@ -1144,6 +1332,6 @@ def pac_train(
         edges_per_device=last_plan.edges_per_device,
         plan=last_plan,
         metrics=metrics,
-        epoch_seconds=epoch_secs,
+        epoch_seconds=np.diff(marks).tolist(),
         plan_seconds=plan_secs,
     )

@@ -62,6 +62,20 @@ class TemporalGraph:
     def dim_node(self) -> int:
         return self.node_feat.shape[1]
 
+    def stats(self) -> dict:
+        return {
+            "name": self.name,
+            "num_nodes": self.num_nodes,
+            "num_edges": self.num_edges,
+            "d_n": self.dim_node,
+            "d_e": self.dim_edge,
+            "classes": (
+                0 if self.labels is None
+                else int(self.labels[self.labels >= 0].max()) + 1
+                if (self.labels >= 0).any() else 0
+            ),
+        }
+
     def slice_edges(self, idx: np.ndarray, name: Optional[str] = None
                     ) -> "TemporalGraph":
         """Sub-stream by edge indices (keeps global node id space)."""

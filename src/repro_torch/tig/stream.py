@@ -39,7 +39,9 @@ shard boundaries carry no meaning and any re-chunking is valid
 
 Staging over a mesh of ranks (``launch.mesh.make_tig_mesh``):
 ``stage_partitioned`` puts this rank's rows of a partitioned array on its
-device, ``stage_replicated`` rank 0's value on every rank's.
+device (through a ``RowStager``, which stages the rows of one array
+after another without blocking the host), ``stage_replicated`` rank 0's
+value on every rank's.
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ __all__ = [
     "write_jodie_shards",
     "iter_jodie_blocks",
     "stage_device_tables",
+    "RowStager",
     "stage_partitioned",
     "stage_replicated",
     "EpochPrefetcher",
@@ -458,21 +461,52 @@ def stage_device_tables(shards: ShardedStream, *, device=None) -> dict:
 # staging over a mesh of ranks
 # ======================================================================
 
-def stage_partitioned(local_rows: np.ndarray, mesh,
-                      n_global: int) -> torch.Tensor:
+class RowStager:
+    """Host arrays onto ``device``, one after another, without blocking
+    the host. On the card each call copies through ONE pinned buffer,
+    made at the first call (again only if the shape or dtype changes):
+    the call waits for the previous call's copy out of the buffer, fills
+    it, and copies it to the device, non-blocking, on the current stream.
+    A pageable copy would instead wait for everything queued on that
+    stream. On the CPU a call returns the array as a tensor."""
+
+    def __init__(self, device):
+        self.device = resolve_device(device)
+        self.buf: Optional[torch.Tensor] = None
+        self.copied: Optional[torch.cuda.Event] = None
+
+    def __call__(self, rows: np.ndarray) -> torch.Tensor:
+        host = torch.from_numpy(np.ascontiguousarray(rows))
+        if self.device.type != "cuda":
+            return host.to(self.device)
+        if self.copied is not None:
+            self.copied.synchronize()
+        if (self.buf is None or self.buf.shape != host.shape
+                or self.buf.dtype != host.dtype):
+            self.buf = torch.empty(host.shape, dtype=host.dtype,
+                                   pin_memory=True)
+        self.buf.copy_(host)
+        out = self.buf.to(self.device, non_blocking=True)
+        self.copied = torch.cuda.Event()
+        self.copied.record()
+        return out
+
+
+def stage_partitioned(local_rows: np.ndarray, mesh, n_global: int,
+                      stager: RowStager) -> torch.Tensor:
     """This rank's rows of an (n_global, ...) array partitioned over the
-    mesh's partition slots, on the rank's device. A rank owns its rows by
-    construction (it planned them: ``plan_epoch(local_ranks=...)``), so
-    no rank ever holds another's; the JAX package stitches the global
-    array from each process's rows here."""
+    mesh's partition slots, on the rank's device, through ``stager``. A
+    rank owns its rows by construction (it planned them:
+    ``plan_epoch(local_ranks=...)``), so no rank ever holds another's;
+    the JAX package stitches the global array from each process's rows
+    here."""
     if n_global != mesh.num_parts:
         raise ValueError(f"n_global={n_global}, but the mesh has "
                          f"{mesh.num_parts} partition slots")
-    rows = np.ascontiguousarray(local_rows)
-    if len(rows) != len(mesh.ranks):
-        raise ValueError(f"{len(rows)} rows given; this rank holds "
+    if len(local_rows) != len(mesh.ranks):
+        raise ValueError(f"{len(local_rows)} rows given; this rank holds "
                          f"partitions {mesh.ranks.tolist()}")
-    return torch.from_numpy(rows).to(mesh.device)
+    return stager(local_rows)
 
 
 def stage_replicated(x, mesh) -> torch.Tensor:

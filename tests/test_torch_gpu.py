@@ -759,6 +759,76 @@ def test_pac_mesh_world_of_one_matches_no_mesh(cuda, plan, tmp_path):
             on_mesh.metrics[k])), k
 
 
+def _same_pac(a, b):
+    assert len(a.losses) == len(b.losses)
+    for x, y in zip(a.losses, b.losses):
+        assert np.array_equal(x, y)
+    for x, y in zip(_leaves_of(a.params), _leaves_of(b.params)):
+        assert torch.equal(x, y)
+    for k in a.memory_states:
+        assert torch.equal(a.memory_states[k], b.memory_states[k]), k
+    for k, v in (a.metrics or {}).items():
+        assert b.metrics[k] == v or (np.isnan(v) and np.isnan(
+            b.metrics[k])), k
+
+
+def test_row_stager_reuses_its_buffer_on_card(cuda):
+    """One pinned buffer for every call: a call waits for the previous
+    copy out of it, so an earlier call's rows are never overwritten; a
+    new shape gets a new buffer."""
+    from repro_torch.tig.stream import RowStager
+
+    stager = RowStager("cuda")
+    host = [np.arange(4 * 257, dtype=np.int32).reshape(4, 257) + k
+            for k in range(3)]
+    got, bufs = [], []
+    for x in host:
+        got.append(stager(x))
+        bufs.append(stager.buf)
+    assert bufs[0] is bufs[1] is bufs[2] and bufs[0].is_pinned()
+    got.append(stager(host[0][:2]))
+    assert stager.buf is not bufs[0]
+    for x, y in zip(host + [host[0][:2]], got):
+        assert y.is_cuda and np.array_equal(y.cpu().numpy(), x)
+
+
+def test_pac_overlap_matches_serial_on_card(cuda):
+    """The overlapped boundary on the card (the sync on its own stream
+    beside the next epoch's replays, the shared rows through one pinned
+    buffer, the losses read after the loop)
+    bitwise the serial one, 4 SEP parts shuffle-combined onto 2 (new plan
+    shapes, so captures while a sync may still run), three epochs."""
+    from repro_torch.tig import distributed as td
+
+    g, tr, part, cfg = _tiny_pac(4)
+    p0 = init_params(torch.Generator().manual_seed(0), cfg)
+    kw = dict(num_devices=2, epochs=3, eval_graph=g, params=p0)
+    serial = td.pac_train(tr, part, cfg, epoch_boundary="serial", **kw)
+    overlap = td.pac_train(tr, part, cfg, epoch_boundary="overlap", **kw)
+    _same_pac(serial, overlap)
+
+
+def test_pac_resume_on_card_is_bitwise(cuda, tmp_path):
+    """A run crashed by ``staging_oom@at=3`` after epoch 1's checkpoint,
+    then resumed to 3 epochs, bitwise an uninterrupted 3-epoch run
+    (params, memories, epoch 2's losses, metrics)."""
+    from repro_torch.faults import FaultInjector
+    from repro_torch.tig import distributed as td
+
+    g, tr, part, cfg = _tiny_pac(4)
+    p0 = init_params(torch.Generator().manual_seed(0), cfg)
+    kw = dict(num_devices=2, epochs=3, eval_graph=g, params=p0)
+    d = str(tmp_path / "ckpt")
+    full = td.pac_train(tr, part, cfg, **kw)
+    with pytest.raises(MemoryError):
+        td.pac_train(tr, part, cfg, ckpt_dir=d, ckpt_every=1,
+                     faults=FaultInjector.parse("staging_oom@at=3"), **kw)
+    res = td.pac_train(tr, part, cfg, ckpt_dir=d, resume=True, **kw)
+    assert len(res.losses) == 1
+    full.losses = full.losses[2:]
+    _same_pac(full, res)
+
+
 def _leaves_of(tree) -> list:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves_of(tree[k])]

@@ -328,24 +328,32 @@ def test_plan_epoch_refuses_what_is_not_ported(option):
 
 
 @pytest.mark.parametrize("option", ["mesh", "plan", "epoch_boundary",
-                                    "ckpt_dir", "resume", "faults"])
-def test_pac_train_refuses_what_is_not_ported(option):
-    """What is not ported raises "not ported"; a mesh whose partition
-    slots are not ``num_devices`` and an unknown plan raise
-    ValueErrors."""
+                                    "resume", "fault_arg", "fault_action"])
+def test_pac_train_refuses_what_is_not_ported(option, monkeypatch):
+    """Invalid arguments raise ValueErrors, as the JAX package's
+    ``pac_train`` validates them: a mesh whose partition slots are not
+    ``num_devices``, an unknown plan or epoch boundary, ``resume``
+    without ``ckpt_dir``, and a ``$REPRO_FAULTS`` spec with an unknown
+    argument or an unknown action."""
+    from repro_torch.faults import FAULTS_ENV
     from repro_torch.launch.mesh import TIGMesh
 
     g, tr, _, _ = _graphs()
     part = sep_partition(tr.src, tr.dst, tr.t, g.num_nodes, 2)
     mesh = TIGMesh(group=None, world=1, rank=0, num_parts=4,
-                   ranks=np.arange(4), device=torch.device("cpu"))
+                   ranks=np.arange(4), device=torch.device("cpu"),
+                   boundary=None)
     kw, match = {
         "mesh": (dict(mesh=mesh), "the mesh has 4 partition slots"),
         "plan": (dict(plan="bogus"), "plan='bogus'"),
-        "epoch_boundary": (dict(epoch_boundary="overlap"), "not ported"),
-        "ckpt_dir": (dict(ckpt_dir="ckpt"), "not ported"),
-        "resume": (dict(resume=True), "not ported"),
-        "faults": (dict(faults=object()), "not ported")}[option]
+        "epoch_boundary": (dict(epoch_boundary="bogus"),
+                           "expected 'overlap' or 'serial'"),
+        "resume": (dict(resume=True), "resume=True needs ckpt_dir"),
+        "fault_arg": ({}, "unknown fault spec arg 'bogus'"),
+        "fault_action": ({}, "unknown fault action 'explode'")}[option]
+    monkeypatch.setenv(FAULTS_ENV, {
+        "fault_arg": "host_kill@bogus=1",
+        "fault_action": "sync_fail@action=explode"}.get(option, ""))
     with pytest.raises(ValueError, match=match):
         td.pac_train(tr, part, tm.TIGConfig(**SMALL), num_devices=2,
                      device="cpu", **kw)

@@ -263,13 +263,15 @@ def test_gloo_world_of_one_is_bitwise_mesh_none(gloo_world_of_one,
 def test_stage_over_a_mesh(gloo_world_of_one):
     mesh = gloo_world_of_one
     rows = np.arange(12, dtype=np.float32).reshape(4, 3)
-    got = stream.stage_partitioned(rows, mesh, 4)
-    assert got.device == mesh.device and torch.equal(
-        got, torch.from_numpy(rows))
+    stager = stream.RowStager(mesh.device)
+    for x in (rows, rows + 1):          # one stager, one array after another
+        got = stream.stage_partitioned(x, mesh, 4, stager)
+        assert got.device == mesh.device and torch.equal(
+            got, torch.from_numpy(x))
     with pytest.raises(ValueError, match="rows given"):
-        stream.stage_partitioned(rows[:2], mesh, 4)
+        stream.stage_partitioned(rows[:2], mesh, 4, stager)
     with pytest.raises(ValueError, match="partition slots"):
-        stream.stage_partitioned(rows, mesh, 8)
+        stream.stage_partitioned(rows, mesh, 8, stager)
     tree = {"a": torch.ones(3), "b": {"c": torch.zeros((), dtype=torch.int32)}}
     out = td.stage_replicated_tree(tree, mesh)
     assert torch.equal(out["a"], tree["a"]) and out["a"] is not tree["a"]
@@ -289,10 +291,12 @@ def test_make_tig_mesh_refuses_bad_worlds(monkeypatch):
     monkeypatch.setattr(dist, "get_world_size", lambda: 2)
     monkeypatch.setattr(dist, "get_rank", lambda: 1)
     monkeypatch.setattr(dist, "get_backend", lambda: "gloo")
+    monkeypatch.setattr(dist, "new_group", lambda ranks: tuple(ranks))
     with pytest.raises(ValueError, match="not divisible"):
         lm.make_tig_mesh(3)
     mesh = lm.make_tig_mesh(6)
     np.testing.assert_array_equal(mesh.ranks, [3, 4, 5])
+    assert mesh.boundary == (0, 1)      # the boundary's group: every rank
     monkeypatch.setattr(dist, "get_backend", lambda: "nccl")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
