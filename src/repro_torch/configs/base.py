@@ -2,11 +2,12 @@
 after ``repro/configs/base.py``.
 
 ``ArchConfig`` holds the fields that the ported families' configs set and
-that their code reads (RWKV6 and the dense attention family so far); a
-field of the JAX package's ``ArchConfig`` comes back with the family that
-needs it (ROADMAP Queue 1). The registry loads only the architectures the
-port runs (``_ARCH_MODULES``); each module registers its published
-configuration and a reduced one (<= 2 layers, narrow) for the CPU tests.
+that their code reads (RWKV6, and the dense and MoE decoders with gated
+FFNs, qk-norm and tied embeddings so far); a field of the JAX package's
+``ArchConfig`` comes back with the family that needs it (ROADMAP Queue
+1). The registry loads only the architectures the port runs
+(``_ARCH_MODULES``); each module registers its published configuration
+and a reduced one (<= 2 layers, narrow) for the CPU tests.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ __all__ = ["ArchConfig", "register", "get_config", "list_archs"]
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """Architecture description; of the JAX package's families, so far
-    RWKV6 (``rwkv=True``) and dense attention (``family="dense"``)."""
+    RWKV6 (``rwkv=True``), dense attention (``family="dense"``) and the
+    decoder-only MoE (``family="moe"``)."""
 
     name: str
     family: str
@@ -38,11 +40,23 @@ class ArchConfig:
     head_dim: Optional[int] = None       # default d_model // n_heads
 
     # attention / FFN details
-    act: str = "swiglu"                  # the dense path runs "gelu"
-    rope: str = "rope"                   # the dense path runs "rope"
+    act: str = "swiglu"                  # swiglu | geglu | gelu | relu_sq
+    qk_norm: bool = False
+    rope: str = "rope"                   # the port runs "rope"
     rope_theta: float = 10_000.0
     window: Optional[int] = None         # sliding-window size (SWA)
     norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    # decode-time capacity multiple (vs perfectly uniform routing), used
+    # when a decode batch is too large for the dropless dispatch
+    decode_capacity_factor: float = 4.0
+    router_aux_weight: float = 1e-2
 
     # RWKV6
     rwkv: bool = False
@@ -55,12 +69,18 @@ class ArchConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)
 
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
 
 _REGISTRY: dict[str, "ArchConfig"] = {}
 _REDUCED: dict[str, "ArchConfig"] = {}
 
-# the other families of the JAX package's registry are ROADMAP Queue 1
-_ARCH_MODULES = ["rwkv6_1g6b", "starcoder2_3b"]
+# the other families of the JAX package's registry (hybrid, audio,
+# vision-language) are ROADMAP Queue 1
+_ARCH_MODULES = ["minitron_4b", "rwkv6_1g6b", "gemma_7b", "qwen3_32b",
+                 "qwen3_moe_235b_a22b", "starcoder2_3b", "olmoe_1b_7b"]
 
 
 def register(cfg: ArchConfig, reduced: ArchConfig) -> ArchConfig:

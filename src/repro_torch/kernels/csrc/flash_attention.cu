@@ -18,8 +18,18 @@
 // kernel. Blocks start with the last query tiles, which have the most
 // keys. No atomics: every sum runs in a fixed order.
 //
-// bfloat16 (`fa_bf16_kernel<D>`, D 128 for StarCoder2-3B, 32 for its
-// REDUCED config). Bound on an H100 at StarCoder2-3B's prompt shape (B 2,
+// bfloat16 (`fa_bf16_kernel<D>`: D 128 for StarCoder2-3B and OLMoE-1B-7B,
+// 256 for Gemma-7B, 64 for hymba-1.5B, 32 for the REDUCED configs). At D
+// 256 a K / V tile holds 64 keys, not 128: the two consumers' Q tiles
+// (64 KB) and a 2-stage ring of 128-key K and V tiles (256 KB) would not
+// fit the 227 KB a block may have; with 64 keys it takes 193 KB. A
+// consumer's O accumulator is then 128 registers a thread (P V as one
+// wgmma m64n256k16 a 16-key slice and part), S 32. Bound at Gemma-7B's
+// prompt shape (B 2, S 4096, H 16, Hkv 16, D 256, causal): 8.39 M pairs
+// per (b, h), 275 GFLOP, 278 us at 989 TFLOP/s; OLMoE-1B-7B's (D 128, the
+// same B, S and heads) 137 GFLOP, 139 us. Both have one query head a KV
+// head, so a block is 2 x 64 rows of one head (`pair` false).
+// Bound on an H100 at StarCoder2-3B's prompt shape (B 2,
 // S 8192, H 24, Hkv 2, D 128, window 4096): 25.2 M (query, key) pairs per
 // (b, h), 4 D FLOP each, 618.6 GFLOP: 625 us at 989 TFLOP/s of dense bf16
 // against 218 MB of q, k, v and o (65 us at 3.35 TB/s): operations. P
@@ -46,7 +56,8 @@
 //     rows.
 //   * TMA reads the model's layout through 4-D tensor maps over (D, heads,
 //     S, B), boxes of (64 columns, 1, rows, 1) with 128-byte swizzle (D 32:
-//     one 64-byte box, 64-byte swizzle), which the wgmma descriptors name;
+//     one 64-byte box, 64-byte swizzle; D 256: four boxes side by side),
+//     which the wgmma descriptors name;
 //     keys past S arrive zero-filled and are masked to -inf. The maps are
 //     encoded on every call (the pointers change); the shared-memory limit
 //     is raised once per kernel and device.
@@ -104,25 +115,29 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 
 constexpr int ROWS_WG = 64;                 // query rows per consumer
 constexpr int CONSUMERS = 2;                // consumer warpgroups
-constexpr int BKV = 128;                    // keys per staged tile
 constexpr int STAGES = 2;                   // the K / V ring
+constexpr int MAX_SMEM = 232448;            // a block's opt-in limit
 constexpr int THREADS = 128 * (CONSUMERS + 1);
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 
 // A D-wide tile is NCH boxes of CH columns side by side, each ROW bytes a
 // row, swizzled over ROW bytes (SWZ: the wgmma descriptor's layout type).
+// BKV keys a staged K / V tile: 128, but 64 at D 256, where a ring of
+// 128-key tiles would need 328,744 bytes of shared memory.
 template <int D>
 struct Tile {
   static constexpr int CH = D < 64 ? D : 64;
   static constexpr int NCH = D / CH;
   static constexpr int ROW = 2 * CH;
   static constexpr uint64_t SWZ = ROW == 128 ? 1 : 2;  // 128 / 64-byte
+  static constexpr int BKV = D > 128 ? 64 : 128;
   static constexpr int Q_BYTES = ROWS_WG * D * 2;      // one consumer's Q
   static constexpr int KV_BYTES = BKV * D * 2;         // one K or V tile
   static constexpr int BARS = 8 * (2 * STAGES + 1);
   static constexpr int SMEM = 1024 + CONSUMERS * Q_BYTES +
                               2 * STAGES * KV_BYTES + BARS;
   static_assert(D % CH == 0 && (ROW == 128 || ROW == 64), "head dim");
+  static_assert(SMEM <= MAX_SMEM, "shared memory");
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -239,6 +254,29 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(acc));
 }
 
+// d (64 x 64) = (acc ? d : 0) + A B; A (64 x 16) and B (64 x 16) from
+// shared memory through descriptors, both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
 // d (64 x 32) += A B; A (64 x 16) from registers (each warp's 16 rows in
 // the mma.sync m16n8k16 A layout), B (16 x 32) from shared memory,
 // MN-major
@@ -291,6 +329,86 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
 }
 
+// d (64 x 64) += A B, A from registers, B MN-major, as above
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// d (64 x 256) += A B, A from registers, B MN-major, as above
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -321,6 +439,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                    const __grid_constant__ CUtensorMap vmap,
                    const __grid_constant__ CUtensorMap omap, Params p) {
   using T = Tile<D>;
+  constexpr int BKV = T::BKV;
   extern __shared__ unsigned char smem_raw[];
   // 1024-byte aligned: the swizzle atoms of TMA and wgmma
   const uint32_t raw = smem_addr(smem_raw);
@@ -781,8 +900,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 int batch, const Params& p, cudaStream_t stream) {
   CUtensorMap qm, km, vm, om;
   if (!tensor_map<D>(&qm, q, batch, p.seq, p.heads, ROWS_WG) ||
-      !tensor_map<D>(&km, k, batch, p.seq, p.kv_heads, BKV) ||
-      !tensor_map<D>(&vm, v, batch, p.seq, p.kv_heads, BKV) ||
+      !tensor_map<D>(&km, k, batch, p.seq, p.kv_heads, Tile<D>::BKV) ||
+      !tensor_map<D>(&vm, v, batch, p.seq, p.kv_heads, Tile<D>::BKV) ||
       !tensor_map<D>(&om, o, batch, p.seq, p.heads, ROWS_WG))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = allow_smem<fa_bf16_kernel<D>>(Tile<D>::SMEM);
@@ -824,8 +943,9 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q (B, S, H, D), k and v (B, S, Hkv, D), o (B, S, H, D); all bfloat16
-// (is_bf16 = 1, D 32 or 128) or all float32 (is_bf16 = 0, D <= 256),
-// contiguous, 16-byte aligned; H a multiple of Hkv; window <= 0 for none.
+// (is_bf16 = 1, D 32, 64, 128 or 256) or all float32 (is_bf16 = 0,
+// D <= 256), contiguous, 16-byte aligned; H a multiple of Hkv; window <= 0
+// for none.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, int batch, int seq,
                                    int heads, int kv_heads, int head_dim,
@@ -841,7 +961,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (is_bf16) {
     switch (head_dim) {
       case 32: return launch_bf16<32>(q, k, v, o, batch, p, st);
+      case 64: return launch_bf16<64>(q, k, v, o, batch, p, st);
       case 128: return launch_bf16<128>(q, k, v, o, batch, p, st);
+      case 256: return launch_bf16<256>(q, k, v, o, batch, p, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }

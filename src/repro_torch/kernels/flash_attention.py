@@ -18,16 +18,17 @@ from repro_torch.kernels.build import KERNELS
 
 __all__ = ["flash_attention_fwd", "BLOCK_Q", "BLOCK_KV"]
 
-# the bf16 kernel's instantiations: StarCoder2-3B and its REDUCED config
-BF16_HEAD_DIMS = (32, 128)
+# the bf16 kernel's instantiations: StarCoder2-3B and OLMoE-1B-7B (128),
+# Gemma-7B (256), hymba-1.5B (64) and the REDUCED configs (32)
+BF16_HEAD_DIMS = (32, 64, 128, 256)
 # the bf16 kernel's tiles, mirroring csrc/flash_attention.cu (ROWS_WG and
-# BKV): a block covers BLOCK_Q query rows of two heads of one KV group
-# (an even number of query heads per KV head, as in StarCoder2-3B and its
-# REDUCED config; else 2 BLOCK_Q rows of one head) and walks the key tiles
-# of BLOCK_KV from the one holding its first row's window start to the one
-# holding its last row
+# Tile<D>::BKV): a block covers BLOCK_Q query rows of two heads of one KV
+# group (an even number of query heads per KV head, as in StarCoder2-3B;
+# else 2 BLOCK_Q rows of one head) and walks the key tiles of
+# BLOCK_KV[D] keys from the one holding its first row's window start to
+# the one holding its last row (64 keys at D 256, for shared memory)
 BLOCK_Q = 64
-BLOCK_KV = 128
+BLOCK_KV = {d: 64 if d > 128 else 128 for d in BF16_HEAD_DIMS}
 F32_MAX_HEAD_DIM = 256
 
 

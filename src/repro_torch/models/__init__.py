@@ -1,10 +1,11 @@
-"""The language-model substrate of the port, so far the RWKV6 and dense
-attention families: ``layers`` (linear, RMSNorm, RoPE, FFN, decode
-attention), ``rwkv`` (time-mix and channel-mix), ``transformer``
-(per-family blocks), ``model`` (init, forward, decode
-cache, ``serve_step``), ``sampling`` and ``serve`` (batched generation and
-its CLI). Copies of ``repro/models``; the other families raise
-``NotImplementedError``.
+"""The language-model substrate of the port, so far the RWKV6, dense
+attention and MoE decoder families: ``layers`` (linear, RMSNorm, RoPE,
+plain and gated FFNs, decode attention), ``rwkv`` (time-mix and
+channel-mix), ``moe`` (top-k routing, sort-based capacity dispatch),
+``transformer`` (per-family blocks, qk-norm), ``model`` (init, forward,
+decode cache, ``serve_step``, tied embeddings), ``sampling`` and
+``serve`` (batched generation and its CLI). Copies of ``repro/models``;
+the other families raise ``NotImplementedError``.
 """
 
 from repro_torch.models.model import (forward, init_cache, init_params,

@@ -1,9 +1,10 @@
 """Building blocks, as ``repro/models/layers.py``: linear layers and
 RMSNorm (params stored in float32 and cast to the activations' dtype on
-every call; the norm works in float32 and casts back), RoPE, the FFN and
-single-token attention against a KV cache. Activations are (B, S, ...),
-attention heads (B, S, H, Dh). Full-sequence attention is the flash
-attention op (``repro_torch.kernels.ops.flash_attention``)."""
+every call; the norm works in float32 and casts back), RoPE, the FFN
+(plain or gated) and single-token attention against a KV cache.
+Activations are (B, S, ...), attention heads (B, S, H, Dh). Full-sequence
+attention is the flash attention op
+(``repro_torch.kernels.ops.flash_attention``)."""
 
 from __future__ import annotations
 
@@ -71,25 +72,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 # --------------------------------------------------------------------- FFN
 
-def _only_gelu(act: str) -> None:
-    if act != "gelu":
-        raise NotImplementedError(
-            f"FFN activation {act!r}: the port has the ungated GELU FFN "
-            f"(act='gelu') so far; the others come with their families "
-            f"(ROADMAP Queue 1)")
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    """The FFN activation: SiLU for ``swiglu``, tanh-approximated GELU for
+    ``geglu`` and ``gelu`` (as ``jax.nn.gelu(approximate=True)``), squared
+    ReLU for ``relu_sq``."""
+    if name == "swiglu":
+        return F.silu(x)
+    if name in ("geglu", "gelu"):
+        return F.gelu(x, approximate="tanh")
+    if name == "relu_sq":
+        return torch.square(F.relu(x))
+    raise ValueError(name)
 
 
 def ffn_init(gen: torch.Generator, d: int, d_ff: int, act: str,
              device=None) -> dict:
-    _only_gelu(act)
-    return {"wi": linear_init(gen, d, d_ff, device=device),
-            "wo": linear_init(gen, d_ff, d, scale=d_ff ** -0.5,
-                              device=device)}
+    """``wi`` and ``wo``, and for the gated activations (``swiglu``,
+    ``geglu``) the gate ``wg``."""
+    p = {"wi": linear_init(gen, d, d_ff, device=device)}
+    if act in ("swiglu", "geglu"):
+        p["wg"] = linear_init(gen, d, d_ff, device=device)
+    p["wo"] = linear_init(gen, d_ff, d, scale=d_ff ** -0.5, device=device)
+    return p
 
 
 def ffn_apply(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
-    _only_gelu(act)
-    return linear(p["wo"], F.gelu(linear(p["wi"], x), approximate="tanh"))
+    h = _act(act, linear(p["wi"], x))
+    if "wg" in p:                      # gated variants
+        h = h * linear(p["wg"], x)
+    return linear(p["wo"], h)
 
 
 # -------------------------------------------------------------- attention

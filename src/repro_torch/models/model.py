@@ -1,5 +1,6 @@
 """Public LM API of the port: init / forward / init_cache / serve_step, as
-``repro/models/model.py`` for the decoder-only RWKV6 and dense families.
+``repro/models/model.py`` for the decoder-only RWKV6, dense and MoE
+families.
 
 Layer parameters are stacked over a leading layer axis, as the JAX package
 stacks them for ``jax.lax.scan``, so ``repro_torch.convert`` carries a JAX
@@ -56,8 +57,9 @@ def _check_on(name: str, tree: dict, device: torch.device) -> None:
 
 def init_params(gen: torch.Generator, cfg: ArchConfig, device=None) -> dict:
     """Params under the JAX package's keys (``embed``, ``final_norm/g``,
-    ``layers/tm/wr/w`` stacked over layers, ``lm_head/w``), drawn from
-    ``gen`` on its own device and placed on ``device``."""
+    ``layers/tm/wr/w`` stacked over layers, ``lm_head/w``; no ``lm_head``
+    with ``tie_embeddings``), drawn from ``gen`` on its own device and
+    placed on ``device``."""
     device = resolve_device(device)
     d = cfg.d_model
     params: dict[str, Any] = {
@@ -66,7 +68,8 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device=None) -> dict:
     }
     params["layers"] = _stack([block_init(gen, cfg, device=device)
                                for _ in range(cfg.n_layers)])
-    params["lm_head"] = linear_init(gen, d, cfg.vocab, device=device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = linear_init(gen, d, cfg.vocab, device=device)
     return params
 
 
@@ -78,13 +81,17 @@ def _embed_tokens(params, cfg: ArchConfig, tokens):
     return params["embed"][tokens].to(compute_dtype(cfg))
 
 
-def _logits(params, x):
+def _logits(params, cfg: ArchConfig, x):
+    if cfg.tie_embeddings:                 # the embedding table, transposed
+        return x @ params["embed"].to(x.dtype).T
     return x @ params["lm_head"]["w"].to(x.dtype)
 
 
 def forward(params, batch, cfg: ArchConfig, device=None):
-    """Returns logits (B, S, vocab) in the compute dtype. (The JAX
-    package also returns an MoE aux loss, always 0 for these families.)"""
+    """Returns (logits (B, S, vocab) in the compute dtype, aux): aux is
+    the MoE router's load-balance loss summed over the layers, a float32
+    scalar (0 for the other families), as the JAX package's scan sums
+    it."""
     device = resolve_device(device)
     _check_on("params", params, device)
     tokens = torch.as_tensor(batch["tokens"]).to(device)
@@ -92,10 +99,12 @@ def forward(params, batch, cfg: ArchConfig, device=None):
     b, s = tokens.shape
     positions = torch.arange(s, device=device).broadcast_to(b, s)
     # the layers in order: the JAX package's scan over stacked params
+    aux = torch.zeros((), dtype=torch.float32, device=device)
     for i in range(cfg.n_layers):
-        x = block_apply(_layer(params["layers"], i), cfg, x, positions)
+        x, a = block_apply(_layer(params["layers"], i), cfg, x, positions)
+        aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, x)
+    return _logits(params, cfg, x), aux
 
 
 # -------------------------------------------------------------- decode
@@ -119,7 +128,7 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len=None,
 
 def serve_step(params, cache, batch, cfg: ArchConfig, device=None):
     """One decode step: batch {"token": (B,), "pos": (B,)} ("pos", the
-    token's absolute position, only for the dense family).
+    token's absolute position, for the attention families).
 
     Returns (logits (B, vocab), new_cache); the cache passed in is not
     changed."""
@@ -136,4 +145,4 @@ def serve_step(params, cache, batch, cfg: ArchConfig, device=None):
                             _layer(cache, i))
         new.append(c)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)[:, 0]
-    return _logits(params, x), _stack(new)
+    return _logits(params, cfg, x), _stack(new)

@@ -1,9 +1,11 @@
 """Per-family blocks, as ``repro/models/transformer.py``; so far the RWKV6
-family and the dense attention family (GQA, RoPE, optional sliding
-window, ungated GELU FFN). The MoE, SSM (hybrid), encoder-decoder and
-vision-language families raise ``NotImplementedError``: they are ROADMAP
-Queue 1 ("the rest of the LM substrate"). The port runs on one card, so
-nothing is padded for tensor parallelism.
+family, the dense attention family (GQA, RoPE, optional sliding window,
+optional qk-norm, plain or gated FFN) and the decoder-only MoE family
+(the same attention, a ``moe_apply`` FFN). The SSM (hybrid),
+encoder-decoder and vision-language families raise
+``NotImplementedError``: they are ROADMAP Queue 1 ("the rest of the LM
+substrate"). The port runs on one card, so nothing is padded for tensor
+parallelism.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from repro_torch.models.layers import (apply_rope, decode_attention,
                                        ffn_apply, ffn_init, linear,
                                        linear_init, rmsnorm, rmsnorm_init,
                                        rope_freqs)
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.rwkv import (rwkv_block_init, rwkv_channel_mix,
                                      rwkv_time_mix)
 
@@ -24,36 +27,46 @@ __all__ = ["attn_init", "attn_apply", "attn_decode", "block_init",
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.rwkv or (cfg.family == "dense" and cfg.rope == "rope"):
+    if cfg.rwkv or (cfg.family in ("dense", "moe") and cfg.rope == "rope"):
         return
     raise NotImplementedError(
         f"{cfg.name} ({cfg.family}, rope {cfg.rope!r}): the port has the "
-        f"RWKV6 blocks and the dense RoPE attention blocks so far; the MoE, "
-        f"SSM, encoder-decoder and vision-language families are ROADMAP "
-        f"Queue 1 (the rest of the LM substrate)")
+        f"RWKV6 blocks and the dense and MoE RoPE attention blocks so far; "
+        f"the SSM (hybrid), encoder-decoder and vision-language families "
+        f"are ROADMAP Queue 1 (the rest of the LM substrate)")
 
 
 # ------------------------------------------------------------ attention
 
 def attn_init(gen: torch.Generator, cfg: ArchConfig, device=None) -> dict:
+    """``wq``, ``wk``, ``wv``, ``wo``; with ``qk_norm`` the per-head
+    RMSNorm gains ``qn`` and ``kn`` (Dh,)."""
     d, dh = cfg.d_model, cfg.resolved_head_dim
-    return {
+    p = {
         "wq": linear_init(gen, d, cfg.n_heads * dh, device=device),
         "wk": linear_init(gen, d, cfg.n_kv_heads * dh, device=device),
         "wv": linear_init(gen, d, cfg.n_kv_heads * dh, device=device),
         "wo": linear_init(gen, cfg.n_heads * dh, d,
                           scale=(cfg.n_heads * dh) ** -0.5, device=device),
     }
+    if cfg.qk_norm:
+        p["qn"] = rmsnorm_init(dh, device)
+        p["kn"] = rmsnorm_init(dh, device)
+    return p
 
 
 def _project_qkv(p, cfg: ArchConfig, x, positions):
     """x: (B, S, d); positions: (B, S). Returns q (B, S, H, Dh) and k, v
-    (B, S, Hkv, Dh), RoPE applied to q and k."""
+    (B, S, Hkv, Dh): q and k RMS-normed over each head (qk-norm) and then
+    rotated (RoPE)."""
     b, s, _ = x.shape
     dh = cfg.resolved_head_dim
     q = linear(p["wq"], x).view(b, s, cfg.n_heads, dh)
     k = linear(p["wk"], x).view(b, s, cfg.n_kv_heads, dh)
     v = linear(p["wv"], x).view(b, s, cfg.n_kv_heads, dh)
+    if "qn" in p:
+        q = rmsnorm(p["qn"], q, cfg.norm_eps)
+        k = rmsnorm(p["kn"], k, cfg.norm_eps)
     freqs = rope_freqs(dh, cfg.rope_theta, x.device)
     return apply_rope(q, positions, freqs), apply_rope(k, positions, freqs), v
 
@@ -93,28 +106,41 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, *,
         p["ln1"] = rmsnorm_init(d, device)
         p["ln2"] = rmsnorm_init(d, device)
         return p
-    return {
+    p = {
         "ln1": rmsnorm_init(d, device),
         "ln2": rmsnorm_init(d, device),
         "attn": attn_init(gen, cfg, device),
-        "ffn": ffn_init(gen, d, cfg.d_ff, cfg.act, device),
     }
+    if cfg.is_moe:
+        p["moe"] = moe_init(gen, d, cfg.d_ff_expert, cfg.n_experts, cfg.act,
+                            device)
+    else:
+        p["ffn"] = ffn_init(gen, d, cfg.d_ff, cfg.act, device)
+    return p
 
 
 def block_apply(p, cfg: ArchConfig, x, positions=None):
     """Full-sequence layer application; ``positions`` (B, S) feed RoPE
-    (RWKV6 reads none)."""
+    (RWKV6 reads none). Returns (x, aux): the MoE router's aux loss, a
+    float32 zero for the other families."""
     _check_ported(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.rwkv:
         tm, _, _ = rwkv_time_mix(p["tm"], rmsnorm(p["ln1"], x, cfg.norm_eps),
                                  head_dim=cfg.rwkv_head_dim)
         x = x + tm
         cm, _ = rwkv_channel_mix(p["cm"], rmsnorm(p["ln2"], x, cfg.norm_eps))
-        return x + cm
+        return x + cm, aux
     x = x + attn_apply(p["attn"], cfg, rmsnorm(p["ln1"], x, cfg.norm_eps),
                        positions)
-    return x + ffn_apply(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps),
-                         cfg.act)
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if cfg.is_moe:
+        b, s, d = h.shape
+        y, aux = moe_apply(p["moe"], h.reshape(b * s, d), top_k=cfg.top_k,
+                           act=cfg.act,
+                           capacity_factor=cfg.capacity_factor)
+        return x + y.view(b, s, d), aux
+    return x + ffn_apply(p["ffn"], h, cfg.act), aux
 
 
 def init_block_cache(cfg: ArchConfig, batch: int, cache_len: int,
@@ -173,5 +199,16 @@ def block_decode(p, cfg: ArchConfig, x, pos, cache):
     attn_out, k_c, v_c = attn_decode(p["attn"], cfg, h, pos, cache["k"],
                                      cache["v"], slot, valid)
     x = x + attn_out
-    x = x + ffn_apply(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg.act)
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if cfg.is_moe:
+        # dropless while the decode batch is small (B k <= 4 E), else the
+        # bounded decode capacity
+        b = x.shape[0]
+        dropless = b * cfg.top_k <= 4 * cfg.n_experts
+        y, _ = moe_apply(p["moe"], h.reshape(b, -1), top_k=cfg.top_k,
+                         act=cfg.act, dropless=dropless,
+                         capacity_factor=cfg.decode_capacity_factor)
+        x = x + y.view(b, 1, -1)
+    else:
+        x = x + ffn_apply(p["ffn"], h, cfg.act)
     return x, {"k": k_c, "v": v_c}

@@ -56,8 +56,13 @@ opt_state, states}`` every ``ckpt_every`` epochs in the JAX package's
 checkpoint format, resumes from the newest one (``resume``), fires the
 fault sites of ``repro_torch.faults`` and, over several ranks, reports a
 lost peer as ``faults.HostLossError`` (what ``launch.pac_cluster``'s
-elastic supervisor re-forms the world on). Not ported yet (it raises):
-the ``host_replay`` oracle.
+elastic supervisor re-forms the world on).
+
+``host_replay=True`` is the parity oracle of the wrap-around: the host
+replays each device's batch grid to the epoch's ``steps`` rows
+(``plan_epoch``) and a lockstep step reads row s of each device's
+replayed grid, no ``s % n_batches[k]``; it runs the same graphed step,
+and gives the same bits as the default.
 """
 
 from __future__ import annotations
@@ -137,10 +142,15 @@ class EpochPlan:
     devices' rows are built (N_held = len(local_ranks)); the schedule
     (``n_batches``, ``steps``, the capacities, ``shared_local``) stays
     global, so every rank plans the same lockstep epoch.
+
+    ``host_replay`` (the oracle): ``batches`` is (N_dev, steps, ...),
+    each device's grid replayed on the host, row s its batch
+    ``s % n_batches[k]``, and ``offsets`` is None.
     """
 
     batches: dict                 # flat (sum real, ...) / sharded
-                                  # (N_held, rows_cap, ...)
+                                  # (N_held, rows_cap, ...) / replayed
+                                  # (N_dev, steps, ...)
     n_batches: np.ndarray         # (N_dev,) real batches per device
     nfeat_local: np.ndarray       # (N_held, cap+1, d_n)
     efeat_local: np.ndarray       # (N_held, e_cap+1, d_e)
@@ -150,7 +160,8 @@ class EpochPlan:
     edge_capacity: int            # padded local edge count
     steps: int
     edges_per_device: np.ndarray  # (N_dev,)
-    offsets: np.ndarray           # (N_dev,) flat-grid start rows
+    offsets: Optional[np.ndarray] = None   # (N_dev,) flat-grid start rows
+    host_replay: bool = False
     tcsr: Optional[dict] = None   # device plan only
     layout: str = "replicated"    # "replicated" | "sharded"
     local_ranks: Optional[np.ndarray] = None  # devices built here
@@ -179,8 +190,8 @@ class EpochPlan:
     def device_input_bytes(self) -> int:
         """Grid and T-CSR bytes ONE device receives: the replicated layout
         ships every device the whole flat grid and event buffer, the
-        sharded one only the device's own (padded) row."""
-        if self.layout == "sharded":
+        sharded one and the host replay only the device's own row."""
+        if self.layout == "sharded" or self.host_replay:
             held = len(np.asarray(next(iter(self.batches.values()))))
             return self.plan_bytes() // max(held, 1)
         return self.plan_bytes()
@@ -337,9 +348,18 @@ def plan_epoch(
     per-device child seeds are drawn for every device, so each rank
     derives the same global schedule and device k's stream does not
     depend on which devices a rank plans.
+
+    ``host_replay=True`` (the parity oracle; host plan, replicated layout)
+    replays each device's batch grid on the host to ``steps`` rows, row s
+    being its batch ``s % n_batches[k]``: ``batches`` is (N_dev, steps,
+    ...) and ``offsets`` None.
     """
     if plan not in ("host", "device"):
         raise ValueError(f"plan={plan!r}: expected 'host' or 'device'")
+    if host_replay and plan == "device":
+        raise ValueError(
+            "host_replay is the host-planned parity oracle; it cannot be "
+            "combined with plan='device'")
     if layout not in ("replicated", "sharded"):
         raise ValueError(
             f"layout={layout!r}: expected 'replicated' or 'sharded'")
@@ -347,8 +367,6 @@ def plan_epoch(
         raise ValueError(
             "host_replay IS the legacy replicated-schedule oracle; use "
             "layout='sharded' without it")
-    if host_replay:
-        raise _not_ported("host_replay (the host-replayed oracle)")
     if not isinstance(source, (TemporalGraph, ShardedStream)):
         raise _not_ported(f"a {type(source).__name__} source")
     n_dev = len(node_lists)
@@ -439,7 +457,15 @@ def plan_epoch(
 
     trimmed = [{kk: v[: n_batches[k]] for kk, v in p.items()}
                for k, p in zip(ranks, programs)]
-    if layout == "sharded":
+    offsets = None
+    if host_replay:
+        # Alg.2's wrap-around on the host: each device's grid replayed
+        # from its start to the lockstep length
+        replayed = [{kk: v[np.arange(steps) % len(p["src"])]
+                     for kk, v in p.items()} for p in programs]
+        batches = {kk: np.stack([d[kk] for d in replayed])
+                   for kk in replayed[0]}
+    elif layout == "sharded":
         # device k owns row k of a padded stack: offsets are all zero
         rows_cap = int(n_batches.max()) if n_dev else 0
         batches = pad_batch_programs(trimmed, rows_cap)
@@ -469,6 +495,7 @@ def plan_epoch(
         steps=steps,
         edges_per_device=edges_per_device,
         offsets=offsets,
+        host_replay=host_replay,
         tcsr=tcsr,
         layout=layout,
         local_ranks=None if local_ranks is None
@@ -496,7 +523,9 @@ def union_plan(plan: EpochPlan, cfg: TIGConfig, ranks=None) -> dict:
     * ``batches``: the devices' real grid rows, concatenated, their node
       and edge ids offset by their device's position (-1 stays -1);
       ``offsets`` / ``n_batches`` the devices' start rows and cycle
-      lengths in it (the same arrays from either layout);
+      lengths in it (the same arrays from either layout); from a
+      ``host_replay`` plan, each device's ``steps`` replayed rows, and
+      ``host_replay`` True: step s reads row ``offsets[j] + s``;
     * ``nfeat`` (n cap + 1, d_n) / ``efeat`` (n e_cap + 1, d_e): the
       devices' feature rows restacked, zero dump rows last;
     * ``tcsr`` (device plan): ONE front pad of ``K * n_layers`` zero
@@ -519,6 +548,8 @@ def union_plan(plan: EpochPlan, cfg: TIGConfig, ranks=None) -> dict:
 
     def grid(key, k):
         v = plan.batches[key]
+        if plan.host_replay:
+            return v[row_of[k]]
         if sharded:
             return v[row_of[k], : plan.n_batches[k]]
         return v[plan.offsets[k]: plan.offsets[k] + plan.n_batches[k]]
@@ -534,7 +565,9 @@ def union_plan(plan: EpochPlan, cfg: TIGConfig, ranks=None) -> dict:
             shift(grid(key, k), j * stride) if stride else grid(key, k)
             for j, k in enumerate(ranks)])
     n_batches = plan.n_batches[ranks]
-    offsets = np.concatenate([[0], np.cumsum(n_batches)[:-1]]
+    lengths = (np.full(len(ranks), plan.steps) if plan.host_replay
+               else n_batches)
+    offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]]
                              ).astype(np.int32)
 
     def restack(local, n):
@@ -543,6 +576,7 @@ def union_plan(plan: EpochPlan, cfg: TIGConfig, ranks=None) -> dict:
         return np.concatenate(rows + [np.zeros((1, d), local.dtype)])
 
     out = {"batches": batches, "offsets": offsets, "n_batches": n_batches,
+           "host_replay": plan.host_replay,
            "steps": plan.steps, "parts": len(ranks),
            "ranks": np.asarray(ranks, np.int64),
            "capacity": cap, "edge_capacity": e_cap,
@@ -647,6 +681,7 @@ class _PACEpoch(engine._Epoch):
                         engine._staged(union["batches"]).items()}
         self.offsets = own(union["offsets"])
         self.n_batches = own(union["n_batches"])
+        self.host_replay = bool(union["host_replay"])
         self.tables = {k: own(union[k]) for k in ("nfeat", "efeat")}
         self.tcsr = None if union["tcsr"] is None else {
             k: own(v) for k, v in union["tcsr"].items()}
@@ -728,9 +763,10 @@ class _PACEpoch(engine._Epoch):
 
     def _batch_index(self, s):
         """Each device's batch index at lockstep step ``s`` (Alg.2's
-        wrap-around, (P,) int32) and the flat grid row it reads (int64)."""
+        wrap-around, (P,) int32) and the flat grid row it reads (int64):
+        ``offsets + at``, or from a host-replayed grid ``offsets + s``."""
         at = s % self.n_batches
-        return at, (self.offsets + at).long()
+        return at, (self.offsets + (s if self.host_replay else at)).long()
 
     def step(self) -> None:
         """Lockstep step ``counter`` of every device: Alg.2's reset of the
@@ -828,6 +864,7 @@ def make_pac_epoch(cfg: TIGConfig, opt: Optimizer, *, device=None,
 
     def pac_epoch(params, opt_state, union):
         key = (union["parts"], union["capacity"], union["steps"],
+               union["host_replay"],
                engine._layout(params), engine._layout(opt_state),
                *((k, np.shape(union[k])) for k in (
                    "offsets", "nfeat", "efeat")),
@@ -1080,6 +1117,7 @@ def pac_train(
     depth: int = 1,
     epoch_boundary: Literal["overlap", "serial"] = "overlap",
     plan: str = "device",
+    host_replay: bool = False,
     eval_graph: Optional[StreamSource] = None,
     eval_warm: Literal["memory", "replay", "restart"] = "memory",
     eval_node_class: bool = False,
@@ -1124,6 +1162,12 @@ def pac_train(
     overlapped the sync of epoch e may finish inside entry e+1.
     ``plan_seconds`` is the wait for each plan (all of the planning
     without prefetch).
+
+    ``host_replay=True`` (the parity oracle of the wrap-around; it
+    implies ``plan="host"`` and the replicated layout, also over a mesh)
+    reads each lockstep step from grids replayed on the host
+    (``plan_epoch(host_replay=True)``) through the same graphed step: the
+    same bits as the default.
 
     ``eval_graph`` (the full stream of which ``g_train`` is the train
     split, a ``TemporalGraph`` or a ``ShardedStream``) scores val and
@@ -1181,13 +1225,16 @@ def pac_train(
                          "'replay' or 'restart'")
     if plan not in ("host", "device"):
         raise ValueError(f"plan={plan!r}: expected 'host' or 'device'")
+    if host_replay:
+        plan = "host"
     if resume and not ckpt_dir:
         raise ValueError("resume=True needs ckpt_dir")
     injector = faults if faults is not None else FaultInjector.from_env()
     device = _mesh_device(device, mesh)
-    # a rank plans only its own partitions' rows
+    # a rank plans only its own partitions' rows (the host replay: every
+    # partition's, in the replicated layout)
     held = None if mesh is None else local_part_ranks(mesh)
-    layout = "replicated" if mesh is None else "sharded"
+    layout = "replicated" if mesh is None or host_replay else "sharded"
     multirank = mesh is not None and mesh.world > 1
     writer = mesh is None or mesh.rank == 0
     small_parts = partition.node_lists()
@@ -1218,7 +1265,8 @@ def pac_train(
                 small_parts, num_devices, np.random.default_rng(seed))
         ep_plan = plan_epoch(g_train, node_lists, partition.shared_nodes,
                              cfg, rng_ep, time_scale=time_scale, plan=plan,
-                             layout=layout, local_ranks=held)
+                             host_replay=host_replay, layout=layout,
+                             local_ranks=None if host_replay else held)
         return ep_plan, union_plan(ep_plan, cfg, held)
 
     def gathered(states: dict) -> dict:

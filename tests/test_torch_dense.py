@@ -107,13 +107,15 @@ def test_rope_matches_jax():
 
 
 def test_ffn_matches_jax():
+    """The GELU FFN, and the gated SwiGLU one (its gate ``wg``)."""
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, 5, 64)).astype(np.float32)
-    jp = jl.ffn_init(jax.random.PRNGKey(1), 64, 256, "gelu")
-    got = tl.ffn_apply(_jparams(jp), torch.from_numpy(x), "gelu")
-    _close(got, jl.ffn_apply(jp, jnp.asarray(x), "gelu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.ffn_init(torch.Generator(), 64, 256, "swiglu")
+    for act in ("gelu", "swiglu"):
+        jp = jl.ffn_init(jax.random.PRNGKey(1), 64, 256, act)
+        got = tl.ffn_apply(_jparams(jp), torch.from_numpy(x), act)
+        _close(got, jl.ffn_apply(jp, jnp.asarray(x), act))
+        assert sorted(tl.ffn_init(torch.Generator(), 64, 256, act)) == \
+            sorted(jp)
 
 
 def test_decode_attention_matches_jax():
@@ -142,8 +144,9 @@ def test_dense_block_matches_jax():
     want, _ = jt.block_apply(jp, jcfg, jt.pad_dims(jcfg, 1), jnp.asarray(x),
                              jnp.asarray(pos))
     before = KERNELS["flash_attention"].launches
-    got = tt.block_apply(_jparams(jp), tcfg, torch.from_numpy(x),
-                         torch.from_numpy(pos))
+    got, aux = tt.block_apply(_jparams(jp), tcfg, torch.from_numpy(x),
+                              torch.from_numpy(pos))
+    assert aux.dtype == torch.float32 and float(aux) == 0.0
     assert KERNELS["flash_attention"].launches == before   # CPU: plain
     _close(got, want, LOGIT_TOL)
 
@@ -172,8 +175,9 @@ def test_forward_matches_jax(model):
     tokens = np.random.default_rng(0).integers(0, jcfg.vocab, (2, 128))
     want, _ = jax.jit(lambda p, t: jm.forward(p, {"tokens": t}, jcfg))(
         jp, jnp.asarray(tokens))
-    got = tm.forward(tp, {"tokens": torch.from_numpy(tokens)}, tcfg,
-                     device="cpu")
+    got, aux = tm.forward(tp, {"tokens": torch.from_numpy(tokens)}, tcfg,
+                          device="cpu")
+    assert float(aux) == 0.0
     assert got.dtype == tm.compute_dtype(tcfg)
     assert got.shape == (2, 128, jcfg.vocab)
     _check_logits(dtype, got, want)

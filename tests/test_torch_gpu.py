@@ -1011,13 +1011,34 @@ def _reduced_lm_on_card_matches_cpu(cuda, arch, kernel, prompt, gen):
     tokens = torch.from_numpy(
         np.random.default_rng(0).integers(0, cfg.vocab, (2, 128)))
     before = KERNELS[kernel].launches
-    on_card = model.forward(p_gpu, {"tokens": tokens}, cfg)
+    on_card, _ = model.forward(p_gpu, {"tokens": tokens}, cfg)
     assert KERNELS[kernel].launches == before + cfg.n_layers
-    on_cpu = model.forward(p_cpu, {"tokens": tokens}, cfg, device="cpu")
+    on_cpu, _ = model.forward(p_cpu, {"tokens": tokens}, cfg, device="cpu")
     assert float((on_card.cpu() - on_cpu).abs().max()) < 1e-4
     a = generate(p_gpu, cfg, tokens[:, :prompt], gen)
     c = generate(p_cpu, cfg, tokens[:, :prompt], gen, device="cpu")
     np.testing.assert_array_equal(a.tokens, c.tokens)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "gemma-7b"])
+def test_moe_and_gated_on_card_match_cpu(cuda, arch):
+    """REDUCED OLMoE-1B-7B (MoE, qk-norm, SwiGLU) and Gemma-7B (GeGLU,
+    tied embeddings, D 64) in float32, and the MoE forward bitwise across
+    two calls on the card."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model
+
+    _reduced_lm_on_card_matches_cpu(cuda, arch, "flash_attention", 16, 16)
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype="float32")
+    params = model.init_params(torch.Generator(device=cuda).manual_seed(1),
+                               cfg, device=cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 200), device=cuda)
+    a = model.forward(params, {"tokens": tokens}, cfg)
+    b = model.forward(params, {"tokens": tokens}, cfg)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def test_rwkv_generate_on_card_matches_cpu(cuda):
@@ -1080,6 +1101,12 @@ def _plain_attention(q, k, v, causal, window):
     (torch.bfloat16, 1, 17, 4, 2, 32, True, None),
     (torch.bfloat16, 1, 300, 24, 2, 128, True, 128),
     (torch.bfloat16, 1, 300, 4, 2, 128, True, 1),
+    (torch.bfloat16, 1, 300, 4, 4, 256, True, None),
+    (torch.bfloat16, 2, 333, 4, 2, 256, True, 100),
+    (torch.bfloat16, 1, 200, 2, 1, 256, False, None),
+    (torch.bfloat16, 1, 1, 2, 2, 256, True, None),
+    (torch.bfloat16, 1, 257, 5, 1, 64, True, 64),
+    (torch.bfloat16, 1, 130, 4, 4, 64, False, 50),
     (torch.float32, 2, 77, 4, 2, 32, False, None),
     (torch.float32, 1, 77, 8, 2, 32, True, 16),
     (torch.float32, 1, 100, 4, 2, 21, True, 30),
@@ -1088,7 +1115,8 @@ def test_flash_kernel_matches_plain(cuda, dtype, b, s, h, hkv, d, causal,
                                     window):
     """GQA (heads paired in a block, or not where a KV group is odd),
     sliding windows down to 1, causal and not, S within one tile and not a
-    multiple of the tiles, in bfloat16; float32 at D 32, 128 and 21 (rows
+    multiple of the tiles, in bfloat16 at D 32, 64, 128 and 256 (64-key
+    tiles); float32 at D 32, 128 and 21 (rows
     not a multiple of 16 bytes). Two calls agree bitwise."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     q = torch.randn((b, s, h, d), generator=gen, device=cuda).to(dtype)

@@ -291,21 +291,26 @@ def test_steps_are_capture_safe(flavor, kernels_unprobed):
     assert torch.isfinite(score.out["pos_logit"]).all()
 
 
-@pytest.mark.parametrize("plan", ["device", "host"])
+@pytest.mark.parametrize("plan", ["device", "host", "host replay"])
 def test_pac_step_is_capture_safe(plan, kernels_unprobed):
     """The PAC step (``distributed._PACEpoch.step``: Alg.2's row-masked
     reset and backup, each device's grid row and batch index, the
     per-device losses) under the probe, over 4 SEP parts of ``tiny``
     shuffle-combined onto 2 devices: a step where one device wraps round
-    (its cycle ends, the next step resets it) and the next."""
+    (its cycle ends, the next step resets it) and the next; also from the
+    host-replayed grids (``host_replay``)."""
+    replay = plan == "host replay"
     g = synthetic_tig("tiny")
     cfg = tm.TIGConfig(flavor="tgn", **SMALL)
     tr = chronological_split(g)[0]
     part = sep_partition(tr.src, tr.dst, tr.t, g.num_nodes, 4)
     lists = shuffle_combine(part.node_lists(), 2, np.random.default_rng(0))
     ep = distributed.plan_epoch(tr, lists, part.shared_nodes, cfg,
-                                np.random.default_rng(1), plan=plan)
+                                np.random.default_rng(1),
+                                plan="host" if replay else plan,
+                                host_replay=replay)
     union = distributed.union_plan(ep, cfg)
+    assert union["host_replay"] == replay
     params = tm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     opt = adamw(lr=1e-3, max_grad_norm=1.0)
     epoch = distributed._PACEpoch(cfg, opt, params, opt.init(params), union,

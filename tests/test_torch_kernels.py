@@ -944,7 +944,7 @@ def test_flash_attention_op_takes_gqa_in_the_model_layout(window):
 def _fa_kernel_schedule(q, k, v, causal, window, drop_edge=False):
     """The bf16 flash kernel's loop, in plain PyTorch on (B, H, S, D)
     float32 q and K / V already repeated to H heads: query tiles of
-    ``BLOCK_Q``, each over the key tiles of ``BLOCK_KV`` from the one
+    ``BLOCK_Q``, each over the key tiles of ``BLOCK_KV[D]`` from the one
     holding its first query's window start to its last key; a running max
     from -1e30, masked scores -inf, P split into hi + lo bf16 parts for
     P V, float32 sums, the output rounded to bf16. ``drop_edge``: a faulty
@@ -953,20 +953,21 @@ def _fa_kernel_schedule(q, k, v, causal, window, drop_edge=False):
     from repro_torch.kernels.flash_attention import BLOCK_KV, BLOCK_Q
 
     s, d = q.shape[-2], q.shape[-1]
+    block_kv = BLOCK_KV[d]
     scale = 1.0 / np.sqrt(d)
     out = torch.zeros_like(q)
     for q0 in range(0, s, BLOCK_Q):
         rows = torch.arange(q0, min(q0 + BLOCK_Q, s))[:, None]
         k_end = min(q0 + BLOCK_Q, s) if causal else s
         k_begin = max(0, q0 - window + 1) if window else 0
-        t_begin, t_end = k_begin // BLOCK_KV, -(-k_end // BLOCK_KV)
+        t_begin, t_end = k_begin // block_kv, -(-k_end // block_kv)
         m = torch.full(q.shape[:2] + (len(rows), 1), -1e30)
         lsum = torch.zeros_like(m)
         acc = torch.zeros(q.shape[:2] + (len(rows), d))
         for t in range(t_begin, t_end):
             if drop_edge and window and q0 >= window and t == t_begin:
                 continue
-            keys = torch.arange(t * BLOCK_KV, min((t + 1) * BLOCK_KV, s))
+            keys = torch.arange(t * block_kv, min((t + 1) * block_kv, s))
             sc = q[..., rows[:, 0], :] @ k[..., keys, :].transpose(-1, -2)
             ok = torch.ones(len(rows), len(keys), dtype=torch.bool)
             if causal:
@@ -993,9 +994,12 @@ def _fa_kernel_schedule(q, k, v, causal, window, drop_edge=False):
     (300, 4, 2, 32, True, 1, False),        # window 1
     (257, 4, 1, 32, False, 200, False),     # a window without causality
     (300, 4, 2, 128, True, 128, False),
+    (300, 2, 2, 256, True, 100, False),     # 64-key tiles at D 256
+    (300, 5, 1, 64, True, 100, False),
     (300, 4, 2, 32, True, 100, True),       # faulty: edge tile passed over
     (300, 4, 2, 128, True, 128, True),
-    (257, 4, 1, 32, False, 200, True)])
+    (257, 4, 1, 32, False, 200, True),
+    (300, 2, 2, 256, True, 100, True)])
 def test_flash_kernel_tile_schedule_matches_plain(s, h, hkv, d, causal,
                                                   window, drop_edge):
     """An emulation of the bf16 kernel's tile schedule agrees with the

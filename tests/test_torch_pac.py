@@ -43,6 +43,7 @@ from repro_torch.tig.train import epoch_rng, evaluate_params  # noqa: E402
 SMALL = dict(flavor="tgn", dim=16, dim_time=8, dim_edge=16, dim_node=16,
              num_neighbors=4, n_heads=2, batch_size=50)
 TOL = 1e-4
+_THREADS = torch.get_num_threads()
 # (SEP parts, plan, sync mode, eval warm-up) on 2 devices, two epochs
 CASES = {
     "2 parts, device plan, latest": (2, "device", "latest", "memory"),
@@ -305,17 +306,96 @@ def test_evaluate_params_matches_jax():
         np.testing.assert_allclose(got[k], want[k], atol=1e-3, err_msg=k)
 
 
+@pytest.mark.parametrize("parts", [2, 4])
+def test_host_replay_plan_equals_jax(parts):
+    """``plan_epoch(host_replay=True)``: each device's grid replayed on
+    the host to (N_dev, steps, ...), array for array JAX's, offsets None;
+    with the device plan it raises as JAX's does."""
+    g, tr, jg, jtr = _graphs()
+    part = sep_partition(tr.src, tr.dst, tr.t, g.num_nodes, parts, k=0.05)
+    lists, rng = _node_lists(part, 1)
+    _, jrng = _node_lists(part, 1)
+    cfg_t, cfg_j = tm.TIGConfig(**SMALL), jm.TIGConfig(**SMALL)
+    got = td.plan_epoch(tr, lists, part.shared_nodes, cfg_t, rng,
+                        time_scale=time_scale_of(tr.t), plan="host",
+                        host_replay=True)
+    want = jd.plan_epoch(jtr, lists, part.shared_nodes, cfg_j, jrng,
+                         time_scale=jax_time_scale(jtr.t), plan="host",
+                         host_replay=True)
+    assert got.host_replay and want.host_replay
+    assert got.offsets is None and want.offsets is None
+    for f in ("n_batches", "nfeat_local", "efeat_local", "shared_local",
+              "steps", "edges_per_device"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)
+    assert got.batches.keys() == want.batches.keys()
+    for k in got.batches:
+        assert got.batches[k].dtype == want.batches[k].dtype, k
+        assert got.batches[k].shape[:2] == (2, got.steps), k
+        np.testing.assert_array_equal(got.batches[k], want.batches[k],
+                                      err_msg=k)
+    assert got.device_input_bytes() == want.device_input_bytes()
+    # the replayed union reads, at step s, the row the default union reads
+    # at offsets[k] + s % n_batches[k]
+    ref_plan = td.plan_epoch(tr, lists, part.shared_nodes, cfg_t,
+                             _node_lists(part, 1)[1],
+                             time_scale=time_scale_of(tr.t), plan="host")
+    u, u_ref = td.union_plan(got, cfg_t), td.union_plan(ref_plan, cfg_t)
+    assert u["host_replay"] and not u_ref["host_replay"]
+    for s in range(got.steps):
+        rows = u["offsets"] + s
+        ref_rows = u_ref["offsets"] + s % u_ref["n_batches"]
+        for k in u["batches"]:
+            np.testing.assert_array_equal(u["batches"][k][rows],
+                                          u_ref["batches"][k][ref_rows])
+    with pytest.raises(ValueError, match="cannot be combined"):
+        td.plan_epoch(tr, lists, part.shared_nodes, cfg_t,
+                      np.random.default_rng(0), plan="device",
+                      host_replay=True)
+
+
+@pytest.mark.parametrize("parts", [2, 4])
+def test_pac_train_host_replay_is_bitwise_the_default(parts):
+    """``pac_train(host_replay=True)`` (host-replayed grids, host plan)
+    against the default (the wrap-around on the device, device plan),
+    over two epochs: losses, params and post-sync memories bit for bit,
+    as the JAX package holds its own pair. 4 SEP parts are
+    shuffle-combined onto 2 devices, so cycles differ in length."""
+    g, tr, _, _ = _graphs()
+    part = sep_partition(tr.src, tr.dst, tr.t, g.num_nodes, parts, k=0.05)
+    cfg = tm.TIGConfig(**SMALL)
+    kw = dict(num_devices=2, epochs=2, lr=2e-3, device="cpu",
+              prefetch=False)
+    torch.set_num_threads(1)
+    try:
+        new = td.pac_train(tr, part, cfg, **kw)
+        old = td.pac_train(tr, part, cfg, host_replay=True, **kw)
+    finally:
+        torch.set_num_threads(_THREADS)
+    assert old.plan.host_replay and not new.plan.host_replay
+    assert len(set(old.plan.n_batches.tolist())) == 2 or parts == 2
+    for a, b in zip(new.losses, old.losses):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    for a, b in zip(jax.tree.leaves(convert.params_to_numpy(new.params)),
+                    jax.tree.leaves(convert.params_to_numpy(old.params))):
+        np.testing.assert_array_equal(a, b)
+    for k in new.memory_states:
+        assert torch.equal(new.memory_states[k], old.memory_states[k]), k
+
+
 @pytest.mark.parametrize("option", ["host_replay", "layout", "local_ranks",
                                     "source"])
 def test_plan_epoch_refuses_what_is_not_ported(option):
     """What is not ported raises "not ported"; the layouts that are
     ported refuse an invalid layout or combination with JAX's
-    ValueError."""
+    ValueError: ``host_replay`` with the sharded layout (and with the
+    device plan, ``test_host_replay_plan_equals_jax``)."""
     g, tr, _, _ = _graphs()
     cfg = tm.TIGConfig(**SMALL)
     lists = [np.arange(10), np.arange(10, 20)]
     kw, match = {
-        "host_replay": (dict(host_replay=True), "not ported"),
+        "host_replay": (dict(host_replay=True, layout="sharded"),
+                        "legacy replicated-schedule oracle"),
         "layout": (dict(layout="bogus"),
                    "expected 'replicated' or 'sharded'"),
         "local_ranks": (dict(local_ranks=[0]),
