@@ -193,7 +193,28 @@ Phases, each fatal on failure:
      prompt 32, gen 32, greedy, launch counts and peak memory read around
      each, and where a decode step's time goes;
  16. the same for Gemma-7B (28 layers, d_model 3072, head dim 256, tied
-     embeddings), built after OLMoE-1B-7B is freed.
+     embeddings), built after OLMoE-1B-7B is freed;
+ 17. the selective scan kernel (hymba's SSM heads; it replaces the JAX
+     package's ``lax.scan`` in ``repro/models/ssm.py``, no TPU kernel)
+     against its plain version at SCAN_SHAPES: Hymba-1.5B's forward (B 2,
+     S 4096, d_inner 3200, state 16, bf16, zero state), a ragged S 333
+     with a state in float32 and bf16, decode (B 4, S 1) with a state,
+     and a REDUCED shape (d_inner 256, state 8); the state to 1e-5 of its
+     largest |plain|, y to 1e-5 of the largest |plain y| plus, in bf16,
+     one bf16 unit of each element; faulty plain versions (dt x not
+     rounded to bf16, the given state ignored) must fail the same limits;
+     two calls bitwise equal; each shape timed beside its plain version
+     and its bound (the SFU's exponentials at the forward shape);
+ 18. small-input agreement: REDUCED Hymba-1.5B in float32, ``forward``
+     logits and 24 greedy ``generate`` tokens after a 24-token prompt
+     (the ring of the window's 32 slots wraps) on the card against the
+     CPU;
+ 19. the hybrid path at full width: Hymba-1.5B (32 layers, d_model 1600,
+     25 / 5 heads of 64, window 1024, parallel mamba heads, random params
+     from a seed) ``forward`` on (2, 4096) tokens (32 flash and 32 scan
+     launches, nothing else; a second call bitwise equal), with where its
+     time goes, then ``generate`` (batch 4, prompt 32, gen 32, greedy;
+     2,048 scan launches, no flash), peak memory and a decode profile.
 Phase 11 also holds the bf16 flash kernel at OLMoE-1B-7B's and
 Gemma-7B's forward shapes (B 2, S 4096, 16 / 16 heads, D 128 and 256,
 causal) and at hymba-1.5B's head dim 64 (25 / 5 heads, window 1024). After
@@ -241,6 +262,23 @@ TPU_KERNELS = {               # the TPU kernel each CUDA kernel replaces
     "fused_gru_bwd": "src/repro/kernels/fused_gru.py:75",
     "flash_attention": "src/repro/kernels/flash_attention.py:30",
 }
+# kernels that replace no TPU kernel (each a loop the JAX package leaves
+# to XLA), and what each replaces there
+NEW_KERNELS = {
+    "selective_scan": "src/repro/models/ssm.py:79",    # lax.scan of step
+}
+# H100 SXM: 132 SMs x 16 SFU results (MUFU.EX2) a clock (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0) at the 1.98 GHz boost clock (data sheet)
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
+SCAN_REL = 1e-5       # selective scan: of the largest |plain| y and state
+SCAN_SHAPES = (       # (label, B, S, di, n, dtype, initial state)
+    ("hymba forward", 2, 4096, 3200, 16, "bfloat16", False),
+    ("ragged f32", 2, 333, 3200, 16, "float32", True),
+    ("ragged bf16", 2, 333, 3200, 16, "bfloat16", True),
+    ("decode", 4, 1, 3200, 16, "bfloat16", True),
+    ("reduced", 2, 128, 256, 8, "float32", True),
+)
 TIG_PATH = ("neighbor_sample", "fused_flush", "temporal_attn",
             "temporal_attn_bwd", "fused_gru_bwd")  # the flush's backward
 WKV_SHAPES = (        # (label, B, H, S, initial state): the RWKV6 path's
@@ -2037,7 +2075,7 @@ def wkv_checks(torch, dev) -> list:
 
 
 def lm_small_agreement(torch, arch: str, prompt: int, gen: int) -> None:
-    """Phases 7, 12 and 14: a REDUCED LM in float32, the port on the card
+    """Phases 7, 12, 14 and 18: a REDUCED LM in float32, the port on the card
     (its kernel) against the port on the CPU (the plain version), from the
     same params: forward logits on (2, 128) tokens to 1e-4 and the MoE
     aux loss to 1e-5 (float32 sums in another order), then ``gen`` greedy
@@ -2078,7 +2116,7 @@ def lm_small_agreement(torch, arch: str, prompt: int, gen: int) -> None:
 def lm_path(torch, kernels, arch: str, batch: int, seq: int,
             fwd_per_layer: dict, gen_per_layer: dict,
             bitwise: bool = False) -> dict:
-    """Phases 8, 13, 15 and 16: an LM at its published widths, random
+    """Phases 8, 13, 15, 16 and 19: an LM at its published widths, random
     params from a seed: ``forward`` on (batch, seq) tokens and where its
     time goes, then ``generate`` (batch 4, prompt 32, gen 32, greedy),
     launch counts zeroed before and read after each: each kernel of
@@ -2109,6 +2147,10 @@ def lm_path(torch, kernels, arch: str, batch: int, seq: int,
     ffn = (f"{cfg.n_experts} experts top-{cfg.top_k} of d_ff "
            f"{cfg.d_ff_expert} (capacity factor {cfg.capacity_factor})"
            if cfg.is_moe else f"d_ff {cfg.d_ff}")
+    if cfg.ssm_state:
+        heads += (f", parallel mamba heads (d_inner "
+                  f"{cfg.ssm_expand * cfg.d_model}, state {cfg.ssm_state}, "
+                  f"conv {cfg.ssm_conv})")
     print(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, {heads}, "
           f"{ffn}, vocab {cfg.vocab}, {n_params} params (float32, "
           f"{n_params * 4 / 1e9:.2f} GB; {cfg.dtype} compute), init "
@@ -2185,6 +2227,129 @@ def lm_path(torch, kernels, arch: str, batch: int, seq: int,
     print_profile(f"8 {arch} decode steps (batch 4)", run, 8,
                   (time.perf_counter() - t0) * 1e3)
     return {n: fwd_launches[n] + gen_launches[n] for n in kernels}
+
+
+def scan_bound(b, s, di, n, elt, with_state) -> tuple:
+    """The least time of the selective scan on the card: its bytes (x, dt,
+    b and c read and y written in the compute dtype, a and the states in
+    float32) at the memory rate, or its operations, whichever is larger:
+    B S di n exponentials on the SFU (SFU_EXP_PER_S) beside 6 float32
+    operations per state element and token (dt a, da h, u b, their sum, c
+    h, the sum over n) and dt x per channel and token at the float32 rate,
+    the slower of the two units."""
+    nbytes = (elt * b * s * (3 * di + 2 * n) + 4 * di * n
+              + (2 if with_state else 1) * 4 * b * di * n)
+    exps = float(b) * s * di * n
+    ops_ms = max(exps / SFU_EXP_PER_S,
+                 (6.0 * exps + b * s * di) / FP32_FLOP_PER_S) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def scan_checks(torch, dev) -> list:
+    """Phase 17: the selective scan kernel (through ``ops.selective_scan``,
+    as ``mamba_apply`` calls it) against ``ref.selective_scan_ref`` on the
+    card at SCAN_SHAPES: hymba-1.5B's forward from a zero state, a ragged S
+    333 with a state in float32 and in bfloat16, decode (B 4, S 1) with a
+    state, and a REDUCED shape at n 8. Inputs as the model makes them: x,
+    b and c standard normal, dt = softplus(N(-4, 0.5)) (the init's dt bias
+    is -4.6), a = -(1..n) (``a_log = log(1..n)``), the state standard
+    normal. Limits: the state to SCAN_REL of its largest |plain|; y to
+    SCAN_REL of the largest |plain y|, plus in bfloat16 one bfloat16 unit
+    of each element (BF16_UNIT: the kernel's and the plain version's
+    roundings of y to bfloat16 may fall on the two sides of a boundary).
+    Two faulty plain versions must fail the same limits: one that forms dt
+    x in float32, without the JAX package's bfloat16 rounding (at the
+    bfloat16 shapes with S > 1), and one that ignores the given state (at
+    every shape with one). One launch a call; two calls at the forward
+    shape bitwise equal."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.build import KERNELS
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    kern = KERNELS["selective_scan"]
+    recs = []
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def check(got, want) -> tuple:
+        """(within the limits, max abs error, largest error / limit)."""
+        (y, h), (yw, hw) = got, want
+        yd, ywd = y.double(), yw.double()
+        lim = SCAN_REL * float(ywd.abs().max()) + (
+            BF16_UNIT * ywd.abs() if y.dtype == torch.bfloat16 else 0.0)
+        ratio = max(float(((yd - ywd).abs() / lim).max()),
+                    float((h - hw).abs().max())
+                    / (SCAN_REL * float(hw.abs().max())))
+        finite = bool(torch.isfinite(yd).all() and torch.isfinite(h).all())
+        return finite and ratio <= 1.0, max_err([y, h], [yw, hw]), ratio
+
+    for label, b, s, di, n, dt_name, with_state in SCAN_SHAPES:
+        dtype = getattr(torch, dt_name)
+        x = randn(b, s, di).to(dtype)
+        dt = F.softplus(randn(b, s, di) * 0.5 - 4.0).to(dtype)
+        bm, cm = (randn(b, s, n).to(dtype) for _ in range(2))
+        a = -torch.arange(1, n + 1, dtype=torch.float32,
+                          device=dev).repeat(di, 1)
+        state = randn(b, di, n) if with_state else None
+        args = (x, dt, bm, cm, a)
+        before = kern.launches
+        got = ops.selective_scan(*args, state=state)
+        launched = kern.launches - before
+        want = ref.selective_scan_ref(*args, state=state)
+        torch.cuda.synchronize()
+        if launched != 1 or got[0].dtype != dtype or tuple(
+                got[1].shape) != (b, di, n):
+            raise AssertionError(f"selective_scan {label}: {launched} "
+                                 f"launches, y {got[0].dtype}, state "
+                                 f"{tuple(got[1].shape)}")
+        ok, err, ratio = check(got, want)
+        print(f"selective_scan {label}: max abs err {err:.3g}, at most "
+              f"{ratio:.3g} of the limit")
+        if not ok:
+            raise AssertionError(f"selective_scan {label} differs from its "
+                                 f"plain version ({ratio:.3g} of the limit)")
+        controls = {}
+        if dtype == torch.bfloat16 and s > 1:
+            y32, h32 = ref.selective_scan_ref(x.float(), dt.float(), bm, cm,
+                                              a, state=state)
+            controls["dt x unrounded"] = (y32.to(dtype), h32)
+        if with_state:
+            controls["state ignored"] = ref.selective_scan_ref(*args)
+        ctl = {}
+        for name, faulty in controls.items():
+            ok_c, err_c, ctl[name] = check(got, faulty)
+            print(f"  control ({name}): max abs err {err_c:.3g}, "
+                  f"{ctl[name]:.3g} of the limit")
+            if ok_c:
+                raise AssertionError(f"the scan check passes a faulty plain "
+                                     f"version ({name}) at {label}")
+        if label == "hymba forward":
+            again = ops.selective_scan(*args, state=state)
+            if not (torch.equal(got[0], again[0])
+                    and torch.equal(got[1], again[1])):
+                raise AssertionError("selective_scan: two calls differ")
+            print("selective_scan hymba forward: two calls bitwise equal")
+            del again
+        recs.append(dict(
+            name="selective_scan", label=label,
+            at=f"B {b}, S {s}, di {di}, n {n}"
+               + (", with a state" if with_state else ""),
+            out_dtype=dt_name, max_abs_err=err,
+            kernel=timings(lambda: ops.selective_scan(*args, state=state)),
+            plain=timings(lambda: ref.selective_scan_ref(*args,
+                                                         state=state),
+                          heavy=s > 64),
+            bound=scan_bound(b, s, di, n, x.element_size(), with_state),
+            library_ms=None,
+            extra={"limit_ratio": ratio, "controls": ctl}))
+        del got, want, controls, args, x, dt
+        torch.cuda.empty_cache()
+    return recs
 
 
 def gru_args(torch, gen, dev, rows, d_in, d_h):
@@ -3573,6 +3738,24 @@ def main() -> int:
             torch, KERNELS, arch, 2, 4096, {"flash_attention": 1}, {},
             bitwise=True)["flash_attention"]
         torch.cuda.empty_cache()
+    # phase 17: the selective scan kernel against its plain version
+    t0 = time.perf_counter()
+    scan = scan_checks(torch, dev)
+    for r in scan:
+        print_kernel(r)
+    # phase 18: REDUCED hymba in float32, card vs CPU: 24 prompt and 24
+    # generated tokens wrap the ring of the REDUCED window's 32 slots
+    lm_small_agreement(torch, "hymba-1.5b", 24, 24)
+    # phase 19: Hymba-1.5B at full width: one flash and one scan launch a
+    # layer in forward; generate's 64 serve steps one scan launch a layer
+    # each, no flash (decode attention is plain PyTorch, as in JAX)
+    hymba = lm_path(torch, KERNELS, "hymba-1.5b", 2, 4096,
+                    {"flash_attention": 1, "selective_scan": 1},
+                    {"selective_scan": 64}, bitwise=True)
+    flash_by_path["hymba-1.5b"] = hymba["flash_attention"]
+    launches["selective_scan"] = hymba["selective_scan"]
+    torch.cuda.empty_cache()
+    print(f"phases 17-19: {time.perf_counter() - t0:.1f} s ({card})")
     launches["flash_attention"] = sum(flash_by_path.values())
     flash[-1]["extra"]["launches_by_path"] = flash_by_path
 
@@ -3581,7 +3764,9 @@ def main() -> int:
             name=r["name"], route="cuda",
             source=f"src/repro_torch/kernels/csrc/"
                    f"{KERNELS[r['name']].source}",
-            replaces=TPU_KERNELS[r["name"]], launches=launches[r["name"]],
+            replaces=TPU_KERNELS.get(r["name"]) or NEW_KERNELS[r["name"]],
+            tpu_kernel=r["name"] in TPU_KERNELS,
+            launches=launches[r["name"]],
             max_abs_err=r["max_abs_err"], ms=r["kernel"]["ms"],
             plain_ms=r["plain"]["ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=r["library_ms"],
@@ -3605,7 +3790,8 @@ def main() -> int:
         return e
 
     # WKV: the prompt-scoring shape (the sequential kernel: decode); GRU:
-    # TGN's updater shape; flash: the StarCoder2-3B forward's shape
+    # TGN's updater shape; flash: the StarCoder2-3B forward's shape; the
+    # selective scan: the Hymba-1.5B forward's shape
     record = {"kernels": [entry(r) for r in recs] + [
         shaped_entry([r for r in wkv if r["name"] == name][-1],
                      [r for r in wkv if r["name"] == name])
@@ -3613,8 +3799,8 @@ def main() -> int:
         shaped_entry(next(r for r in gru if r["name"] == name),
                      [r for r in gru if r["name"] == name])
         for name in ("fused_gru", "fused_gru_bwd")] + [
-        shaped_entry(flash[-1], flash)]}
-    if len(record["kernels"]) != len(TPU_KERNELS):
+        shaped_entry(flash[-1], flash), shaped_entry(scan[0], scan)]}
+    if len(record["kernels"]) != len(TPU_KERNELS) + len(NEW_KERNELS):
         raise AssertionError("the record misses a kernel")
     print(profile_loss_line())
     print(f"total {time.perf_counter() - t_all:.1f} s")

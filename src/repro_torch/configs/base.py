@@ -2,8 +2,9 @@
 after ``repro/configs/base.py``.
 
 ``ArchConfig`` holds the fields that the ported families' configs set and
-that their code reads (RWKV6, and the dense and MoE decoders with gated
-FFNs, qk-norm and tied embeddings so far); a field of the JAX package's
+that their code reads (RWKV6, the dense and MoE decoders with gated FFNs,
+qk-norm and tied embeddings, and the hybrid attention + SSM decoder so
+far); a field of the JAX package's
 ``ArchConfig`` comes back with the family that needs it (ROADMAP Queue
 1). The registry loads only the architectures the port runs
 (``_ARCH_MODULES``); each module registers its published configuration
@@ -22,8 +23,9 @@ __all__ = ["ArchConfig", "register", "get_config", "list_archs"]
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """Architecture description; of the JAX package's families, so far
-    RWKV6 (``rwkv=True``), dense attention (``family="dense"``) and the
-    decoder-only MoE (``family="moe"``)."""
+    RWKV6 (``rwkv=True``), dense attention (``family="dense"``), the
+    decoder-only MoE (``family="moe"``) and hymba's parallel attention and
+    mamba heads (``family="hybrid"``, ``ssm_state > 0``)."""
 
     name: str
     family: str
@@ -58,6 +60,11 @@ class ArchConfig:
     decode_capacity_factor: float = 4.0
     router_aux_weight: float = 1e-2
 
+    # SSM (mamba-style; hymba hybrid)
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+
     # RWKV6
     rwkv: bool = False
     rwkv_head_dim: int = 64
@@ -77,10 +84,11 @@ class ArchConfig:
 _REGISTRY: dict[str, "ArchConfig"] = {}
 _REDUCED: dict[str, "ArchConfig"] = {}
 
-# the other families of the JAX package's registry (hybrid, audio,
+# the other families of the JAX package's registry (audio,
 # vision-language) are ROADMAP Queue 1
 _ARCH_MODULES = ["minitron_4b", "rwkv6_1g6b", "gemma_7b", "qwen3_32b",
-                 "qwen3_moe_235b_a22b", "starcoder2_3b", "olmoe_1b_7b"]
+                 "qwen3_moe_235b_a22b", "starcoder2_3b", "olmoe_1b_7b",
+                 "hymba_1g5b"]
 
 
 def register(cfg: ArchConfig, reduced: ArchConfig) -> ArchConfig:

@@ -4,7 +4,8 @@ the two packages.
 The JAX package's trees become numpy with
 ``jax.tree.map(np.asarray, tree)``: nested dicts of arrays under the same
 keys as here (``upd/xz/w``, ``mem``, ``{"step", "mu", "nu"}``,
-``layers/tm/wr/w``, ``layers/attn/wq/w``, ``wkv``, ``k``). These functions map such a tree to tensors
+``layers/tm/wr/w``, ``layers/attn/wq/w``, ``layers/ssm/dt_proj/b``,
+``wkv``, ``k``, ``conv``). These functions map such a tree to tensors
 and back, key for key, dtype for dtype, so both packages can compute the
 same thing from the same numbers. bfloat16 leaves (numpy's ``ml_dtypes``
 type on the JAX side, in the decode cache) come in through float32, which
@@ -68,6 +69,8 @@ def opt_state_to_numpy(opt_state: dict) -> dict:
 
 def cache_from_numpy(tree, device="cpu") -> dict:
     """LM decode cache, each leaf stacked over layers -> tensors: RWKV6's
-    ``wkv`` float32 and ``tm_shift`` / ``cm_shift`` bfloat16, or the dense
-    family's bfloat16 ``k`` / ``v`` (L, B, cache_len, Hkv, Dh)."""
+    ``wkv`` float32 and ``tm_shift`` / ``cm_shift`` bfloat16, or the
+    attention families' bfloat16 ``k`` / ``v`` (L, B, cache_len, Hkv, Dh),
+    with hymba's ``conv`` (L, B, K - 1, d_inner) bfloat16 and ``ssm`` (L,
+    B, d_inner, n) float32."""
     return _from_numpy(tree, device)

@@ -28,7 +28,8 @@ __all__ = ["Kernel", "KERNELS", "build_all", "library_path", "SOURCES"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("neighbor_sample.cu", "fused_flush.cu", "temporal_attn.cu",
-           "rwkv6_scan.cu", "fused_gru.cu", "flash_attention.cu")
+           "rwkv6_scan.cu", "fused_gru.cu", "flash_attention.cu",
+           "selective_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -148,4 +149,7 @@ KERNELS: dict[str, Kernel] = {k.name: k for k in (
     # q k v batch seq heads kv_heads head_dim causal window is_bf16 o stream
     Kernel("flash_attention", "flash_attention.cu", "flash_attention_fwd",
            (P, P, P, I, I, I, I, I, I, I, I, P, P)),
+    # x dt b c a h0 batch seq channels state is_bf16 y h_out stream
+    Kernel("selective_scan", "selective_scan.cu", "selective_scan_fwd",
+           (P, P, P, P, P, P, I, I, I, I, I, P, P, P)),
 )}

@@ -20,10 +20,12 @@ from repro_torch.kernels.fused_gru import FusedGRU
 from repro_torch.kernels.neighbor_sample import (neighbor_sample_fwd,
                                                  sample_roles_fwd)
 from repro_torch.kernels.rwkv6_scan import rwkv6_fwd
+from repro_torch.kernels.selective_scan import selective_scan_fwd
 from repro_torch.kernels.temporal_attn import TemporalAttention
 
 __all__ = ["temporal_attention", "fused_flush", "neighbor_sample",
-           "sample_roles", "rwkv6", "gru", "flash_attention"]
+           "sample_roles", "rwkv6", "gru", "flash_attention",
+           "selective_scan"]
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -140,3 +142,16 @@ def rwkv6(r, k, v, w, u, *, state=None, chunk=64, return_state=True):
             chunk=chunk, return_state=True)
         o = o.transpose(1, 2)
     return (o, st) if return_state else o
+
+
+def selective_scan(x, dt, b, c, a, *, state=None):
+    """Mamba's selective scan h = exp(dt a) h + (dt x) b, y = c . h over
+    the tokens. x, dt: (B, S, di); b, c: (B, S, n), in the compute dtype;
+    a: (di, n) float32; state: None (zeros) or (B, di, n) float32. Returns
+    (y (B, S, di) in x's dtype, the final state float32). On the card the
+    CUDA kernel (n 8 or 16), on the CPU ``ref.selective_scan_ref``."""
+    if _on_card(x):
+        return selective_scan_fwd(
+            *(t.contiguous() for t in (x, dt, b, c)), a.float().contiguous(),
+            None if state is None else state.float().contiguous())
+    return ref.selective_scan_ref(x, dt, b, c, a, state=state)

@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the kernels on the port's paths (TGN training,
-RWKV6 and StarCoder2 serving, the ``ops.gru`` cell).
+RWKV6, StarCoder2 and hymba serving, the ``ops.gru`` cell).
 
 These mirror ``repro/kernels/ref.py`` line for line and are the semantic
 ground truth of the port: the CPU executes them (``kernels/ops.py`` picks
@@ -17,7 +17,7 @@ __all__ = ["gru_ref", "gru_bwd_ref", "temporal_attention_ref", "segment_mean",
            "scatter_memory", "scatter_last", "flush_ref", "sample_ref",
            "sample_roles_ref", "rwkv6_ref", "rwkv6_chunked_ref", "rwkv6_subchunk_ref",
            "flash_attention_probs",
-           "flash_attention_ref"]
+           "flash_attention_ref", "selective_scan_ref"]
 
 
 def gru_ref(x, h, wx, wh, bx, bh):
@@ -380,3 +380,31 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None):
     masked with -1e30; the output has q's dtype."""
     att = flash_attention_probs(q, k, causal=causal, window=window)
     return torch.einsum("bhqk,bhkd->bhqd", att, v.float()).to(q.dtype)
+
+
+def selective_scan_ref(x, dt, b, c, a, *, state=None):
+    """Mamba's selective scan, the token loop of ``repro/models/ssm.py``'s
+    ``step``: per token t,
+
+        h = exp(dt_t a) h + (dt_t x_t) b_t,    y_t = c_t . h
+
+    x, dt: (B, S, di) and b, c: (B, S, n), all in the compute dtype; a =
+    -exp(a_log): (di, n) float32; state: None (zeros) or (B, di, n)
+    float32. Rounded where the JAX package rounds: ``dt x`` is formed in
+    the compute dtype (one bfloat16 rounding in bfloat16) and then taken
+    to float32, exp(dt a) in float32 from the compute-dtype dt, and h and
+    y in float32 until y is cast to x's dtype. The decays and the inputs
+    of every token are formed up front (B, S, di, n), so the loop is two
+    launches a token. Returns (y (B, S, di) in x's dtype, the final state
+    (B, di, n) float32)."""
+    bsz, s, di = x.shape
+    h = (torch.zeros((bsz, di, a.shape[1]), dtype=torch.float32,
+                     device=x.device) if state is None else state.float())
+    da = torch.exp(dt.float()[..., None] * a)
+    ub = (dt * x).float()[..., None] * b.float()[:, :, None, :]
+    hs = []
+    for t in range(s):
+        h = da[:, t] * h + ub[:, t]
+        hs.append(h)
+    y = torch.einsum("bsdn,bsn->bsd", torch.stack(hs, dim=1), c.float())
+    return y.to(x.dtype), h

@@ -1,7 +1,8 @@
 """Building blocks, as ``repro/models/layers.py``: linear layers and
 RMSNorm (params stored in float32 and cast to the activations' dtype on
 every call; the norm works in float32 and casts back), RoPE, the FFN
-(plain or gated) and single-token attention against a KV cache.
+(plain or gated), single-token attention against a KV cache and mamba's
+depthwise causal convolution.
 Activations are (B, S, ...), attention heads (B, S, H, Dh). Full-sequence
 attention is the flash attention op
 (``repro_torch.kernels.ops.flash_attention``)."""
@@ -15,7 +16,7 @@ import torch.nn.functional as F
 
 __all__ = ["linear_init", "linear", "rmsnorm_init", "rmsnorm", "draw",
            "rope_freqs", "apply_rope", "ffn_init", "ffn_apply",
-           "decode_attention"]
+           "decode_attention", "causal_conv1d"]
 
 
 def draw(gen: torch.Generator, shape, scale: float, device) -> torch.Tensor:
@@ -121,3 +122,27 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     att = torch.softmax(scores.float(), dim=-1).to(q.dtype)
     out = torch.einsum("bhgk,bkhd->bhgd", att, v_cache.to(q.dtype))
     return out.reshape(b, h, dh)
+
+
+# ------------------------------------------------------------------ conv1d
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  state: Optional[torch.Tensor] = None):
+    """Depthwise causal convolution (mamba's local mixing), formed as the
+    JAX package forms it: the state and x concatenated, the K-wide
+    windows gathered, one einsum in x's dtype.
+
+    x: (B, S, D); w: (D, K); b: (D,); state: None (zeros) or the last K - 1
+    inputs (B, K - 1, D) in x's dtype. Returns (y (B, S, D), new_state, the
+    last K - 1 rows of the concatenation)."""
+    bsz, s, d = x.shape
+    kk = w.shape[1]
+    if state is None:
+        state = x.new_zeros((bsz, kk - 1, d))
+    xp = torch.cat([state, x], dim=1)                   # (B, S+K-1, D)
+    idx = (torch.arange(s, device=x.device)[:, None]
+           + torch.arange(kk, device=x.device)[None, :])
+    windows = xp[:, idx, :]                             # (B, S, K, D)
+    y = torch.einsum("bskd,dk->bsd", windows, w.to(x.dtype)) + b.to(x.dtype)
+    new_state = xp[:, -(kk - 1):, :] if kk > 1 else state
+    return y, new_state

@@ -1,6 +1,6 @@
 """Public LM API of the port: init / forward / init_cache / serve_step, as
-``repro/models/model.py`` for the decoder-only RWKV6, dense and MoE
-families.
+``repro/models/model.py`` for the decoder-only RWKV6, dense, MoE and
+hybrid (hymba) families.
 
 Layer parameters are stacked over a leading layer axis, as the JAX package
 stacks them for ``jax.lax.scan``, so ``repro_torch.convert`` carries a JAX
@@ -111,10 +111,11 @@ def forward(params, batch, cfg: ArchConfig, device=None):
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len=None,
                device=None) -> dict:
-    """Decode state, stacked over layers: each leaf (L, B, ...). Dense:
-    K and V caches of ``cache_len`` slots (the prompt plus the tokens to
-    generate), at most ``cfg.window`` (a ring buffer then). RWKV6's state
-    does not grow with the sequence and reads no ``cache_len``."""
+    """Decode state, stacked over layers: each leaf (L, B, ...). Dense,
+    MoE and hybrid: K and V caches of ``cache_len`` slots (the prompt plus
+    the tokens to generate), at most ``cfg.window`` (a ring buffer then);
+    hybrid also mamba's conv and SSM states. RWKV6's state does not grow
+    with the sequence and reads no ``cache_len``."""
     device = resolve_device(device)
     if not cfg.rwkv:
         if cache_len is None:

@@ -2,14 +2,15 @@
 one token at a time through ``serve_step`` (the recurrent state or the KV
 cache fills up), then decode, greedy or sampled.
 
-    PYTHONPATH=src python -m repro_torch.models.serve --arch starcoder2-3b \\
+    PYTHONPATH=src python -m repro_torch.models.serve --arch hymba-1.5b \\
         --batch 4 --prompt-len 32 --gen 32 [--full] [--device cpu]
 
 Without ``--full`` the arch's reduced config runs, as in ``serve_lm.py``;
 ``--full`` runs the published widths, for the card. Params are float32:
-RWKV6-1.6B about 6.3 GB, StarCoder2-3B 12.7 GB, Minitron-4B 20.4 GB,
-OLMoE-1B-7B 27.7 GB, Gemma-7B 34.2 GB; Qwen3-32B (131.0 GB) and
-Qwen3-MoE-235B-A22B (940.4 GB) do not fit one 80 GB card at full width.
+RWKV6-1.6B about 6.3 GB, Hymba-1.5B 6.65 GB, StarCoder2-3B 12.7 GB,
+Minitron-4B 20.4 GB, OLMoE-1B-7B 27.7 GB, Gemma-7B 34.2 GB; Qwen3-32B
+(131.0 GB) and Qwen3-MoE-235B-A22B (940.4 GB) do not fit one 80 GB card
+at full width.
 Params are random, from seed 0.
 """
 

@@ -1,8 +1,10 @@
 """Per-family blocks, as ``repro/models/transformer.py``; so far the RWKV6
 family, the dense attention family (GQA, RoPE, optional sliding window,
-optional qk-norm, plain or gated FFN) and the decoder-only MoE family
-(the same attention, a ``moe_apply`` FFN). The SSM (hybrid),
-encoder-decoder and vision-language families raise
+optional qk-norm, plain or gated FFN), the decoder-only MoE family (the
+same attention, a ``moe_apply`` FFN) and hymba's hybrid family (the same
+attention and, in parallel on the same normed input, mamba's SSM heads,
+their RMS-normed outputs averaged; its decode cache adds the conv and
+SSM states). The encoder-decoder and vision-language families raise
 ``NotImplementedError``: they are ROADMAP Queue 1 ("the rest of the LM
 substrate"). The port runs on one card, so nothing is padded for tensor
 parallelism.
@@ -21,19 +23,21 @@ from repro_torch.models.layers import (apply_rope, decode_attention,
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.rwkv import (rwkv_block_init, rwkv_channel_mix,
                                      rwkv_time_mix)
+from repro_torch.models.ssm import mamba_apply, mamba_decode_step, mamba_init
 
 __all__ = ["attn_init", "attn_apply", "attn_decode", "block_init",
            "block_apply", "block_decode", "init_block_cache"]
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.rwkv or (cfg.family in ("dense", "moe") and cfg.rope == "rope"):
+    if cfg.rwkv or (cfg.family in ("dense", "moe", "hybrid")
+                    and cfg.rope == "rope"):
         return
     raise NotImplementedError(
         f"{cfg.name} ({cfg.family}, rope {cfg.rope!r}): the port has the "
-        f"RWKV6 blocks and the dense and MoE RoPE attention blocks so far; "
-        f"the SSM (hybrid), encoder-decoder and vision-language families "
-        f"are ROADMAP Queue 1 (the rest of the LM substrate)")
+        f"RWKV6 blocks and the dense, MoE and hybrid RoPE attention blocks "
+        f"so far; the encoder-decoder and vision-language families are "
+        f"ROADMAP Queue 1 (the rest of the LM substrate)")
 
 
 # ------------------------------------------------------------ attention
@@ -116,7 +120,20 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, *,
                             device)
     else:
         p["ffn"] = ffn_init(gen, d, cfg.d_ff, cfg.act, device)
+    if cfg.ssm_state:           # hymba: parallel SSM heads
+        p["ssm"] = mamba_init(gen, d, state=cfg.ssm_state,
+                              conv=cfg.ssm_conv, expand=cfg.ssm_expand,
+                              device=device)
+        p["ln_attn_out"] = rmsnorm_init(d, device)
+        p["ln_ssm_out"] = rmsnorm_init(d, device)
     return p
+
+
+def _fuse(p, cfg: ArchConfig, attn_out, ssm_out):
+    """Hymba's head fusion: the mean of the RMS-normed attention and SSM
+    outputs."""
+    return 0.5 * (rmsnorm(p["ln_attn_out"], attn_out, cfg.norm_eps)
+                  + rmsnorm(p["ln_ssm_out"], ssm_out, cfg.norm_eps))
 
 
 def block_apply(p, cfg: ArchConfig, x, positions=None):
@@ -131,8 +148,12 @@ def block_apply(p, cfg: ArchConfig, x, positions=None):
         x = x + tm
         cm, _ = rwkv_channel_mix(p["cm"], rmsnorm(p["ln2"], x, cfg.norm_eps))
         return x + cm, aux
-    x = x + attn_apply(p["attn"], cfg, rmsnorm(p["ln1"], x, cfg.norm_eps),
-                       positions)
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    attn_out = attn_apply(p["attn"], cfg, h, positions)
+    if cfg.ssm_state:
+        attn_out = _fuse(p, cfg, attn_out,
+                         mamba_apply(p["ssm"], h, state=cfg.ssm_state))
+    x = x + attn_out
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if cfg.is_moe:
         b, s, d = h.shape
@@ -149,7 +170,9 @@ def init_block_cache(cfg: ArchConfig, batch: int, cache_len: int,
     RWKV6: the WKV state and the token-shift carries, the carries in
     bfloat16 whatever ``cfg.dtype`` is, as in the JAX package;
     ``cache_len`` is not read. Dense: bfloat16 K and V caches of
-    ``cache_len`` slots."""
+    ``cache_len`` slots; hybrid also the conv state (B, K - 1, d_inner)
+    in bfloat16 and the SSM state (B, d_inner, n) in float32, as in the
+    JAX package."""
     _check_ported(cfg)
     if cfg.rwkv:
         d, hd = cfg.d_model, cfg.rwkv_head_dim
@@ -162,8 +185,15 @@ def init_block_cache(cfg: ArchConfig, batch: int, cache_len: int,
                                     device=device),
         }
     shape = (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+    c = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+         "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+    if cfg.ssm_state:
+        di = cfg.ssm_expand * cfg.d_model
+        c["conv"] = torch.zeros((batch, cfg.ssm_conv - 1, di),
+                                dtype=torch.bfloat16, device=device)
+        c["ssm"] = torch.zeros((batch, di, cfg.ssm_state),
+                               dtype=torch.float32, device=device)
+    return c
 
 
 def block_decode(p, cfg: ArchConfig, x, pos, cache):
@@ -198,6 +228,14 @@ def block_decode(p, cfg: ArchConfig, x, pos, cache):
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     attn_out, k_c, v_c = attn_decode(p["attn"], cfg, h, pos, cache["k"],
                                      cache["v"], slot, valid)
+    new_cache = {"k": k_c, "v": v_c}
+    if cfg.ssm_state:
+        ssm_out, (conv_s, ssm_s) = mamba_decode_step(
+            p["ssm"], h, cache["conv"].to(h.dtype), cache["ssm"],
+            state=cfg.ssm_state)
+        new_cache["conv"] = conv_s.to(torch.bfloat16)
+        new_cache["ssm"] = ssm_s
+        attn_out = _fuse(p, cfg, attn_out, ssm_out)
     x = x + attn_out
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if cfg.is_moe:
@@ -211,4 +249,4 @@ def block_decode(p, cfg: ArchConfig, x, pos, cache):
         x = x + y.view(b, 1, -1)
     else:
         x = x + ffn_apply(p["ffn"], h, cfg.act)
-    return x, {"k": k_c, "v": v_c}
+    return x, new_cache

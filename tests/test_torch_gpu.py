@@ -18,7 +18,10 @@ below) are held to the plain versions at every S they take, the chunked
 one also at strong decays against the token scan. Flash attention agrees to 1e-5 in float32; in bfloat16 to
 2^-8 |plain| + 2^-14 |P| |V|: one rounding of the output to bfloat16, and
 float32 sums with P kept to 2^-17 (hi + lo bfloat16 parts) against the
-plain version's weights applied to |v|.
+plain version's weights applied to |v|. The selective scan agrees with its
+plain version to 1e-5 of the largest |y| and of the largest |state|
+(float32 sums over the state in another order), plus one bfloat16 unit
+(2^-7) of each y element where y is bfloat16 (both round it).
 """
 
 import numpy as np
@@ -1178,3 +1181,76 @@ def test_starcoder2_on_card_matches_cpu(cuda):
     window of 64 wraps."""
     _reduced_lm_on_card_matches_cpu(cuda, "starcoder2-3b", "flash_attention",
                                     56, 16)
+
+
+def _scan_args(dev, b, s, di, n, dtype, with_state, seed=0):
+    """Inputs as ``mamba_apply`` makes them: x, b, c standard normal, dt =
+    softplus(N(-4, 0.5)), a = -(1..n), the state standard normal."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = randn(b, s, di).to(dtype)
+    dt = torch.nn.functional.softplus(randn(b, s, di) * 0.5 - 4.0).to(dtype)
+    bm, cm = (randn(b, s, n).to(dtype) for _ in range(2))
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).repeat(di, 1)
+    return (x, dt, bm, cm, a), (randn(b, di, n) if with_state else None)
+
+
+def _assert_scan_close(got, want):
+    """``chip_smoke.py`` phase 17's limits: the state to 1e-5 of its
+    largest |plain|; y to 1e-5 of the largest |plain y|, plus one bfloat16
+    unit (2^-7) of each element in bfloat16."""
+    (y, h), (yw, hw) = got, want
+    lim = 1e-5 * float(yw.abs().max()) + (
+        2.0 ** -7 * yw.double().abs() if y.dtype == torch.bfloat16 else 0.0)
+    assert bool(((y.double() - yw.double()).abs() <= lim).all())
+    assert float((h - hw).abs().max()) <= 1e-5 * float(hw.abs().max())
+
+
+@pytest.mark.parametrize("b,s,di,n,dtype,with_state", [
+    (2, 128, 256, 8, torch.float32, True),     # REDUCED
+    (2, 40, 256, 8, torch.bfloat16, False),    # REDUCED, ragged S
+    (2, 333, 100, 16, torch.bfloat16, True),   # a block's channels cut
+    (3, 70, 20, 8, torch.float32, True),       # short of one block
+    (4, 1, 3200, 16, torch.bfloat16, True),    # FULL decode, S 1
+    (4, 1, 256, 8, torch.float32, True)])      # REDUCED decode
+def test_selective_scan_kernel_matches_plain(cuda, b, s, di, n, dtype,
+                                             with_state):
+    """Through ``ops.selective_scan``: one launch, y in x's dtype."""
+    args, state = _scan_args(cuda, b, s, di, n, dtype, with_state, seed=s)
+    before = KERNELS["selective_scan"].launches
+    got = ops.selective_scan(*args, state=state)
+    assert KERNELS["selective_scan"].launches == before + 1
+    want = ref.selective_scan_ref(*args, state=state)
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    _assert_scan_close(got, want)
+
+
+def test_selective_scan_wrapper_rejects_bad_arguments(cuda):
+    from repro_torch.kernels.selective_scan import selective_scan_fwd
+
+    (x, dt, bm, cm, a), _ = _scan_args(cuda, 1, 4, 16, 8, torch.float32,
+                                       False)
+    with pytest.raises(ValueError, match="n in"):
+        selective_scan_fwd(x, dt, bm[..., :4].contiguous(),
+                           cm[..., :4].contiguous(), a[:, :4].contiguous())
+    with pytest.raises(TypeError):
+        selective_scan_fwd(x.double(), dt, bm, cm, a)
+    with pytest.raises(TypeError):
+        selective_scan_fwd(x, dt.bfloat16(), bm, cm, a)
+    with pytest.raises(ValueError, match="contiguous"):
+        selective_scan_fwd(x, dt, bm, cm, a.t().contiguous().t())
+    with pytest.raises(ValueError):
+        selective_scan_fwd(x[:, :0], dt[:, :0], bm[:, :0], cm[:, :0], a)
+
+
+def test_hymba_on_card_matches_cpu(cuda):
+    """REDUCED Hymba-1.5B in float32: 24 prompt tokens and 24 generated
+    wrap the ring of the window's 32 slots; the forward runs one flash and
+    one scan launch a layer."""
+    before = KERNELS["flash_attention"].launches
+    _reduced_lm_on_card_matches_cpu(cuda, "hymba-1.5b", "selective_scan", 24,
+                                    24)
+    assert KERNELS["flash_attention"].launches - before == 2

@@ -143,3 +143,28 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch, tmp_path):
                                            "pos": tokens[:, 0]}, dense)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "starcoder2-3b", "--gen", "1"])
+
+
+def test_hybrid_entry_points_refuse_to_run_without_a_card(monkeypatch):
+    """Hymba's entry points, and the selective scan kernel's wrapper, which
+    takes CUDA tensors only (``ops.selective_scan`` sends a CPU tensor to
+    the plain version instead)."""
+    from repro_torch.kernels.selective_scan import selective_scan_fwd
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    hy = get_config("hymba-1.5b", reduced=True)
+    params = model.init_params(torch.Generator(), hy, device="cpu")
+    cache = model.init_cache(hy, 2, 8, device="cpu")
+    tokens = torch.zeros((2, 4), dtype=torch.int64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_cache(hy, 2, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.forward(params, {"tokens": tokens}, hy)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.serve_step(params, cache, {"token": tokens[:, 0],
+                                         "pos": tokens[:, 0]}, hy)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "hymba-1.5b", "--gen", "1"])
+    x = torch.zeros((1, 3, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        selective_scan_fwd(x, x, x[..., :8], x[..., :8], torch.zeros(16, 8))

@@ -87,7 +87,8 @@ def _jparams(tree):
 # ------------------------------------------------------------ configs
 
 def test_registry_holds_the_ported_archs():
-    assert list_archs() == sorted(ARCHS + ("rwkv6-1.6b", "starcoder2-3b"))
+    assert list_archs() == sorted(ARCHS + ("rwkv6-1.6b", "starcoder2-3b",
+                                           "hymba-1.5b"))
     full = get_config("olmoe-1b-7b")
     assert (full.n_layers, full.d_model, full.n_heads, full.n_experts,
             full.top_k, full.d_ff_expert, full.vocab, full.qk_norm,
@@ -95,6 +96,11 @@ def test_registry_holds_the_ported_archs():
     gemma = get_config("gemma-7b")
     assert (gemma.resolved_head_dim, gemma.act, gemma.tie_embeddings,
             gemma.is_moe) == (256, "geglu", True, False)
+    hymba = get_config("hymba-1.5b")
+    assert (hymba.family, hymba.n_layers, hymba.d_model, hymba.n_heads,
+            hymba.n_kv_heads, hymba.resolved_head_dim, hymba.window,
+            hymba.ssm_state, hymba.vocab) == ("hybrid", 32, 1600, 25, 5, 64,
+                                              1024, 16, 32_001)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -356,14 +356,14 @@ RWKV6_FIELDS = ("name", "family", "citation", "n_layers", "d_model", "d_ff",
 def test_configs_are_copies():
     """Every field of the port's ArchConfig that the RWKV6 code reads has
     the JAX config's value."""
-    assert ARCH in list_archs() and "hymba-1.5b" not in list_archs()
+    assert ARCH in list_archs() and "seamless-m4t-medium" not in list_archs()
     for reduced in (False, True):
         a = dataclasses.asdict(jax_config(ARCH, reduced=reduced))
         b = dataclasses.asdict(get_config(ARCH, reduced=reduced))
         assert {f: b[f] for f in RWKV6_FIELDS} == {f: a[f]
                                                    for f in RWKV6_FIELDS}
     with pytest.raises(KeyError):
-        get_config("hymba-1.5b")
+        get_config("seamless-m4t-medium")
 
 
 def test_params_round_trip_key_for_key():
@@ -386,7 +386,7 @@ def test_params_round_trip_key_for_key():
 
 
 def test_other_families_are_not_ported_yet():
-    cfg = ArchConfig(name="hybrid", family="hybrid", citation="-",
+    cfg = ArchConfig(name="audio", family="audio", citation="-",
                      n_layers=1, d_model=64, n_heads=4, n_kv_heads=4,
                      d_ff=128, vocab=32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
