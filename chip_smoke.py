@@ -214,7 +214,32 @@ Phases, each fatal on failure:
      from a seed) ``forward`` on (2, 4096) tokens (32 flash and 32 scan
      launches, nothing else; a second call bitwise equal), with where its
      time goes, then ``generate`` (batch 4, prompt 32, gen 32, greedy;
-     2,048 scan launches, no flash), peak memory and a decode profile.
+     2,048 scan launches, no flash), peak memory and a decode profile;
+ 20. the flash kernel at the last two families' shapes (FLASH_KEYS):
+     SeamlessM4T-medium's non-causal encoder (B 2, S 1024, 16 / 16 heads
+     of 64), its causal decoder (S 512) and its cross-attention (Sq 512
+     over Sk 1024 keys, a key length of its own), ragged cross-attention
+     (Sq 333, Sk 1000) in float32 and bf16, more queries than keys (Sq
+     1024, Sk 256) and Qwen2-VL-7B's causal forward (B 2, S 4096, 28 / 4
+     heads of 128), with phase 11's limits and faulty plain versions, one
+     more where Sk > Sq (keys masked at Sq in place of Sk), each timed
+     beside its plain version, SDPA and its bound;
+ 21. small-input agreement: REDUCED SeamlessM4T-medium (the bf16 encoder
+     memories card vs CPU within two bf16 units of the largest, then the
+     decoder from the CPU's memory on both) and Qwen2-VL-7B (16 patches
+     with (t, h, w) positions) in float32, ``forward`` logits and 16
+     greedy ``generate`` tokens on the card against the CPU;
+ 22. the encoder-decoder at full width: SeamlessM4T-medium (12 encoder
+     and 12 decoder layers, d_model 1024, 16 / 16 heads of 64, vocab
+     256,206) ``forward`` on (2, 512) tokens over (2, 1024) frames (36
+     flash launches: 12 encoder, 12 self, 12 cross; a second call bitwise
+     equal), ``generate`` with (4, 1024) frames (12 flash launches, the
+     encoder once), peak memory and a decode profile;
+ 23. the vision-language path at full width: Qwen2-VL-7B (28 layers,
+     d_model 3584, 28 / 4 heads of 128, M-RoPE) ``forward`` on 1,024
+     patches and (2, 3072) tokens (28 flash launches, a second call
+     bitwise equal), ``generate`` (no flash), peak memory and a decode
+     profile.
 Phase 11 also holds the bf16 flash kernel at OLMoE-1B-7B's and
 Gemma-7B's forward shapes (B 2, S 4096, 16 / 16 heads, D 128 and 256,
 causal) and at hymba-1.5B's head dim 64 (25 / 5 heads, window 1024). After
@@ -306,12 +331,32 @@ ATTN_SHAPES = (       # (label, B, K, H, D) beside the TGN path's (600, 10, 2, 8
     ("B 1", 1, 10, 2, 86),
     ("B 37", 37, 10, 2, 86),
 )
-# StarCoder2-3B forward on (2, 8192) tokens: (B, S, H, Hkv, D, window)
-FLASH_PATH = (2, 8192, 24, 2, 128, 4096)
-FLASH_MORE = (        # (B, S, H, Hkv, D, window, label): bf16 beside it
-    (2, 4096, 16, 16, 128, None, "olmoe-1b-7b forward"),
-    (2, 4096, 16, 16, 256, None, "gemma-7b forward"),
-    (2, 4096, 25, 5, 64, 1024, "hymba-1.5b shape (D 64)"),
+# phase 11, flash at the causal LM paths' shapes: (label, B, Sq, Sk, H,
+# Hkv, D, window, causal, dtype); the last, StarCoder2-3B's forward on (2,
+# 8192) tokens, is the kernel's main shape in the record
+FLASH_CASES = (
+    ("ragged f32", 2, 300, 300, 8, 2, 64, None, True, "float32"),
+    ("olmoe-1b-7b forward", 2, 4096, 4096, 16, 16, 128, None, True,
+     "bfloat16"),
+    ("gemma-7b forward", 2, 4096, 4096, 16, 16, 256, None, True, "bfloat16"),
+    ("hymba-1.5b shape (D 64)", 2, 4096, 4096, 25, 5, 64, 1024, True,
+     "bfloat16"),
+    ("starcoder2 forward", 2, 8192, 8192, 24, 2, 128, 4096, True,
+     "bfloat16"),
+)
+# phase 20, flash's calls on the last two families' paths and at a key
+# length of its own (non-causal, no window), in the same form
+FLASH_KEYS = (
+    ("seamless encoder", 2, 1024, 1024, 16, 16, 64, None, False,
+     "bfloat16"),
+    ("seamless decoder", 2, 512, 512, 16, 16, 64, None, True, "bfloat16"),
+    ("seamless cross", 2, 512, 1024, 16, 16, 64, None, False, "bfloat16"),
+    ("ragged cross f32", 2, 333, 1000, 16, 16, 64, None, False, "float32"),
+    ("ragged cross bf16", 2, 333, 1000, 16, 16, 64, None, False,
+     "bfloat16"),
+    ("more queries than keys", 2, 1024, 256, 16, 16, 64, None, False,
+     "bfloat16"),
+    ("qwen2-vl forward", 2, 4096, 4096, 28, 4, 128, None, True, "bfloat16"),
 )
 GRAPH_STEPS = 40      # train steps of phase 5's graph checks, profile
 SHARD_PARITY_EDGES = 16_384   # phase 5c's shards of phase 5's stream: 10,
@@ -2074,12 +2119,40 @@ def wkv_checks(torch, dev) -> list:
     return recs
 
 
+def lm_extras(torch, cfg, b: int, n_text: int, gen) -> dict:
+    """The inputs beside the tokens of an LM's ``forward`` batch, drawn
+    from ``gen`` on its device: the encoder-decoder's frames (b,
+    frontend_tokens, d) and the vision-language family's patches (b, F =
+    frontend_tokens, d), both N(0, 1) float32, with ``positions3`` (b, 3,
+    F + n_text): the patches on a square grid (t 0, h the row, w the
+    column), the text continuing from the grid's side on all three
+    axes."""
+    dev = gen.device
+    shape = (b, cfg.frontend_tokens, cfg.d_model)
+    if cfg.enc_dec:
+        return {"frames": torch.randn(shape, generator=gen, device=dev)}
+    if cfg.frontend != "vision":
+        return {}
+    f = cfg.frontend_tokens
+    side = math.isqrt(f)
+    idx = torch.arange(f, device=dev)
+    grid = torch.stack([torch.zeros_like(idx), idx // side, idx % side])
+    text = (torch.arange(n_text, device=dev) + side).expand(3, -1)
+    return {"patches": torch.randn(shape, generator=gen, device=dev),
+            "positions3": torch.cat([grid, text], 1).expand(b, -1, -1)}
+
+
 def lm_small_agreement(torch, arch: str, prompt: int, gen: int) -> None:
-    """Phases 7, 12, 14 and 18: a REDUCED LM in float32, the port on the card
-    (its kernel) against the port on the CPU (the plain version), from the
-    same params: forward logits on (2, 128) tokens to 1e-4 and the MoE
-    aux loss to 1e-5 (float32 sums in another order), then ``gen`` greedy
-    tokens after ``prompt`` prompt tokens, identical."""
+    """Phases 7, 12, 14, 18 and 21: a REDUCED LM in float32, the port on
+    the card (its kernel) against the port on the CPU (the plain
+    version), from the same params and inputs (``lm_extras``): forward
+    logits on (2, 128) tokens to 1e-4 and the MoE aux loss to 1e-5
+    (float32 sums in another order), then ``gen`` greedy tokens after
+    ``prompt`` prompt tokens, identical. The encoder-decoder's encoder
+    runs in bf16 on both (as in the JAX package), each rounding its own
+    float32 sums: its memories are held to two bf16 units of the largest
+    |memory|, and the decoder's checks then run on both from the CPU's
+    memory (``model.encode`` swapped for it)."""
     import dataclasses
 
     import numpy as np
@@ -2096,15 +2169,36 @@ def lm_small_agreement(torch, arch: str, prompt: int, gen: int) -> None:
     p_gpu = tree_map(lambda x: x.cuda(), p_cpu)
     tokens = torch.from_numpy(
         np.random.default_rng(0).integers(0, cfg.vocab, (2, 128)))
-    on_card, aux_card = model.forward(p_gpu, {"tokens": tokens}, cfg)
-    on_cpu, aux_cpu = model.forward(p_cpu, {"tokens": tokens}, cfg,
-                                    device="cpu")
+    batch = {"tokens": tokens, **lm_extras(
+        torch, cfg, 2, 128, torch.Generator().manual_seed(0))}
+    encode = model.encode
+    if cfg.enc_dec:
+        mem_card = encode(p_gpu, batch["frames"], cfg).cpu().float()
+        mem_cpu = encode(p_cpu, batch["frames"], cfg, device="cpu")
+        d_mem = float((mem_card - mem_cpu.float()).abs().max())
+        lim = 2 * BF16_UNIT * float(mem_cpu.float().abs().max())
+        print(f"small agreement {arch} REDUCED: encoder memory "
+              f"{tuple(mem_cpu.shape)} bf16, card vs CPU max abs diff "
+              f"{d_mem:.3g} (limit {lim:.3g}: two bf16 units of the "
+              f"largest)")
+        if d_mem > lim:
+            raise AssertionError(f"{arch}: the encoder on the card and on "
+                                 f"the CPU disagree")
+        model.encode = lambda params, frames, cfg, device=None: mem_cpu.to(
+            params["embed"].device)
+    try:
+        on_card, aux_card = model.forward(p_gpu, batch, cfg)
+        on_cpu, aux_cpu = model.forward(p_cpu, batch, cfg, device="cpu")
+        frames = batch.get("frames")
+        a = generate(p_gpu, cfg, tokens[:, :prompt], gen, frames=frames)
+        c = generate(p_cpu, cfg, tokens[:, :prompt], gen, frames=frames,
+                     device="cpu")
+    finally:
+        model.encode = encode
     d_logit = float((on_card.cpu() - on_cpu).abs().max())
     d_aux = abs(float(aux_card) - float(aux_cpu))
-    a = generate(p_gpu, cfg, tokens[:, :prompt], gen)
-    c = generate(p_cpu, cfg, tokens[:, :prompt], gen, device="cpu")
     print(f"small agreement {arch} REDUCED float32 (card vs CPU): forward "
-          f"logits (2, 128) max abs diff {d_logit:.3g}, aux "
+          f"logits {tuple(on_cpu.shape)} max abs diff {d_logit:.3g}, aux "
           f"{float(aux_card):.6f} vs {float(aux_cpu):.6f}; greedy tokens "
           f"after {prompt} prompt tokens {a.tokens.tolist()} vs "
           f"{c.tokens.tolist()}")
@@ -2115,16 +2209,21 @@ def lm_small_agreement(torch, arch: str, prompt: int, gen: int) -> None:
 
 def lm_path(torch, kernels, arch: str, batch: int, seq: int,
             fwd_per_layer: dict, gen_per_layer: dict,
-            bitwise: bool = False) -> dict:
-    """Phases 8, 13, 15, 16 and 19: an LM at its published widths, random
-    params from a seed: ``forward`` on (batch, seq) tokens and where its
-    time goes, then ``generate`` (batch 4, prompt 32, gen 32, greedy),
-    launch counts zeroed before and read after each: each kernel of
-    ``fwd_per_layer`` that many times per layer in ``forward``, each of
-    ``gen_per_layer`` in ``generate``, no other kernel. With ``bitwise``
-    a second ``forward`` must give the same logits and aux bit for bit.
-    Then a profile of decode steps. Returns every kernel's launches over
-    both."""
+            bitwise: bool = False, enc_per_layer=None) -> dict:
+    """Phases 8, 13, 15, 16, 19, 22 and 23: an LM at its published widths,
+    random params from a seed: ``forward`` on (batch, seq) positions
+    (tokens; the vision-language family's ``frontend_tokens`` patches
+    and the rest tokens; the encoder-decoder's tokens beside
+    ``frontend_tokens`` frames, from ``lm_extras``) and where its time
+    goes, then ``generate`` (batch 4, prompt 32, gen 32, greedy; the
+    encoder-decoder's frames (4, frontend_tokens, d)), launch counts
+    zeroed before and read after each: each kernel of ``fwd_per_layer``
+    that many times per layer in ``forward``, each of ``gen_per_layer``
+    in ``generate``, each of ``enc_per_layer`` that many times per
+    encoder layer in both (the encoder runs once in each), no other
+    kernel. With ``bitwise`` a second ``forward`` must give the same
+    logits and aux bit for bit. Then a profile of decode steps (from the
+    filled encoder memory). Returns every kernel's launches over both."""
     import numpy as np
 
     from repro_torch.configs.base import get_config
@@ -2151,31 +2250,39 @@ def lm_path(torch, kernels, arch: str, batch: int, seq: int,
         heads += (f", parallel mamba heads (d_inner "
                   f"{cfg.ssm_expand * cfg.d_model}, state {cfg.ssm_state}, "
                   f"conv {cfg.ssm_conv})")
+    if cfg.enc_dec:
+        heads += (f", {cfg.n_enc_layers} encoder layers (non-causal) and "
+                  f"cross-attention")
+    if cfg.rope == "mrope":
+        heads += f", M-RoPE sections {tuple(cfg.mrope_sections)}"
     print(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, {heads}, "
           f"{ffn}, vocab {cfg.vocab}, {n_params} params (float32, "
           f"{n_params * 4 / 1e9:.2f} GB; {cfg.dtype} compute), init "
           f"{time.perf_counter() - t0:.2f} s")
-    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
-                           device=dev)
-    logits, _ = model.forward(params, {"tokens": tokens}, cfg)   # warm-up
+    n_text = seq - (cfg.frontend_tokens if cfg.frontend == "vision" else 0)
+    fwd_batch = {"tokens": torch.randint(0, cfg.vocab, (batch, n_text),
+                                         generator=gen, device=dev),
+                 **lm_extras(torch, cfg, batch, n_text, gen)}
+    inputs = ", ".join(f"{k} {tuple(v.shape)}" for k, v in fwd_batch.items())
+    logits, _ = model.forward(params, fwd_batch, cfg)   # warm-up
     del logits
     torch.cuda.synchronize()
 
     reset_counts(torch, kernels)
     t0 = time.perf_counter()
-    logits, aux = model.forward(params, {"tokens": tokens}, cfg)
+    logits, aux = model.forward(params, fwd_batch, cfg)
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t0
     fwd_launches = {n: k.launches for n, k in kernels.items()}
     fwd_peak = torch.cuda.max_memory_allocated() / 2 ** 20
     finite = bool(torch.isfinite(logits).all())
     shape, dtype = tuple(logits.shape), logits.dtype
-    print(f"{arch} forward ({batch}, {seq}): {fwd_s:.4f} s "
-          f"({batch * seq / fwd_s:.0f} tok/s), logits {shape} {dtype} "
+    print(f"{arch} forward ({batch}, {seq}; {inputs}): {fwd_s:.4f} s "
+          f"({batch * seq / fwd_s:.0f} positions/s), logits {shape} {dtype} "
           f"finite {finite}, aux {float(aux):.6f}, peak {fwd_peak:.1f} "
-          f"MiB, launches {fwd_launches}")
+          f"MiB, launches {fwd_launches} ({card_line()})")
     if bitwise:
-        again, aux2 = model.forward(params, {"tokens": tokens}, cfg)
+        again, aux2 = model.forward(params, fwd_batch, cfg)
         same = torch.equal(logits, again) and torch.equal(aux, aux2)
         print(f"{arch} forward: a second call bitwise equal: {same}")
         if not same:
@@ -2183,12 +2290,13 @@ def lm_path(torch, kernels, arch: str, batch: int, seq: int,
         del again
     del logits
     print_profile(f"{arch} forward ({batch}, {seq})",
-                  lambda: model.forward(params, {"tokens": tokens}, cfg), 1,
+                  lambda: model.forward(params, fwd_batch, cfg), 1,
                   fwd_s * 1e3)
 
     prompts = np.random.default_rng(0).integers(0, cfg.vocab, (4, 32))
+    frames = lm_extras(torch, cfg, 4, 32, gen).get("frames")
     reset_counts(torch, kernels)
-    res = generate(params, cfg, prompts, 32)
+    res = generate(params, cfg, prompts, 32, frames=frames)
     gen_launches = {n: k.launches for n, k in kernels.items()}
     gen_peak = torch.cuda.max_memory_allocated() / 2 ** 20
     print(f"{arch} generate (batch 4, prompt 32, gen 32, greedy): "
@@ -2196,10 +2304,14 @@ def lm_path(torch, kernels, arch: str, batch: int, seq: int,
           f"({4 * 32 / res.decode_s:.1f} tok/s, "
           f"{res.decode_s / 32 * 1e3:.3f} ms/step), peak {gen_peak:.1f} "
           f"MiB, launches {gen_launches}; first sequence "
-          f"{res.tokens[0][:16].tolist()}")
-    want_fwd = {n: cfg.n_layers * fwd_per_layer.get(n, 0) for n in kernels}
-    want_gen = {n: cfg.n_layers * gen_per_layer.get(n, 0) for n in kernels}
-    if not finite or shape != (batch, seq, cfg.vocab):
+          f"{res.tokens[0][:16].tolist()} ({card_line()})")
+    enc = {n: cfg.n_enc_layers * (enc_per_layer or {}).get(n, 0)
+           for n in kernels}
+    want_fwd = {n: cfg.n_layers * fwd_per_layer.get(n, 0) + enc[n]
+                for n in kernels}
+    want_gen = {n: cfg.n_layers * gen_per_layer.get(n, 0) + enc[n]
+                for n in kernels}
+    if not finite or shape != (batch, n_text, cfg.vocab):
         raise AssertionError(f"forward logits {shape}, finite {finite}")
     if fwd_launches != want_fwd or gen_launches != want_gen:
         raise AssertionError(f"launches {fwd_launches} / {gen_launches}, "
@@ -2209,7 +2321,10 @@ def lm_path(torch, kernels, arch: str, batch: int, seq: int,
         raise AssertionError(f"generated tokens {res.tokens}")
 
     # where a decode step's time goes: 8 warm serve_steps at batch 4
-    cache = model.init_cache(cfg, 4, 64)
+    cache = model.init_cache(cfg, 4, 64, enc_len=0 if frames is None
+                             else frames.shape[1])
+    if frames is not None:
+        cache = model.fill_enc_cache(params, cache, frames, cfg)
     tok = torch.from_numpy(prompts[:, 0]).to(dev)
 
     def run(steps=8):
@@ -2547,52 +2662,73 @@ def head_chunks(q, k, v, heads=4):
                    v[b:b + 1, :, kv].transpose(1, 2))
 
 
-def flash_controls(torch, att, v, want, lim, window) -> dict:
-    """Faulty versions of the plain one at the path's shape, each with its
-    output rounded to bf16 as a kernel's is: P rounded to bf16 (the flash
-    kernel's first P V), P rounded to float8 e4m3, and the key tile at the
-    lower edge of each query block's window (no window: key tile 0)
+def flash_controls(torch, att, v, want, lim, window, bf16=True) -> dict:
+    """Faulty versions of the plain one, each with its output rounded as a
+    kernel's is (bf16, or not in float32): in bf16, P rounded to bf16 (the
+    flash kernel's first P V), P rounded to float8 e4m3, and the key tile
+    at the lower edge of each query block's window (no window: key tile 0)
     dropped where the block has another, at the kernel's tiles
-    (``BLOCK_Q`` rows, ``BLOCK_KV[D]`` keys). Returns each one's (max
-    |err|, max err / limit) against the plain float32 output."""
+    (``BLOCK_Q`` rows, ``BLOCK_KV[D]`` keys), where some block has such a
+    tile and another; where there are more keys than queries, the keys
+    past the query length masked (a key length taken for the query
+    length). Returns each one's (max |err|, max err / limit) against the
+    plain float32 output."""
     from repro_torch.kernels.flash_attention import BLOCK_KV, BLOCK_Q
 
-    block_kv = BLOCK_KV[v.shape[-1]]
+    block_kv = BLOCK_KV.get(v.shape[-1], 128)
     pmax = att.amax(-1, keepdim=True)
 
     def rounded(dtype):    # P rounded as a kernel rounds exp(s - max)
         return ((att / pmax).to(dtype).float() * pmax) @ v
 
-    s = att.shape[-1]
-    qi = torch.arange(s, device=att.device)[:, None]
-    ki = torch.arange(s, device=att.device)[None, :]
+    def renormed(drop):
+        kept = att.masked_fill(drop, 0.0)
+        return (kept / kept.sum(-1, keepdim=True)) @ v
+
+    def keeps_a_key(drop):
+        return bool(drop.any()) and bool(
+            (att.masked_fill(drop, 0.0).sum(-1) > 0).all())
+
+    sq, sk = att.shape[-2:]
+    qi = torch.arange(sq, device=att.device)[:, None]
+    ki = torch.arange(sk, device=att.device)[None, :]
     q0 = qi // BLOCK_Q * BLOCK_Q
     edge = (q0 - window + 1).clamp(min=0) if window else torch.zeros_like(q0)
-    drop = (q0 >= (window or block_kv)) & (ki // block_kv == edge // block_kv)
-    dropped = att.masked_fill(drop, 0.0)
+    edge_tile = (q0 >= (window or block_kv)) & (
+        ki // block_kv == edge // block_kv)
+    fns = {}
+    if bf16:
+        fns["P bf16"] = lambda: rounded(torch.bfloat16)
+        fns["P e4m3"] = lambda: rounded(torch.float8_e4m3fn)
+        if keeps_a_key(edge_tile):
+            fns["edge tile dropped"] = lambda: renormed(edge_tile)
+    if sk > sq:
+        fns["keys masked at Sq"] = lambda: renormed(
+            (ki >= sq).expand(sq, -1))
     out = {}
-    for name, fn in (
-            ("P bf16", lambda: rounded(torch.bfloat16)),
-            ("P e4m3", lambda: rounded(torch.float8_e4m3fn)),
-            ("edge tile dropped",
-             lambda: (dropped / dropped.sum(-1, keepdim=True)) @ v)):
-        diff = (fn().to(torch.bfloat16).float() - want).abs()
+    for name, fn in fns.items():
+        got = fn()
+        if bf16:
+            got = got.to(torch.bfloat16).float()
+        diff = (got - want).abs()
         out[name] = (float(diff.max()), float((diff / lim).max()))
     return out
 
 
-def flash_checks(torch, dev) -> list:
-    """Phase 11: the flash kernel against its plain version at a small
-    ragged float32 shape (to 1e-5) and in bf16 (to 2^-8 |plain| +
-    ``FLASH_P_REL`` |P| |V| of the plain version's float32 output) at the
-    forward shapes of OLMoE-1B-7B (D 128) and Gemma-7B (D 256, 64-key
-    tiles), both one query head a KV head, at hymba-1.5B's head dim 64
-    (25 / 5 heads, window 1024) and at StarCoder2-3B's, where faulty
-    versions of the plain one must fail the same check and two calls must
-    agree bitwise. Yardstick: ``F.scaled_dot_product_attention`` with the
-    causal flag (or the window's mask) and ``enable_gqa=True``, timed from
-    the profiler and by CUDA events over back-to-back calls, as the
-    kernel is."""
+# the controls that must fail the check
+FLASH_FAULTS = ("P e4m3", "edge tile dropped", "keys masked at Sq")
+
+
+def flash_checks(torch, dev, cases) -> list:
+    """Phases 11 and 20: the flash kernel against its plain version at
+    ``cases`` ((label, B, Sq, Sk, H, Hkv, D, window, causal, dtype)), in
+    float32 to 1e-5 and in bf16 to 2^-8 |plain| + ``FLASH_P_REL`` |P| |V|
+    of the plain version's float32 output; two calls must agree bitwise
+    and faulty versions of the plain one (``FLASH_FAULTS``, on batch row
+    0, heads 0-3) must fail the same check. Yardstick:
+    ``F.scaled_dot_product_attention`` with the causal flag (or the
+    window's mask) and ``enable_gqa=True``, timed from the profiler and by
+    CUDA events over back-to-back calls, as the kernel is."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -2600,30 +2736,33 @@ def flash_checks(torch, dev) -> list:
 
     gen = torch.Generator(device=dev).manual_seed(3)
     recs = []
-    cases = ((2, 300, 8, 2, 64, None, torch.float32, "ragged f32"),
-             *((*c[:6], torch.bfloat16, c[6]) for c in FLASH_MORE),
-             (*FLASH_PATH, torch.bfloat16, "starcoder2 forward"))
-    for b, s, h, hkv, d, window, dtype, label in cases:
-        q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
-        k, v = (torch.randn((b, s, hkv, d), generator=gen,
+    for label, b, sq, sk, h, hkv, d, window, causal, dtype in cases:
+        dtype = getattr(torch, dtype)
+        q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((b, sk, hkv, d), generator=gen,
                             device=dev).to(dtype) for _ in range(2))
         args = (q, k, v)
-        got = flash_attention_fwd(*args, causal=True, window=window)
-        if not torch.equal(got, flash_attention_fwd(*args, causal=True,
-                                                    window=window)):
+
+        def kernel():
+            return flash_attention_fwd(*args, causal=causal, window=window)
+
+        got = kernel()
+        if not torch.equal(got, kernel()):
             raise AssertionError(f"flash_attention {label}: two calls "
                                  f"differ")
         torch.cuda.synchronize()
         err = ratio = 0.0
+        bf16 = dtype == torch.bfloat16
+        ctl = {}
         for bi, hs, qc, kc, vc in head_chunks(*args):
-            att = ref.flash_attention_probs(qc, kc, causal=True,
+            att = ref.flash_attention_probs(qc, kc, causal=causal,
                                             window=window)
             vf = vc.float()
             want = att @ vf      # the plain version before its output cast
             diff = (got[bi:bi + 1, :, hs].transpose(1, 2).float()
                     - want).abs()
-            lim = (torch.full_like(want, TOL) if dtype == torch.float32 else
-                   2 ** -8 * want.abs() + FLASH_P_REL * (att @ vf.abs()))
+            lim = (2 ** -8 * want.abs() + FLASH_P_REL * (att @ vf.abs())
+                   if bf16 else torch.full_like(want, TOL))
             err = max(err, float(diff.max()))
             ratio = max(ratio, float((diff / lim).max()))
             if ratio > 1.0:
@@ -2631,34 +2770,33 @@ def flash_checks(torch, dev) -> list:
                                      f"{bi}, heads {hs} differ from the "
                                      f"plain version by {float(diff.max())}"
                                      f" ({ratio:.3g} of the limit)")
-            if dtype == torch.bfloat16 and bi == 0 and hs.start == 0:
-                ctl = flash_controls(torch, att, vf, want, lim, window)
+            if bi == 0 and hs.start == 0:
+                ctl = flash_controls(torch, att, vf, want, lim, window,
+                                     bf16)
             del att, want, diff, lim
         print(f"flash {label}: max |kernel - plain| {err:.3g}, at most "
               f"{ratio:.3g} of the limit; two calls bitwise equal")
-        if dtype == torch.bfloat16:
-            for name, (e, r) in ctl.items():
-                print(f"  control ({name}; batch row 0, heads 0-3): max "
-                      f"|err| {e:.3g}, at most {r:.3g} of the limit")
-            for name in ("P e4m3", "edge tile dropped"):
-                if ctl[name][1] <= 1.0:
-                    raise AssertionError(f"the bf16 flash check passes a "
-                                         f"faulty version ({name})")
+        for name, (e, r) in ctl.items():
+            print(f"  control ({name}; batch row 0, heads 0-3): max "
+                  f"|err| {e:.3g}, at most {r:.3g} of the limit")
+            if name in FLASH_FAULTS and r <= 1.0:
+                raise AssertionError(f"the flash check passes a faulty "
+                                     f"version ({name}) at {label}")
 
         def plain():
             for _, _, qc, kc, vc in head_chunks(*args):
-                ref.flash_attention_ref(qc, kc, vc, causal=True,
+                ref.flash_attention_ref(qc, kc, vc, causal=causal,
                                         window=window)
 
-        qi = torch.arange(s, device=dev)[:, None]
-        ki = torch.arange(s, device=dev)[None, :]
+        qi = torch.arange(sq, device=dev)[:, None]
+        ki = torch.arange(sk, device=dev)[None, :]
         # without a window the causal flag, else the window's mask
         mask = None if window is None else (ki <= qi) & (ki > qi - window)
         qt, kt, vt = (x.transpose(1, 2) for x in args)
 
         def library():
             return F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
                 enable_gqa=True)
 
         lib_err = float((library().transpose(1, 2).float()
@@ -2666,23 +2804,24 @@ def flash_checks(torch, dev) -> list:
         print(f"SDPA {label} vs the kernel: max abs diff {lib_err:.3g}")
         elt = q.element_size()
         nbytes = elt * (2 * q.numel() + k.numel() + v.numel())
-        flops = 4.0 * d * b * h * causal_pairs(s, window)
-        heavy = s > 1024
+        pairs = causal_pairs(sq, window) if causal else sq * sk
+        flops = 4.0 * d * b * h * pairs
+        heavy = sq * sk > 1024 * 1024
         recs.append(dict(
             name="flash_attention", label=label,
-            at=f"B {b}, S {s}, H {h}, Hkv {hkv}, D {d}, window {window}",
+            at=f"B {b}, Sq {sq}, Sk {sk}, H {h}, Hkv {hkv}, D {d}, window "
+               f"{window}, causal {causal}",
             out_dtype=str(dtype).split(".")[-1], max_abs_err=err,
-            kernel=timings(lambda: flash_attention_fwd(
-                *args, causal=True, window=window)),
-            plain=timings(plain, heavy=heavy),
+            kernel=timings(kernel), plain=timings(plain, heavy=heavy),
             bound=bound(nbytes, flops, BF16_FLOP_PER_S
-                        if dtype == torch.bfloat16 else FP32_FLOP_PER_S),
+                        if bf16 else FP32_FLOP_PER_S),
             library_ms=device_ms(library, iters=5 if heavy else 20,
                                  rounds=3 if heavy else 5),
             # CUDA events over back-to-back calls, beside the kernel's own
             # call_ms: a bound on each where the profiler loses events
             extra={"library_call_ms": call_ms(library, iters=10 if heavy
-                                              else 50)}))
+                                              else 50),
+                   "controls": {n: r for n, (_, r) in ctl.items()}}))
         print(f"SDPA {label}: {recs[-1]['extra']['library_call_ms'] * 1e3:.2f}"
               f" us back to back (CUDA events)")
         del got, args, q, k, v, mask
@@ -3715,7 +3854,7 @@ def main() -> int:
         launches[name] += gru_launches[name]
     by_path["ops_gru"] = {n: gru_launches[n]
                           for n in ("fused_gru", "fused_gru_bwd")}
-    flash = flash_checks(torch, dev)
+    flash = flash_checks(torch, dev, FLASH_CASES)
     for r in flash:
         print_kernel(r)
     # 56 prompt tokens and 16 generated: the ring buffer of the REDUCED
@@ -3756,6 +3895,32 @@ def main() -> int:
     launches["selective_scan"] = hymba["selective_scan"]
     torch.cuda.empty_cache()
     print(f"phases 17-19: {time.perf_counter() - t0:.1f} s ({card})")
+    # phase 20: flash at the last two families' shapes and at a key length
+    # of its own (cross-attention), with a control that takes the query
+    # length for the key length
+    t0 = time.perf_counter()
+    flash_keys = flash_checks(torch, dev, FLASH_KEYS)
+    for r in flash_keys:
+        print_kernel(r)
+    # phase 21: REDUCED seamless and Qwen2-VL in float32, card vs CPU
+    for arch in ("seamless-m4t-medium", "qwen2-vl-7b"):
+        lm_small_agreement(torch, arch, 16, 16)
+    # phase 22: SeamlessM4T-medium at full width, (2, 512) tokens over
+    # (2, 1024) frames: a flash launch an encoder layer, two a decoder
+    # layer (self and cross) in forward; generate runs the encoder once
+    # and decodes with no flash
+    flash_by_path["seamless-m4t-medium"] = lm_path(
+        torch, KERNELS, "seamless-m4t-medium", 2, 512,
+        {"flash_attention": 2}, {}, bitwise=True,
+        enc_per_layer={"flash_attention": 1})["flash_attention"]
+    torch.cuda.empty_cache()
+    # phase 23: Qwen2-VL-7B at full width, 1,024 patches and 3,072 tokens
+    # (S 4096): a flash launch a layer in forward, none in decode
+    flash_by_path["qwen2-vl-7b"] = lm_path(
+        torch, KERNELS, "qwen2-vl-7b", 2, 4096, {"flash_attention": 1}, {},
+        bitwise=True)["flash_attention"]
+    torch.cuda.empty_cache()
+    print(f"phases 20-23: {time.perf_counter() - t0:.1f} s ({card})")
     launches["flash_attention"] = sum(flash_by_path.values())
     flash[-1]["extra"]["launches_by_path"] = flash_by_path
 
@@ -3799,7 +3964,8 @@ def main() -> int:
         shaped_entry(next(r for r in gru if r["name"] == name),
                      [r for r in gru if r["name"] == name])
         for name in ("fused_gru", "fused_gru_bwd")] + [
-        shaped_entry(flash[-1], flash), shaped_entry(scan[0], scan)]}
+        shaped_entry(flash[-1], flash + flash_keys),
+        shaped_entry(scan[0], scan)]}
     if len(record["kernels"]) != len(TPU_KERNELS) + len(NEW_KERNELS):
         raise AssertionError("the record misses a kernel")
     print(profile_loss_line())

@@ -1,31 +1,36 @@
 """Language-model architecture configs: ``ArchConfig`` and its registry,
 after ``repro/configs/base.py``.
 
-``ArchConfig`` holds the fields that the ported families' configs set and
-that their code reads (RWKV6, the dense and MoE decoders with gated FFNs,
-qk-norm and tied embeddings, and the hybrid attention + SSM decoder so
-far); a field of the JAX package's
-``ArchConfig`` comes back with the family that needs it (ROADMAP Queue
-1). The registry loads only the architectures the port runs
-(``_ARCH_MODULES``); each module registers its published configuration
-and a reduced one (<= 2 layers, narrow) for the CPU tests.
+``ArchConfig`` holds the fields that the families' configs set and that
+their code reads (RWKV6, the dense and MoE decoders with gated FFNs,
+qk-norm and tied embeddings, the hybrid attention + SSM decoder, the
+encoder-decoder and the vision-language decoder); the JAX package's
+fields for training and sharding (``remat``, ``microbatch``,
+``attn_chunk``, ``max_seq``) come back with LM training (ROADMAP Queue
+1). The registry loads every language-model architecture of the JAX
+package's (``_ARCH_MODULES``; ``speed-tig`` is the TIG workload, in
+``configs/speed_tig.py``); each module registers its published
+configuration and a reduced one (<= 2 layers, narrow) for the CPU
+tests.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Optional, Sequence
 
 __all__ = ["ArchConfig", "register", "get_config", "list_archs"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
-    """Architecture description; of the JAX package's families, so far
-    RWKV6 (``rwkv=True``), dense attention (``family="dense"``), the
-    decoder-only MoE (``family="moe"``) and hymba's parallel attention and
-    mamba heads (``family="hybrid"``, ``ssm_state > 0``)."""
+    """Architecture description. Families: RWKV6 (``rwkv=True``), dense
+    attention (``family="dense"``), the decoder-only MoE
+    (``family="moe"``), hymba's parallel attention and mamba heads
+    (``family="hybrid"``, ``ssm_state > 0``), the encoder-decoder
+    (``family="audio"``, ``enc_dec=True``) and the vision-language
+    decoder (``family="vlm"``, ``rope="mrope"``)."""
 
     name: str
     family: str
@@ -44,8 +49,9 @@ class ArchConfig:
     # attention / FFN details
     act: str = "swiglu"                  # swiglu | geglu | gelu | relu_sq
     qk_norm: bool = False
-    rope: str = "rope"                   # the port runs "rope"
+    rope: str = "rope"                   # rope | mrope | none
     rope_theta: float = 10_000.0
+    mrope_sections: Sequence[int] = ()   # per-axis rotary sections (M-RoPE)
     window: Optional[int] = None         # sliding-window size (SWA)
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
@@ -69,6 +75,15 @@ class ArchConfig:
     rwkv: bool = False
     rwkv_head_dim: int = 64
 
+    # encoder-decoder (seamless)
+    enc_dec: bool = False
+    n_enc_layers: int = 0
+
+    # modality frontend stub: frames fed to the encoder (audio) or patch
+    # embeddings prepended to the tokens (vision)
+    frontend: str = "none"               # none | audio | vision
+    frontend_tokens: int = 0             # the stub's default token count
+
     # numerics: compute dtype (params are float32)
     dtype: str = "bfloat16"
 
@@ -84,11 +99,10 @@ class ArchConfig:
 _REGISTRY: dict[str, "ArchConfig"] = {}
 _REDUCED: dict[str, "ArchConfig"] = {}
 
-# the other families of the JAX package's registry (audio,
-# vision-language) are ROADMAP Queue 1
 _ARCH_MODULES = ["minitron_4b", "rwkv6_1g6b", "gemma_7b", "qwen3_32b",
-                 "qwen3_moe_235b_a22b", "starcoder2_3b", "olmoe_1b_7b",
-                 "hymba_1g5b"]
+                 "seamless_m4t_medium", "qwen3_moe_235b_a22b",
+                 "starcoder2_3b", "hymba_1g5b", "qwen2_vl_7b",
+                 "olmoe_1b_7b"]
 
 
 def register(cfg: ArchConfig, reduced: ArchConfig) -> ArchConfig:

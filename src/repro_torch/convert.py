@@ -5,7 +5,8 @@ The JAX package's trees become numpy with
 ``jax.tree.map(np.asarray, tree)``: nested dicts of arrays under the same
 keys as here (``upd/xz/w``, ``mem``, ``{"step", "mu", "nu"}``,
 ``layers/tm/wr/w``, ``layers/attn/wq/w``, ``layers/ssm/dt_proj/b``,
-``wkv``, ``k``, ``conv``). These functions map such a tree to tensors
+``layers/cross/wk/w``, ``layers/ln_cross/g``, ``enc_layers/attn/wq/w``,
+``enc_norm/g``, ``wkv``, ``k``, ``conv``, ``enc_k``). These functions map such a tree to tensors
 and back, key for key, dtype for dtype, so both packages can compute the
 same thing from the same numbers. bfloat16 leaves (numpy's ``ml_dtypes``
 type on the JAX side, in the decode cache) come in through float32, which
@@ -72,5 +73,6 @@ def cache_from_numpy(tree, device="cpu") -> dict:
     ``wkv`` float32 and ``tm_shift`` / ``cm_shift`` bfloat16, or the
     attention families' bfloat16 ``k`` / ``v`` (L, B, cache_len, Hkv, Dh),
     with hymba's ``conv`` (L, B, K - 1, d_inner) bfloat16 and ``ssm`` (L,
-    B, d_inner, n) float32."""
+    B, d_inner, n) float32, and the encoder-decoder's bfloat16 ``enc_k``
+    / ``enc_v`` (L, B, S_enc, Hkv, Dh)."""
     return _from_numpy(tree, device)

@@ -146,9 +146,10 @@ KERNELS: dict[str, Kernel] = {k.name: k for k in (
     # g x h wx wh bx bh rows d_in d_h dgx dgh dx dh dwx dwh dbx dbh stream
     Kernel("fused_gru_bwd", "fused_gru.cu", "fused_gru_bwd",
            (P, P, P, P, P, P, P, I, I, I, P, P, P, P, P, P, P, P, P)),
-    # q k v batch seq heads kv_heads head_dim causal window is_bf16 o stream
+    # q k v batch seq_q seq_k heads kv_heads head_dim causal window
+    # is_bf16 o stream
     Kernel("flash_attention", "flash_attention.cu", "flash_attention_fwd",
-           (P, P, P, I, I, I, I, I, I, I, I, P, P)),
+           (P, P, P, I, I, I, I, I, I, I, I, I, P, P)),
     # x dt b c a h0 batch seq channels state is_bf16 y h_out stream
     Kernel("selective_scan", "selective_scan.cu", "selective_scan_fwd",
            (P, P, P, P, P, P, I, I, I, I, I, P, P, P)),

@@ -4,14 +4,17 @@
 // src/repro/kernels/flash_attention.py (entry `flash_attention`).
 //
 //   o_i = sum_j softmax_j(q_i . k_j / sqrt(D)) v_j over the keys j with
-//   j <= i (causal), i - window < j (sliding window) and j < S,
+//   j <= i (causal), i - window < j (sliding window) and j < Sk,
 //
 // scores, softmax and sums in float32, output in q's dtype. Unlike the TPU
-// kernel, keys past S (the ragged last tile) are masked: `ref.py`'s dense
-// attention is the semantics. Layout is the model's: q, o (B, S, H, D);
-// k, v (B, S, Hkv, D), head h reading KV head h / (H / Hkv) (the JAX
+// kernel, keys past Sk (the ragged last tile) are masked: `ref.py`'s dense
+// attention is the semantics. Layout is the model's: q, o (B, Sq, H, D);
+// k, v (B, Sk, Hkv, D), head h reading KV head h / (H / Hkv) (the JAX
 // package's kv-major GQA order), so the call site neither transposes nor
-// repeats K and V. Masked scores are -inf and the running max starts at
+// repeats K and V. The key length Sk is the query length Sq but in
+// non-causal calls without a window (an encoder-decoder's cross-attention:
+// decoder rows against the encoder memory), past the TPU kernel, which
+// takes one S. Masked scores are -inf and the running max starts at
 // the finite -1e30, so a row whose first tiles are all masked gets weight
 // exactly 0 from them. A key tile wholly outside [q_start - window + 1,
 // q_end] is never loaded: the cost is O(S * window), the point of the TPU
@@ -102,7 +105,8 @@ namespace {
 constexpr float kNegInit = -1e30f;  // finite start of the running max
 
 struct Params {
-  int seq, heads, kv_heads, causal, window;  // window <= 0: none
+  int seq, seq_k;                            // query and key lengths
+  int heads, kv_heads, causal, window;       // window <= 0: none
   float scale;                               // 1 / sqrt(D)
   int pair;  // bf16: the two slots of a block are two heads (see below)
 };
@@ -461,7 +465,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   auto slot_head = [&](int g) { return h0 + (p.pair ? g : 0); };
   auto slot_row = [&](int g) { return q0 + (p.pair ? 0 : g * ROWS_WG); };
   // key tiles of the block: [t_begin, t_begin + n_tiles)
-  const int k_end = p.causal ? min(q0 + rows, p.seq) : p.seq;
+  const int k_end = p.causal ? min(q0 + rows, p.seq_k) : p.seq_k;
   const int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
   const int t_begin = k_begin / BKV;
   const int n_tiles = (k_end + BKV - 1) / BKV - t_begin;
@@ -546,7 +550,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       fence_regs(sc);
 
       // mask where the tile crosses a boundary of the slot's rows
-      if (kt + BKV > p.seq || (p.causal && kt + BKV - 1 > r0) ||
+      if (kt + BKV > p.seq_k || (p.causal && kt + BKV - 1 > r0) ||
           (p.window > 0 && kt <= r_last - p.window)) {
 #pragma unroll
         for (int j = 0; j < BKV / 8; ++j) {
@@ -554,7 +558,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           for (int e = 0; e < 4; ++e) {
             const int row = row0 + 8 * (e >> 1);
             const int key = kt + 8 * j + 2 * tig + (e & 1);
-            if (key >= p.seq || (p.causal && key > row) ||
+            if (key >= p.seq_k || (p.causal && key > row) ||
                 (p.window > 0 && key <= row - p.window))
               sc[4 * j + e] = -INFINITY;
           }
@@ -723,17 +727,17 @@ __global__ void __launch_bounds__(F_THREADS)
   const size_t kv_ld = static_cast<size_t>(p.kv_heads) * d;
   const size_t q_off = (static_cast<size_t>(b) * p.seq * p.heads + h) * d;
   const size_t kv_off =
-      (static_cast<size_t>(b) * p.seq * p.kv_heads + hk) * d;
+      (static_cast<size_t>(b) * p.seq_k * p.kv_heads + hk) * d;
   const float* kb = k + kv_off;
   const float* vb = v + kv_off;
 
-  const int k_end = p.causal ? min(q0 + F_BQ, p.seq) : p.seq;
+  const int k_end = p.causal ? min(q0 + F_BQ, p.seq_k) : p.seq_k;
   const int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
   const int t_begin = k_begin / F_BK, t_end = (k_end + F_BK - 1) / F_BK;
 
   stage_rows<F_BQ, VEC>(qs, ld, q + q_off, q_ld, q0, p.seq, d);
-  stage_rows<F_BK, VEC>(ks, ld, kb, kv_ld, t_begin * F_BK, p.seq, d);
-  stage_rows<F_BK, VEC>(vs, ld, vb, kv_ld, t_begin * F_BK, p.seq, d);
+  stage_rows<F_BK, VEC>(ks, ld, kb, kv_ld, t_begin * F_BK, p.seq_k, d);
+  stage_rows<F_BK, VEC>(vs, ld, vb, kv_ld, t_begin * F_BK, p.seq_k, d);
 
   float acc[2][NC] = {};
   float mrow[2] = {kNegInit, kNegInit}, lrow[2] = {0.0f, 0.0f};
@@ -741,10 +745,10 @@ __global__ void __launch_bounds__(F_THREADS)
     const int stage = (t - t_begin) & 1;
     if (t + 1 < t_end) {
       const int nxt = (stage ^ 1) * F_BK * ld;
-      stage_rows<F_BK, VEC>(ks + nxt, ld, kb, kv_ld, (t + 1) * F_BK, p.seq,
-                            d);
-      stage_rows<F_BK, VEC>(vs + nxt, ld, vb, kv_ld, (t + 1) * F_BK, p.seq,
-                            d);
+      stage_rows<F_BK, VEC>(ks + nxt, ld, kb, kv_ld, (t + 1) * F_BK,
+                            p.seq_k, d);
+      stage_rows<F_BK, VEC>(vs + nxt, ld, vb, kv_ld, (t + 1) * F_BK,
+                            p.seq_k, d);
       asm volatile("cp.async.wait_group 2;\n" ::: "memory");
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -775,7 +779,7 @@ __global__ void __launch_bounds__(F_THREADS)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int key = kt + tx + 8 * c;
-        const bool ok = key < p.seq && (!p.causal || key <= row) &&
+        const bool ok = key < p.seq_k && (!p.causal || key <= row) &&
                         (p.window <= 0 || key > row - p.window);
         sc[r][c] = ok ? sc[r][c] * p.scale : -INFINITY;
         mx = fmaxf(mx, sc[r][c]);
@@ -900,8 +904,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 int batch, const Params& p, cudaStream_t stream) {
   CUtensorMap qm, km, vm, om;
   if (!tensor_map<D>(&qm, q, batch, p.seq, p.heads, ROWS_WG) ||
-      !tensor_map<D>(&km, k, batch, p.seq, p.kv_heads, Tile<D>::BKV) ||
-      !tensor_map<D>(&vm, v, batch, p.seq, p.kv_heads, Tile<D>::BKV) ||
+      !tensor_map<D>(&km, k, batch, p.seq_k, p.kv_heads, Tile<D>::BKV) ||
+      !tensor_map<D>(&vm, v, batch, p.seq_k, p.kv_heads, Tile<D>::BKV) ||
       !tensor_map<D>(&om, o, batch, p.seq, p.heads, ROWS_WG))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = allow_smem<fa_bf16_kernel<D>>(Tile<D>::SMEM);
@@ -942,19 +946,21 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// q (B, S, H, D), k and v (B, S, Hkv, D), o (B, S, H, D); all bfloat16
-// (is_bf16 = 1, D 32, 64, 128 or 256) or all float32 (is_bf16 = 0,
-// D <= 256), contiguous, 16-byte aligned; H a multiple of Hkv; window <= 0
-// for none.
+// q (B, Sq, H, D), k and v (B, Sk, Hkv, D), o (B, Sq, H, D); all
+// bfloat16 (is_bf16 = 1, D 32, 64, 128 or 256) or all float32 (is_bf16 =
+// 0, D <= 256), contiguous, 16-byte aligned; H a multiple of Hkv; window
+// <= 0 for none; Sk >= 1, and Sk = Sq where the call is causal or has a
+// window.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, int batch, int seq,
-                                   int heads, int kv_heads, int head_dim,
-                                   int causal, int window, int is_bf16,
-                                   void* o, void* stream) {
-  if (batch == 0 || seq == 0 || heads == 0) return 0;
-  if (kv_heads <= 0 || heads % kv_heads || head_dim <= 0)
+                                   const void* v, int batch, int seq_q,
+                                   int seq_k, int heads, int kv_heads,
+                                   int head_dim, int causal, int window,
+                                   int is_bf16, void* o, void* stream) {
+  if (batch == 0 || seq_q == 0 || heads == 0) return 0;
+  if (kv_heads <= 0 || heads % kv_heads || head_dim <= 0 || seq_k <= 0 ||
+      ((causal || window > 0) && seq_k != seq_q))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{seq,    heads,  kv_heads,
+  const Params p{seq_q,  seq_k,  heads,  kv_heads,
                  causal, window, 1.0f / sqrtf(static_cast<float>(head_dim)),
                  (heads / kv_heads) % CONSUMERS == 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

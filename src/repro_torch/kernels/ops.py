@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention import (check_key_length,
+                                                 flash_attention_fwd)
 from repro_torch.kernels.fused_flush import FusedFlush
 from repro_torch.kernels.fused_gru import FusedGRU
 from repro_torch.kernels.neighbor_sample import (neighbor_sample_fwd,
@@ -51,14 +52,16 @@ def gru(x, h, wx, wh, bx, bh):
 def flash_attention(q, k, v, *, causal=True, window=None):
     """Causal or full attention with an optional sliding ``window`` (how
     many tokens a query may look back, itself included), in the model's
-    layout: q (B, S, H, D), k and v (B, S, Hkv, D), head h reading KV head
-    h // (H // Hkv). Float32 inside; returns (B, S, H, D) in q's dtype.
-    Forward only.
+    layout: q (B, Sq, H, D), k and v (B, Sk, Hkv, D), head h reading KV
+    head h // (H // Hkv); Sk = Sq where ``causal`` or ``window``, any Sk
+    >= 1 otherwise (cross-attention). Float32 inside; returns (B, Sq, H,
+    D) in q's dtype. Forward only.
 
     (The JAX package's op takes (B, H, S, D) with equal head counts, plus
     ``block_q`` / ``block_k``, which are TPU tiles. On the CPU the plain
     version gets that layout: K and V repeated in kv-major order and the
     axes moved.)"""
+    check_key_length(q.shape[1], k.shape[1], causal, window)
     if _on_card(q):
         return flash_attention_fwd(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=causal,

@@ -356,14 +356,15 @@ def rwkv6_subchunk_ref(r, k, v, w, u, *, state=None, chunk: int = 64,
 
 
 def flash_attention_probs(q, k, *, causal=True, window=None):
-    """The softmax weights of ``flash_attention_ref``: (B, H, S, S)
+    """The softmax weights of ``flash_attention_ref``: (B, H, Sq, Sk)
     float32."""
-    s, d = q.shape[-2], q.shape[-1]
+    sq, d = q.shape[-2], q.shape[-1]
+    sk = k.shape[-2]
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(),
                           k.float()) * (1.0 / math.sqrt(d))
-    qi = torch.arange(s, device=q.device)[:, None]
-    ki = torch.arange(s, device=q.device)[None, :]
-    m = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    qi = torch.arange(sq, device=q.device)[:, None]
+    ki = torch.arange(sk, device=q.device)[None, :]
+    m = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
         m &= ki <= qi
     if window is not None:
@@ -374,8 +375,9 @@ def flash_attention_probs(q, k, *, causal=True, window=None):
 def flash_attention_ref(q, k, v, *, causal=True, window=None):
     """Dense attention, the function flash attention computes.
 
-    q, k, v: (B, H, S, D), equal head counts; ``window``: how many tokens
-    each query may look back, itself included (None: unbounded). Scores
+    q: (B, H, Sq, D); k, v: (B, H, Sk, D), equal head counts; query i
+    and key j at positions i and j; ``window``: how many tokens each
+    query may look back, itself included (None: unbounded). Scores
     (scaled by 1 / sqrt(D)), softmax and the weighted sum in float32,
     masked with -1e30; the output has q's dtype."""
     att = flash_attention_probs(q, k, causal=causal, window=window)

@@ -1,14 +1,16 @@
-"""The language-model substrate of the port, so far the RWKV6, dense
-attention and MoE decoder families: ``layers`` (linear, RMSNorm, RoPE,
-plain and gated FFNs, decode attention), ``rwkv`` (time-mix and
-channel-mix), ``moe`` (top-k routing, sort-based capacity dispatch),
-``transformer`` (per-family blocks, qk-norm), ``model`` (init, forward,
-decode cache, ``serve_step``, tied embeddings), ``sampling`` and
-``serve`` (batched generation and its CLI). Copies of ``repro/models``;
-the other families raise ``NotImplementedError``.
+"""The language-model substrate of the port, every family of the JAX
+package's registry: ``layers`` (linear, RMSNorm, RoPE, M-RoPE, the
+sinusoid table, plain and gated FFNs, decode attention, mamba's causal
+conv), ``rwkv`` (time-mix and channel-mix), ``moe`` (top-k routing,
+sort-based capacity dispatch), ``ssm`` (mamba's heads), ``transformer``
+(per-family blocks, qk-norm, cross-attention), ``model`` (init, the
+encoder, forward, decode cache, ``serve_step``, tied embeddings),
+``sampling`` and ``serve`` (batched generation and its CLI). Copies of
+``repro/models``, serving only.
 """
 
-from repro_torch.models.model import (forward, init_cache, init_params,
-                                      serve_step)
+from repro_torch.models.model import (encode, fill_enc_cache, forward,
+                                      init_cache, init_params, serve_step)
 
-__all__ = ["init_params", "forward", "init_cache", "serve_step"]
+__all__ = ["init_params", "encode", "fill_enc_cache", "forward",
+           "init_cache", "serve_step"]

@@ -1,8 +1,8 @@
 """Building blocks, as ``repro/models/layers.py``: linear layers and
 RMSNorm (params stored in float32 and cast to the activations' dtype on
-every call; the norm works in float32 and casts back), RoPE, the FFN
-(plain or gated), single-token attention against a KV cache and mamba's
-depthwise causal convolution.
+every call; the norm works in float32 and casts back), RoPE, M-RoPE,
+the sinusoid table, the FFN (plain or gated), single-token attention
+against a KV cache and mamba's depthwise causal convolution.
 Activations are (B, S, ...), attention heads (B, S, H, Dh). Full-sequence
 attention is the flash attention op
 (``repro_torch.kernels.ops.flash_attention``)."""
@@ -15,7 +15,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["linear_init", "linear", "rmsnorm_init", "rmsnorm", "draw",
-           "rope_freqs", "apply_rope", "ffn_init", "ffn_apply",
+           "rope_freqs", "apply_rope", "apply_mrope",
+           "sinusoidal_positions", "ffn_init", "ffn_apply",
            "decode_attention", "causal_conv1d"]
 
 
@@ -69,6 +70,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                inv_freq: torch.Tensor) -> torch.Tensor:
     """x: (B, S, H, Dh); positions: (B, S) int."""
     return _rotate(x, positions[..., None].float() * inv_freq)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                inv_freq: torch.Tensor, sections) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): the frequency ladder split into
+    per-axis sections (t, h, w), each rotating by its own position
+    stream. x: (B, S, H, Dh); positions3: (B, 3, S) int; ``sections``
+    sums to Dh / 2. With three equal streams it is ``apply_rope``."""
+    if sum(sections) != inv_freq.shape[0]:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"{inv_freq.shape[0]} frequencies")
+    parts, off = [], 0
+    for axis, sec in enumerate(sections):
+        parts.append(positions3[:, axis, :, None].float()
+                     * inv_freq[off:off + sec])
+        off += sec
+    return _rotate(x, torch.cat(parts, dim=-1))
+
+
+def sinusoidal_positions(s: int, d: int, offset: int = 0,
+                         device=None) -> torch.Tensor:
+    """The classic sin / cos table (s, d), float32: position p, column i <
+    d / 2 sin(p / 10000^(2 i / d)), column d / 2 + i its cos."""
+    pos = torch.arange(offset, offset + s, dtype=torch.float32,
+                       device=device)[:, None]
+    i = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10_000.0 ** (2 * i / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # --------------------------------------------------------------------- FFN

@@ -1,6 +1,7 @@
-"""Public LM API of the port: init / forward / init_cache / serve_step, as
-``repro/models/model.py`` for the decoder-only RWKV6, dense, MoE and
-hybrid (hymba) families.
+"""Public LM API of the port: init / encode / fill_enc_cache / forward /
+init_cache / serve_step, as ``repro/models/model.py``, for every family:
+RWKV6, dense, MoE, hybrid (hymba), encoder-decoder (seamless) and
+vision-language (Qwen2-VL).
 
 Layer parameters are stacked over a leading layer axis, as the JAX package
 stacks them for ``jax.lax.scan``, so ``repro_torch.convert`` carries a JAX
@@ -10,10 +11,17 @@ the layer axis takes the scan's place.
 Entry points take ``device=None``, which means ``"cuda"``, and raise
 without a card; params and caches must already lie on that device.
 
-Batch layouts: forward ``{"tokens": (B, S)}`` (positions 0..S-1);
-serve_step ``{"token": (B,), "pos": (B,)}`` with the cache of
-``init_cache``. RWKV6's state holds no positions, so it reads no
-``"pos"`` and ignores ``cache_len``.
+Batch layouts: forward ``{"tokens": (B, S)}`` (positions 0..S-1); the
+encoder-decoder adds ``"frames"`` (B, S_enc, d), the stubbed audio frame
+embeddings; the vision-language family ``"patches"`` (B, F, d), the
+stubbed image patch embeddings prepended to the tokens, and
+``"positions3"`` (B, 3, F + S), M-RoPE's (t, h, w) positions. serve_step
+``{"token": (B,), "pos": (B,)}`` with the cache of ``init_cache`` (for the
+encoder-decoder filled by ``fill_enc_cache``; Qwen2-VL's text decode
+takes t = h = w = pos). RWKV6's state holds no positions, so it reads no
+``"pos"`` and ignores ``cache_len``. The seamless decoder gets no
+positions at all, in ``forward`` or ``serve_step``, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -24,13 +32,15 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import draw, linear_init, rmsnorm, rmsnorm_init
+from repro_torch.models.layers import (draw, linear_init, rmsnorm,
+                                       rmsnorm_init, sinusoidal_positions)
 from repro_torch.models.transformer import (block_apply, block_decode,
-                                            block_init, init_block_cache)
+                                            block_init, init_block_cache,
+                                            project_kv)
 from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["init_params", "forward", "init_cache", "serve_step",
-           "compute_dtype"]
+__all__ = ["init_params", "encode", "fill_enc_cache", "forward",
+           "init_cache", "serve_step", "compute_dtype"]
 
 
 def compute_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -58,16 +68,22 @@ def _check_on(name: str, tree: dict, device: torch.device) -> None:
 def init_params(gen: torch.Generator, cfg: ArchConfig, device=None) -> dict:
     """Params under the JAX package's keys (``embed``, ``final_norm/g``,
     ``layers/tm/wr/w`` stacked over layers, ``lm_head/w``; no ``lm_head``
-    with ``tie_embeddings``), drawn from ``gen`` on its own device and
-    placed on ``device``."""
+    with ``tie_embeddings``; the encoder-decoder's ``enc_layers`` and
+    ``enc_norm``, and ``layers/cross`` and ``layers/ln_cross``), drawn
+    from ``gen`` on its own device and placed on ``device``."""
     device = resolve_device(device)
     d = cfg.d_model
     params: dict[str, Any] = {
         "embed": draw(gen, (cfg.vocab, d), d ** -0.5, device),
         "final_norm": rmsnorm_init(d, device),
     }
-    params["layers"] = _stack([block_init(gen, cfg, device=device)
-                               for _ in range(cfg.n_layers)])
+    params["layers"] = _stack([
+        block_init(gen, cfg, cross=cfg.enc_dec, device=device)
+        for _ in range(cfg.n_layers)])
+    if cfg.enc_dec:
+        params["enc_layers"] = _stack([block_init(gen, cfg, device=device)
+                                       for _ in range(cfg.n_enc_layers)])
+        params["enc_norm"] = rmsnorm_init(d, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = linear_init(gen, d, cfg.vocab, device=device)
     return params
@@ -87,34 +103,83 @@ def _logits(params, cfg: ArchConfig, x):
     return x @ params["lm_head"]["w"].to(x.dtype)
 
 
+def encode(params, frames, cfg: ArchConfig, device=None):
+    """The encoder stack over (stubbed) frame embeddings (B, S_enc, d):
+    the frames cast to bfloat16 plus the sinusoid table rounded to
+    bfloat16, non-causal layers, ``enc_norm``. Returns the encoder memory
+    (B, S_enc, d), bfloat16 whatever ``cfg.dtype`` is, as in the JAX
+    package."""
+    device = resolve_device(device)
+    _check_on("params", params, device)
+    x = torch.as_tensor(frames).to(device=device, dtype=torch.bfloat16)
+    b, s_enc, d = x.shape
+    x = x + sinusoidal_positions(s_enc, d, device=device).to(x.dtype)
+    positions = torch.arange(s_enc, device=device).broadcast_to(b, s_enc)
+    for i in range(cfg.n_enc_layers):
+        x, _ = block_apply(_layer(params["enc_layers"], i), cfg, x,
+                           positions, causal=False)
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def fill_enc_cache(params, cache, frames, cfg: ArchConfig, device=None):
+    """Serving prefill of the encoder-decoder: run the encoder once and
+    project every decoder layer's cross-attention K and V of its memory
+    into the cache (``enc_k``, ``enc_v``: (L, B, S_enc, Hkv, Dh)
+    bfloat16); decode steps then never touch the encoder. Returns the new
+    cache; the one passed in is not changed."""
+    enc_out = encode(params, frames, cfg, device)
+    kv = [project_kv(_layer(params["layers"], i)["cross"], cfg, enc_out)
+          for i in range(cfg.n_layers)]
+    return {**cache,
+            "enc_k": torch.stack([k for k, _ in kv]).to(torch.bfloat16),
+            "enc_v": torch.stack([v for _, v in kv]).to(torch.bfloat16)}
+
+
 def forward(params, batch, cfg: ArchConfig, device=None):
     """Returns (logits (B, S, vocab) in the compute dtype, aux): aux is
     the MoE router's load-balance loss summed over the layers, a float32
     scalar (0 for the other families), as the JAX package's scan sums
-    it."""
+    it. The encoder-decoder encodes ``batch["frames"]`` first; the
+    vision-language family prepends ``batch["patches"]`` and returns the
+    logits of the text positions only."""
     device = resolve_device(device)
     _check_on("params", params, device)
+    enc_out = (encode(params, batch["frames"], cfg, device) if cfg.enc_dec
+               else None)
     tokens = torch.as_tensor(batch["tokens"]).to(device)
     x = _embed_tokens(params, cfg, tokens)                 # (B, S, d)
-    b, s = tokens.shape
-    positions = torch.arange(s, device=device).broadcast_to(b, s)
+    n_front = 0
+    if cfg.frontend == "vision" and "patches" in batch:
+        patches = torch.as_tensor(batch["patches"]).to(device=device,
+                                                       dtype=x.dtype)
+        n_front = patches.shape[1]
+        x = torch.cat([patches, x], dim=1)
+    b, s, _ = x.shape
+    if cfg.rope == "mrope":
+        positions = torch.as_tensor(batch["positions3"]).to(device)
+    else:
+        positions = torch.arange(s, device=device).broadcast_to(b, s)
     # the layers in order: the JAX package's scan over stacked params
     aux = torch.zeros((), dtype=torch.float32, device=device)
     for i in range(cfg.n_layers):
-        x, a = block_apply(_layer(params["layers"], i), cfg, x, positions)
+        x, a = block_apply(_layer(params["layers"], i), cfg, x, positions,
+                           enc_out=enc_out)
         aux = aux + a
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = rmsnorm(params["final_norm"], x[:, n_front:], cfg.norm_eps)
     return _logits(params, cfg, x), aux
 
 
 # -------------------------------------------------------------- decode
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len=None,
-               device=None) -> dict:
-    """Decode state, stacked over layers: each leaf (L, B, ...). Dense,
-    MoE and hybrid: K and V caches of ``cache_len`` slots (the prompt plus
-    the tokens to generate), at most ``cfg.window`` (a ring buffer then);
-    hybrid also mamba's conv and SSM states. RWKV6's state does not grow
+               device=None, enc_len: int = 0) -> dict:
+    """Decode state, stacked over layers: each leaf (L, B, ...). The
+    attention families: K and V caches of ``cache_len`` slots (the prompt
+    plus the tokens to generate), at most ``cfg.window`` (a ring buffer
+    then); hybrid also mamba's conv and SSM states; the encoder-decoder
+    with ``enc_len`` also the encoder memory's K and V for
+    ``fill_enc_cache`` to write (without them decode skips
+    cross-attention, as in the JAX package). RWKV6's state does not grow
     with the sequence and reads no ``cache_len``."""
     device = resolve_device(device)
     if not cfg.rwkv:
@@ -122,7 +187,7 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len=None,
             raise ValueError(f"{cfg.name}: init_cache needs cache_len")
         if cfg.window is not None:
             cache_len = min(cache_len, cfg.window)
-    one = init_block_cache(cfg, batch, cache_len, device)
+    one = init_block_cache(cfg, batch, cache_len, device, enc_len)
     return tree_map(lambda x: x[None].repeat(
         (cfg.n_layers,) + (1,) * x.dim()), one)
 
@@ -132,7 +197,8 @@ def serve_step(params, cache, batch, cfg: ArchConfig, device=None):
     token's absolute position, for the attention families).
 
     Returns (logits (B, vocab), new_cache); the cache passed in is not
-    changed."""
+    changed, and the encoder memory's K and V, which decode never
+    writes, are passed on as they are."""
     device = resolve_device(device)
     _check_on("params", params, device)
     _check_on("cache", cache, device)
@@ -140,10 +206,11 @@ def serve_step(params, cache, batch, cfg: ArchConfig, device=None):
     pos = None if cfg.rwkv else torch.as_tensor(batch["pos"]).to(
         device=device, dtype=torch.int64)
     x = _embed_tokens(params, cfg, tokens)
+    fixed = {k: cache[k] for k in ("enc_k", "enc_v") if k in cache}
     new = []
     for i in range(cfg.n_layers):
         x, c = block_decode(_layer(params["layers"], i), cfg, x, pos,
                             _layer(cache, i))
-        new.append(c)
+        new.append({k: v for k, v in c.items() if k not in fixed})
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)[:, 0]
-    return _logits(params, cfg, x), _stack(new)
+    return _logits(params, cfg, x), {**_stack(new), **fixed}

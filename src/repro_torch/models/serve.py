@@ -1,17 +1,21 @@
 """Batched serving, as ``examples/serve_lm.py``: prefill a batch of prompts
 one token at a time through ``serve_step`` (the recurrent state or the KV
-cache fills up), then decode, greedy or sampled.
+cache fills up), then decode, greedy or sampled. The encoder-decoder
+first runs its encoder once over the batch's frames and keeps the
+memory's K and V in the cache (``fill_enc_cache``).
 
     PYTHONPATH=src python -m repro_torch.models.serve --arch hymba-1.5b \\
         --batch 4 --prompt-len 32 --gen 32 [--full] [--device cpu]
 
 Without ``--full`` the arch's reduced config runs, as in ``serve_lm.py``;
 ``--full`` runs the published widths, for the card. Params are float32:
-RWKV6-1.6B about 6.3 GB, Hymba-1.5B 6.65 GB, StarCoder2-3B 12.7 GB,
-Minitron-4B 20.4 GB, OLMoE-1B-7B 27.7 GB, Gemma-7B 34.2 GB; Qwen3-32B
-(131.0 GB) and Qwen3-MoE-235B-A22B (940.4 GB) do not fit one 80 GB card
-at full width.
-Params are random, from seed 0.
+RWKV6-1.6B about 6.3 GB, Hymba-1.5B 6.65 GB, SeamlessM4T-medium 3.51 GB,
+StarCoder2-3B 12.7 GB, Minitron-4B 20.4 GB, OLMoE-1B-7B 27.7 GB, Qwen2-VL-7B
+30.46 GB, Gemma-7B 34.2 GB; Qwen3-32B (131.0 GB) and Qwen3-MoE-235B-A22B
+(940.4 GB) do not fit one 80 GB card at full width.
+Params are random, from seed 0; SeamlessM4T-medium's 16 frames (B, 16,
+d) are drawn from the seed before the prompts, as ``serve_lm.py`` draws
+them; Qwen2-VL decodes text (t = h = w = the position).
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, get_config, list_archs
 from repro_torch.device import resolve_device
-from repro_torch.models.model import init_cache, init_params, serve_step
+from repro_torch.models.model import (fill_enc_cache, init_cache,
+                                      init_params, serve_step)
 from repro_torch.models.sampling import sample_tokens
 
 __all__ = ["Generation", "generate", "main"]
@@ -45,19 +50,28 @@ def _sync(device: torch.device) -> None:
 
 
 def generate(params, cfg: ArchConfig, prompts, gen: int, *,
-             temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+             frames=None, temperature: float = 0.0, top_k: int = 0,
+             top_p: float = 1.0,
              generator: Optional[torch.Generator] = None,
              device=None) -> Generation:
     """Prefill ``prompts`` (B, P) int, P >= 1, then decode ``gen`` tokens;
     ``prompt_len + gen`` calls of ``serve_step`` in all, token t at
     position t; a KV cache holds ``prompt_len + gen`` slots (at most the
-    window). Tokens stay on the device until the end."""
+    window). The encoder-decoder needs ``frames`` (B, S_enc, d), encoded
+    once before the prefill (outside its time). Tokens stay on the device
+    until the end."""
     device = resolve_device(device)
     prompts = torch.as_tensor(np.asarray(prompts)).to(device)
     b, plen = prompts.shape
     if plen < 1:
         raise ValueError("generate needs at least one prompt token")
-    cache = init_cache(cfg, b, plen + gen, device=device)
+    if cfg.enc_dec and frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: generate "
+                         f"needs frames (B, S_enc, d)")
+    enc_len = torch.as_tensor(frames).shape[1] if cfg.enc_dec else 0
+    cache = init_cache(cfg, b, plen + gen, device=device, enc_len=enc_len)
+    if cfg.enc_dec:
+        cache = fill_enc_cache(params, cache, frames, cfg, device=device)
 
     def pos(t):
         return torch.full((b,), t, dtype=torch.int64, device=device)
@@ -114,8 +128,10 @@ def main(argv=None) -> None:
     draws = torch.Generator(device=device).manual_seed(0)
     params = init_params(draws, cfg, device=device)
     rng = np.random.default_rng(0)
+    frames = (rng.normal(size=(args.batch, 16, cfg.d_model)).astype(
+        np.float32) if cfg.enc_dec else None)
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))
-    res = generate(params, cfg, prompts, args.gen,
+    res = generate(params, cfg, prompts, args.gen, frames=frames,
                    temperature=args.temperature, top_k=args.top_k,
                    top_p=args.top_p, generator=draws, device=device)
     b = args.batch

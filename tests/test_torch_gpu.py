@@ -1142,6 +1142,39 @@ def test_flash_kernel_matches_plain(cuda, dtype, b, s, h, hkv, d, causal,
         assert bool((diff <= bound).all()), float((diff / bound).max())
 
 
+@pytest.mark.parametrize("dtype,b,sq,sk,h,hkv,d", [
+    (torch.bfloat16, 2, 512, 1024, 16, 16, 64),   # seamless's cross shape
+    (torch.bfloat16, 2, 333, 1000, 4, 4, 64),
+    (torch.float32, 2, 333, 1000, 4, 2, 64),
+    (torch.bfloat16, 1, 1024, 256, 4, 4, 64),     # more queries than keys
+    (torch.bfloat16, 1, 77, 333, 3, 1, 128),      # unpaired blocks
+    (torch.bfloat16, 1, 1, 257, 2, 2, 256),
+    (torch.float32, 1, 40, 9, 4, 4, 21)])
+def test_flash_kernel_at_a_key_length(cuda, dtype, b, sq, sk, h, hkv, d):
+    """Non-causal calls with Sk keys of their own (cross-attention), bf16
+    and float32, fewer and more keys than queries, ragged: one launch,
+    two calls bitwise equal, within the plain version's limits; a causal
+    call with Sk != Sq raises."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((b, sq, h, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, sk, hkv, d), generator=gen,
+                        device=cuda).to(dtype) for _ in range(2))
+    before = KERNELS["flash_attention"].launches
+    got = ops.flash_attention(q, k, v, causal=False)
+    assert KERNELS["flash_attention"].launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=False))
+    want, scale = _plain_attention(q, k, v, False, None)
+    diff = (got.float().cpu() - want).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) < 1e-5
+    else:
+        bound = 2 ** -8 * want.abs() + 2 ** -14 * scale
+        assert bool((diff <= bound).all()), float((diff / bound).max())
+    with pytest.raises(ValueError, match="as many keys"):
+        ops.flash_attention(q, k, v, causal=True)
+
+
 def test_gru_and_flash_wrappers_reject_bad_arguments(cuda):
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.fused_gru import fused_gru_fwd

@@ -168,3 +168,29 @@ def test_hybrid_entry_points_refuse_to_run_without_a_card(monkeypatch):
     x = torch.zeros((1, 3, 16))
     with pytest.raises(ValueError, match="CUDA"):
         selective_scan_fwd(x, x, x[..., :8], x[..., :8], torch.zeros(16, 8))
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "qwen2-vl-7b"])
+def test_encdec_and_vlm_entry_points_refuse_to_run_without_a_card(
+        monkeypatch, arch):
+    """The encoder-decoder's ``encode`` / ``fill_enc_cache`` and both
+    families' ``forward``, ``generate`` and CLI default to the card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config(arch, reduced=True)
+    params = model.init_params(torch.Generator(), cfg, device="cpu")
+    tokens = torch.zeros((2, 4), dtype=torch.int64)
+    frames = torch.zeros((2, 3, cfg.d_model))
+    batch = {"tokens": tokens, "frames": frames,
+             "patches": frames, "positions3": torch.zeros((2, 3, 7))}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.forward(params, batch, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.generate(params, cfg, tokens, 1, frames=frames)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", arch, "--gen", "1"])
+    if cfg.enc_dec:
+        cache = model.init_cache(cfg, 2, 8, device="cpu", enc_len=3)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            model.encode(params, frames, cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            model.fill_enc_cache(params, cache, frames, cfg)

@@ -941,24 +941,32 @@ def test_flash_attention_op_takes_gqa_in_the_model_layout(window):
     _close(got.numpy(), want)
 
 
-def _fa_kernel_schedule(q, k, v, causal, window, drop_edge=False):
-    """The bf16 flash kernel's loop, in plain PyTorch on (B, H, S, D)
-    float32 q and K / V already repeated to H heads: query tiles of
-    ``BLOCK_Q``, each over the key tiles of ``BLOCK_KV[D]`` from the one
-    holding its first query's window start to its last key; a running max
-    from -1e30, masked scores -inf, P split into hi + lo bf16 parts for
-    P V, float32 sums, the output rounded to bf16. ``drop_edge``: a faulty
-    schedule that passes over the key tile at each query tile's window
-    edge."""
+def _fa_kernel_schedule(q, k, v, causal, window, drop_edge=False,
+                        mask_at_sq=False):
+    """The bf16 flash kernel's loop, in plain PyTorch on (B, H, Sq, D)
+    float32 q and (B, H, Sk, D) K / V already repeated to H heads: query
+    tiles of ``BLOCK_Q``, each over the key tiles of ``BLOCK_KV[D]`` from
+    the one holding its first query's window start to its last key (the
+    last of all Sk without causality), keys past Sk zero-filled and
+    masked; a running max from -1e30, masked scores -inf, P split into
+    hi + lo bf16 parts for P V, float32 sums, the output rounded to bf16.
+    ``drop_edge``: a faulty schedule that passes over the key tile at each
+    query tile's window edge; ``mask_at_sq``: one that masks keys past Sq
+    in place of Sk."""
     from repro_torch.kernels.flash_attention import BLOCK_KV, BLOCK_Q
 
     s, d = q.shape[-2], q.shape[-1]
+    sk = k.shape[-2]
     block_kv = BLOCK_KV[d]
     scale = 1.0 / np.sqrt(d)
+    # zero-filled to whole tiles past both lengths, as TMA fills
+    pad = -(-max(s, sk) // block_kv) * block_kv - sk
+    k, v = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (k, v))
+    key_lim = s if mask_at_sq else sk
     out = torch.zeros_like(q)
     for q0 in range(0, s, BLOCK_Q):
         rows = torch.arange(q0, min(q0 + BLOCK_Q, s))[:, None]
-        k_end = min(q0 + BLOCK_Q, s) if causal else s
+        k_end = min(q0 + BLOCK_Q, sk) if causal else sk
         k_begin = max(0, q0 - window + 1) if window else 0
         t_begin, t_end = k_begin // block_kv, -(-k_end // block_kv)
         m = torch.full(q.shape[:2] + (len(rows), 1), -1e30)
@@ -967,9 +975,9 @@ def _fa_kernel_schedule(q, k, v, causal, window, drop_edge=False):
         for t in range(t_begin, t_end):
             if drop_edge and window and q0 >= window and t == t_begin:
                 continue
-            keys = torch.arange(t * block_kv, min((t + 1) * block_kv, s))
+            keys = torch.arange(t * block_kv, (t + 1) * block_kv)
             sc = q[..., rows[:, 0], :] @ k[..., keys, :].transpose(-1, -2)
-            ok = torch.ones(len(rows), len(keys), dtype=torch.bool)
+            ok = (keys < key_lim)[None, :].expand(len(rows), -1).clone()
             if causal:
                 ok &= keys[None, :] <= rows
             if window:
@@ -1016,6 +1024,32 @@ def test_flash_kernel_tile_schedule_matches_plain(s, h, hkv, d, causal,
     lim = 2 ** -8 * want.abs() + 2 ** -14 * (att @ v.abs()).double()
     ratio = float(((got.double() - want).abs() / lim).max())
     assert (ratio <= 1.0) == (not drop_edge), ratio
+
+
+@pytest.mark.parametrize("sq,sk,h,hkv,d,mask_at_sq", [
+    (130, 300, 4, 4, 64, False),     # cross-attention: fewer queries
+    (300, 75, 4, 2, 32, False),      # more queries than keys
+    (1, 257, 2, 2, 256, False),      # one query, 64-key tiles
+    (77, 333, 3, 1, 128, False),     # odd group: unpaired blocks
+    (130, 300, 4, 4, 64, True),      # faulty: keys masked at Sq
+    (77, 333, 3, 1, 128, True)])
+def test_flash_kernel_tile_schedule_at_a_key_length(sq, sk, h, hkv, d,
+                                                    mask_at_sq):
+    """The emulated schedule, non-causal with Sk keys of its own (the
+    kernel's key length), agrees with the plain version within the bf16
+    limit; the one that masks keys at the query length does not."""
+    rng = np.random.default_rng(sq * sk)
+    q = _t(rng.standard_normal((1, h, sq, d)).astype(np.float32))
+    k, v = (_t(rng.standard_normal((1, hkv, sk, d)).astype(
+        np.float32)).bfloat16().float().repeat_interleave(h // hkv, dim=1)
+        for _ in range(2))
+    q = q.bfloat16().float()
+    got = _fa_kernel_schedule(q, k, v, False, None, mask_at_sq=mask_at_sq)
+    att = ref.flash_attention_probs(q, k, causal=False)
+    want = (att @ v).double()
+    lim = 2 ** -8 * want.abs() + 2 ** -14 * (att @ v.abs()).double()
+    ratio = float(((got.double() - want).abs() / lim).max())
+    assert (ratio <= 1.0) == (not mask_at_sq), ratio
 
 
 def test_gru_and_flash_wrappers_refuse_cpu_tensors():

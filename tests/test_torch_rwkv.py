@@ -33,13 +33,13 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as jax_config  # noqa: E402
+from repro.configs.base import list_archs as jax_archs  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.rwkv6_scan import rwkv6_chunked  # noqa: E402
 from repro.models import model as jm  # noqa: E402
 from repro.models.sampling import sample_tokens as jax_sample  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs.base import (ArchConfig, get_config,  # noqa: E402
-                                      list_archs)
+from repro_torch.configs.base import get_config, list_archs  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rwkv6_scan  # noqa: E402
 from repro_torch.kernels.build import KERNELS  # noqa: E402
@@ -355,15 +355,16 @@ RWKV6_FIELDS = ("name", "family", "citation", "n_layers", "d_model", "d_ff",
 
 def test_configs_are_copies():
     """Every field of the port's ArchConfig that the RWKV6 code reads has
-    the JAX config's value."""
-    assert ARCH in list_archs() and "seamless-m4t-medium" not in list_archs()
+    the JAX config's value; the registry holds every LM arch of the JAX
+    package's, and an unknown name raises ``KeyError``."""
+    assert list_archs() == [a for a in jax_archs() if a != "speed-tig"]
     for reduced in (False, True):
         a = dataclasses.asdict(jax_config(ARCH, reduced=reduced))
         b = dataclasses.asdict(get_config(ARCH, reduced=reduced))
         assert {f: b[f] for f in RWKV6_FIELDS} == {f: a[f]
                                                    for f in RWKV6_FIELDS}
     with pytest.raises(KeyError):
-        get_config("seamless-m4t-medium")
+        get_config("no-such-arch")
 
 
 def test_params_round_trip_key_for_key():
@@ -386,11 +387,15 @@ def test_params_round_trip_key_for_key():
 
 
 def test_other_families_are_not_ported_yet():
-    cfg = ArchConfig(name="audio", family="audio", citation="-",
-                     n_layers=1, d_model=64, n_heads=4, n_kv_heads=4,
-                     d_ff=128, vocab=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_params(torch.Generator(), cfg, device="cpu")
+    """None is left: every LM arch of the JAX package's registry (all but
+    the TIG workload ``speed-tig``) is in the port's, FULL and REDUCED,
+    and an unknown name raises ``KeyError`` in both tables."""
+    names = [a for a in jax_archs() if a != "speed-tig"]
+    assert list_archs() == names
+    for reduced in (False, True):
+        assert [get_config(a, reduced=reduced).name for a in names] == names
+        with pytest.raises(KeyError):
+            get_config("no-such-arch", reduced=reduced)
 
 
 # -------------------------------------------------------------- model
