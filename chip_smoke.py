@@ -199,12 +199,16 @@ Phases, each fatal on failure:
      against its plain version at SCAN_SHAPES: Hymba-1.5B's forward (B 2,
      S 4096, d_inner 3200, state 16, bf16, zero state), a ragged S 333
      with a state in float32 and bf16, decode (B 4, S 1) with a state,
-     and a REDUCED shape (d_inner 256, state 8); the state to 1e-5 of its
+     a REDUCED shape (d_inner 256, state 8), and S 127 / 128 / 257 around
+     the chunked form's threshold and chunk; the state to 1e-5 of its
      largest |plain|, y to 1e-5 of the largest |plain y| plus, in bf16,
-     one bf16 unit of each element; faulty plain versions (dt x not
-     rounded to bf16, the given state ignored) must fail the same limits;
-     two calls bitwise equal; each shape timed beside its plain version
-     and its bound (the SFU's exponentials at the forward shape);
+     one bf16 unit of each element, for the form the wrapper picks (the
+     chunked one from S 128, the per-state one below) and for both forms
+     by name; faulty plain versions (dt x not rounded to bf16, the given
+     state ignored) must fail the same limits against each form; each
+     form's two calls bitwise equal at the forward shape; each shape
+     timed beside its plain version and its bound (the SFU's
+     exponentials at the forward shape);
  18. small-input agreement: REDUCED Hymba-1.5B in float32, ``forward``
      logits and 24 greedy ``generate`` tokens after a 24-token prompt
      (the ring of the window's 32 slots wraps) on the card against the
@@ -303,6 +307,9 @@ SCAN_SHAPES = (       # (label, B, S, di, n, dtype, initial state)
     ("ragged bf16", 2, 333, 3200, 16, "bfloat16", True),
     ("decode", 4, 1, 3200, 16, "bfloat16", True),
     ("reduced", 2, 128, 256, 8, "float32", True),
+    ("below the threshold", 2, 127, 3200, 16, "bfloat16", True),
+    ("at the threshold", 2, 128, 3200, 16, "bfloat16", True),
+    ("two chunks + 1", 2, 257, 3200, 16, "bfloat16", True),
 )
 TIG_PATH = ("neighbor_sample", "fused_flush", "temporal_attn",
             "temporal_attn_bwd", "fused_gru_bwd")  # the flush's backward
@@ -2362,56 +2369,77 @@ def scan_bound(b, s, di, n, elt, with_state) -> tuple:
                                                            "operations")
 
 
+def scan_inputs(torch, gen, dev, b, s, di, n, dtype, with_state) -> tuple:
+    """The scan's inputs as the model makes them, from ``gen``: x, b and c
+    standard normal, dt = softplus(N(-4, 0.5)) (the init's dt bias is
+    -4.6), a = -(1..n) (``a_log = log(1..n)``), the state standard normal.
+    Returns ((x, dt, b, c, a), state or None)."""
+    import torch.nn.functional as F
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x = randn(b, s, di).to(dtype)
+    dt = F.softplus(randn(b, s, di) * 0.5 - 4.0).to(dtype)
+    bm, cm = (randn(b, s, n).to(dtype) for _ in range(2))
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).repeat(di,
+                                                                        1)
+    return (x, dt, bm, cm, a), (randn(b, di, n) if with_state else None)
+
+
+def scan_limit_ratio(torch, got, want, parts: bool = False):
+    """The scan's largest error over its limit (at most 1 passes): the
+    state to SCAN_REL of its largest |plain|; y to SCAN_REL of the largest
+    |plain y|, plus in bfloat16 one bfloat16 unit of each element
+    (BF16_UNIT: the kernel's and the plain version's roundings of y to
+    bfloat16 may fall on the two sides of a boundary). ``parts``: (y's
+    ratio, the state's) instead of the larger."""
+    (y, h), (yw, hw) = got, want
+    yd, ywd = y.double(), yw.double()
+    lim = SCAN_REL * float(ywd.abs().max()) + (
+        BF16_UNIT * ywd.abs() if y.dtype == torch.bfloat16 else 0.0)
+    ratios = (float(((yd - ywd).abs() / lim).max()),
+              float((h - hw).abs().max()) / (SCAN_REL
+                                             * float(hw.abs().max())))
+    return ratios if parts else max(ratios)
+
+
 def scan_checks(torch, dev) -> list:
     """Phase 17: the selective scan kernel (through ``ops.selective_scan``,
     as ``mamba_apply`` calls it) against ``ref.selective_scan_ref`` on the
     card at SCAN_SHAPES: hymba-1.5B's forward from a zero state, a ragged S
     333 with a state in float32 and in bfloat16, decode (B 4, S 1) with a
-    state, and a REDUCED shape at n 8. Inputs as the model makes them: x,
-    b and c standard normal, dt = softplus(N(-4, 0.5)) (the init's dt bias
-    is -4.6), a = -(1..n) (``a_log = log(1..n)``), the state standard
-    normal. Limits: the state to SCAN_REL of its largest |plain|; y to
-    SCAN_REL of the largest |plain y|, plus in bfloat16 one bfloat16 unit
-    of each element (BF16_UNIT: the kernel's and the plain version's
-    roundings of y to bfloat16 may fall on the two sides of a boundary).
-    Two faulty plain versions must fail the same limits: one that forms dt
-    x in float32, without the JAX package's bfloat16 rounding (at the
-    bfloat16 shapes with S > 1), and one that ignores the given state (at
-    every shape with one). One launch a call; two calls at the forward
-    shape bitwise equal."""
-    import torch.nn.functional as F
-
+    state, a REDUCED shape at n 8, and S 127 / 128 / 257 (the chunked
+    form's threshold, a chunk edge) with a state. Inputs from
+    ``scan_inputs``, limits those of ``scan_limit_ratio``. Two faulty
+    plain versions must fail the same limits: one that forms dt x in
+    float32, without the JAX package's bfloat16 rounding (at the bfloat16
+    shapes with S > 1), and one that ignores the given state (at every
+    shape with one). The call through ``ops.selective_scan`` (one
+    launch, timed) runs the form the wrapper picks, bit for bit that form
+    called by name; both forms by name are held to the limits and the
+    controls at every shape, and each is called twice, bitwise equal, at
+    the forward shape."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import selective_scan as sscan
     from repro_torch.kernels.build import KERNELS
 
     gen = torch.Generator(device=dev).manual_seed(5)
     kern = KERNELS["selective_scan"]
     recs = []
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
-
     def check(got, want) -> tuple:
         """(within the limits, max abs error, largest error / limit)."""
         (y, h), (yw, hw) = got, want
-        yd, ywd = y.double(), yw.double()
-        lim = SCAN_REL * float(ywd.abs().max()) + (
-            BF16_UNIT * ywd.abs() if y.dtype == torch.bfloat16 else 0.0)
-        ratio = max(float(((yd - ywd).abs() / lim).max()),
-                    float((h - hw).abs().max())
-                    / (SCAN_REL * float(hw.abs().max())))
-        finite = bool(torch.isfinite(yd).all() and torch.isfinite(h).all())
+        ratio = scan_limit_ratio(torch, got, want)
+        finite = bool(torch.isfinite(y).all() and torch.isfinite(h).all())
         return finite and ratio <= 1.0, max_err([y, h], [yw, hw]), ratio
 
     for label, b, s, di, n, dt_name, with_state in SCAN_SHAPES:
         dtype = getattr(torch, dt_name)
-        x = randn(b, s, di).to(dtype)
-        dt = F.softplus(randn(b, s, di) * 0.5 - 4.0).to(dtype)
-        bm, cm = (randn(b, s, n).to(dtype) for _ in range(2))
-        a = -torch.arange(1, n + 1, dtype=torch.float32,
-                          device=dev).repeat(di, 1)
-        state = randn(b, di, n) if with_state else None
-        args = (x, dt, bm, cm, a)
+        args, state = scan_inputs(torch, gen, dev, b, s, di, n, dtype,
+                                  with_state)
+        x, dt, bm, cm, a = args
         before = kern.launches
         got = ops.selective_scan(*args, state=state)
         launched = kern.launches - before
@@ -2422,9 +2450,10 @@ def scan_checks(torch, dev) -> list:
             raise AssertionError(f"selective_scan {label}: {launched} "
                                  f"launches, y {got[0].dtype}, state "
                                  f"{tuple(got[1].shape)}")
+        form = "chunked" if sscan.takes_chunked(x, dt, bm, cm) else "state"
         ok, err, ratio = check(got, want)
-        print(f"selective_scan {label}: max abs err {err:.3g}, at most "
-              f"{ratio:.3g} of the limit")
+        print(f"selective_scan {label}: the {form} form ran; max abs err "
+              f"{err:.3g}, at most {ratio:.3g} of the limit")
         if not ok:
             raise AssertionError(f"selective_scan {label} differs from its "
                                  f"plain version ({ratio:.3g} of the limit)")
@@ -2435,21 +2464,39 @@ def scan_checks(torch, dev) -> list:
             controls["dt x unrounded"] = (y32.to(dtype), h32)
         if with_state:
             controls["state ignored"] = ref.selective_scan_ref(*args)
-        ctl = {}
-        for name, faulty in controls.items():
-            ok_c, err_c, ctl[name] = check(got, faulty)
-            print(f"  control ({name}): max abs err {err_c:.3g}, "
-                  f"{ctl[name]:.3g} of the limit")
-            if ok_c:
-                raise AssertionError(f"the scan check passes a faulty plain "
-                                     f"version ({name}) at {label}")
-        if label == "hymba forward":
-            again = ops.selective_scan(*args, state=state)
-            if not (torch.equal(got[0], again[0])
-                    and torch.equal(got[1], again[1])):
-                raise AssertionError("selective_scan: two calls differ")
-            print("selective_scan hymba forward: two calls bitwise equal")
-            del again
+        ratios, ctl = {}, {}
+        for name, fn in (("state", sscan.selective_scan_state_fwd),
+                         ("chunked", sscan.selective_scan_chunked_fwd)):
+            out = fn(*args, state)
+            if name == form and not (torch.equal(out[0], got[0])
+                                     and torch.equal(out[1], got[1])):
+                raise AssertionError(f"selective_scan {label}: the {name} "
+                                     f"form by name differs from the call")
+            ok_f, err_f, ratios[name] = check(out, want)
+            print(f"  {name} form: max abs err {err_f:.3g}, "
+                  f"{ratios[name]:.3g} of the limit")
+            if not ok_f:
+                raise AssertionError(f"selective_scan {label}: the {name} "
+                                     f"form differs from its plain version "
+                                     f"({ratios[name]:.3g} of the limit)")
+            ctl[name] = {}
+            for cname, faulty in controls.items():
+                ok_c, err_c, ctl[name][cname] = check(out, faulty)
+                print(f"    control ({cname}): max abs err {err_c:.3g}, "
+                      f"{ctl[name][cname]:.3g} of the limit")
+                if ok_c:
+                    raise AssertionError(
+                        f"the scan check passes a faulty plain version "
+                        f"({cname}) against the {name} form at {label}")
+            if label == "hymba forward":
+                again = fn(*args, state)
+                if not (torch.equal(out[0], again[0])
+                        and torch.equal(out[1], again[1])):
+                    raise AssertionError(f"selective_scan: two calls of the "
+                                         f"{name} form differ")
+                print(f"  {name} form: two calls bitwise equal")
+                del again
+            del out
         recs.append(dict(
             name="selective_scan", label=label,
             at=f"B {b}, S {s}, di {di}, n {n}"
@@ -2461,7 +2508,8 @@ def scan_checks(torch, dev) -> list:
                           heavy=s > 64),
             bound=scan_bound(b, s, di, n, x.element_size(), with_state),
             library_ms=None,
-            extra={"limit_ratio": ratio, "controls": ctl}))
+            extra={"form": form, "limit_ratio": ratio,
+                   "limit_ratio_by_form": ratios, "controls": ctl}))
         del got, want, controls, args, x, dt
         torch.cuda.empty_cache()
     return recs

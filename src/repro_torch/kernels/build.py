@@ -150,7 +150,8 @@ KERNELS: dict[str, Kernel] = {k.name: k for k in (
     # is_bf16 o stream
     Kernel("flash_attention", "flash_attention.cu", "flash_attention_fwd",
            (P, P, P, I, I, I, I, I, I, I, I, I, P, P)),
-    # x dt b c a h0 batch seq channels state is_bf16 y h_out stream
+    # x dt b c a h0 batch seq channels state is_bf16 form (0: per state,
+    # 1: chunked) y h_out stream
     Kernel("selective_scan", "selective_scan.cu", "selective_scan_fwd",
-           (P, P, P, P, P, P, I, I, I, I, I, P, P, P)),
+           (P, P, P, P, P, P, I, I, I, I, I, I, P, P, P)),
 )}

@@ -152,7 +152,8 @@ def selective_scan(x, dt, b, c, a, *, state=None):
     the tokens. x, dt: (B, S, di); b, c: (B, S, n), in the compute dtype;
     a: (di, n) float32; state: None (zeros) or (B, di, n) float32. Returns
     (y (B, S, di) in x's dtype, the final state float32). On the card the
-    CUDA kernel (n 8 or 16), on the CPU ``ref.selective_scan_ref``."""
+    CUDA kernel (n 8 or 16; its chunked form from S 128, its per-state form
+    below), on the CPU ``ref.selective_scan_ref``."""
     if _on_card(x):
         return selective_scan_fwd(
             *(t.contiguous() for t in (x, dt, b, c)), a.float().contiguous(),

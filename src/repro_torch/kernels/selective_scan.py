@@ -1,11 +1,20 @@
-"""Mamba's selective scan on the card: the wrapper of the CUDA kernel in
+"""Mamba's selective scan on the card: the wrapper of the CUDA kernels in
 ``csrc/selective_scan.cu``.
 
-The kernel replaces no TPU kernel. The JAX package runs the recurrence as
+The kernels replace no TPU kernel. The JAX package runs the recurrence as
 a ``jax.lax.scan`` of the cell ``step`` in ``repro/models/ssm.py``
 (``mamba_apply``), which XLA compiles into one loop program; eager
-PyTorch would launch about 8 kernels a token. It computes the function of
-``ref.selective_scan_ref``, forward only (serving).
+PyTorch would launch about 8 kernels a token. Both forms compute the
+function of ``ref.selective_scan_ref``, forward only (serving).
+
+``selective_scan_fwd`` dispatches by shape, one launch a call either way:
+S >= ``CHUNK`` with channels a multiple of ``CHANNEL_MULTIPLE`` (and
+16-byte aligned tensors) goes to the chunked form (``GROUP`` channels of
+one batch row a block, ``THREADS_PER_CHANNEL`` threads a channel, each a
+run of ``ITEMS`` tokens, composed by a warp scan with a carry from chunk
+to chunk), anything else, decode among it, to the per-state form (a thread
+a (batch, channel, state index)). Both count on
+``KERNELS["selective_scan"]``.
 """
 
 from __future__ import annotations
@@ -15,9 +24,26 @@ import torch
 from repro_torch.kernels._checks import check, stream
 from repro_torch.kernels.build import KERNELS
 
-__all__ = ["selective_scan_fwd", "STATES"]
+__all__ = ["selective_scan_fwd", "selective_scan_chunked_fwd",
+           "selective_scan_state_fwd", "takes_chunked", "STATES", "GROUP",
+           "THREADS_PER_CHANNEL", "ITEMS", "CHUNK", "CHANNEL_MULTIPLE"]
 
-STATES = (8, 16)      # the state sizes the kernel is built for (n)
+STATES = (8, 16)      # the state sizes the kernels are built for (n)
+# the chunked form's constants, as in csrc/selective_scan.cu
+GROUP = 16                                 # channels a block
+THREADS_PER_CHANNEL = 8
+ITEMS = 16                                 # consecutive tokens a thread
+CHUNK = THREADS_PER_CHANNEL * ITEMS        # tokens a chunk; the threshold
+CHANNEL_MULTIPLE = 8                       # 16-byte copies of x, dt and y
+
+
+def takes_chunked(x, dt, b, c) -> bool:
+    """Whether ``selective_scan_fwd`` runs the chunked form on these
+    inputs: S of at least one chunk, channels a multiple of
+    ``CHANNEL_MULTIPLE``, and x, dt, b and c 16-byte aligned."""
+    return (x.dim() == 3 and x.shape[1] >= CHUNK
+            and x.shape[2] % CHANNEL_MULTIPLE == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, dt, b, c)))
 
 
 def selective_scan_fwd(x, dt, b, c, a, state=None):
@@ -25,7 +51,26 @@ def selective_scan_fwd(x, dt, b, c, a, state=None):
     dtype; a: (di, n) float32 (= -exp(a_log)); state: None (zeros) or (B,
     di, n) float32; all contiguous on one card, S >= 1, n in ``STATES``.
     Returns ``(y, final_state)``: y (B, S, di) in x's dtype, the state (B,
-    di, n) float32."""
+    di, n) float32. The chunked form where ``takes_chunked``, else the
+    per-state one."""
+    form = 1 if takes_chunked(x, dt, b, c) else 0
+    return _launch(form, x, dt, b, c, a, state)
+
+
+def selective_scan_chunked_fwd(x, dt, b, c, a, state=None):
+    """The chunked form at any S >= 1 (arguments as ``selective_scan_fwd``;
+    channels a multiple of ``CHANNEL_MULTIPLE``, x, dt, b and c 16-byte
+    aligned)."""
+    return _launch(1, x, dt, b, c, a, state)
+
+
+def selective_scan_state_fwd(x, dt, b, c, a, state=None):
+    """The per-state form at any S >= 1 (arguments as
+    ``selective_scan_fwd``)."""
+    return _launch(0, x, dt, b, c, a, state)
+
+
+def _launch(form, x, dt, b, c, a, state):
     dev = x.device
     if x.dim() != 3:
         raise ValueError(f"x: expected (B, S, di), got {tuple(x.shape)}")
@@ -45,11 +90,19 @@ def selective_scan_fwd(x, dt, b, c, a, state=None):
     check("a", a, torch.float32, (di, n), dev)
     if state is not None:
         check("state", state, torch.float32, (bsz, di, n), dev)
+    if form == 1:
+        if di % CHANNEL_MULTIPLE:
+            raise ValueError(f"the chunked form needs channels a multiple "
+                             f"of {CHANNEL_MULTIPLE}, got {di}")
+        for name, t in (("x", x), ("dt", dt), ("b", b), ("c", c)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: the chunked form needs a 16-byte "
+                                 f"aligned tensor")
     y = torch.empty_like(x)
     h = torch.empty((bsz, di, n), dtype=torch.float32, device=dev)
     KERNELS["selective_scan"](
         x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
         a.data_ptr(), None if state is None else state.data_ptr(), bsz, s,
-        di, n, int(x.dtype == torch.bfloat16), y.data_ptr(), h.data_ptr(),
-        stream(dev))
+        di, n, int(x.dtype == torch.bfloat16), form, y.data_ptr(),
+        h.data_ptr(), stream(dev))
     return y, h

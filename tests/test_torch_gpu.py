@@ -20,8 +20,11 @@ one also at strong decays against the token scan. Flash attention agrees to 1e-5
 float32 sums with P kept to 2^-17 (hi + lo bfloat16 parts) against the
 plain version's weights applied to |v|. The selective scan agrees with its
 plain version to 1e-5 of the largest |y| and of the largest |state|
-(float32 sums over the state in another order), plus one bfloat16 unit
-(2^-7) of each y element where y is bfloat16 (both round it).
+(float32 sums over the state in another order; the chunked form also
+composes each run's decay product and state by a warp scan), plus one
+bfloat16 unit (2^-7) of each y element where y is bfloat16 (both round
+it). Both of its forms are held to it: the chunked one (S >= 128) and the
+per-state one (decode).
 """
 
 import numpy as np
@@ -1248,10 +1251,19 @@ def _assert_scan_close(got, want):
     (2, 333, 100, 16, torch.bfloat16, True),   # a block's channels cut
     (3, 70, 20, 8, torch.float32, True),       # short of one block
     (4, 1, 3200, 16, torch.bfloat16, True),    # FULL decode, S 1
-    (4, 1, 256, 8, torch.float32, True)])      # REDUCED decode
+    (4, 1, 256, 8, torch.float32, True),       # REDUCED decode
+    (2, 127, 3200, 16, torch.bfloat16, True),  # just below the threshold
+    (2, 128, 3200, 16, torch.bfloat16, True),  # at it: the chunked form
+    (1, 129, 256, 16, torch.float32, True),    # a chunk + 1
+    (1, 255, 256, 8, torch.bfloat16, False),   # two chunks - 1
+    (2, 4096, 3200, 16, torch.bfloat16, False),  # FULL forward
+    (2, 333, 24, 16, torch.bfloat16, True),    # chunked, a group cut at 8
+    (1, 300, 40, 8, torch.float32, True)])     # chunked, a group cut at 8
 def test_selective_scan_kernel_matches_plain(cuda, b, s, di, n, dtype,
                                              with_state):
-    """Through ``ops.selective_scan``: one launch, y in x's dtype."""
+    """Through ``ops.selective_scan``: one launch, y in x's dtype. The
+    chunked form runs from S 128 with channels a multiple of 8, the
+    per-state form elsewhere."""
     args, state = _scan_args(cuda, b, s, di, n, dtype, with_state, seed=s)
     before = KERNELS["selective_scan"].launches
     got = ops.selective_scan(*args, state=state)
@@ -1259,6 +1271,41 @@ def test_selective_scan_kernel_matches_plain(cuda, b, s, di, n, dtype,
     want = ref.selective_scan_ref(*args, state=state)
     assert got[0].dtype == dtype and got[1].dtype == torch.float32
     _assert_scan_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_forms_agree_with_plain(cuda, dtype):
+    """Both forms by name at one shape, each within the limits, one launch
+    each; ``ops.selective_scan`` runs the chunked one there, bit for
+    bit."""
+    from repro_torch.kernels import selective_scan as sscan
+
+    args, state = _scan_args(cuda, 2, 333, 256, 16, dtype, True, seed=7)
+    want = ref.selective_scan_ref(*args, state=state)
+    outs = {}
+    for fn in (sscan.selective_scan_state_fwd,
+               sscan.selective_scan_chunked_fwd):
+        before = KERNELS["selective_scan"].launches
+        outs[fn] = fn(*args, state)
+        assert KERNELS["selective_scan"].launches == before + 1
+        _assert_scan_close(outs[fn], want)
+    assert sscan.takes_chunked(*args[:4])
+    got = ops.selective_scan(*args, state=state)
+    chunked = outs[sscan.selective_scan_chunked_fwd]
+    assert torch.equal(got[0], chunked[0]) and torch.equal(got[1],
+                                                           chunked[1])
+
+
+def test_selective_scan_two_calls_bitwise(cuda):
+    """Hymba-1.5B's forward shape: each form twice, bit for bit (a fixed
+    order, no atomics)."""
+    from repro_torch.kernels import selective_scan as sscan
+
+    args, state = _scan_args(cuda, 2, 4096, 3200, 16, torch.bfloat16, False)
+    for fn in (sscan.selective_scan_chunked_fwd,
+               sscan.selective_scan_state_fwd):
+        one, two = fn(*args, state), fn(*args, state)
+        assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
 
 
 def test_selective_scan_wrapper_rejects_bad_arguments(cuda):
@@ -1277,6 +1324,27 @@ def test_selective_scan_wrapper_rejects_bad_arguments(cuda):
         selective_scan_fwd(x, dt, bm, cm, a.t().contiguous().t())
     with pytest.raises(ValueError):
         selective_scan_fwd(x[:, :0], dt[:, :0], bm[:, :0], cm[:, :0], a)
+
+
+def test_selective_scan_chunked_form_rejects_what_it_cannot_take(cuda):
+    """Channels not a multiple of 8, or a tensor not 16-byte aligned: the
+    chunked form raises, and the dispatch takes the per-state form."""
+    from repro_torch.kernels import selective_scan as sscan
+
+    (x, dt, bm, cm, a), _ = _scan_args(cuda, 1, 200, 20, 8, torch.bfloat16,
+                                       False)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        sscan.selective_scan_chunked_fwd(x, dt, bm, cm, a)
+    (x, dt, bm, cm, a), _ = _scan_args(cuda, 1, 200, 64, 8, torch.bfloat16,
+                                       False)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype,
+                          device=cuda)[1:].view(x.shape)
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match="aligned"):
+        sscan.selective_scan_chunked_fwd(shifted, dt, bm, cm, a)
+    assert not sscan.takes_chunked(shifted, dt, bm, cm)
+    got = ops.selective_scan(shifted, dt, bm, cm, a)
+    _assert_scan_close(got, ref.selective_scan_ref(x, dt, bm, cm, a))
 
 
 def test_hymba_on_card_matches_cpu(cuda):

@@ -58,6 +58,7 @@ from repro.models import transformer as jt  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import selective_scan as sscan  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.models import serve  # noqa: E402
@@ -253,6 +254,185 @@ def test_mamba_apply_matches_jax(s, with_state):
     _close(gh, wh)
     if not with_state:          # without return_state, the output alone
         _close(tssm.mamba_apply(tp, _t(x), state=8), want)
+
+
+# ------------------------------------- the chunked kernel's arithmetic
+# An emulation of csrc/selective_scan.cu's chunked form in float32, in the
+# kernel's order: per thread a local scan of its ITEMS tokens into (decay
+# product, state), the warp scan of the THREADS_PER_CHANNEL pairs with the
+# carry folded into the first, the runs again from the scanned states, y
+# summed over the states in order; fmaf where the kernel fuses. The
+# exponentials are 2^(dt (a log2 e)) as the kernel forms them, the run's
+# decay product one of them over the run's summed dt (float32 exp2 here,
+# the SFU's ex2.approx there).
+
+def _fma(p, q, r):
+    """fmaf: p q + r rounded once to float32 (the float64 product of two
+    float32 values is exact)."""
+    return (p.double() * q.double() + r.double()).float()
+
+
+def _chunked_scan(x, dt, b, c, a, *, state=None, carry=True):
+    """The chunked form's function of ``ref.selective_scan_ref``'s
+    arguments; ``carry=False`` is a faulty version that starts every chunk
+    after the first from zeros."""
+    tpc, items, chunk = sscan.THREADS_PER_CHANNEL, sscan.ITEMS, sscan.CHUNK
+    bsz, s, di = x.shape
+    n = a.shape[1]
+    pad = (-s) % chunk                   # zero-filled: the identity pair
+
+    def runs(t, w):                      # (B, chunks, TPC, ITEMS, w)
+        t = torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+        return t.view(bsz, -1, tpc, items, w)
+
+    u, dtf = runs(dt * x, di), runs(dt, di)
+    bf, cf = runs(b, n), runs(c, n)
+    a2 = a.float() * torch.tensor(1.4426950408889634)    # a log2(e)
+    h0 = (torch.zeros(bsz, di, n) if state is None else state.float())
+    cin, ys = h0, []
+    for ci in range(u.shape[1]):
+        da = torch.exp2(dtf[:, ci, ..., None] * a2)      # (B, TPC, I, di, n)
+        ub = u[:, ci, ..., None] * bf[:, ci, :, :, None, :]
+        sdt = dtf[:, ci, :, 0]
+        for i in range(1, items):
+            sdt = sdt + dtf[:, ci, :, i]                 # (B, TPC, di)
+        pa, ph = torch.exp2(sdt[..., None] * a2), ub[:, :, 0]
+        for i in range(1, items):
+            ph = _fma(da[:, :, i], ph, ub[:, :, i])
+        h_in = cin if carry or ci == 0 else torch.zeros_like(cin)
+        ph = torch.cat([_fma(pa[:, :1], h_in[:, None], ph[:, :1]),
+                        ph[:, 1:]], 1)
+        d = 1
+        while d < tpc:                   # Hillis-Steele over the threads
+            ph = torch.cat([ph[:, :d], _fma(pa[:, d:], ph[:, :-d],
+                                            ph[:, d:])], 1)
+            pa = torch.cat([pa[:, :d], pa[:, d:] * pa[:, :-d]], 1)
+            d *= 2
+        h = torch.cat([h_in[:, None], ph[:, :-1]], 1)
+        hs = []
+        for i in range(items):
+            h = _fma(da[:, :, i], h, ub[:, :, i])
+            hs.append(h)
+        hs = torch.stack(hs, 2)                          # (B, TPC, I, di, n)
+        y = torch.zeros(hs.shape[:-1])
+        for k in range(n):
+            y = _fma(cf[:, ci, :, :, None, k], hs[..., k], y)
+        ys.append(y.reshape(bsz, chunk, di))
+        cin = ph[:, -1]
+    return torch.cat(ys, 1)[:, :s].to(x.dtype), cin
+
+
+def _scan_limit_ratio(got, want):
+    """The largest error over its limit (at most 1 passes), at
+    ``chip_smoke.py`` phase 17's limits: the state to 1e-5 of its largest
+    |want|; y to 1e-5 of the largest |want y|, plus one bfloat16 unit
+    (2^-7) of each element where ``got``'s y is bfloat16."""
+    (y, h), (yw, hw) = got, want
+    yd, ywd = y.double(), yw.double()
+    lim = 1e-5 * float(ywd.abs().max()) + (
+        2.0 ** -7 * ywd.abs() if y.dtype == torch.bfloat16 else 0.0)
+    return max(float(((yd - ywd).abs() / lim).max()),
+               float((h.double() - hw.double()).abs().max())
+               / (1e-5 * float(hw.double().abs().max())))
+
+
+def _scan_case(seed, bsz, s, di, n, dtype, with_state, decay="model"):
+    """Inputs as ``chip_smoke.py`` phase 17 makes them (dt =
+    softplus(N(-4, 0.5)), a = -(1..n)), or with strong decays (dt ~ 1, a =
+    -16: a run's decay product underflows) or weak ones (dt ~ 1e-3)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((bsz, s, di))).to(dtype)
+    b, c = (torch.from_numpy(rng.standard_normal((bsz, s, n))).to(dtype)
+            for _ in range(2))
+    a = -torch.arange(1, n + 1, dtype=torch.float32).repeat(di, 1)
+    if decay == "strong":
+        dt = rng.uniform(0.75, 1.25, (bsz, s, di))
+        a = torch.full((di, n), -16.0)
+    elif decay == "weak":
+        dt = rng.uniform(0.5e-3, 1.5e-3, (bsz, s, di))
+    else:
+        dt = np.logaddexp(0.0, rng.normal(-4.0, 0.5, (bsz, s, di)))
+    dt = torch.from_numpy(dt).to(dtype)
+    st = (torch.from_numpy(rng.standard_normal((bsz, di, n))).float()
+          if with_state else None)
+    return x, dt, b, c, a, st
+
+
+EMULATION_CASES = {   # (B, S, di, n, dtype, initial state, decays)
+    "S 4096 f32": (1, 4096, 16, 16, torch.float32, False, "model"),
+    "S 4096 bf16": (1, 4096, 16, 16, torch.bfloat16, False, "model"),
+    "ragged S 333 with a state": (2, 333, 24, 8, torch.bfloat16, True,
+                                  "model"),
+    "a chunk - 1": (1, 127, 16, 16, torch.float32, True, "model"),
+    "a chunk + 1": (1, 129, 16, 16, torch.float32, True, "model"),
+    "strong decays": (1, 300, 16, 16, torch.float32, True, "strong"),
+    "weak decays": (1, 1000, 16, 16, torch.float32, True, "weak"),
+    "weak decays bf16": (1, 1000, 16, 8, torch.bfloat16, True, "weak"),
+}
+
+
+@pytest.mark.parametrize("case", list(EMULATION_CASES))
+def test_chunked_scan_emulation_matches_plain_and_float64(case):
+    """The chunked form's order within phase 17's limits of
+    ``selective_scan_ref`` and of the float64 recurrence."""
+    args = _scan_case(len(case), *EMULATION_CASES[case])
+    got = _chunked_scan(*args[:5], state=args[5])
+    assert got[0].dtype == args[0].dtype and got[1].dtype == torch.float32
+    assert _scan_limit_ratio(
+        got, ref.selective_scan_ref(*args[:5], state=args[5])) <= 1.0
+    assert _scan_limit_ratio(got, _scan64(*args)) <= 1.0
+
+
+def test_chunked_scan_emulation_without_carry_fails():
+    """The control: chunks that drop the carry fall outside the limits."""
+    args = _scan_case(3, 1, 1000, 16, 16, torch.float32, True)
+    want = ref.selective_scan_ref(*args[:5], state=args[5])
+    assert _scan_limit_ratio(
+        _chunked_scan(*args[:5], state=args[5]), want) <= 1.0
+    assert _scan_limit_ratio(
+        _chunked_scan(*args[:5], state=args[5], carry=False), want) > 1.0
+
+
+@pytest.mark.parametrize("s", [128, 333])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_mamba_apply_with_chunked_scan_matches_jax(monkeypatch, s,
+                                                   with_state):
+    """``mamba_apply`` with ``ops.selective_scan`` replaced by the chunked
+    form's emulation, against JAX's at ``test_mamba_apply_matches_jax``'s
+    tolerance."""
+    monkeypatch.setattr(ops, "selective_scan", _chunked_scan)
+    jp, tp = _mamba()
+    rng = np.random.default_rng(s + with_state)
+    x = rng.standard_normal((2, s, 128)).astype(np.float32)
+    cs = (rng.standard_normal((2, 3, 256)).astype(np.float32)
+          if with_state else None)
+    hs = (rng.standard_normal((2, 256, 8)).astype(np.float32)
+          if with_state else None)
+    want, (_, wh) = jax.jit(lambda p, x, cs, hs: jssm.mamba_apply(
+        p, x, state=8, conv_state=cs, ssm_state=hs, return_state=True))(
+        jp, jnp.asarray(x), None if cs is None else jnp.asarray(cs),
+        None if hs is None else jnp.asarray(hs))
+    got, (_, gh) = tssm.mamba_apply(
+        tp, _t(x), state=8, conv_state=None if cs is None else _t(cs),
+        ssm_state=None if hs is None else _t(hs), return_state=True)
+    _close(got, want)
+    _close(gh, wh)
+
+
+@pytest.mark.parametrize("s,di,offset,chunked", [
+    (sscan.CHUNK - 1, 64, 0, False),     # below the threshold: per state
+    (sscan.CHUNK, 64, 0, True),          # at it
+    (4096, 3200, 0, True),               # hymba-1.5B's forward
+    (1, 3200, 0, False),                 # decode
+    (333, 100, 0, False),                # channels not a multiple of 8
+    (333, 64, 1, False)])                # x not 16-byte aligned
+def test_selective_scan_form_by_shape(s, di, offset, chunked):
+    """The wrapper's dispatch rule, ``takes_chunked``, read on CPU
+    tensors."""
+    x = torch.zeros(1 * s * di + offset, dtype=torch.bfloat16)[offset:]
+    x = x.view(1, s, di)
+    b = torch.zeros((1, s, 16), dtype=torch.bfloat16)
+    assert sscan.takes_chunked(x, x, b, b) is chunked
 
 
 def test_mamba_decode_steps_match_jax():
