@@ -243,7 +243,49 @@ Phases, each fatal on failure:
      d_model 3584, 28 / 4 heads of 128, M-RoPE) ``forward`` on 1,024
      patches and (2, 3072) tokens (28 flash launches, a second call
      bitwise equal), ``generate`` (no flash), peak memory and a decode
-     profile.
+     profile;
+ 24. the flash backward kernel (dq, dk, dv; it replaces no TPU kernel:
+     the JAX package differentiates ``chunked_attention`` as XLA)
+     against its plain version at FLASH_BWD_CASES: StarCoder2-3B's
+     training call (B 1, S 8192, 24 / 2 heads of 128, window 4096, bf16),
+     Gemma-7B's (16 / 16 heads of 256, causal), hymba's (25 / 5 heads of
+     64, window 1024), seamless's cross-attention (Sq 512 over Sk 1024),
+     ragged cross-attention (Sq 333, Sk 1000) in float32 and bf16 and a
+     REDUCED shape (D 32, S 100, float32, window 64), each of dq / dk /
+     dv within 1e-5 of its largest |plain| plus, in bf16, one bf16 unit
+     of each element; faulty plain versions (the D term omitted, dK / dV
+     from the first query head of each group only, the key tile at each
+     query block's window edge dropped from dQ, the tile as the built
+     kernel reports it) must fail the same limits; two calls bitwise equal, one launch a call; each shape timed
+     beside its plain version, SDPA's backward (a yardstick the port
+     never calls) and its bound; then the forward at phase 11's
+     StarCoder2-3B shape with and without its log-sum-exp, in turns;
+ 25. small-input training agreement: REDUCED StarCoder2-3B, Minitron-4B,
+     Qwen3-32B, Gemma-7B, OLMoE-1B-7B, SeamlessM4T-medium (with frames)
+     and Qwen2-VL-7B (with patches) in float32, three ``make_train_step``
+     steps on the card against the CPU from the same params: with
+     ``sgd`` losses to 1e-5 relative and params to 1e-5 of each leaf's
+     largest, with ``train_lm``'s AdamW losses to 1e-4; REDUCED
+     StarCoder2-3B in its own bf16 compute (the backward's tensor-core
+     form, window 64, ``remat`` on), three ``sgd`` steps card vs CPU:
+     losses to 1e-2 relative, each leaf's update to 2e-2 of its largest,
+     and a detached attention and a backward that ignores the window
+     failing that limit; then ``ops.rwkv6`` and ``ops.selective_scan`` (and REDUCED RWKV6 and
+     hymba training steps) must raise under grad on the card;
+ 26. LM training at full width, this slice's main path: StarCoder2-3B (30
+     layers, d_model 3072, 3.18 B float32 params, random from a seed)
+     with ``train_lm``'s AdamW on ``packed_batches`` (1, 8192) tokens,
+     ``remat`` on, 4 steps counted from zero: each loss finite, step
+     seconds, tokens/s, 60 flash forward (30 and 30 recomputed) and 30
+     backward launches a step, nothing else, peak memory under the
+     card's, and where a step's time goes (GEMMs, flash forward and
+     backward, elementwise, the optimizer, idle); then a witness of why
+     its losses rise: from the same params on one fixed batch, AdamW's
+     losses beside ``sgd``'s at lr 0.25 / |g|^2, which must fall at
+     every step, the first drop within 0.5-1.5x of 0.25;
+ 27. the LM pretraining CLI: ``python -m repro_torch.launch.train --arch
+     starcoder2-3b --reduced --steps 20 --batch 8 --seq 128`` exits 0
+     with finite losses.
 Phase 11 also holds the bf16 flash kernel at OLMoE-1B-7B's and
 Gemma-7B's forward shapes (B 2, S 4096, 16 / 16 heads, D 128 and 256,
 causal) and at hymba-1.5B's head dim 64 (25 / 5 heads, window 1024). After
@@ -295,6 +337,8 @@ TPU_KERNELS = {               # the TPU kernel each CUDA kernel replaces
 # to XLA), and what each replaces there
 NEW_KERNELS = {
     "selective_scan": "src/repro/models/ssm.py:79",    # lax.scan of step
+    # XLA's gradient of chunked_attention (the TPU flash kernel has none)
+    "flash_attention_bwd": "src/repro/models/layers.py:173",
 }
 # H100 SXM: 132 SMs x 16 SFU results (MUFU.EX2) a clock (CUDA C++
 # Programming Guide, arithmetic instruction throughput, compute capability
@@ -2877,6 +2921,766 @@ def flash_checks(torch, dev, cases) -> list:
     return recs
 
 
+# phase 24, the flash backward: (label, B, Sq, Sk, H, Hkv, D, window,
+# causal, dtype); the first, StarCoder2-3B's training call on (1, 8192)
+# tokens, is the kernel's main shape in the record
+FLASH_BWD_CASES = (
+    ("starcoder2-3b training", 1, 8192, 8192, 24, 2, 128, 4096, True,
+     "bfloat16"),
+    ("gemma-7b", 1, 4096, 4096, 16, 16, 256, None, True, "bfloat16"),
+    ("hymba-1.5b", 1, 4096, 4096, 25, 5, 64, 1024, True, "bfloat16"),
+    ("seamless cross", 1, 512, 1024, 16, 16, 64, None, False, "bfloat16"),
+    ("ragged cross f32", 1, 333, 1000, 16, 16, 64, None, False, "float32"),
+    ("ragged cross bf16", 1, 333, 1000, 16, 16, 64, None, False,
+     "bfloat16"),
+    ("reduced", 2, 100, 100, 8, 2, 32, 64, True, "float32"),
+)
+# the controls that must fail the backward's check
+FLASH_BWD_FAULTS = ("D term omitted", "dK / dV from one head of a group",
+                    "edge key tile dropped")
+
+
+def flash_bwd_head(torch, q, k, v, o, lse, do, causal, window,
+                   fault=None, tile=None):
+    """The plain backward (``ref.flash_attention_bwd_ref``'s formulas) of
+    one query head in float32: q, o, do (Sq, D), k, v (Sk, D), lse (Sq,);
+    returns (dq, dk, dv) (the head's share of its KV head's dk, dv).
+    ``fault``: "D term omitted" (dS = P dP) or "edge key tile dropped"
+    (dQ's sum without, for each query block of the kernel's ``tile``
+    (query rows, keys; ``flash_attention.bwd_dq_tile``), the key tile
+    holding its window's first key, or key tile 0 without a window,
+    where the block has another)."""
+    from repro_torch.kernels import ref
+
+    sq, d = q.shape
+    sk = k.shape[0]
+    m = ref.attention_mask(sq, sk, causal, window, q.device)
+    s = (q @ k.T) * (1.0 / math.sqrt(d))
+    p = torch.exp(s - lse[:, None]).masked_fill_(~m, 0.0)
+    dv = p.T @ do
+    dp = do @ v.T
+    if fault != "D term omitted":
+        dp -= (do * o).sum(-1, keepdim=True)
+    ds = p.mul_(dp)
+    del s, dp
+    dk = (ds.T @ q) * (1.0 / math.sqrt(d))
+    if fault == "edge key tile dropped":
+        bq, bk = tile
+        qi = torch.arange(sq, device=q.device)[:, None]
+        ki = torch.arange(sk, device=q.device)[None, :]
+        q0 = qi // bq * bq
+        edge = ((q0 - window + 1).clamp(min=0) if window
+                else torch.zeros_like(q0))
+        drop = (ki // bk == edge // bk) & (
+            (q0 >= (window or bk)) if causal else (ki >= 0))
+        ds = ds.masked_fill(drop & (sk > bk), 0.0)
+    dq = (ds @ k) * (1.0 / math.sqrt(d))
+    return dq, dk, dv
+
+
+def flash_bwd_plain(torch, q, k, v, o, lse, do, causal, window):
+    """The plain backward of a whole call, a query head at a time so its
+    (Sq, Sk) tables stay small: (dq, dk, dv) float32 in the model's
+    layout, dk and dv summed over each KV group in head order."""
+    b, sq, h, d = q.shape
+    hkv = k.shape[2]
+    group = h // hkv
+    f = [x.float() for x in (q, k, v, o, do)]
+    dq = torch.empty_like(f[0])
+    dk, dv = torch.zeros_like(f[1]), torch.zeros_like(f[2])
+    for bi in range(b):
+        for hh in range(h):
+            kv = hh // group
+            gq, gk, gv = flash_bwd_head(
+                torch, f[0][bi, :, hh], f[1][bi, :, kv], f[2][bi, :, kv],
+                f[3][bi, :, hh], lse[bi, hh], f[4][bi, :, hh], causal,
+                window)
+            dq[bi, :, hh] = gq
+            dk[bi, :, kv] += gk
+            dv[bi, :, kv] += gv
+    return dq, dk, dv
+
+
+def flash_bwd_ratio(torch, got, want, bf16: bool) -> float:
+    """max |got - want| / limit over dq, dk, dv: 1e-5 of each one's
+    largest |plain| (float32 sums in another order), plus in bf16 one
+    bf16 unit (2^-7) of each element of the plain version rounded as the
+    kernel's output is."""
+    ratio = 0.0
+    for g, w in zip(got, want):
+        lim = TOL * float(w.abs().max())
+        if bf16:
+            lim = lim + BF16_UNIT * w.to(torch.bfloat16).float().abs()
+        ratio = max(ratio, float(((g.float() - w).abs() / lim).max()))
+    return ratio
+
+
+def flash_bwd_controls(torch, q, k, v, o, lse, do, causal, window,
+                       bf16: bool) -> dict:
+    """Faulty plain versions on batch row 0 and the first KV group, held
+    to the same limits against the plain one (rounded as the kernel's
+    outputs are): each one's limit ratio."""
+    from repro_torch.kernels.flash_attention import bwd_dq_tile
+
+    group = q.shape[2] // k.shape[2]
+    tile = bwd_dq_tile(q.shape[3], bf16)
+    f = [x[0:1].float() for x in (q, k, v, o, do)]
+    args = [f[0][0, :, :group], f[1][0, :, 0], f[2][0, :, 0],
+            f[3][0, :, :group], lse[0, :group], f[4][0, :, :group]]
+
+    def group_grads(fault=None, first_only=False):
+        dq, dk, dv = [], 0, 0
+        for hh in range(group):
+            gq, gk, gv = flash_bwd_head(
+                torch, args[0][:, hh], args[1], args[2], args[3][:, hh],
+                args[4][hh], args[5][:, hh], causal, window, fault, tile)
+            dq.append(gq)
+            if hh == 0 or not first_only:
+                dk, dv = dk + gk, dv + gv
+        return torch.stack(dq, 1), dk, dv
+
+    want = group_grads()
+    faults = {"D term omitted": lambda: group_grads("D term omitted"),
+              "edge key tile dropped": lambda: group_grads(
+                  "edge key tile dropped")}
+    if group > 1:
+        faults["dK / dV from one head of a group"] = lambda: group_grads(
+            first_only=True)
+    out = {}
+    for name, fn in faults.items():
+        got = fn()
+        if bf16:
+            got = [x.to(torch.bfloat16) for x in got]
+        out[name] = flash_bwd_ratio(torch, got, want, bf16)
+    return out
+
+
+def flash_bwd_checks(torch, dev, cases, fwd_main=None) -> list:
+    """Phase 24: the flash backward kernel against its plain version at
+    ``cases``: limits of ``flash_bwd_ratio``, two calls bitwise equal,
+    one launch a call, faulty plain versions (``FLASH_BWD_FAULTS``, where
+    one changes the call) failing the same limits; each shape timed
+    beside the plain version, SDPA's backward alone (from one forward
+    graph, the causal flag or the window's mask, ``enable_gqa``) and its
+    bound: 2.5x the forward's FLOPs (bf16 dense peak for bf16 inputs,
+    float32 outside the tensor cores for float32) against the bytes of
+    q, k, v, o, dO, lse, dq, dk, dv. Then the forward at StarCoder2-3B's
+    serving shape with and without the log-sum-exp, in turns, beside
+    phase 11's time (``fwd_main``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.build import KERNELS
+    from repro_torch.kernels.flash_attention import (bwd_dq_tile,
+                                                     flash_attention_bwd,
+                                                     flash_attention_fwd)
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    recs = []
+    for label, b, sq, sk, h, hkv, d, window, causal, dtype in cases:
+        dtype = getattr(torch, dtype)
+        bf16 = dtype == torch.bfloat16
+        q, do = (torch.randn((b, sq, h, d), generator=gen,
+                             device=dev).to(dtype) for _ in range(2))
+        k, v = (torch.randn((b, sk, hkv, d), generator=gen,
+                            device=dev).to(dtype) for _ in range(2))
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                     return_lse=True)
+        args = (q, k, v, o, lse, do)
+
+        def kernel():
+            return flash_attention_bwd(*args, causal=causal, window=window)
+
+        before = KERNELS["flash_attention_bwd"].launches
+        got = kernel()
+        again = kernel()
+        launches = KERNELS["flash_attention_bwd"].launches - before
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        del again
+        want = flash_bwd_plain(torch, *args, causal, window)
+        ratio = flash_bwd_ratio(torch, got, want, bf16)
+        err = max(float((g.float() - w).abs().max())
+                  for g, w in zip(got, want))
+        del want
+        ctl = flash_bwd_controls(torch, *args, causal, window, bf16)
+        print(f"flash backward {label} (B {b}, Sq {sq}, Sk {sk}, H {h}, "
+              f"Hkv {hkv}, D {d}, window {window}, causal {causal}, "
+              f"{str(dtype)[6:]}): max |kernel - plain| {err:.3g}, at "
+              f"most {ratio:.3g} of the limit; two calls bitwise equal "
+              f"{same}; launches for two calls {launches}; dQ tile "
+              f"{bwd_dq_tile(d, bf16)}; controls "
+              + ", ".join(f"{n} {r:.3g}" for n, r in ctl.items()))
+        if not (ratio <= 1.0 and same and launches == 2):
+            raise AssertionError(f"flash backward fails at {label}")
+        bad = [n for n, r in ctl.items() if n in FLASH_BWD_FAULTS
+               and r <= 1.0]
+        if bad:
+            raise AssertionError(f"the flash backward check passes faulty "
+                                 f"versions {bad} at {label}")
+
+        def plain():
+            flash_bwd_plain(torch, *args, causal, window)
+
+        qi = torch.arange(sq, device=dev)[:, None]
+        ki = torch.arange(sk, device=dev)[None, :]
+        mask = None if window is None else (ki <= qi) & (ki > qi - window)
+        lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        lout = F.scaled_dot_product_attention(
+            lq, lk, lv, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+        ldo = do.transpose(1, 2)
+
+        def library():
+            return torch.autograd.grad(lout, (lq, lk, lv), ldo,
+                                       retain_graph=True)
+
+        lib_err = max(float((x.transpose(1, 2).float() - y.float()).abs()
+                            .max()) for x, y in zip(library(), got))
+        print(f"SDPA backward {label} vs the kernel: max abs diff "
+              f"{lib_err:.3g}")
+        elt = q.element_size()
+        # read q, k, v, o, dO and lse, write dq, dk, dv
+        nbytes = (elt * (4 * q.numel() + 2 * (k.numel() + v.numel()))
+                  + 4 * lse.numel())
+        pairs = causal_pairs(sq, window) if causal else sq * sk
+        flops = 2.5 * 4.0 * d * b * h * pairs
+        heavy = sq * sk > 1024 * 1024
+        recs.append(dict(
+            name="flash_attention_bwd", label=label,
+            at=f"B {b}, Sq {sq}, Sk {sk}, H {h}, Hkv {hkv}, D {d}, window "
+               f"{window}, causal {causal}",
+            out_dtype=str(dtype).split(".")[-1], max_abs_err=err,
+            kernel=timings(kernel, heavy=heavy),
+            plain=timings(plain, heavy=True),
+            bound=bound(nbytes, flops, BF16_FLOP_PER_S if bf16
+                        else FP32_FLOP_PER_S),
+            library_ms=device_ms(library, iters=3 if heavy else 20,
+                                 rounds=3 if heavy else 5),
+            extra={"library_call_ms": call_ms(library, iters=3 if heavy
+                                              else 20),
+                   "limit_ratio": ratio, "controls": ctl}))
+        print_kernel(recs[-1])
+        del got, args, q, k, v, o, lse, do, lq, lk, lv, lout, mask
+        torch.cuda.empty_cache()
+
+    # the optional lse costs serving nothing: phase 11's StarCoder2-3B
+    # forward with and without it, in turns
+    b, s, h, hkv, d, window = 2, 8192, 24, 2, 128, 4096
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((b, s, hkv, d), generator=gen,
+                        device=dev).bfloat16() for _ in range(2))
+    runs = {"without lse": lambda: flash_attention_fwd(
+        q, k, v, causal=True, window=window),
+            "with lse": lambda: flash_attention_fwd(
+        q, k, v, causal=True, window=window, return_lse=True)}
+    turns = {n: [] for n in runs}
+    for n in ("without lse", "with lse", "with lse", "without lse"):
+        turns[n].append(call_ms(runs[n], iters=20))
+    print("flash forward at StarCoder2-3B's serving shape (B 2, S 8192, "
+          "24 / 2 heads, window 4096), us back to back in turns: "
+          + "; ".join(f"{n} {' / '.join(f'{t * 1e3:.2f}' for t in ts)}"
+                      for n, ts in turns.items())
+          + ("" if fwd_main is None else
+             f"; phase 11 device {fwd_main['ms'] * 1e3:.2f} us, back to "
+             f"back {fwd_main['call_ms'] * 1e3:.2f} us")
+          + f" ({card_line()})")
+    recs[0]["extra"]["forward_lse_turns_ms"] = turns
+    return recs
+
+
+# phase 25: the families whose training runs on the card
+TRAIN_ARCHS = ("starcoder2-3b", "minitron-4b", "qwen3-32b", "gemma-7b",
+               "olmoe-1b-7b", "seamless-m4t-medium", "qwen2-vl-7b")
+# seamless's bfloat16 encoder path: params held to the size of their
+# update (see lm_train_agreement)
+ENC_PATH = ("enc_layers", "enc_norm", "layers/cross/wk", "layers/cross/wv")
+# REDUCED StarCoder2 in its own bfloat16 compute (the backward's
+# tensor-core form, causal with a window, remat on), card vs CPU: losses
+# as the CPU test holds them against JAX's in bf16, and each leaf's
+# update to a share of its largest, the bound the CPU tests give a bf16
+# path's gradients
+BF16_LOSS_REL = 1e-2
+BF16_UPDATE_REL = 2e-2
+
+
+def named_leaves(tree, prefix="") -> list:
+    """(path, leaf) pairs in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in named_leaves(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def lm_train_agreement(torch, kernels) -> dict:
+    """Phase 25: REDUCED ``TRAIN_ARCHS`` in float32, three
+    ``make_train_step`` steps on the card against the CPU from the same
+    params and batches (2 x 64 tokens, with ``lm_extras``): with ``sgd``
+    losses to 1e-5 relative and params to 1e-5 of each leaf's largest;
+    with ``train_lm``'s AdamW and schedule losses to 1e-4. Seamless's
+    encoder computes in bfloat16 on both devices, each rounding its own
+    float32 sums: at each step both take the CPU's encoder memory as the
+    value of their own encoder's output (the gradient flows through each
+    one's encoder), and the params of the bfloat16 path (``ENC_PATH``)
+    are held to 2^-6 of their largest update. Each card step launches
+    the flash forward twice a layer (``remat`` recomputes it) and the
+    backward once. Then, on the card, ``ops.rwkv6`` and
+    ``ops.selective_scan`` raise under grad, and so does a REDUCED
+    RWKV6 / hymba training step. Returns the flash launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model
+    from repro_torch.optim import adamw, linear_warmup_cosine, sgd
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    total = {"flash_attention": 0, "flash_attention_bwd": 0}
+    real_encode = model.encode
+    for arch in TRAIN_ARCHS:
+        cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                  dtype="float32")
+        p0 = model.init_params(torch.Generator().manual_seed(0), cfg,
+                               device="cpu")
+        rng = np.random.default_rng(0)
+        batches = []
+        for i in range(3):
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 65)))
+            batches.append({"tokens": toks[:, :-1], "targets": toks[:, 1:],
+                            **lm_extras(torch, cfg, 2, 64,
+                                        torch.Generator().manual_seed(i))})
+        mem = {}
+
+        def encode(params, frames, cfg, device=None):
+            e = real_encode(params, frames, cfg, device)
+            if e.device.type == "cpu":
+                mem["cpu"] = e.detach()
+                return e
+            return mem["cpu"].to(e.device, e.dtype) + (e - e.detach())
+
+        model.encode = encode
+        try:
+            out = {}
+            for name, opt in (("sgd", sgd(0.5)), ("adamw", adamw(
+                    lr=linear_warmup_cosine(3e-3, 20, 3), weight_decay=0.1,
+                    max_grad_norm=1.0))):
+                p_cpu = tree_map(torch.clone, p0)
+                p_gpu = tree_map(lambda x: x.cuda(), p0)
+                s_cpu, s_gpu = opt.init(p_cpu), opt.init(p_gpu)
+                step_cpu = model.make_train_step(cfg, opt, device="cpu")
+                step_gpu = model.make_train_step(cfg, opt)
+                losses = []
+                for batch in batches:
+                    p_cpu, s_cpu, m_cpu = step_cpu(p_cpu, s_cpu, batch)
+                    reset_counts(torch, kernels)
+                    p_gpu, s_gpu, m_gpu = step_gpu(p_gpu, s_gpu, batch)
+                    torch.cuda.synchronize()
+                    n_fwd = kernels["flash_attention"].launches
+                    n_bwd = kernels["flash_attention_bwd"].launches
+                    layers = cfg.n_layers * (2 if cfg.enc_dec else 1) + \
+                        cfg.n_enc_layers
+                    if (n_fwd, n_bwd) != (2 * layers, layers):
+                        raise AssertionError(
+                            f"{arch} {name}: flash launches {n_fwd} "
+                            f"forward, {n_bwd} backward a step; expected "
+                            f"{2 * layers}, {layers}")
+                    total["flash_attention"] += n_fwd
+                    total["flash_attention_bwd"] += n_bwd
+                    losses.append((float(m_gpu["loss"]),
+                                   float(m_cpu["loss"])))
+                d_loss = max(abs(a - b) / abs(b) for a, b in losses)
+                d_par, d_enc = 0.0, 0.0
+                for (path, a), (_, b), (_, b0) in zip(
+                        named_leaves(p_gpu), named_leaves(p_cpu),
+                        named_leaves(p0)):
+                    diff = float((a.cpu() - b).abs().max())
+                    if cfg.enc_dec and path.startswith(ENC_PATH):
+                        d_enc = max(d_enc, diff / float(
+                            (b - b0).abs().max()))
+                    else:
+                        d_par = max(d_par, diff / float(b.abs().max()))
+                out[name] = (d_loss, d_par, d_enc)
+                print(f"train agreement {arch} REDUCED float32, {name}, 3 "
+                      f"steps (card vs CPU): losses {losses}, max relative "
+                      f"loss diff {d_loss:.3g}, params max |diff| / "
+                      f"leaf's largest {d_par:.3g}"
+                      + (f", bf16 encoder path max |diff| / largest "
+                         f"update {d_enc:.3g}" if cfg.enc_dec else ""))
+                if not all(math.isfinite(a) for a, _ in losses):
+                    raise AssertionError(f"{arch}: non-finite loss")
+        finally:
+            model.encode = real_encode
+        sg, aw = out["sgd"], out["adamw"]
+        if not (sg[0] <= 1e-5 and sg[1] <= 1e-5 and sg[2] <= 2 ** -6
+                and aw[0] <= 1e-4):
+            raise AssertionError(f"{arch} trains differently on the card "
+                                 f"and on the CPU: {out}")
+    bf16 = lm_train_bf16_agreement(torch, kernels)
+    for n in total:
+        total[n] += bf16[n]
+    # what has no backward kernel refuses a gradient on the card
+    r = torch.rand((1, 70, 2, 64), device="cuda", requires_grad=True)
+    x = torch.rand((1, 130, 64), device="cuda", requires_grad=True)
+    bc = torch.rand((1, 130, 16), device="cuda")
+    raised = []
+    for name, call in (
+            ("rwkv6", lambda: ops.rwkv6(r, r, r, r, torch.zeros(
+                (2, 64), device="cuda"))),
+            ("selective_scan", lambda: ops.selective_scan(
+                x, x, bc, bc, -torch.rand((64, 16), device="cuda")))):
+        try:
+            call()
+        except RuntimeError as err:
+            raised.append(f"{name}: {err}")
+    for arch in ("rwkv6-1.6b", "hymba-1.5b"):
+        cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                  dtype="float32")
+        params = model.init_params(torch.Generator(device="cuda"
+                                                   ).manual_seed(0), cfg)
+        opt = sgd(0.5)
+        toks = torch.randint(0, cfg.vocab, (2, 65), device="cuda")
+        try:
+            model.make_train_step(cfg, opt)(params, opt.init(params), {
+                "tokens": toks[:, :-1], "targets": toks[:, 1:]})
+        except RuntimeError as err:
+            raised.append(f"{arch} make_train_step: {err}")
+    print("on the card under grad: " + "; ".join(raised))
+    if len(raised) != 4 or not all("no backward" in m for m in raised):
+        raise AssertionError(f"a kernel without a backward did not raise "
+                             f"under grad: {raised}")
+    print(f"phase 25: {time.perf_counter() - t0:.1f} s ({card_line()})")
+    return total
+
+
+def lm_train_bf16_agreement(torch, kernels) -> dict:
+    """Phase 25, in bf16: REDUCED StarCoder2 as configured (bfloat16
+    compute, window 64, head dim 32: the flash backward's tensor-core
+    form; ``remat`` on), three ``sgd`` steps of ``make_train_step`` on
+    (2, 256) tokens on the card against the CPU from the same float32
+    params. Each loss within ``BF16_LOSS_REL`` of the CPU's, each leaf's
+    update (params less their start) within ``BF16_UPDATE_REL`` of the
+    CPU's largest. Two faulty backwards on the card must fail the update
+    limit: attention detached (no gradient through it, the fault a
+    forward-only kernel had) and the window ignored in the backward.
+    Returns the flash launches of the kernel's run."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.models import model
+    from repro_torch.optim import sgd
+    from repro_torch.tree import tree_map
+
+    cfg = get_config("starcoder2-3b", reduced=True)
+    p0 = model.init_params(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
+    rng = np.random.default_rng(1)
+    batches = []
+    for _ in range(3):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 257)))
+        batches.append({"tokens": toks[:, :-1], "targets": toks[:, 1:]})
+
+    def run(device):
+        opt = sgd(0.5)
+        params = tree_map(lambda x: x.to(device, copy=True), p0)
+        state = opt.init(params)
+        step = model.make_train_step(cfg, opt, device=device)
+        losses = []
+        for batch in batches:
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+        return losses, params
+
+    def detached(ctx, do):
+        q, k, v = ctx.saved_tensors[:3]
+        return (torch.zeros_like(q), torch.zeros_like(k),
+                torch.zeros_like(v), None, None)
+
+    def window_ignored(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                     causal=ctx.causal, window=None),
+                None, None)
+
+    want_losses, want = run("cpu")
+    ups = [(path, b - b0, float((b - b0).abs().max())) for (path, b), (
+        _, b0) in zip(named_leaves(want), named_leaves(p0))]
+    real = ops.FlashAttention.backward
+    out = {}
+    for name, fault in (("kernel", None), ("attention detached", detached),
+                        ("window ignored in the backward", window_ignored)):
+        if fault is not None:
+            ops.FlashAttention.backward = staticmethod(fault)
+        try:
+            reset_counts(torch, kernels)
+            losses, got = run("cuda")
+            torch.cuda.synchronize()
+            counts = {n: kernels[n].launches for n in (
+                "flash_attention", "flash_attention_bwd")}
+        finally:
+            ops.FlashAttention.backward = real
+        d_loss = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                         want_losses))
+        d_up = max(float(((a.cpu() - b0) - u).abs().max()) / top
+                   for (_, a), (_, b0), (_, u, top) in zip(
+                       named_leaves(got), named_leaves(p0), ups))
+        out[name] = (losses, d_loss, d_up, counts)
+        print(f"train agreement starcoder2-3b REDUCED bfloat16 (tensor-core "
+              f"backward, window {cfg.window}, remat {cfg.remat}), sgd, 3 "
+              f"steps, {name} (card vs CPU): losses "
+              f"{list(zip(losses, want_losses))}, max relative loss diff "
+              f"{d_loss:.3g} (limit {BF16_LOSS_REL}), updates max |diff| / "
+              f"leaf's largest update {d_up:.3g} (limit "
+              f"{BF16_UPDATE_REL}); flash launches {counts}")
+    losses, d_loss, d_up, counts = out["kernel"]
+    layers = cfg.n_layers * len(batches)
+    if counts != {"flash_attention": 2 * layers,
+                  "flash_attention_bwd": layers}:
+        raise AssertionError(f"bf16 starcoder2: flash launches {counts}")
+    if not (all(math.isfinite(x) for x in losses)
+            and d_loss <= BF16_LOSS_REL and d_up <= BF16_UPDATE_REL):
+        raise AssertionError(f"bf16 starcoder2 trains differently on the "
+                             f"card and on the CPU: {out['kernel']}")
+    passed = [n for n in out if n != "kernel"
+              and out[n][2] <= BF16_UPDATE_REL]
+    if passed:
+        raise AssertionError(f"the bf16 training check passes faulty "
+                             f"backwards {passed}")
+    return counts
+
+
+GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma", "Kernel2")
+TRAIN_STEPS = 4       # phase 26's optimizer steps
+SGD_DROP = 0.25       # phase 26's witness: sgd's first-order loss drop
+SGD_DROP_RATIO = (0.5, 1.5)   # its measured drop over the prediction
+
+
+def classify(name: str) -> str:
+    """The part of a training step a device kernel belongs to."""
+    if name.startswith("fa_bf16_kernel") or name.startswith(
+            "fa_f32_kernel"):
+        return "flash forward"
+    if name.startswith("bwd_"):
+        return "flash backward"
+    if any(g in name for g in GEMM_NAMES):
+        return "GEMMs"
+    return "elementwise and other"
+
+
+def step_breakdown(torch, label: str, run) -> dict:
+    """``run()`` under ``torch.profiler``: device time by part
+    (``classify``), device busy and the idle share of the wall; prints
+    the parts and the top kernels."""
+    spans, wall = device_spans(run, attempts=6, pause=0.25)
+    busy, end = 0.0, -math.inf
+    parts: dict = {}
+    by_name: dict = {}
+    for s, e, name in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+        key = name.replace("(anonymous namespace)::", "").replace(
+            "void ", "").split("<")[0].split("(")[0][:60]
+        part = classify(key)
+        parts[part] = parts.get(part, 0.0) + (e - s) / 1e3
+        tot, n = by_name.get(key, (0.0, 0))
+        by_name[key] = (tot + e - s, n + 1)
+    busy /= 1e3
+    print(f"profile: {label}: wall {wall:.1f} ms, device busy {busy:.1f} "
+          f"ms (idle {1 - busy / wall:.1%}), {len(spans)} device ops; "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(
+              parts.items(), key=lambda kv: -kv[1])))
+    for key, (tot, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:10]:
+        print(f"  {tot / 1e3:9.3f} ms  {n:5d}x  [{classify(key)}]  {key}")
+    return {"wall_ms": wall, "busy_ms": busy, "parts_ms": parts}
+
+
+def lm_train_path(torch, kernels) -> dict:
+    """Phase 26: StarCoder2-3B training at full width (30 layers, d_model
+    3072, 3.18 B float32 params, random from a seed, bf16 compute) with
+    ``train_lm``'s optimizer (AdamW, linear warm-up and cosine decay,
+    weight decay 0.1, clipping at 1.0) on ``packed_batches`` (1, 8192)
+    tokens, ``remat`` on: one warm step, then ``TRAIN_STEPS`` steps with
+    the launch counts zeroed before and read after (the flash forward 60
+    a step, 30 and 30 recomputed; the backward 30), each loss finite,
+    step seconds, tokens/s, peak memory under the card's; then where one
+    more step's time goes (its gradient and its optimizer update profiled
+    apart), and ``loss_rise_witness``. Returns the launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import LMDataConfig, packed_batches
+    from repro_torch.models import model
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = get_config("starcoder2-3b")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    total = TRAIN_STEPS + 2
+    opt = adamw(lr=linear_warmup_cosine(3e-3, 20, total), weight_decay=0.1,
+                max_grad_norm=1.0)
+    opt_state = opt.init(params)
+    torch.cuda.synchronize()
+    print(f"starcoder2-3b training: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, window {cfg.window}, {n_params} "
+          f"float32 params ({16 * n_params / 2 ** 30:.1f} GiB with grads "
+          f"and AdamW's moments), {cfg.dtype} compute, remat {cfg.remat}; "
+          f"init {time.perf_counter() - t0:.2f} s")
+    step = model.make_train_step(cfg, opt)
+    data = packed_batches(LMDataConfig(vocab=cfg.vocab, seq_len=8192,
+                                       global_batch=1, seed=0))
+
+    def batch():
+        return {k: torch.from_numpy(v).to(dev) for k, v in next(
+            data).items()}
+
+    params, opt_state, m = step(params, opt_state, batch())     # warm
+    torch.cuda.synchronize()
+    print(f"starcoder2-3b warm step: loss {float(m['loss']):.4f}")
+    batches = [batch() for _ in range(TRAIN_STEPS)]
+    reset_counts(torch, kernels)
+    secs, losses = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, b)
+        losses.append(float(m["loss"]))      # synchronizes
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    tok = 8192
+    print(f"starcoder2-3b training (1, 8192) tokens, {TRAIN_STEPS} steps: "
+          f"losses {losses}, step seconds {[round(s, 4) for s in secs]}, "
+          f"tokens/s {[round(tok / s, 1) for s in secs]} (median "
+          f"{tok / statistics.median(secs):.1f}), peak "
+          f"{peak / 2 ** 30:.2f} GiB of {card_bytes / 2 ** 30:.2f} GiB, "
+          f"launches {launches} ({card_line()})")
+    want = {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
+            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if {n: launches[n] for n in want} != want or any(
+            c for n, c in launches.items() if n not in want):
+        raise AssertionError(f"launches {launches}, expected {want}")
+    if peak >= card_bytes:
+        raise AssertionError(f"peak {peak} bytes over the card's")
+
+    # where one more step's time goes: its gradient, then its update
+    b = batch()
+    grads = {}
+
+    def grad_part():
+        grads.clear()            # a round run again frees the last first
+        grads["g"] = model._grads(params, b, cfg, dev)[1]
+
+    def opt_part():
+        it = iter(grads["g"])
+        opt.apply_(tree_map(lambda _: next(it), params), opt_state,
+                   params)
+
+    g_prof = step_breakdown(torch, "starcoder2-3b step, loss and "
+                            "gradient", grad_part)
+    o_prof = step_breakdown(torch, "starcoder2-3b step, AdamW update "
+                            "(apply_)", opt_part)
+    wall = g_prof["wall_ms"] + o_prof["wall_ms"]
+    parts = dict(g_prof["parts_ms"])
+    parts["optimizer"] = o_prof["busy_ms"]
+    parts["idle"] = wall - g_prof["busy_ms"] - o_prof["busy_ms"]
+    print(f"starcoder2-3b step, where the time goes (profiled, {wall:.1f} "
+          f"ms): " + ", ".join(f"{k} {v:.1f} ms ({v / wall:.1%})" for k, v
+                              in sorted(parts.items(),
+                                        key=lambda kv: -kv[1])))
+    del params, opt_state, grads, b
+    torch.cuda.empty_cache()
+    witness = loss_rise_witness(torch, cfg, total)
+    print(f"phase 26: {time.perf_counter() - t_phase:.1f} s ({card_line()})")
+    return {"launches": launches, "losses": losses, "step_s": secs,
+            "peak_gib": peak / 2 ** 30, "parts_ms": parts,
+            "witness": witness}
+
+
+def loss_rise_witness(torch, cfg, total: int) -> dict:
+    """Why phase 26's losses rise over its first steps: from the same
+    params (seed 0) on one fixed batch (the warm step's), ``TRAIN_STEPS``
+    + 1 steps of ``make_train_step`` with ``train_lm``'s AdamW (a step's
+    loss is the one before its update), then as many with ``sgd`` at lr
+    ``SGD_DROP`` / |g|^2 (g the first gradient), whose first step should
+    lower the loss by ``SGD_DROP`` to first order. SGD must lower the
+    loss at every step, its first drop within ``SGD_DROP_RATIO`` of the
+    prediction (a full-width check of the gradient's direction and
+    size)."""
+    from repro_torch.data import LMDataConfig, packed_batches
+    from repro_torch.models import model
+    from repro_torch.optim import adamw, linear_warmup_cosine, sgd
+
+    dev = torch.device("cuda")
+    b0 = {k: torch.from_numpy(v).to(dev) for k, v in next(packed_batches(
+        LMDataConfig(vocab=cfg.vocab, seq_len=8192, global_batch=1,
+                     seed=0))).items()}
+    out = {}
+    for name in ("adamw", "sgd"):
+        params = model.init_params(torch.Generator(device=dev)
+                                   .manual_seed(0), cfg)
+        if name == "adamw":
+            opt = adamw(lr=linear_warmup_cosine(3e-3, 20, total),
+                        weight_decay=0.1, max_grad_norm=1.0)
+        else:
+            g = model._grads(params, b0, cfg, dev)[1]
+            gsq = float(sum((x.float() ** 2).sum() for x in g))
+            del g
+            opt = sgd(SGD_DROP / gsq)
+        state = opt.init(params)
+        step = model.make_train_step(cfg, opt)
+        losses = []
+        for _ in range(TRAIN_STEPS + 1):
+            params, state, m = step(params, state, b0)
+            losses.append(float(m["loss"]))
+        out[name] = losses
+        del params, state, step, opt
+        torch.cuda.empty_cache()
+    drop = (out["sgd"][0] - out["sgd"][1]) / SGD_DROP
+    print(f"starcoder2-3b, one fixed batch, loss before each step: AdamW "
+          f"(train_lm's) {out['adamw']}; sgd at lr {SGD_DROP} / |g|^2 "
+          f"{out['sgd']}, first drop {drop:.4g} of the first-order "
+          f"prediction ({card_line()})")
+    falls = all(b < a for a, b in zip(out["sgd"], out["sgd"][1:]))
+    lo, hi = SGD_DROP_RATIO
+    if not (falls and lo <= drop <= hi):
+        raise AssertionError(f"sgd does not descend as its gradient "
+                             f"predicts at full width: {out['sgd']}")
+    return out | {"sgd_first_drop_ratio": drop}
+
+
+def lm_cli() -> None:
+    """Phase 27: the LM pretraining CLI on the card, REDUCED StarCoder2,
+    20 steps of (8, 128): exit 0 and finite losses."""
+    import os
+
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "starcoder2-3b", "--reduced", "--steps", "20", "--batch", "8",
+           "--seq", "128", "--log-every", "5"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    lines = res.stdout.strip().splitlines()
+    losses = [float(line.split()[3]) for line in lines
+              if line.startswith("step")]
+    print(f"phase 27: {' '.join(cmd[1:])}: exit {res.returncode}, "
+          f"{lines[:1]}, losses {losses}, {time.perf_counter() - t0:.1f} s")
+    if res.returncode != 0 or not losses or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"the LM CLI failed: {res.stderr[-2000:]}")
+
+
 def multilayer_sample_check(torch, dev, g, cfg) -> dict:
     """Phase 5d (2): the sampling kernel's nodes form at a two-layer
     step's rows: one launch over the 3B queried nodes repeated for each
@@ -3969,6 +4773,27 @@ def main() -> int:
         bitwise=True)["flash_attention"]
     torch.cuda.empty_cache()
     print(f"phases 20-23: {time.perf_counter() - t0:.1f} s ({card})")
+    # phase 24: the flash backward kernel against its plain version, and
+    # the forward's optional lse against phase 11's time
+    t0 = time.perf_counter()
+    flash_bwd = flash_bwd_checks(torch, dev, FLASH_BWD_CASES,
+                                 flash[-1]["kernel"])
+    print(f"phase 24: {time.perf_counter() - t0:.1f} s ({card})")
+    # phase 25: REDUCED training card vs CPU; what has no backward raises
+    agree = lm_train_agreement(torch, KERNELS)
+    torch.cuda.empty_cache()
+    # phase 26, this slice's main path: StarCoder2-3B training at full
+    # width, counted from zero
+    train = lm_train_path(torch, KERNELS)
+    flash_by_path["starcoder2-3b training"] = train["launches"][
+        "flash_attention"]
+    launches["flash_attention_bwd"] = train["launches"][
+        "flash_attention_bwd"]
+    flash_bwd[0]["extra"]["launches_by_path"] = {
+        "starcoder2-3b training": launches["flash_attention_bwd"],
+        "train agreement (phase 25)": agree["flash_attention_bwd"]}
+    # phase 27: the LM pretraining CLI
+    lm_cli()
     launches["flash_attention"] = sum(flash_by_path.values())
     flash[-1]["extra"]["launches_by_path"] = flash_by_path
 
@@ -4013,7 +4838,8 @@ def main() -> int:
                      [r for r in gru if r["name"] == name])
         for name in ("fused_gru", "fused_gru_bwd")] + [
         shaped_entry(flash[-1], flash + flash_keys),
-        shaped_entry(scan[0], scan)]}
+        shaped_entry(scan[0], scan),
+        shaped_entry(flash_bwd[0], flash_bwd)]}
     if len(record["kernels"]) != len(TPU_KERNELS) + len(NEW_KERNELS):
         raise AssertionError("the record misses a kernel")
     print(profile_loss_line())

@@ -4,10 +4,13 @@ after ``repro/configs/base.py``.
 ``ArchConfig`` holds the fields that the families' configs set and that
 their code reads (RWKV6, the dense and MoE decoders with gated FFNs,
 qk-norm and tied embeddings, the hybrid attention + SSM decoder, the
-encoder-decoder and the vision-language decoder); the JAX package's
-fields for training and sharding (``remat``, ``microbatch``,
-``attn_chunk``, ``max_seq``) come back with LM training (ROADMAP Queue
-1). The registry loads every language-model architecture of the JAX
+encoder-decoder and the vision-language decoder), and the two training
+fields that ``models.make_train_step`` reads (``remat``, ``microbatch``,
+with the JAX package's defaults). Left out: ``attn_chunk``, the query
+block of the JAX package's ``chunked_attention`` (the port attends
+through the flash kernels, whose tiles are their own), and ``max_seq``,
+which only the JAX package's dry run and sharding rules read. The
+registry loads every language-model architecture of the JAX
 package's (``_ARCH_MODULES``; ``speed-tig`` is the TIG workload, in
 ``configs/speed_tig.py``); each module registers its published
 configuration and a reduced one (<= 2 layers, narrow) for the CPU
@@ -83,6 +86,12 @@ class ArchConfig:
     # embeddings prepended to the tokens (vision)
     frontend: str = "none"               # none | audio | vision
     frontend_tokens: int = 0             # the stub's default token count
+
+    # training: checkpoint each layer (recompute its activations in the
+    # backward), and how many microbatches a step's batch is split into
+    # (their gradients averaged)
+    remat: bool = True
+    microbatch: int = 1
 
     # numerics: compute dtype (params are float32)
     dtype: str = "bfloat16"

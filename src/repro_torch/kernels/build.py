@@ -23,13 +23,14 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["Kernel", "KERNELS", "build_all", "library_path", "SOURCES"]
+__all__ = ["Kernel", "KERNELS", "build_all", "library", "library_path",
+           "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("neighbor_sample.cu", "fused_flush.cu", "temporal_attn.cu",
            "rwkv6_scan.cu", "fused_gru.cu", "flash_attention.cu",
-           "selective_scan.cu")
+           "selective_scan.cu", "flash_attention_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -78,7 +79,9 @@ def build_all() -> dict[str, str]:
 
 
 @functools.cache
-def _library(source: str) -> ctypes.CDLL:
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library of ``source``, built first if missing (for a
+    query it exports beside its launchers)."""
     path = library_path(source)
     if not path.exists():
         build_all()
@@ -105,13 +108,13 @@ class Kernel:
 
     def __call__(self, *args) -> None:
         if self._fn is None:
-            fn = getattr(_library(self.source), self.symbol)
+            fn = getattr(library(self.source), self.symbol)
             fn.argtypes = list(self.argtypes)
             fn.restype = ctypes.c_int
             self._fn = fn
         err = self._fn(*args)
         if err != 0:
-            msg = _library(self.source).error_string(err).decode()
+            msg = library(self.source).error_string(err).decode()
             raise RuntimeError(f"{self.name}: CUDA error {err} ({msg})")
         self.launches += 1
 
@@ -147,9 +150,14 @@ KERNELS: dict[str, Kernel] = {k.name: k for k in (
     Kernel("fused_gru_bwd", "fused_gru.cu", "fused_gru_bwd",
            (P, P, P, P, P, P, P, I, I, I, P, P, P, P, P, P, P, P, P)),
     # q k v batch seq_q seq_k heads kv_heads head_dim causal window
-    # is_bf16 o stream
+    # is_bf16 o lse (null: not written) stream
     Kernel("flash_attention", "flash_attention.cu", "flash_attention_fwd",
-           (P, P, P, I, I, I, I, I, I, I, I, I, P, P)),
+           (P, P, P, I, I, I, I, I, I, I, I, I, P, P, P)),
+    # q k v o lse do batch seq_q seq_k heads kv_heads head_dim causal
+    # window is_bf16 delta (scratch) dq dk dv stream
+    Kernel("flash_attention_bwd", "flash_attention_bwd.cu",
+           "flash_attention_bwd",
+           (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P, P, P, P, P)),
     # x dt b c a h0 batch seq channels state is_bf16 form (0: per state,
     # 1: chunked) y h_out stream
     Kernel("selective_scan", "selective_scan.cu", "selective_scan_fwd",

@@ -19,7 +19,10 @@
 // exactly 0 from them. A key tile wholly outside [q_start - window + 1,
 // q_end] is never loaded: the cost is O(S * window), the point of the TPU
 // kernel. Blocks start with the last query tiles, which have the most
-// keys. No atomics: every sum runs in a fixed order.
+// keys. No atomics: every sum runs in a fixed order. Given a pointer, both
+// kernels also write each row's log-sum-exp of its scaled scores, float32
+// (B, H, Sq), which the backward (`flash_attention_bwd.cu`) reads; serving
+// passes none.
 //
 // bfloat16 (`fa_bf16_kernel<D>`: D 128 for StarCoder2-3B and OLMoE-1B-7B,
 // 256 for Gemma-7B, 64 for hymba-1.5B, 32 for the REDUCED configs). At D
@@ -109,6 +112,7 @@ struct Params {
   int heads, kv_heads, causal, window;       // window <= 0: none
   float scale;                               // 1 / sqrt(D)
   int pair;  // bf16: the two slots of a block are two heads (see below)
+  float* lse;  // null, or (B, H, Sq) float32: each row's log-sum-exp
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -634,6 +638,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = 1.0f / fmaxf(l, 1e-30f);
     const int row = 16 * w + gid + 8 * rh;
+    // the row's log-sum-exp in natural units (m is in log2 units)
+    if (p.lse != nullptr && tig == 0 && r0 + row < p.seq)
+      p.lse[(static_cast<size_t>(b) * p.heads + slot_head(g)) * p.seq + r0 +
+            row] = (mrow[rh] + log2f(fmaxf(l, 1e-30f))) *
+                   0.6931471805599453f;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int col = 8 * j + 2 * tig;
@@ -832,6 +841,9 @@ __global__ void __launch_bounds__(F_THREADS)
     const float den = fmaxf(l, 1e-30f);
     const int row = q0 + ty + 16 * r;
     if (row >= p.seq) continue;
+    if (p.lse != nullptr && tx == 0)
+      p.lse[(static_cast<size_t>(b) * p.heads + h) * p.seq + row] =
+          mrow[r] + logf(den);
     float* orow = o + q_off + static_cast<size_t>(row) * q_ld;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
@@ -950,19 +962,23 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* o,
 // bfloat16 (is_bf16 = 1, D 32, 64, 128 or 256) or all float32 (is_bf16 =
 // 0, D <= 256), contiguous, 16-byte aligned; H a multiple of Hkv; window
 // <= 0 for none; Sk >= 1, and Sk = Sq where the call is causal or has a
-// window.
+// window. lse: null, or (B, H, Sq) float32 for each row's log-sum-exp of
+// its scaled scores (the backward's input; serving passes null and
+// writes nothing there).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, int batch, int seq_q,
                                    int seq_k, int heads, int kv_heads,
                                    int head_dim, int causal, int window,
-                                   int is_bf16, void* o, void* stream) {
+                                   int is_bf16, void* o, void* lse,
+                                   void* stream) {
   if (batch == 0 || seq_q == 0 || heads == 0) return 0;
   if (kv_heads <= 0 || heads % kv_heads || head_dim <= 0 || seq_k <= 0 ||
       ((causal || window > 0) && seq_k != seq_q))
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{seq_q,  seq_k,  heads,  kv_heads,
                  causal, window, 1.0f / sqrtf(static_cast<float>(head_dim)),
-                 (heads / kv_heads) % CONSUMERS == 0};
+                 (heads / kv_heads) % CONSUMERS == 0,
+                 static_cast<float*>(lse)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     switch (head_dim) {

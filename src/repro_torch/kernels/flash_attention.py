@@ -1,25 +1,28 @@
-"""Flash attention on the card: wrapper of the CUDA kernel in
-``csrc/flash_attention.cu``, which replaces the TPU kernel
-``repro/kernels/flash_attention.py:_fa_kernel``. Its plain version is
-``ref.flash_attention_ref``, which takes (B, H, S, D) with equal head
-counts; the kernel reads the model's (B, Sq, H, D) q and (B, Sk, Hkv, D) k
-and v, head h reading KV head h // (H // Hkv). Forward only, as in the JAX
-package. The key length Sk may differ from Sq in non-causal calls without
-a window (cross-attention over an encoder's memory), one step past the
-TPU kernel, which takes one S.
+"""Flash attention on the card: wrappers of the CUDA kernels in
+``csrc/flash_attention.cu`` (the forward, which replaces the TPU kernel
+``repro/kernels/flash_attention.py:_fa_kernel``) and
+``csrc/flash_attention_bwd.cu`` (its backward, which replaces no TPU
+kernel: the JAX package differentiates its LM attention as XLA). Their
+plain versions are ``ref.flash_attention_ref`` and
+``ref.flash_attention_bwd_ref``, which take (B, H, S, D) with equal head
+counts; the kernels read the model's (B, Sq, H, D) q and (B, Sk, Hkv, D) k
+and v, head h reading KV head h // (H // Hkv). The key length Sk may
+differ from Sq in non-causal calls without a window (cross-attention over
+an encoder's memory), one step past the TPU kernel, which takes one S.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels._checks import check, stream
-from repro_torch.kernels.build import KERNELS
+from repro_torch.kernels.build import KERNELS, library
 
-__all__ = ["flash_attention_fwd", "check_key_length", "BLOCK_Q",
-           "BLOCK_KV"]
+__all__ = ["flash_attention_fwd", "flash_attention_bwd", "check_key_length",
+           "bwd_dq_tile", "BLOCK_Q", "BLOCK_KV"]
 
 # the bf16 kernel's instantiations: StarCoder2-3B and OLMoE-1B-7B (128),
 # Gemma-7B (256), hymba-1.5B (64) and the REDUCED configs (32)
@@ -47,14 +50,9 @@ def check_key_length(sq: int, sk: int, causal: bool,
                          f"queries, got {sq} queries and {sk} keys")
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None):
-    """q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D) with Hkv dividing H (Sk =
-    Sq where ``causal`` or ``window``); all bfloat16 (D in
-    ``BF16_HEAD_DIMS``) or all float32 (D up to ``F32_MAX_HEAD_DIM``),
-    contiguous, 16-byte aligned, on one card. ``window``: how many tokens
-    a query may look back, itself included (None or 0: unbounded).
-    Returns o (B, Sq, H, D) in q's dtype."""
+def _check_inputs(q, k, v, causal: bool, window: Optional[int]) -> tuple:
+    """Raise unless q, k, v suit the kernels (see ``flash_attention_fwd``);
+    returns (B, Sq, Sk, H, Hkv, D)."""
     dev = q.device
     if q.dim() != 4:
         raise ValueError(f"q: expected (B, S, H, D), got {tuple(q.shape)}")
@@ -78,13 +76,76 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
         raise ValueError(f"{h} query heads do not split over {hkv} KV heads")
     if window is not None and window < 0:
         raise ValueError(f"window must be positive, got {window}")
-    o = torch.empty_like(q)
-    for name, x in (("q", q), ("k", k), ("v", v), ("o", o)):
+    return b, s, sk, h, hkv, d
+
+
+def _aligned(**tensors) -> None:
+    for name, x in tensors.items():
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: the kernel needs 16-byte aligned "
                              f"data")
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        return_lse: bool = False):
+    """q: (B, Sq, H, D); k, v: (B, Sk, Hkv, D) with Hkv dividing H (Sk =
+    Sq where ``causal`` or ``window``); all bfloat16 (D in
+    ``BF16_HEAD_DIMS``) or all float32 (D up to ``F32_MAX_HEAD_DIM``),
+    contiguous, 16-byte aligned, on one card. ``window``: how many tokens
+    a query may look back, itself included (None or 0: unbounded).
+    Returns o (B, Sq, H, D) in q's dtype; with ``return_lse`` also each
+    row's log-sum-exp of its scaled scores, (B, H, Sq) float32, for
+    ``flash_attention_bwd`` (without it the kernel writes none)."""
+    b, s, sk, h, hkv, d = _check_inputs(q, k, v, causal, window)
+    o = torch.empty_like(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    _aligned(q=q, k=k, v=v, o=o)
     KERNELS["flash_attention"](
         q.data_ptr(), k.data_ptr(), v.data_ptr(), b, s, sk, h, hkv, d,
         int(causal), int(window or 0), int(q.dtype == torch.bfloat16),
-        o.data_ptr(), stream(dev))
-    return o
+        o.data_ptr(), None if lse is None else lse.data_ptr(),
+        stream(q.device))
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: Optional[int] = None):
+    """The gradients of ``flash_attention_fwd``'s o with respect to q, k
+    and v, given o, its ``lse`` (B, H, Sq) float32 and the upstream
+    gradient ``do`` (B, Sq, H, D) in q's dtype: (dq, dk, dv) in the
+    inputs' dtype, dk and dv per KV head (summed over the query heads of
+    its group). The same inputs as the forward's; float32 sums, no
+    atomics (two calls agree bit for bit); one count a call of its three
+    launches. The kernel runs on the tensor cores for bf16 at head dims
+    32, 64 and 128, else on the CUDA cores."""
+    b, s, sk, h, hkv, d = _check_inputs(q, k, v, causal, window)
+    check("o", o, q.dtype, (b, s, h, d), q.device)
+    check("do", do, q.dtype, (b, s, h, d), q.device)
+    check("lse", lse, torch.float32, (b, h, s), q.device)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    _aligned(q=q, k=k, v=v, o=o, do=do)
+    KERNELS["flash_attention_bwd"](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), b, s, sk, h, hkv, d, int(causal),
+        int(window or 0), int(q.dtype == torch.bfloat16),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        stream(q.device))
+    return dq, dk, dv
+
+
+def bwd_dq_tile(head_dim: int, bf16: bool) -> tuple:
+    """(query rows, keys) of a tile of the backward's dQ walk at
+    ``head_dim`` (key tiles start at multiples of keys), as the built
+    kernel reports it: ``csrc/flash_attention_bwd.cu`` owns its tiles."""
+    fn = library("flash_attention_bwd.cu").flash_attention_bwd_dq_tile
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = None
+    rows, keys = ctypes.c_int(), ctypes.c_int()
+    fn(head_dim, int(bf16), ctypes.byref(rows), ctypes.byref(keys))
+    return rows.value, keys.value

@@ -4,6 +4,13 @@ A CUDA tensor goes to the hand-written kernel; a CPU tensor goes to the
 plain version in ``ref.py``. Nothing else chooses: there is no backend
 switch and no fallback from a kernel that fails to build or launch.
 
+On the CPU autograd differentiates the plain versions. On the card a
+kernel is differentiable only through a ``torch.autograd.Function`` whose
+backward is a kernel too (the GRU, the flush, the temporal attention,
+flash attention); a kernel without one (WKV, the selective scan) raises
+when asked for a gradient, rather than hand back an output that autograd
+does not know and so drop every gradient through it.
+
 The JAX package pads feature dims to 128 lanes and K to 8 sublanes here
 (``repro/kernels/ops.py``); that is a TPU layout choice, not semantics, so
 the port calls its kernels on the unpadded ``ref.py`` shapes.
@@ -15,6 +22,7 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (check_key_length,
+                                                 flash_attention_bwd,
                                                  flash_attention_fwd)
 from repro_torch.kernels.fused_flush import FusedFlush
 from repro_torch.kernels.fused_gru import FusedGRU
@@ -26,7 +34,7 @@ from repro_torch.kernels.temporal_attn import TemporalAttention
 
 __all__ = ["temporal_attention", "fused_flush", "neighbor_sample",
            "sample_roles", "rwkv6", "gru", "flash_attention",
-           "selective_scan"]
+           "selective_scan", "FlashAttention"]
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -35,6 +43,44 @@ def _on_card(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return False
     raise ValueError(f"no kernel or plain version for device {x.device}")
+
+
+def _wants_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in xs)
+
+
+def _forward_only(name: str, *xs) -> None:
+    """Raise if autograd would need the gradient of a kernel that has no
+    backward: its output would carry none."""
+    if _wants_grad(*xs):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward kernel yet, so a "
+            f"gradient through it would be dropped; call it under "
+            f"torch.no_grad() (serving), or train this family on the CPU")
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` on the card, differentiable: the forward kernel
+    also writes each row's log-sum-exp, and the backward is the
+    ``flash_attention_bwd`` kernel (dk and dv per KV head). Inputs in the
+    model's layout, contiguous."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                     return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def gru(x, h, wx, wh, bx, bh):
@@ -55,7 +101,10 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     layout: q (B, Sq, H, D), k and v (B, Sk, Hkv, D), head h reading KV
     head h // (H // Hkv); Sk = Sq where ``causal`` or ``window``, any Sk
     >= 1 otherwise (cross-attention). Float32 inside; returns (B, Sq, H,
-    D) in q's dtype. Forward only.
+    D) in q's dtype. Differentiable on both devices: on the card, where a
+    gradient is wanted, through ``FlashAttention`` (the forward kernel
+    with the log-sum-exp, the backward kernel); on the CPU, autograd
+    through the plain version.
 
     (The JAX package's op takes (B, H, S, D) with equal head counts, plus
     ``block_q`` / ``block_k``, which are TPU tiles. On the CPU the plain
@@ -63,9 +112,10 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     axes moved.)"""
     check_key_length(q.shape[1], k.shape[1], causal, window)
     if _on_card(q):
-        return flash_attention_fwd(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal=causal,
-                                   window=window)
+        args = (q.contiguous(), k.contiguous(), v.contiguous())
+        if _wants_grad(*args):
+            return FlashAttention.apply(*args, causal, window)
+        return flash_attention_fwd(*args, causal=causal, window=window)
     group = q.shape[2] // k.shape[2]
     qh, kh, vh = (t.transpose(1, 2) for t in (
         q, k.repeat_interleave(group, dim=2),
@@ -131,9 +181,11 @@ def rwkv6(r, k, v, w, u, *, state=None, chunk=64, return_state=True):
     |log w| * chunk below about 80, or the scan). On the card S >= 64
     goes to the chunked kernel (chunks of 64 on the tensor cores, every
     decay factor at most 1, any w in (0, 1]) and S < 64, decode, to the
-    sequential one; ``chunk`` sets only the output dtype there."""
+    sequential one; ``chunk`` sets only the output dtype there. The card's
+    kernels are forward only: they raise where a gradient is wanted."""
     s = r.shape[1]
     if _on_card(r):
+        _forward_only("rwkv6", r, k, v, w, u, state)
         out_dtype = torch.float32 if (s % chunk or s <= chunk) else r.dtype
         o, st = rwkv6_fwd(
             *(x.contiguous() for x in (r, k, v, w.float(), u.float())),
@@ -153,8 +205,10 @@ def selective_scan(x, dt, b, c, a, *, state=None):
     a: (di, n) float32; state: None (zeros) or (B, di, n) float32. Returns
     (y (B, S, di) in x's dtype, the final state float32). On the card the
     CUDA kernel (n 8 or 16; its chunked form from S 128, its per-state form
-    below), on the CPU ``ref.selective_scan_ref``."""
+    below; forward only: it raises where a gradient is wanted), on the CPU
+    ``ref.selective_scan_ref``."""
     if _on_card(x):
+        _forward_only("selective_scan", x, dt, b, c, a, state)
         return selective_scan_fwd(
             *(t.contiguous() for t in (x, dt, b, c)), a.float().contiguous(),
             None if state is None else state.float().contiguous())

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the kernels on the port's paths (TGN training,
-RWKV6, StarCoder2 and hymba serving, the ``ops.gru`` cell).
+RWKV6, StarCoder2 and hymba serving, LM training's attention backward,
+the ``ops.gru`` cell).
 
 These mirror ``repro/kernels/ref.py`` line for line and are the semantic
 ground truth of the port: the CPU executes them (``kernels/ops.py`` picks
@@ -16,8 +17,8 @@ import torch
 __all__ = ["gru_ref", "gru_bwd_ref", "temporal_attention_ref", "segment_mean",
            "scatter_memory", "scatter_last", "flush_ref", "sample_ref",
            "sample_roles_ref", "rwkv6_ref", "rwkv6_chunked_ref", "rwkv6_subchunk_ref",
-           "flash_attention_probs",
-           "flash_attention_ref", "selective_scan_ref"]
+           "attention_mask", "flash_attention_probs", "flash_attention_ref",
+           "flash_attention_bwd_ref", "selective_scan_ref"]
 
 
 def gru_ref(x, h, wx, wh, bx, bh):
@@ -362,13 +363,7 @@ def flash_attention_probs(q, k, *, causal=True, window=None):
     sk = k.shape[-2]
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(),
                           k.float()) * (1.0 / math.sqrt(d))
-    qi = torch.arange(sq, device=q.device)[:, None]
-    ki = torch.arange(sk, device=q.device)[None, :]
-    m = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        m &= ki <= qi
-    if window is not None:
-        m &= ki > qi - window
+    m = attention_mask(sq, sk, causal, window, q.device)
     return torch.softmax(logits.masked_fill(~m, -1e30), dim=-1)
 
 
@@ -382,6 +377,48 @@ def flash_attention_ref(q, k, v, *, causal=True, window=None):
     masked with -1e30; the output has q's dtype."""
     att = flash_attention_probs(q, k, causal=causal, window=window)
     return torch.einsum("bhqk,bhkd->bhqd", att, v.float()).to(q.dtype)
+
+
+def attention_mask(sq: int, sk: int, causal: bool, window, device):
+    """(Sq, Sk) bool: which keys each query sees (j <= i where causal, i -
+    window < j with a window)."""
+    qi = torch.arange(sq, device=device)[:, None]
+    ki = torch.arange(sk, device=device)[None, :]
+    m = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        m &= ki <= qi
+    if window is not None:
+        m &= ki > qi - window
+    return m
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True,
+                            window=None):
+    """The gradients of ``flash_attention_ref`` with respect to q, k and
+    v, in its (B, H, S, D) layout with equal head counts, from explicit
+    formulas (FlashAttention-2's): with the scaled scores s, P = exp(s -
+    lse) on the visible keys and 0 elsewhere, D = rowsum(dO o),
+
+        dV = P^T dO,  dS = P (dO V^T - D),  dQ = dS K / sqrt(d),
+        dK = dS^T Q / sqrt(d),
+
+    all in float32 and cast to q's dtype. ``o`` is the forward's output
+    and ``lse`` its rows' log-sum-exp (B, H, Sq) float32, as the kernel
+    reads them (None: recomputed from the scores)."""
+    sq, d = q.shape[-2], q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
+    m = attention_mask(sq, k.shape[-2], causal, window, q.device)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    if lse is None:
+        lse = torch.logsumexp(s.masked_fill(~m, -torch.inf), dim=-1)
+    p = torch.exp(s - lse[..., None].float()).masked_fill(~m, 0.0)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - (dof * of).sum(-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def selective_scan_ref(x, dt, b, c, a, *, state=None):

@@ -5,12 +5,13 @@ conv), ``rwkv`` (time-mix and channel-mix), ``moe`` (top-k routing,
 sort-based capacity dispatch), ``ssm`` (mamba's heads), ``transformer``
 (per-family blocks, qk-norm, cross-attention), ``model`` (init, the
 encoder, forward, decode cache, ``serve_step``, tied embeddings),
-``sampling`` and ``serve`` (batched generation and its CLI). Copies of
-``repro/models``, serving only.
+``sampling`` and ``serve`` (batched generation and its CLI), and
+training (``loss_fn``, ``make_train_step``). Copies of ``repro/models``.
 """
 
 from repro_torch.models.model import (encode, fill_enc_cache, forward,
-                                      init_cache, init_params, serve_step)
+                                      init_cache, init_params, loss_fn,
+                                      make_train_step, serve_step)
 
 __all__ = ["init_params", "encode", "fill_enc_cache", "forward",
-           "init_cache", "serve_step"]
+           "init_cache", "serve_step", "loss_fn", "make_train_step"]

@@ -1,7 +1,10 @@
 """Public LM API of the port: init / encode / fill_enc_cache / forward /
-init_cache / serve_step, as ``repro/models/model.py``, for every family:
-RWKV6, dense, MoE, hybrid (hymba), encoder-decoder (seamless) and
-vision-language (Qwen2-VL).
+init_cache / serve_step and loss_fn / make_train_step, as
+``repro/models/model.py``, for every family: RWKV6, dense, MoE, hybrid
+(hymba), encoder-decoder (seamless) and vision-language (Qwen2-VL). On
+the card the attention families train through the flash kernels'
+forward and backward; RWKV6 and hymba train on the CPU only, for their
+WKV and scan kernels have no backward yet (``kernels/ops.py`` raises).
 
 Layer parameters are stacked over a leading layer axis, as the JAX package
 stacks them for ``jax.lax.scan``, so ``repro_torch.convert`` carries a JAX
@@ -29,6 +32,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -40,7 +44,8 @@ from repro_torch.models.transformer import (block_apply, block_decode,
 from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["init_params", "encode", "fill_enc_cache", "forward",
-           "init_cache", "serve_step", "compute_dtype"]
+           "init_cache", "serve_step", "loss_fn", "make_train_step",
+           "compute_dtype"]
 
 
 def compute_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -53,6 +58,26 @@ def _stack(trees: list) -> dict:
 
 def _layer(tree: dict, i: int) -> dict:
     return tree_map(lambda x: x[i], tree)
+
+
+def _layers(tree: dict, n: int) -> list:
+    """The ``n`` layers' param trees of a stacked tree, each stacked leaf
+    split once by ``torch.unbind``: under autograd the backward of the
+    split is one ``stack``, where indexing each layer (``_layer``) would
+    write a zero-filled gradient of the whole (L, ...) stack for every
+    layer. The values, and the gradients, are those of the indexing."""
+    split = tree_map(lambda x: x.unbind(0), tree)
+    return [tree_map(lambda xs: xs[i], split) for i in range(n)]
+
+
+def _apply_layer(p, cfg: ArchConfig, x, positions, **kw):
+    """``block_apply`` of one layer; under autograd with ``cfg.remat`` a
+    checkpoint (its activations recomputed in the backward), the
+    counterpart of ``jax.checkpoint`` over the JAX package's scan body."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(block_apply, p, cfg, x, positions,
+                          use_reentrant=False, **kw)
+    return block_apply(p, cfg, x, positions, **kw)
 
 
 def _check_on(name: str, tree: dict, device: torch.device) -> None:
@@ -115,9 +140,8 @@ def encode(params, frames, cfg: ArchConfig, device=None):
     b, s_enc, d = x.shape
     x = x + sinusoidal_positions(s_enc, d, device=device).to(x.dtype)
     positions = torch.arange(s_enc, device=device).broadcast_to(b, s_enc)
-    for i in range(cfg.n_enc_layers):
-        x, _ = block_apply(_layer(params["enc_layers"], i), cfg, x,
-                           positions, causal=False)
+    for p in _layers(params["enc_layers"], cfg.n_enc_layers):
+        x, _ = _apply_layer(p, cfg, x, positions, causal=False)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -161,9 +185,8 @@ def forward(params, batch, cfg: ArchConfig, device=None):
         positions = torch.arange(s, device=device).broadcast_to(b, s)
     # the layers in order: the JAX package's scan over stacked params
     aux = torch.zeros((), dtype=torch.float32, device=device)
-    for i in range(cfg.n_layers):
-        x, a = block_apply(_layer(params["layers"], i), cfg, x, positions,
-                           enc_out=enc_out)
+    for p in _layers(params["layers"], cfg.n_layers):
+        x, a = _apply_layer(p, cfg, x, positions, enc_out=enc_out)
         aux = aux + a
     x = rmsnorm(params["final_norm"], x[:, n_front:], cfg.norm_eps)
     return _logits(params, cfg, x), aux
@@ -214,3 +237,69 @@ def serve_step(params, cache, batch, cfg: ArchConfig, device=None):
         new.append({k: v for k, v in c.items() if k not in fixed})
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)[:, 0]
     return _logits(params, cfg, x), {**_stack(new), **fixed}
+
+
+# --------------------------------------------------------------- train
+
+def loss_fn(params, batch, cfg: ArchConfig, device=None):
+    """Masked next-token cross-entropy over the real vocab, in float32:
+    ``batch`` is ``forward``'s plus ``"targets"`` (B, S), a target < 0
+    masked out. Returns (ce + router_aux_weight * aux, (ce, aux)), as the
+    JAX package's ``loss_fn``."""
+    device = resolve_device(device)
+    logits, aux = forward(params, batch, cfg, device)
+    targets = torch.as_tensor(batch["targets"]).to(device=device,
+                                                   dtype=torch.int64)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, targets.clamp(min=0)[..., None])[..., 0]
+    mask = (targets >= 0).to(torch.float32)
+    ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return ce + cfg.router_aux_weight * aux, (ce, aux)
+
+
+def _grads(params, batch, cfg: ArchConfig, device):
+    """(loss, gradient leaves in ``tree_leaves`` order) of ``loss_fn``."""
+    live = tree_map(lambda x: x.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss, _ = loss_fn(live, batch, cfg, device)
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+    return loss.detach(), list(grads)
+
+
+def make_train_step(cfg: ArchConfig, opt, device=None):
+    """``step(params, opt_state, batch) -> (params, opt_state, {"loss"})``
+    over ``loss_fn``, as the JAX package's. ``cfg.microbatch`` m splits
+    the batch into m equal slices along its first axis, and the step
+    averages their gradients and losses (summed in slice order from
+    zeros); ``cfg.remat`` checkpoints each layer. ``opt`` (``optim``)
+    updates ``params`` and ``opt_state`` in place, leaf by leaf
+    (``Optimizer.apply_``), and the step returns the same tensors: a
+    caller that keeps the old params passes a copy."""
+    device = resolve_device(device)
+
+    def step(params, opt_state, batch):
+        _check_on("params", params, device)
+        m = cfg.microbatch
+        if m > 1:
+            batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+            rows = next(iter(batch.values())).shape[0]
+            if rows % m:
+                raise ValueError(f"a batch of {rows} does not split into "
+                                 f"{m} microbatches")
+            n = rows // m
+            grads = [torch.zeros_like(x) for x in tree_leaves(params)]
+            loss = torch.zeros((), dtype=torch.float32, device=device)
+            for i in range(m):
+                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                l_i, g_i = _grads(params, mb, cfg, device)
+                grads = [a + b for a, b in zip(grads, g_i)]
+                loss = loss + l_i
+            grads = [g / m for g in grads]
+            loss = loss / m
+        else:
+            loss, grads = _grads(params, batch, cfg, device)
+        it = iter(grads)
+        opt.apply_(tree_map(lambda _: next(it), params), opt_state, params)
+        return params, opt_state, {"loss": loss}
+
+    return step

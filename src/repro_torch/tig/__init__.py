@@ -12,5 +12,18 @@ Modules, each the counterpart of the one of the same name in ``repro.tig``:
   * ``restart``          — TIGER's restarter (replayless memory warm-up).
   * ``stream``           — out-of-core shards and the epoch prefetcher.
   * ``distributed``      — PAC over SEP partitions on one card.
-  * ``train``            — ``train_single``, ``train_sharded``.
+  * ``train``            — ``train_single``, ``train_sharded``, and the
+                           single steps ``make_train_step`` /
+                           ``make_eval_step``.
+
+The package exports the JAX package's eight names.
 """
+
+from repro_torch.tig.graph import TemporalGraph, chronological_split
+from repro_torch.tig.models import TIGConfig
+from repro_torch.tig.protocol import ProtocolSplits, run_protocol, split_views
+from repro_torch.tig.stream import EpochPrefetcher, ShardedStream
+
+__all__ = ["TemporalGraph", "chronological_split", "TIGConfig",
+           "ShardedStream", "EpochPrefetcher",
+           "ProtocolSplits", "run_protocol", "split_views"]

@@ -24,8 +24,9 @@ import numpy as np
 
 from repro_torch.tig.sampler import ChronoNeighborIndex, NeighborSnapshot
 
-__all__ = ["LocalStream", "build_batch_program", "concat_batch_programs",
-           "pad_batch_programs", "stack_batches", "make_tables"]
+__all__ = ["LocalStream", "build_batch_program", "build_batches",
+           "concat_batch_programs", "pad_batch_programs", "stack_batches",
+           "unstack_batches", "make_tables"]
 
 
 @dataclasses.dataclass
@@ -202,7 +203,36 @@ def pad_batch_programs(programs: list[dict], rows_cap: int) -> dict:
     return out
 
 
+def build_batches(
+    stream: LocalStream,
+    cfg,
+    rng: np.random.Generator,
+    history: Optional[NeighborSnapshot] = None,
+    neg_pool: Optional[np.ndarray] = None,
+    *,
+    return_history: bool = False,
+):
+    """Chronological fixed-shape batches with pre-sampled neighbors, as a
+    list of per-batch numpy dicts matching ``models.step_loss`` (the
+    host plan of ``build_batch_program``, unstacked).
+
+    With ``return_history=True`` also returns the post-stream
+    ``NeighborSnapshot`` for continuing into a later stream.
+    """
+    stacked, final = build_batch_program(stream, cfg, rng, history,
+                                         neg_pool)
+    batches = unstack_batches(stacked)
+    return (batches, final) if return_history else batches
+
+
 def stack_batches(batches: list[dict]) -> dict:
     """Stack per-step batch dicts into (steps, ...) arrays."""
     keys = batches[0].keys()
     return {k: np.stack([b[k] for b in batches]) for k in keys}
+
+
+def unstack_batches(stacked: dict) -> list[dict]:
+    """Inverse of ``stack_batches``: (steps, ...) arrays -> a list of
+    per-step dicts."""
+    steps = len(next(iter(stacked.values())))
+    return [{k: v[s] for k, v in stacked.items()} for s in range(steps)]

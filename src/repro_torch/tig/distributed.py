@@ -106,7 +106,7 @@ from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["EpochPlan", "plan_epoch", "union_plan", "unstack_states",
            "scan_pac_epoch", "make_pac_epoch", "sync_shared_memory",
-           "globalize_memory", "stage_replicated_tree", "PACResult",
+           "make_pac_sync", "globalize_memory", "stage_replicated_tree", "PACResult",
            "pac_train"]
 
 _GRAPHS_MAX = 4          # captured PAC epochs a program keeps (LRU)
@@ -972,6 +972,20 @@ def sync_shared_memory(states: dict, shared_local, *,
         x[dev, shared] = new
         out[key] = x
     return out
+
+
+def make_pac_sync(*, sync_mode: Literal["latest", "mean"] = "latest",
+                  mesh=None):
+    """The standalone shared-node sync, ``(states, shared_local) ->
+    states`` over stacked (P, ...) inputs (with a ``TIGMesh``, this
+    rank's (P_held, ...) rows, over the mesh's collectives):
+    ``sync_shared_memory`` with its mode and mesh bound, the math the
+    epoch boundary runs. The JAX package jits a vmap (or a shard_map over the mesh);
+    here the stacked partitions are already a batch dimension."""
+    if sync_mode not in ("latest", "mean"):
+        raise ValueError(f"sync_mode={sync_mode!r}")
+    return functools.partial(sync_shared_memory, sync_mode=sync_mode,
+                             mesh=mesh)
 
 
 def globalize_memory(states: dict, plan: EpochPlan, num_nodes: int,

@@ -15,7 +15,10 @@ with ``prefetch``, and then runs the epoch program of
 ``engine.make_train_epoch`` on the device; val and test are scored by
 ``engine.make_eval_epoch``'s. On the card both replay one captured CUDA
 graph a step. ``evaluate_params`` scores given (e.g. PAC-trained) params
-on the protocol.
+on the protocol. ``make_train_step`` / ``make_eval_step`` are eager single
+steps over ``models.step_loss``, kept (as in the JAX package) for
+debugging and parity; ``graph_as_stream`` treats a whole graph as one
+device-local stream.
 """
 
 from __future__ import annotations
@@ -30,12 +33,13 @@ import torch
 
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.device import resolve_device
-from repro_torch.optim import adamw
+from repro_torch.optim import Optimizer, adamw
 from repro_torch.tig import engine
 from repro_torch.tig.batching import (LocalStream, build_batch_program,
                                       make_tables)
 from repro_torch.tig.graph import TemporalGraph
-from repro_torch.tig.models import TIGConfig, init_params, init_state
+from repro_torch.tig.models import (TIGConfig, init_params, init_state,
+                                    step_loss)
 from repro_torch.tig.protocol import (DEFAULT_CHUNK_EDGES, ProtocolSplits,
                                       run_protocol, score_stream,
                                       split_views, time_scale_of,
@@ -43,10 +47,15 @@ from repro_torch.tig.protocol import (DEFAULT_CHUNK_EDGES, ProtocolSplits,
 from repro_torch.tig.sampler import ChronoNeighborIndex
 from repro_torch.tig.stream import (EpochPrefetcher, ShardedStream,
                                     stage_device_tables)
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["epoch_rng", "train_epoch", "train_single", "SingleResult",
-           "train_sharded", "ShardedResult", "evaluate_params"]
+__all__ = ["graph_as_stream", "make_train_step", "make_eval_step",
+           "epoch_rng", "train_epoch", "evaluate_stream", "evaluate_params",
+           "train_single", "SingleResult", "train_sharded", "ShardedResult",
+           "train_classifier_head", "time_scale_of"]
+
+# the protocol layer owns stream scoring; the old name stays importable
+evaluate_stream = score_stream
 
 
 def epoch_rng(seed: int, epoch: int, role: int = 0) -> np.random.Generator:
@@ -55,6 +64,79 @@ def epoch_rng(seed: int, epoch: int, role: int = 0) -> np.random.Generator:
     planning draws what serial planning does."""
     return np.random.default_rng(
         np.random.SeedSequence([seed, role, epoch]))
+
+
+def graph_as_stream(g: TemporalGraph) -> tuple[LocalStream, dict]:
+    """The whole graph as one device-local stream (ids unchanged) and its
+    numpy feature tables; timestamps rescaled to mean-gap units
+    (``time_scale_of``)."""
+    scale = time_scale_of(g.t)
+    stream = LocalStream(
+        src=g.src.astype(np.int64),
+        dst=g.dst.astype(np.int64),
+        t=g.t / scale,
+        eidx=np.arange(g.num_edges, dtype=np.int64),
+        num_local_nodes=g.num_nodes,
+        labels=g.labels,
+    )
+    return stream, make_tables(g.edge_feat, g.node_feat)
+
+
+def _on(tree: dict, device) -> dict:
+    """A batch or tables dict (numpy or tensors) as tensors on
+    ``device``, without the host-side ``labels``."""
+    return {k: torch.as_tensor(v).to(device) for k, v in tree.items()
+            if k != "labels"}
+
+
+def make_train_step(cfg: TIGConfig, opt: Optimizer):
+    """An eager step ``(params, opt_state, state, batch, tables) ->
+    (params, opt_state, new_state, loss)`` over ``models.step_loss`` on
+    one host-plan batch (``build_batches``), on the params' device; new
+    tensors out, nothing given is written (the card's flush works on a
+    copy of ``state``). The epochs run ``engine.make_train_epoch``; this
+    step is kept for debugging and parity."""
+
+    def step(params, opt_state, state, batch, tables):
+        device = tree_leaves(params)[0].device
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(params)]
+        it = iter(leaves)
+        live = tree_map(lambda _: next(it), params)
+        state = {k: v.detach().clone() for k, v in state.items()}
+        with torch.enable_grad():
+            loss, (new_state, _aux) = step_loss(
+                live, state, _on(batch, device), _on(tables, device), cfg)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        # a leaf the loss does not reach has a zero gradient, as in JAX
+        it = iter([torch.zeros_like(p) if g is None else g
+                   for p, g in zip(leaves, grads)])
+        with torch.no_grad():
+            params, opt_state = opt.apply(tree_map(lambda _: next(it), params),
+                                          opt_state,
+                                          tree_map(torch.Tensor.detach,
+                                                   params))
+        return (params, opt_state,
+                {k: v.detach() for k, v in new_state.items()},
+                loss.detach())
+
+    return step
+
+
+def make_eval_step(cfg: TIGConfig):
+    """An eager forward-only step ``(params, state, batch, tables) ->
+    (new_state, aux)``, aux holding the logits; nothing given is
+    written."""
+
+    @torch.no_grad()
+    def step(params, state, batch, tables):
+        device = tree_leaves(params)[0].device
+        state = {k: v.clone() for k, v in state.items()}
+        _loss, (new_state, aux) = step_loss(
+            params, state, _on(batch, device), _on(tables, device), cfg)
+        return new_state, aux
+
+    return step
 
 
 def _stage_tcsr(index: ChronoNeighborIndex, cfg: TIGConfig, device) -> dict:

@@ -211,13 +211,14 @@ def test_speed_tig_cli_on_the_cpu(capsys, shard_map):
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["--arch", "rwkv6-1.6b", "--device", "cpu"], ValueError,
-     "not ported"),
+    (["--arch", "seamless-m4t-medium", "--reduced", "--device", "cpu"],
+     ValueError, "not ported"),
     (["--arch", "speed-tig", "--device", "cpu", "--grid-layout",
       "sharded"], SystemExit, "2"),
     (["--arch", "speed-tig"], RuntimeError, "CUDA")])
 def test_speed_tig_cli_refuses(monkeypatch, argv, exc, match):
-    """An LM arch is not ported, argparse rejects ``--grid-layout`` (the
+    """The encoder-decoder's pretraining is not ported to ``train_lm``
+    (its batches need frames), argparse rejects ``--grid-layout`` (the
     port's ``pac_train`` has no such option), and the default device is
     the card."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -1355,3 +1355,210 @@ def test_hymba_on_card_matches_cpu(cuda):
     _reduced_lm_on_card_matches_cpu(cuda, "hymba-1.5b", "selective_scan", 24,
                                     24)
     assert KERNELS["flash_attention"].launches - before == 2
+
+
+# ------------------------------------------------- LM training on the card
+
+def _flash_bwd_plain(q, k, v, o, lse, do, causal, window):
+    """``ref.flash_attention_bwd_ref`` on the CPU in float32, in the
+    model's layout, dk and dv summed over each KV group."""
+    group = q.shape[2] // k.shape[2]
+    f = [x.float().cpu() for x in (q, k, v, o, do)]
+    qh, kh, vh, oh, doh = (x.transpose(1, 2) for x in (
+        f[0], f[1].repeat_interleave(group, 2),
+        f[2].repeat_interleave(group, 2), f[3], f[4]))
+    dq, dk, dv = ref.flash_attention_bwd_ref(qh, kh, vh, oh, lse.cpu(), doh,
+                                             causal=causal, window=window)
+    b, h, sk, d = dk.shape
+
+    def per_kv(x):
+        return x.view(b, h // group, group, sk, d).sum(2).transpose(1, 2)
+
+    return dq.transpose(1, 2), per_kv(dk), per_kv(dv)
+
+
+@pytest.mark.parametrize("dtype,b,sq,sk,h,hkv,d,causal,window", [
+    (torch.bfloat16, 1, 300, 300, 24, 2, 128, True, 128),   # G 12
+    (torch.bfloat16, 1, 257, 257, 5, 1, 64, True, 64),      # G 5
+    (torch.bfloat16, 1, 200, 200, 4, 4, 256, True, None),
+    (torch.bfloat16, 2, 130, 130, 4, 2, 32, False, 50),
+    (torch.bfloat16, 1, 77, 333, 4, 4, 64, False, None),    # Sk > Sq
+    (torch.float32, 2, 100, 100, 4, 2, 32, True, 64),
+    (torch.float32, 1, 333, 100, 3, 1, 21, False, None),    # Sk < Sq
+    (torch.float32, 1, 64, 64, 2, 2, 256, True, None)])
+def test_flash_backward_kernel_matches_plain(cuda, dtype, b, sq, sk, h, hkv,
+                                             d, causal, window):
+    """dq, dk, dv within 1e-5 of each one's largest |plain| (float32
+    sums in another order), plus one bfloat16 unit (2^-7) of each element
+    in bf16 (both round the output); one launch a call, two calls
+    bitwise equal; the forward's lse is each row's log-sum-exp. Both
+    forms: the tensor cores (bf16 at D 32 / 64 / 128) and the CUDA cores
+    (float32, bf16 at D 256)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, do = (torch.randn((b, sq, h, d), generator=gen, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((b, sk, hkv, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                 return_lse=True)
+    assert torch.equal(o, flash_attention_fwd(q, k, v, causal=causal,
+                                              window=window))
+    qf = q.float().cpu().transpose(1, 2)
+    kf = k.float().cpu().repeat_interleave(h // hkv, 2).transpose(1, 2)
+    s = qf @ kf.transpose(-1, -2) / d ** 0.5
+    m = ref.attention_mask(sq, sk, causal, window, "cpu")
+    want_lse = torch.logsumexp(s.masked_fill(~m, -torch.inf), -1)
+    assert float((lse.cpu() - want_lse).abs().max()) < 1e-5
+    before = KERNELS["flash_attention_bwd"].launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                              window=window)
+    assert KERNELS["flash_attention_bwd"].launches == before + 1
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                window=window)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    for name, g, w in zip(("dq", "dk", "dv"), got,
+                          _flash_bwd_plain(q, k, v, o, lse, do, causal,
+                                           window)):
+        assert g.dtype == dtype
+        lim = 1e-5 * float(w.abs().max())
+        if dtype == torch.bfloat16:
+            lim = lim + 2 ** -7 * w.to(dtype).float().abs()
+        assert bool(((g.float().cpu() - w).abs() <= lim).all()), name
+
+
+def test_flash_backward_dq_tile_is_the_kernels(cuda):
+    """The dQ walk's tile as the built kernel reports it: 64 x 64 on the
+    tensor cores and on the CUDA cores to D 128, 64 x 32 above."""
+    from repro_torch.kernels.flash_attention import bwd_dq_tile
+
+    assert bwd_dq_tile(128, True) == (64, 64)
+    assert bwd_dq_tile(64, False) == (64, 64)
+    assert bwd_dq_tile(256, True) == (64, 32)
+    assert bwd_dq_tile(256, False) == (64, 32)
+
+
+def test_flash_autograd_on_card_matches_cpu(cuda):
+    """``ops.flash_attention`` under autograd on the card (the forward
+    kernel with the lse, then the backward kernel) against autograd of
+    the plain version on the CPU, float32, GQA with a window; no lse and
+    no backward without a gradient."""
+    gen = torch.Generator().manual_seed(12)
+    q, do = (torch.randn((2, 150, 6, 32), generator=gen) for _ in range(2))
+    k, v = (torch.randn((2, 150, 2, 32), generator=gen) for _ in range(2))
+    want = torch.autograd.grad(ops.flash_attention(
+        *(x.requires_grad_(True) for x in (q, k, v)), window=40),
+        (q, k, v), do)
+    leaves = [x.detach().to(cuda).requires_grad_(True) for x in (q, k, v)]
+    before = {n: KERNELS[n].launches for n in ("flash_attention",
+                                               "flash_attention_bwd")}
+    o = ops.flash_attention(*leaves, window=40)
+    got = torch.autograd.grad(o, leaves, do.to(cuda))
+    assert KERNELS["flash_attention"].launches - before["flash_attention"] \
+        == 1
+    assert KERNELS["flash_attention_bwd"].launches - before[
+        "flash_attention_bwd"] == 1
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max()) <= 1e-5 * float(
+            w.abs().max())
+
+
+def test_kernels_without_backward_raise_under_grad_on_card(cuda):
+    """WKV and the selective scan have no backward kernel: under grad
+    they raise; under no_grad they run."""
+    r = torch.rand((1, 70, 2, 64), device=cuda)
+    u = torch.zeros((2, 64), device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.rwkv6(r.requires_grad_(True), r, r, r, u)
+    with torch.no_grad():
+        ops.rwkv6(r, r, r, r, u)
+    x = torch.rand((1, 130, 64), device=cuda)
+    b = torch.rand((1, 130, 16), device=cuda)
+    a = -torch.rand((64, 16), device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.selective_scan(x, x, b, b, a.requires_grad_(True))
+    with torch.no_grad():
+        ops.selective_scan(x, x, b, b, a)
+
+
+def test_lm_train_step_on_card_matches_cpu(cuda):
+    """Three ``make_train_step`` steps of REDUCED StarCoder2 in float32
+    with ``sgd``, on the card (flash forward and backward kernels) and on
+    the CPU, from the same params: losses to 1e-5 relative, params to 1e-5
+    of each leaf's largest; two flash forward launches a layer a step
+    (``remat`` recomputes it) and one backward."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model
+    from repro_torch.optim import sgd
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config("starcoder2-3b", reduced=True),
+                              dtype="float32")
+    p_cpu = model.init_params(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+    p_gpu = tree_map(lambda x: x.to(cuda), p_cpu)
+    opt = sgd(0.5)
+    s_cpu, s_gpu = opt.init(p_cpu), opt.init(p_gpu)
+    step_cpu = model.make_train_step(cfg, opt, device="cpu")
+    step_gpu = model.make_train_step(cfg, opt)
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 65)))
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        before = {n: KERNELS[n].launches for n in ("flash_attention",
+                                                   "flash_attention_bwd")}
+        p_gpu, s_gpu, m_gpu = step_gpu(p_gpu, s_gpu, batch)
+        assert KERNELS["flash_attention"].launches - before[
+            "flash_attention"] == 2 * cfg.n_layers
+        assert KERNELS["flash_attention_bwd"].launches - before[
+            "flash_attention_bwd"] == cfg.n_layers
+        p_cpu, s_cpu, m_cpu = step_cpu(p_cpu, s_cpu, batch)
+        assert abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) <= 1e-5 * \
+            abs(float(m_cpu["loss"]))
+    for a, b in zip(tree_leaves(p_gpu), tree_leaves(p_cpu)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(
+            b.abs().max())
+
+
+def test_lm_train_bf16_step_on_card_matches_cpu(cuda):
+    """Three ``sgd`` steps of REDUCED StarCoder2 in its own bfloat16
+    compute (the flash backward's tensor-core form, window 64, ``remat``
+    on) on (2, 256) tokens, card vs CPU from the same params: losses to
+    1e-2 relative (the CPU test's bf16 bound against JAX), each leaf's
+    update to 2e-2 of its largest on the CPU."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model
+    from repro_torch.optim import sgd
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config("starcoder2-3b", reduced=True)
+    assert cfg.dtype == "bfloat16" and cfg.remat
+    p0 = model.init_params(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
+    rng = np.random.default_rng(1)
+    toks = [torch.from_numpy(rng.integers(0, cfg.vocab, (2, 257)))
+            for _ in range(3)]
+    out = {}
+    for dev in ("cpu", cuda):
+        opt = sgd(0.5)
+        params = tree_map(lambda x: x.to(dev, copy=True), p0)
+        state = opt.init(params)
+        step = model.make_train_step(cfg, opt, device=dev)
+        losses = []
+        for t in toks:
+            params, state, m = step(params, state, {
+                "tokens": t[:, :-1], "targets": t[:, 1:]})
+            losses.append(float(m["loss"]))
+        out[str(dev)] = (losses, params)
+    (want_l, want), (got_l, got) = out["cpu"], out[str(cuda)]
+    for a, b in zip(got_l, want_l):
+        assert abs(a - b) <= 1e-2 * abs(b)
+    for a, b, b0 in zip(tree_leaves(got), tree_leaves(want),
+                        tree_leaves(p0)):
+        up = b - b0
+        assert float(((a.cpu() - b0) - up).abs().max()) <= 2e-2 * float(
+            up.abs().max())
