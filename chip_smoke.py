@@ -260,29 +260,55 @@ Phases, each fatal on failure:
      beside its plain version, SDPA's backward (a yardstick the port
      never calls) and its bound; then the forward at phase 11's
      StarCoder2-3B shape with and without its log-sum-exp, in turns;
+ 24b. the backward kernels of the two recurrences (each replaces XLA's
+     gradient of the JAX package's recurrence): WKV's (``rwkv6_bwd``)
+     at WKV_BWD_CASES (RWKV6-1.6B's training call, B 1, S 4096, 32 heads,
+     bf16; REDUCED and ragged shapes in float32 with a state and a
+     final-state cotangent; strong decays in float32 and bf16) and the
+     selective scan's (``selective_scan_bwd``) at SCAN_BWD_CASES
+     (Hymba-1.5B's training call, B 1, S 4096, di 3200, n 16, bf16;
+     REDUCED, ragged with a state), against their plain versions: each
+     gradient within 1e-5 of its largest |plain|, plus one bf16 unit of
+     each element where it is returned in bf16; two calls bitwise equal,
+     one launch a call; faulty plain versions (the carry dropped between
+     the kernel's chunks; WKV also without u's term) must fail; each
+     shape timed beside its plain version and its bound;
  25. small-input training agreement: REDUCED StarCoder2-3B, Minitron-4B,
-     Qwen3-32B, Gemma-7B, OLMoE-1B-7B, SeamlessM4T-medium (with frames)
-     and Qwen2-VL-7B (with patches) in float32, three ``make_train_step``
-     steps on the card against the CPU from the same params: with
-     ``sgd`` losses to 1e-5 relative and params to 1e-5 of each leaf's
-     largest, with ``train_lm``'s AdamW losses to 1e-4; REDUCED
+     Qwen3-32B, Gemma-7B, OLMoE-1B-7B, SeamlessM4T-medium (with frames),
+     Qwen2-VL-7B (with patches), RWKV6-1.6B and Hymba-1.5B in float32,
+     three ``make_train_step`` steps on the card against the CPU from the
+     same params: with ``sgd`` losses to 1e-5 relative and params to 1e-5
+     of each leaf's largest (RWKV6, whose three steps amplify float32
+     rounding past that: so step by step from the CPU's params, and
+     over the three free steps to what one float32 unit of noise a step
+     grows to on the CPU alone, STEPWISE_ARCHS), with ``train_lm``'s
+     AdamW losses to 1e-4;
+     each step's launches exactly ``train_launches`` (the forward kernels
+     twice a layer, ``remat``; the backward kernels once); REDUCED
      StarCoder2-3B in its own bf16 compute (the backward's tensor-core
      form, window 64, ``remat`` on), three ``sgd`` steps card vs CPU:
      losses to 1e-2 relative, each leaf's update to 2e-2 of its largest,
      and a detached attention and a backward that ignores the window
-     failing that limit; then ``ops.rwkv6`` and ``ops.selective_scan`` (and REDUCED RWKV6 and
-     hymba training steps) must raise under grad on the card;
- 26. LM training at full width, this slice's main path: StarCoder2-3B (30
-     layers, d_model 3072, 3.18 B float32 params, random from a seed)
-     with ``train_lm``'s AdamW on ``packed_batches`` (1, 8192) tokens,
-     ``remat`` on, 4 steps counted from zero: each loss finite, step
-     seconds, tokens/s, 60 flash forward (30 and 30 recomputed) and 30
-     backward launches a step, nothing else, peak memory under the
-     card's, and where a step's time goes (GEMMs, flash forward and
-     backward, elementwise, the optimizer, idle); then a witness of why
-     its losses rise: from the same params on one fixed batch, AdamW's
-     losses beside ``sgd``'s at lr 0.25 / |g|^2, which must fall at
-     every step, the first drop within 0.5-1.5x of 0.25;
+     failing that limit;
+ 26. LM training at full width: StarCoder2-3B (30 layers, d_model 3072,
+     3.18 B float32 params, random from a seed) with ``train_lm``'s
+     AdamW on ``packed_batches`` (1, 8192) tokens, ``remat`` on, 4 steps
+     counted from zero: each loss finite, step seconds, tokens/s, 60
+     flash forward (30 and 30 recomputed) and 30 backward launches a
+     step, nothing else, peak memory under the card's, and where a
+     step's time goes (GEMMs, flash forward and backward, elementwise,
+     the optimizer, idle); then a witness of the gradient: from the
+     same params on one fixed batch, ``sgd`` at lr 0.25 / |g|^2, whose
+     loss must fall at every step, the first drop within 0.5-1.5x of
+     0.25 on the float32 loss; and why its losses rise: AdamW's on that
+     batch;
+ 26b. this slice's main path: RWKV6-1.6B (24 layers, d_model 2048, 32
+     WKV heads of 64, vocab 65,536) and Hymba-1.5B (32 layers, d_model
+     1600, SSM di 3200, n 16, window 1024) training at full width, as
+     phase 26 on (1, 4096) tokens, 3 counted steps each: launches a step
+     48 WKV forward and 24 WKV backward (RWKV6); 64 flash and 64 scan
+     forward, 32 of each backward (hymba); the ``sgd`` witness, its
+     first drop within 0.8-1.0 of 0.25 on the float32 loss;
  27. the LM pretraining CLI: ``python -m repro_torch.launch.train --arch
      starcoder2-3b --reduced --steps 20 --batch 8 --seq 128`` exits 0
      with finite losses.
@@ -339,6 +365,10 @@ NEW_KERNELS = {
     "selective_scan": "src/repro/models/ssm.py:79",    # lax.scan of step
     # XLA's gradient of chunked_attention (the TPU flash kernel has none)
     "flash_attention_bwd": "src/repro/models/layers.py:173",
+    # XLA's gradients of the WKV path (rwkv6_chunked_xla; the TPU WKV
+    # kernel has no VJP) and of mamba's scan under jax.checkpoint
+    "rwkv6_bwd": "src/repro/kernels/ref.py:190",
+    "selective_scan_bwd": "src/repro/models/ssm.py:79",
 }
 # H100 SXM: 132 SMs x 16 SFU results (MUFU.EX2) a clock (CUDA C++
 # Programming Guide, arithmetic instruction throughput, compute capability
@@ -2041,6 +2071,37 @@ def wkv_bound(b, h, s, in_elt, out_elt, with_state) -> tuple:
     return fn, bound(nbytes, 5.0 * b * h * s * d * d)
 
 
+def wkv_bwd_bound(b, h, s, in_elt, with_state) -> tuple:
+    """The least time of the WKV backward on the card, bounded as
+    ``wkv_bound`` bounds the forward: its bytes (r, k, v, w, u, do and the
+    states read once; dr, dk, dv, dw, du and the initial state's gradient
+    written once) at the memory rate, or the operations of the chunked
+    form (64-token chunks) at the rates its products use, whichever is
+    larger. A chunk of n tokens takes five products of n x 64 x 64 (its
+    state from the last, K^T V; the cotangent's carry, R^T dO; the inter-
+    chunk terms of dr, dS S^T, of dk, V dS^T, and of dv, K dS) and five
+    of the causal n x n x 64 (the scores R K^T, dA = dO V^T, and dr's,
+    dk's and dv's intra-chunk terms dA K, dA^T R, A^T dO), each on the
+    bf16 tensor cores in six passes for a float32 product, three where an
+    operand is a bf16 v; on the CUDA cores in float32, the decay products
+    and dw's reverse sum (4 operations an element each) and u's terms
+    (9)."""
+    d, c = 64, 64
+    nbytes = ((6 * in_elt + 12) * b * h * s * d + 2 * h * d * 4
+              + (3 if with_state else 0) * b * h * d * d * 4)
+    v_passes = 3 if in_elt == 2 else 6
+    bf16 = fp32 = 0.0
+    for t0 in range(0, s, c):
+        n = min(c, s - t0)
+        bf16 += 2.0 * n * d * d * (2 * v_passes + 3 * 6)
+        bf16 += 2.0 * (n * (n + 1) // 2) * d * (v_passes + 4 * 6)
+        fp32 += 17.0 * n * d
+    ops_ms = (bf16 / BF16_FLOP_PER_S + fp32 / FP32_FLOP_PER_S) * 1e3 * b * h
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
 def wkv_checks(torch, dev) -> list:
     """Phase 6: the WKV kernels (through ``ops.rwkv6``, as the model calls
     it: the chunked kernel for S >= 64, the sequential one below) against
@@ -3188,9 +3249,251 @@ def flash_bwd_checks(torch, dev, cases, fwd_main=None) -> list:
     return recs
 
 
+# phase 24b, the backward kernels of the two recurrences: (label, B, H, S,
+# dtype, decays, with an initial state and a final-state cotangent); the
+# first, RWKV6-1.6B's training call, is the kernel's main shape in the
+# record
+WKV_BWD_CASES = (
+    ("rwkv6-1.6b training", 1, 32, 4096, "bfloat16", "trained", False),
+    ("reduced", 2, 2, 64, "float32", "trained", False),
+    ("ragged f32, state", 2, 2, 100, "float32", "trained", True),
+    ("strong f32, state", 2, 4, 330, "float32", "strong", True),
+    ("strong bf16, ragged", 2, 4, 333, "bfloat16", "strong", True),
+)
+# (label, B, S, di, n, dtype, with a state and its cotangent)
+SCAN_BWD_CASES = (
+    ("hymba-1.5b training", 1, 4096, 3200, 16, "bfloat16", False),
+    ("reduced", 2, 64, 256, 8, "float32", False),
+    ("ragged f32, state", 2, 333, 200, 16, "float32", True),
+    ("ragged bf16, state", 2, 100, 3200, 16, "bfloat16", True),
+)
+# float32 operations a state element and token that the scan's backward
+# needs (csrc/selective_scan_bwd.cu): dt a, h's update (3), g's (3), g
+# h_{t-1} exp(dt a) (2) and the multiply-adds of dc, db, du, ddt, da (2
+# each), and one exponential on the SFU; mamba-1's decay exp(dt a) differs
+# for each (channel, state index), so no product form puts it on the
+# tensor cores. WKV's is bounded by ``wkv_bwd_bound``.
+SCAN_BWD_FLOPS = 19
+RECUR_FAULTS = ("carry dropped between chunks", "u's term left out")
+
+
+def recur_ratio(torch, got, want, names) -> dict:
+    """Each gradient's largest error over its limit (at most 1 passes):
+    TOL (1e-5) of its largest |plain|, plus one bfloat16 unit (BF16_UNIT)
+    of each element for the gradients returned in bfloat16 (both sides
+    round the same float32 value once, and may round to the two sides of
+    a boundary). None pairs are skipped."""
+    out = {}
+    for name, g, w in zip(names, got, want):
+        if g is None and w is None:
+            continue
+        gd, wd = g.double(), w.double()
+        lim = TOL * float(wd.abs().max()) + (
+            BF16_UNIT * wd.abs() if g.dtype == torch.bfloat16 else 0.0)
+        out[name] = float(((gd - wd).abs() / lim).max())
+    return out
+
+
+def wkv_bwd_plain(torch, r, k, v, w, u, do, state, dstate, *,
+                  chunk=None, bonus=True):
+    """``ref.rwkv6_bwd_ref`` in the model's layout. Faulty versions for
+    the controls: ``chunk`` walks each run of ``chunk`` tokens back from a
+    zero cotangent (the final state's in the last), dropping the carry
+    between chunks, with each run's true starting state; ``bonus=False``
+    leaves out u's term (u = 0 in the backward)."""
+    from repro_torch.kernels import ref
+
+    def heads(*xs):
+        return [None if x is None else x.transpose(1, 2) for x in xs]
+
+    if not bonus:
+        u = torch.zeros_like(u)
+    s = r.shape[1]
+    cuts = [(0, s)] if chunk is None else [
+        (t, min(t + chunk, s)) for t in range(0, s, chunk)]
+    st, parts = state, []
+    for t0, t1 in cuts:
+        sl = [x[:, t0:t1] for x in (r, k, v, w, do)]
+        last = t1 == s
+        parts.append(ref.rwkv6_bwd_ref(*heads(*sl[:4]), u, *heads(sl[4]),
+                                       state=st,
+                                       dstate=dstate if last else None))
+        if not last:
+            _, st = ref.rwkv6_ref(*heads(*sl[:4]), u, state=st,
+                                  return_state=True)
+    cat = [torch.cat([p[i] for p in parts], 2).transpose(1, 2)
+           for i in range(4)]
+    du = sum(p[4] for p in parts)
+    return (*cat, du, parts[0][5])
+
+
+def scan_bwd_plain(torch, x, dt, b, c, a, dy, state, dstate, *,
+                   chunk=None):
+    """``ref.selective_scan_bwd_ref``; with ``chunk``, the faulty version
+    that walks each run of ``chunk`` tokens back from a zero carry (the
+    final state's in the last), each from its true starting state."""
+    from repro_torch.kernels import ref
+
+    s = x.shape[1]
+    cuts = [(0, s)] if chunk is None else [
+        (t, min(t + chunk, s)) for t in range(0, s, chunk)]
+    h, parts = state, []
+    for t0, t1 in cuts:
+        sl = [z[:, t0:t1] for z in (x, dt, b, c, dy)]
+        last = t1 == s
+        parts.append(ref.selective_scan_bwd_ref(
+            *sl[:4], a, sl[4], state=h, dstate=dstate if last else None))
+        if not last:
+            _, h = ref.selective_scan_ref(*sl[:4], a, state=h)
+    cat = [torch.cat([p[i] for p in parts], 1) for i in range(4)]
+    da = sum(p[4] for p in parts)
+    return (*cat, da, parts[0][5])
+
+
+def recur_bwd_checks(torch, dev) -> tuple[list, list]:
+    """Phase 24b: the backward kernels of WKV (``rwkv6_bwd``) and of the
+    selective scan (``selective_scan_bwd``), which replace XLA's
+    gradients of the JAX package's recurrences, against their plain
+    versions (``ref.rwkv6_bwd_ref``, ``ref.selective_scan_bwd_ref``) on
+    the card at WKV_BWD_CASES and SCAN_BWD_CASES: the two training calls
+    at full width (RWKV6-1.6B's 32 heads, Hymba-1.5B's di 3200, n 16, on
+    (1, 4096) tokens, bf16), REDUCED shapes and ragged S with an initial
+    state and a final-state cotangent, WKV also at strong decays
+    (w = exp(-exp(N(1.5, 0.5)))). Every gradient within
+    ``recur_ratio``'s limits; two calls bitwise equal; one launch a call.
+    Faulty plain versions must fail the limits: the carry dropped between
+    the kernel's chunks (both), and u's term left out (WKV). Each shape
+    timed beside its plain version and its bound (``wkv_bwd_bound``;
+    SCAN_BWD_FLOPS and the SFU's exponentials, against the bytes); no
+    PyTorch call computes either function. The plain versions' times are
+    CUDA events over one call (host-bound token loops)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.build import KERNELS
+    from repro_torch.kernels.rwkv6_scan import bwd_chunk, rwkv6_bwd
+    from repro_torch.kernels.selective_scan import (bwd_tiles,
+                                                    selective_scan_bwd)
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(33)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def run_case(kind, label, at, kern, call, plain, faults, names, bnd,
+                 dtype):
+        before = kern.launches
+        got = call()
+        again = call()
+        torch.cuda.synchronize()
+        launches = kern.launches - before
+        same = all(x is None or torch.equal(x, y)
+                   for x, y in zip(got, again))
+        del again
+        want = plain()
+        ratios = recur_ratio(torch, got, want, names)
+        err = max(float((g.double() - w.double()).abs().max())
+                  for g, w in zip(got, want) if g is not None)
+        finite = all(bool(torch.isfinite(g).all()) for g in got
+                     if g is not None)
+        del want
+        ctl = {n: max(recur_ratio(torch, got, f(), names).values())
+               for n, f in faults.items()}
+        print(f"{kind} backward {label} ({at}, {dtype}): max |kernel - "
+              f"plain| {err:.3g}, over each gradient's limit "
+              + ", ".join(f"{n} {r:.3g}" for n, r in ratios.items())
+              + f"; two calls bitwise equal {same}; launches for two "
+              f"calls {launches}; controls "
+              + ", ".join(f"{n} {r:.3g}" for n, r in ctl.items()))
+        if not (finite and max(ratios.values()) <= 1.0 and same
+                and launches == 2):
+            raise AssertionError(f"{kind} backward fails at {label}")
+        bad = [n for n, r in ctl.items() if r <= 1.0]
+        if bad:
+            raise AssertionError(f"the {kind} backward check passes faulty "
+                                 f"versions {bad} at {label}")
+        # the plain versions are token loops of ~10 launches a token,
+        # bound by the host (~50,000 launches a call at the training
+        # shapes): timed by CUDA events over one call
+        t_plain = call_ms(plain, iters=1, warmup=0)
+        rec = dict(
+            name=kern.name, label=label, at=at, out_dtype=dtype,
+            max_abs_err=err, kernel=timings(lambda: call()),
+            plain={"ms": t_plain, "call_ms": t_plain}, bound=bnd,
+            library_ms=None,
+            extra={"limit_ratios": ratios, "controls": ctl,
+                   "bitwise_repeat": same})
+        print_kernel(rec)
+        return rec
+
+    wkv = []
+    for label, b, h, s, dt_name, decays, with_state in WKV_BWD_CASES:
+        dtype = getattr(torch, dt_name)
+        r, k, v = (0.3 * randn(b, s, h, 64) for _ in range(3))
+        r, k, v = (x.to(dtype) for x in (r, k, v))
+        w = torch.exp(-torch.exp(
+            randn(b, s, h, 64) * 0.5 + (1.5 if decays == "strong" else -2.0)))
+        u = 0.5 * randn(h, 64)
+        do = randn(b, s, h, 64).to(dtype).float()
+        st = 0.3 * randn(b, h, 64, 64) if with_state else None
+        dst = randn(b, h, 64, 64) if with_state else None
+        args = (r, k, v, w, u, do, st, dst)
+        wkv.append(run_case(
+            "WKV", label, f"B {b}, S {s}, H {h}, {decays} decays"
+            + (", with a state" if with_state else ""),
+            KERNELS["rwkv6_bwd"], lambda: rwkv6_bwd(*args),
+            lambda: wkv_bwd_plain(torch, *args),
+            {RECUR_FAULTS[0]: lambda: wkv_bwd_plain(torch, *args,
+                                                    chunk=bwd_chunk()),
+             RECUR_FAULTS[1]: lambda: wkv_bwd_plain(torch, *args,
+                                                    bonus=False)},
+            ("dr", "dk", "dv", "dw", "du", "dstate0"),
+            wkv_bwd_bound(b, h, s, r.element_size(), with_state),
+            dt_name))
+        del args, r, k, v, w, do, st, dst
+        torch.cuda.empty_cache()
+
+    scan = []
+    for label, b, s, di, n, dt_name, with_state in SCAN_BWD_CASES:
+        dtype = getattr(torch, dt_name)
+        x = randn(b, s, di).to(dtype)
+        dt = F.softplus(randn(b, s, di) * 0.5 - 4.0).to(dtype)
+        bm, cm = (randn(b, s, n).to(dtype) for _ in range(2))
+        a = -torch.arange(1, n + 1, dtype=torch.float32,
+                          device=dev).repeat(di, 1)
+        dy = randn(b, s, di).to(dtype).float()
+        h0 = randn(b, di, n) if with_state else None
+        dh = randn(b, di, n) if with_state else None
+        args = (x, dt, bm, cm, a, dy, h0, dh)
+        elt = x.element_size()
+        nbytes = (b * s * (4 * di + 4 * n) * elt + 4 * b * s * di
+                  + 8 * di * n + (3 if with_state else 0) * b * di * n * 4)
+        elems = float(b) * s * di * n
+        ops_ms = max(elems / SFU_EXP_PER_S,
+                     SCAN_BWD_FLOPS * elems / FP32_FLOP_PER_S) * 1e3
+        bnd = bound(nbytes, 0.0)
+        if ops_ms > bnd[0]:
+            bnd = (ops_ms, "operations")
+        scan.append(run_case(
+            "scan", label, f"B {b}, S {s}, di {di}, n {n}"
+            + (", with a state" if with_state else ""),
+            KERNELS["selective_scan_bwd"],
+            lambda: selective_scan_bwd(*args),
+            lambda: scan_bwd_plain(torch, *args),
+            {RECUR_FAULTS[0]: lambda: scan_bwd_plain(
+                torch, *args, chunk=bwd_tiles()[0])},
+            ("dx", "ddt", "db", "dc", "da", "dstate0"), bnd, dt_name))
+        del args, x, dt, bm, cm, dy, h0, dh
+        torch.cuda.empty_cache()
+    print(f"phase 24b: {time.perf_counter() - t_phase:.1f} s "
+          f"({card_line()})")
+    return wkv, scan
+
+
 # phase 25: the families whose training runs on the card
 TRAIN_ARCHS = ("starcoder2-3b", "minitron-4b", "qwen3-32b", "gemma-7b",
-               "olmoe-1b-7b", "seamless-m4t-medium", "qwen2-vl-7b")
+               "olmoe-1b-7b", "seamless-m4t-medium", "qwen2-vl-7b",
+               "rwkv6-1.6b", "hymba-1.5b")
 # seamless's bfloat16 encoder path: params held to the size of their
 # update (see lm_train_agreement)
 ENC_PATH = ("enc_layers", "enc_norm", "layers/cross/wk", "layers/cross/wv")
@@ -3201,6 +3504,43 @@ ENC_PATH = ("enc_layers", "enc_norm", "layers/cross/wk", "layers/cross/wv")
 # path's gradients
 BF16_LOSS_REL = 1e-2
 BF16_UPDATE_REL = 2e-2
+# families whose REDUCED sgd run (lr 0.5, 3 steps) amplifies float32
+# rounding past the params limit. Their sgd params are held twice: step
+# by step (each card step from the CPU's params and state, the params
+# after it to 1e-5 of a leaf's largest), and over the three free steps
+# to ``ulp_spread``, what one float32 unit of noise on every param at
+# each step's start grows to on the CPU alone.
+STEPWISE_ARCHS = ("rwkv6-1.6b",)
+
+
+def ulp_spread(torch, step, p0, s0, batches) -> float:
+    """The CPU's own float32 noise over ``batches`` steps of ``step`` from
+    ``p0`` / ``s0``: for each step i, every param nudged by one float32
+    unit (a random sign each, seed i) at step i's start and run to the
+    end; the spreads (max |nudged - plain| / leaf's largest) summed over
+    i. ``tests/test_torch_lm_train.py::test_ulp_spread`` reports it."""
+    from repro_torch.tree import tree_leaves, tree_map
+
+    def run(p, s, first):
+        p, s = tree_map(torch.clone, p), tree_map(torch.clone, s)
+        for b in batches[first:]:
+            p, s, _ = step(p, s, b)
+        return p
+
+    plain = run(p0, s0, 0)
+    total, p, s = 0.0, tree_map(torch.clone, p0), tree_map(torch.clone, s0)
+    for i, b in enumerate(batches):
+        gen = torch.Generator().manual_seed(i)
+
+        def nudge(x):
+            sign = torch.randint(0, 2, x.shape, generator=gen) * 2 - 1
+            return torch.nextafter(x, sign.to(x.dtype) * math.inf)
+
+        got = run(tree_map(nudge, p), s, i)
+        total += max(float((x - y).abs().max()) / float(y.abs().max())
+                     for x, y in zip(tree_leaves(got), tree_leaves(plain)))
+        p, s, _ = step(p, s, b)
+    return total
 
 
 def named_leaves(tree, prefix="") -> list:
@@ -3211,33 +3551,52 @@ def named_leaves(tree, prefix="") -> list:
     return [(prefix[:-1], tree)]
 
 
+def train_launches(cfg, steps: int = 1) -> dict:
+    """The kernel launches of ``steps`` training steps of ``cfg`` on the
+    card, ``remat`` on: each layer's forward kernels twice (the step's
+    forward and the backward's recomputation), its backward kernels once.
+    Attention: the flash forward and backward a layer (an encoder layer
+    one, a decoder layer of the encoder-decoder two: self and cross);
+    RWKV6: WKV (S >= 64: the chunked forward kernel) and its backward;
+    hymba: flash and the selective scan, each with its backward."""
+    n = cfg.n_layers
+    if cfg.rwkv:
+        return {"rwkv6": 2 * n * steps, "rwkv6_bwd": n * steps}
+    layers = n * (2 if cfg.enc_dec else 1) + cfg.n_enc_layers
+    out = {"flash_attention": 2 * layers * steps,
+           "flash_attention_bwd": layers * steps}
+    if cfg.ssm_state:
+        out |= {"selective_scan": 2 * n * steps,
+                "selective_scan_bwd": n * steps}
+    return out
+
+
 def lm_train_agreement(torch, kernels) -> dict:
     """Phase 25: REDUCED ``TRAIN_ARCHS`` in float32, three
     ``make_train_step`` steps on the card against the CPU from the same
     params and batches (2 x 64 tokens, with ``lm_extras``): with ``sgd``
-    losses to 1e-5 relative and params to 1e-5 of each leaf's largest;
-    with ``train_lm``'s AdamW and schedule losses to 1e-4. Seamless's
-    encoder computes in bfloat16 on both devices, each rounding its own
-    float32 sums: at each step both take the CPU's encoder memory as the
-    value of their own encoder's output (the gradient flows through each
-    one's encoder), and the params of the bfloat16 path (``ENC_PATH``)
-    are held to 2^-6 of their largest update. Each card step launches
-    the flash forward twice a layer (``remat`` recomputes it) and the
-    backward once. Then, on the card, ``ops.rwkv6`` and
-    ``ops.selective_scan`` raise under grad, and so does a REDUCED
-    RWKV6 / hymba training step. Returns the flash launches."""
+    losses to 1e-5 relative and params to 1e-5 of each leaf's largest
+    (``STEPWISE_ARCHS``: so after each step from the CPU's params, and
+    after the three free steps to ``ulp_spread``); with ``train_lm``'s
+    AdamW and schedule losses to 1e-4. Seamless's encoder computes in
+    bfloat16 on both devices, each rounding its own float32 sums: at each
+    step both take the CPU's encoder memory as the value of their own
+    encoder's output (the gradient flows through each one's encoder), and
+    the params of the bfloat16 path (``ENC_PATH``) are held to 2^-6 of
+    their largest update. Each card step launches ``train_launches`` and
+    nothing else: RWKV6's WKV and hymba's scan go through their backward
+    kernels. Returns the launches by kernel."""
     import dataclasses
 
     import numpy as np
 
     from repro_torch.configs.base import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models import model
     from repro_torch.optim import adamw, linear_warmup_cosine, sgd
-    from repro_torch.tree import tree_map
+    from repro_torch.tree import tree_leaves, tree_map
 
     t0 = time.perf_counter()
-    total = {"flash_attention": 0, "flash_attention_bwd": 0}
+    total: dict = {}
     real_encode = model.encode
     for arch in TRAIN_ARCHS:
         cfg = dataclasses.replace(get_config(arch, reduced=True),
@@ -3266,90 +3625,82 @@ def lm_train_agreement(torch, kernels) -> dict:
             for name, opt in (("sgd", sgd(0.5)), ("adamw", adamw(
                     lr=linear_warmup_cosine(3e-3, 20, 3), weight_decay=0.1,
                     max_grad_norm=1.0))):
-                p_cpu = tree_map(torch.clone, p0)
-                p_gpu = tree_map(lambda x: x.cuda(), p0)
-                s_cpu, s_gpu = opt.init(p_cpu), opt.init(p_gpu)
                 step_cpu = model.make_train_step(cfg, opt, device="cpu")
                 step_gpu = model.make_train_step(cfg, opt)
-                losses = []
-                for batch in batches:
-                    p_cpu, s_cpu, m_cpu = step_cpu(p_cpu, s_cpu, batch)
-                    reset_counts(torch, kernels)
-                    p_gpu, s_gpu, m_gpu = step_gpu(p_gpu, s_gpu, batch)
-                    torch.cuda.synchronize()
-                    n_fwd = kernels["flash_attention"].launches
-                    n_bwd = kernels["flash_attention_bwd"].launches
-                    layers = cfg.n_layers * (2 if cfg.enc_dec else 1) + \
-                        cfg.n_enc_layers
-                    if (n_fwd, n_bwd) != (2 * layers, layers):
-                        raise AssertionError(
-                            f"{arch} {name}: flash launches {n_fwd} "
-                            f"forward, {n_bwd} backward a step; expected "
-                            f"{2 * layers}, {layers}")
-                    total["flash_attention"] += n_fwd
-                    total["flash_attention_bwd"] += n_bwd
-                    losses.append((float(m_gpu["loss"]),
-                                   float(m_cpu["loss"])))
-                d_loss = max(abs(a - b) / abs(b) for a, b in losses)
-                d_par, d_enc = 0.0, 0.0
-                for (path, a), (_, b), (_, b0) in zip(
-                        named_leaves(p_gpu), named_leaves(p_cpu),
-                        named_leaves(p0)):
-                    diff = float((a.cpu() - b).abs().max())
-                    if cfg.enc_dec and path.startswith(ENC_PATH):
-                        d_enc = max(d_enc, diff / float(
-                            (b - b0).abs().max()))
-                    else:
-                        d_par = max(d_par, diff / float(b.abs().max()))
-                out[name] = (d_loss, d_par, d_enc)
-                print(f"train agreement {arch} REDUCED float32, {name}, 3 "
-                      f"steps (card vs CPU): losses {losses}, max relative "
-                      f"loss diff {d_loss:.3g}, params max |diff| / "
-                      f"leaf's largest {d_par:.3g}"
-                      + (f", bf16 encoder path max |diff| / largest "
-                         f"update {d_enc:.3g}" if cfg.enc_dec else ""))
-                if not all(math.isfinite(a) for a, _ in losses):
-                    raise AssertionError(f"{arch}: non-finite loss")
+                held = name == "sgd" and arch in STEPWISE_ARCHS
+                for stepwise in (False, True) if held else (False,):
+                    p_cpu = tree_map(torch.clone, p0)
+                    p_gpu = tree_map(lambda x: x.cuda(), p0)
+                    s_cpu, s_gpu = opt.init(p_cpu), opt.init(p_gpu)
+                    losses, d_steps = [], []
+                    for batch in batches:
+                        p_cpu, s_cpu, m_cpu = step_cpu(p_cpu, s_cpu, batch)
+                        reset_counts(torch, kernels)
+                        p_gpu, s_gpu, m_gpu = step_gpu(p_gpu, s_gpu, batch)
+                        torch.cuda.synchronize()
+                        if stepwise:
+                            d_steps.append(max(
+                                float((a.cpu() - b).abs().max())
+                                / float(b.abs().max()) for a, b in zip(
+                                    tree_leaves(p_gpu), tree_leaves(p_cpu))))
+                            p_gpu = tree_map(lambda x: x.cuda(), p_cpu)
+                            s_gpu = tree_map(lambda x: x.cuda(), s_cpu)
+                        got = {n: k.launches for n, k in kernels.items()
+                               if k.launches}
+                        if got != train_launches(cfg):
+                            raise AssertionError(
+                                f"{arch} {name}: launches a step {got}; "
+                                f"expected {train_launches(cfg)}")
+                        for n, c in got.items():
+                            total[n] = total.get(n, 0) + c
+                        losses.append((float(m_gpu["loss"]),
+                                       float(m_cpu["loss"])))
+                    d_loss = max(abs(a - b) / abs(b) for a, b in losses)
+                    d_par, d_enc = 0.0, 0.0
+                    for (path, a), (_, b), (_, b0) in zip(
+                            named_leaves(p_gpu), named_leaves(p_cpu),
+                            named_leaves(p0)):
+                        diff = float((a.cpu() - b).abs().max())
+                        if cfg.enc_dec and path.startswith(ENC_PATH):
+                            d_enc = max(d_enc, diff / float(
+                                (b - b0).abs().max()))
+                        else:
+                            d_par = max(d_par, diff / float(b.abs().max()))
+                    if stepwise:
+                        d_par = max(d_steps)
+                    lim = 1e-5
+                    if held and not stepwise:
+                        lim = ulp_spread(torch, step_cpu, p0, opt.init(p0),
+                                         batches)
+                    mode = ("step by step from the CPU's params"
+                            if stepwise else "free")
+                    out[name if not stepwise else "sgd stepwise"] = (
+                        d_loss, d_par / lim, d_enc)
+                    print(f"train agreement {arch} REDUCED float32, {name}, "
+                          f"3 steps, {mode} (card vs CPU): losses {losses}, "
+                          f"max relative loss diff {d_loss:.3g}, params max "
+                          f"|diff| / leaf's largest {d_par:.3g}"
+                          + (f" ({[f'{d:.3g}' for d in d_steps]})"
+                             if stepwise else "")
+                          + (f" (limit {lim:.3g}: ulp_spread, the CPU's "
+                             f"own float32 noise over these steps)"
+                             if held and not stepwise else "")
+                          + (f", bf16 encoder path max |diff| / largest "
+                             f"update {d_enc:.3g}" if cfg.enc_dec else ""))
+                    if not all(math.isfinite(a) for a, _ in losses):
+                        raise AssertionError(f"{arch}: non-finite loss")
         finally:
             model.encode = real_encode
         sg, aw = out["sgd"], out["adamw"]
-        if not (sg[0] <= 1e-5 and sg[1] <= 1e-5 and sg[2] <= 2 ** -6
-                and aw[0] <= 1e-4):
+        sw = out.get("sgd stepwise", (0.0, 0.0, 0.0))
+        if not (sg[0] <= 1e-5 and sg[1] <= 1.0 and sg[2] <= 2 ** -6
+                and sw[0] <= 1e-5 and sw[1] <= 1.0 and aw[0] <= 1e-4):
             raise AssertionError(f"{arch} trains differently on the card "
-                                 f"and on the CPU: {out}")
+                                 f"and on the CPU (params over their "
+                                 f"limit): {out}")
     bf16 = lm_train_bf16_agreement(torch, kernels)
-    for n in total:
+    for n in bf16:
         total[n] += bf16[n]
-    # what has no backward kernel refuses a gradient on the card
-    r = torch.rand((1, 70, 2, 64), device="cuda", requires_grad=True)
-    x = torch.rand((1, 130, 64), device="cuda", requires_grad=True)
-    bc = torch.rand((1, 130, 16), device="cuda")
-    raised = []
-    for name, call in (
-            ("rwkv6", lambda: ops.rwkv6(r, r, r, r, torch.zeros(
-                (2, 64), device="cuda"))),
-            ("selective_scan", lambda: ops.selective_scan(
-                x, x, bc, bc, -torch.rand((64, 16), device="cuda")))):
-        try:
-            call()
-        except RuntimeError as err:
-            raised.append(f"{name}: {err}")
-    for arch in ("rwkv6-1.6b", "hymba-1.5b"):
-        cfg = dataclasses.replace(get_config(arch, reduced=True),
-                                  dtype="float32")
-        params = model.init_params(torch.Generator(device="cuda"
-                                                   ).manual_seed(0), cfg)
-        opt = sgd(0.5)
-        toks = torch.randint(0, cfg.vocab, (2, 65), device="cuda")
-        try:
-            model.make_train_step(cfg, opt)(params, opt.init(params), {
-                "tokens": toks[:, :-1], "targets": toks[:, 1:]})
-        except RuntimeError as err:
-            raised.append(f"{arch} make_train_step: {err}")
-    print("on the card under grad: " + "; ".join(raised))
-    if len(raised) != 4 or not all("no backward" in m for m in raised):
-        raise AssertionError(f"a kernel without a backward did not raise "
-                             f"under grad: {raised}")
     print(f"phase 25: {time.perf_counter() - t0:.1f} s ({card_line()})")
     return total
 
@@ -3456,6 +3807,13 @@ GEMM_NAMES = ("gemm", "nvjet", "cutlass", "xmma", "Kernel2")
 TRAIN_STEPS = 4       # phase 26's optimizer steps
 SGD_DROP = 0.25       # phase 26's witness: sgd's first-order loss drop
 SGD_DROP_RATIO = (0.5, 1.5)   # its measured drop over the prediction
+# phase 26b: RWKV6-1.6B and Hymba-1.5B at full width on (1, 4096) tokens,
+# each with the sgd witness, its first drop within 0.8-1.0 of the
+# prediction
+RECUR_TRAIN = ("rwkv6-1.6b", "hymba-1.5b")
+RECUR_TRAIN_SEQ = 4096
+RECUR_TRAIN_STEPS = 3
+RECUR_DROP_RATIO = (0.8, 1.0)
 
 
 def classify(name: str) -> str:
@@ -3465,6 +3823,15 @@ def classify(name: str) -> str:
         return "flash forward"
     if name.startswith("bwd_"):
         return "flash backward"
+    if "wkv_bwd" in name:
+        return "WKV backward"
+    if "wkv_" in name:
+        return "WKV forward"
+    if "scan_bwd" in name:
+        return "scan backward"
+    if "selective_scan_kernel" in name or name.endswith(
+            "::chunked_kernel"):
+        return "scan forward"
     if any(g in name for g in GEMM_NAMES):
         return "GEMMs"
     return "elementwise and other"
@@ -3498,17 +3865,19 @@ def step_breakdown(torch, label: str, run) -> dict:
     return {"wall_ms": wall, "busy_ms": busy, "parts_ms": parts}
 
 
-def lm_train_path(torch, kernels) -> dict:
-    """Phase 26: StarCoder2-3B training at full width (30 layers, d_model
-    3072, 3.18 B float32 params, random from a seed, bf16 compute) with
-    ``train_lm``'s optimizer (AdamW, linear warm-up and cosine decay,
-    weight decay 0.1, clipping at 1.0) on ``packed_batches`` (1, 8192)
-    tokens, ``remat`` on: one warm step, then ``TRAIN_STEPS`` steps with
-    the launch counts zeroed before and read after (the flash forward 60
-    a step, 30 and 30 recomputed; the backward 30), each loss finite,
-    step seconds, tokens/s, peak memory under the card's; then where one
-    more step's time goes (its gradient and its optimizer update profiled
-    apart), and ``loss_rise_witness``. Returns the launches."""
+def lm_train_path(torch, kernels, arch="starcoder2-3b", seq=8192,
+                  steps=TRAIN_STEPS, drop_ratio=SGD_DROP_RATIO) -> dict:
+    """Phase 26 (StarCoder2-3B: 30 layers, d_model 3072, 3.18 B float32
+    params) and phase 26b (RWKV6-1.6B, Hymba-1.5B): ``arch`` at full width
+    (random params from a seed, bf16 compute) with ``train_lm``'s
+    optimizer (AdamW, linear warm-up and cosine decay, weight decay 0.1,
+    clipping at 1.0) on ``packed_batches`` (1, ``seq``) tokens, ``remat``
+    on: one warm step, then ``steps`` steps with the launch counts zeroed
+    before and read after (``train_launches`` and nothing else), each
+    loss finite, step seconds, tokens/s, peak memory under the card's;
+    then where one more step's time goes (its gradient and its optimizer
+    update profiled apart), and ``sgd_witness``. Returns the launches,
+    ``cfg`` and the schedule's length ``total``."""
     from repro_torch.configs.base import get_config
     from repro_torch.data import LMDataConfig, packed_batches
     from repro_torch.models import model
@@ -3516,25 +3885,30 @@ def lm_train_path(torch, kernels) -> dict:
     from repro_torch.tree import tree_leaves, tree_map
 
     t_phase = time.perf_counter()
-    cfg = get_config("starcoder2-3b")
+    cfg = get_config(arch)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     params = model.init_params(torch.Generator(device=dev).manual_seed(0),
                                cfg)
     n_params = sum(x.numel() for x in tree_leaves(params))
-    total = TRAIN_STEPS + 2
+    total = steps + 2
     opt = adamw(lr=linear_warmup_cosine(3e-3, 20, total), weight_decay=0.1,
                 max_grad_norm=1.0)
     opt_state = opt.init(params)
     torch.cuda.synchronize()
-    print(f"starcoder2-3b training: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
-          f"{cfg.resolved_head_dim}, window {cfg.window}, {n_params} "
+    shape = (f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
+             + (f"{cfg.d_model // cfg.rwkv_head_dim} WKV heads of "
+                f"{cfg.rwkv_head_dim}" if cfg.rwkv else
+                f"{cfg.n_heads} / {cfg.n_kv_heads} heads of "
+                f"{cfg.resolved_head_dim}, window {cfg.window}")
+             + (f", SSM di {cfg.ssm_expand * cfg.d_model}, n "
+                f"{cfg.ssm_state}" if cfg.ssm_state else ""))
+    print(f"{arch} training: {shape}, vocab {cfg.vocab}, {n_params} "
           f"float32 params ({16 * n_params / 2 ** 30:.1f} GiB with grads "
           f"and AdamW's moments), {cfg.dtype} compute, remat {cfg.remat}; "
           f"init {time.perf_counter() - t0:.2f} s")
     step = model.make_train_step(cfg, opt)
-    data = packed_batches(LMDataConfig(vocab=cfg.vocab, seq_len=8192,
+    data = packed_batches(LMDataConfig(vocab=cfg.vocab, seq_len=seq,
                                        global_batch=1, seed=0))
 
     def batch():
@@ -3543,8 +3917,8 @@ def lm_train_path(torch, kernels) -> dict:
 
     params, opt_state, m = step(params, opt_state, batch())     # warm
     torch.cuda.synchronize()
-    print(f"starcoder2-3b warm step: loss {float(m['loss']):.4f}")
-    batches = [batch() for _ in range(TRAIN_STEPS)]
+    print(f"{arch} warm step: loss {float(m['loss']):.4f}")
+    batches = [batch() for _ in range(steps)]
     reset_counts(torch, kernels)
     secs, losses = [], []
     for b in batches:
@@ -3556,15 +3930,14 @@ def lm_train_path(torch, kernels) -> dict:
     launches = {n: k.launches for n, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
     card_bytes = torch.cuda.get_device_properties(0).total_memory
-    tok = 8192
-    print(f"starcoder2-3b training (1, 8192) tokens, {TRAIN_STEPS} steps: "
+    print(f"{arch} training (1, {seq}) tokens, {steps} steps: "
           f"losses {losses}, step seconds {[round(s, 4) for s in secs]}, "
-          f"tokens/s {[round(tok / s, 1) for s in secs]} (median "
-          f"{tok / statistics.median(secs):.1f}), peak "
+          f"tokens/s {[round(seq / s, 1) for s in secs]} (median "
+          f"{seq / statistics.median(secs):.1f}), peak "
           f"{peak / 2 ** 30:.2f} GiB of {card_bytes / 2 ** 30:.2f} GiB, "
-          f"launches {launches} ({card_line()})")
-    want = {"flash_attention": 2 * cfg.n_layers * TRAIN_STEPS,
-            "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+          f"launches { {n: c for n, c in launches.items() if c} } "
+          f"({card_line()})")
+    want = train_launches(cfg, steps)
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
     if {n: launches[n] for n in want} != want or any(
@@ -3586,77 +3959,119 @@ def lm_train_path(torch, kernels) -> dict:
         opt.apply_(tree_map(lambda _: next(it), params), opt_state,
                    params)
 
-    g_prof = step_breakdown(torch, "starcoder2-3b step, loss and "
-                            "gradient", grad_part)
-    o_prof = step_breakdown(torch, "starcoder2-3b step, AdamW update "
-                            "(apply_)", opt_part)
+    g_prof = step_breakdown(torch, f"{arch} step, loss and gradient",
+                            grad_part)
+    o_prof = step_breakdown(torch, f"{arch} step, AdamW update (apply_)",
+                            opt_part)
     wall = g_prof["wall_ms"] + o_prof["wall_ms"]
     parts = dict(g_prof["parts_ms"])
     parts["optimizer"] = o_prof["busy_ms"]
     parts["idle"] = wall - g_prof["busy_ms"] - o_prof["busy_ms"]
-    print(f"starcoder2-3b step, where the time goes (profiled, {wall:.1f} "
-          f"ms): " + ", ".join(f"{k} {v:.1f} ms ({v / wall:.1%})" for k, v
-                              in sorted(parts.items(),
-                                        key=lambda kv: -kv[1])))
+    print(f"{arch} step, where the time goes (profiled, {wall:.1f} ms): "
+          + ", ".join(f"{k} {v:.1f} ms ({v / wall:.1%})" for k, v
+                      in sorted(parts.items(), key=lambda kv: -kv[1])))
     del params, opt_state, grads, b
     torch.cuda.empty_cache()
-    witness = loss_rise_witness(torch, cfg, total)
-    print(f"phase 26: {time.perf_counter() - t_phase:.1f} s ({card_line()})")
+    witness = sgd_witness(torch, cfg, seq, steps, drop_ratio)
+    print(f"phase 26 {arch}: {time.perf_counter() - t_phase:.1f} s "
+          f"({card_line()})")
     return {"launches": launches, "losses": losses, "step_s": secs,
-            "peak_gib": peak / 2 ** 30, "parts_ms": parts,
-            "witness": witness}
+            "tok_s": [seq / x for x in secs], "peak_gib": peak / 2 ** 30,
+            "parts_ms": parts, "witness": witness, "cfg": cfg,
+            "total": total}
 
 
-def loss_rise_witness(torch, cfg, total: int) -> dict:
-    """Why phase 26's losses rise over its first steps: from the same
-    params (seed 0) on one fixed batch (the warm step's), ``TRAIN_STEPS``
-    + 1 steps of ``make_train_step`` with ``train_lm``'s AdamW (a step's
-    loss is the one before its update), then as many with ``sgd`` at lr
-    ``SGD_DROP`` / |g|^2 (g the first gradient), whose first step should
-    lower the loss by ``SGD_DROP`` to first order. SGD must lower the
-    loss at every step, its first drop within ``SGD_DROP_RATIO`` of the
-    prediction (a full-width check of the gradient's direction and
-    size)."""
+def fixed_batch(torch, cfg, seq: int) -> dict:
+    """The warm step's batch of phase 26: the first of ``packed_batches``
+    (1, ``seq``), seed 0, on the card."""
     from repro_torch.data import LMDataConfig, packed_batches
+
+    return {k: torch.from_numpy(v).cuda() for k, v in next(packed_batches(
+        LMDataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=1,
+                     seed=0))).items()}
+
+
+def sgd_witness(torch, cfg, seq: int, steps: int, drop_ratio) -> dict:
+    """A full-width check of the gradient's direction and size: from the
+    params of seed 0 on one fixed batch (``fixed_batch``), ``steps`` + 1
+    steps of ``make_train_step`` with ``sgd`` at lr ``SGD_DROP`` / |g|^2
+    (g the first gradient), whose first step should lower the loss by
+    ``SGD_DROP`` to first order. The loss must fall at every step (a
+    step's loss is the one before its update), and the first drop, read
+    on the float32 loss (``cfg`` in float32 compute, forward only) at the
+    params before and after the first step, lie within ``drop_ratio`` of
+    the prediction: the bf16 loss's rounding moves a 0.25 drop by ~0.5%
+    (Hymba-1.5B's read 1.0019 of it in bf16, 0.9978 in float32)."""
+    import dataclasses
+
     from repro_torch.models import model
-    from repro_torch.optim import adamw, linear_warmup_cosine, sgd
+    from repro_torch.optim import sgd
 
     dev = torch.device("cuda")
-    b0 = {k: torch.from_numpy(v).to(dev) for k, v in next(packed_batches(
-        LMDataConfig(vocab=cfg.vocab, seq_len=8192, global_batch=1,
-                     seed=0))).items()}
-    out = {}
-    for name in ("adamw", "sgd"):
-        params = model.init_params(torch.Generator(device=dev)
-                                   .manual_seed(0), cfg)
-        if name == "adamw":
-            opt = adamw(lr=linear_warmup_cosine(3e-3, 20, total),
-                        weight_decay=0.1, max_grad_norm=1.0)
-        else:
-            g = model._grads(params, b0, cfg, dev)[1]
-            gsq = float(sum((x.float() ** 2).sum() for x in g))
-            del g
-            opt = sgd(SGD_DROP / gsq)
-        state = opt.init(params)
-        step = model.make_train_step(cfg, opt)
-        losses = []
-        for _ in range(TRAIN_STEPS + 1):
-            params, state, m = step(params, state, b0)
-            losses.append(float(m["loss"]))
-        out[name] = losses
-        del params, state, step, opt
-        torch.cuda.empty_cache()
-    drop = (out["sgd"][0] - out["sgd"][1]) / SGD_DROP
-    print(f"starcoder2-3b, one fixed batch, loss before each step: AdamW "
-          f"(train_lm's) {out['adamw']}; sgd at lr {SGD_DROP} / |g|^2 "
-          f"{out['sgd']}, first drop {drop:.4g} of the first-order "
-          f"prediction ({card_line()})")
-    falls = all(b < a for a, b in zip(out["sgd"], out["sgd"][1:]))
-    lo, hi = SGD_DROP_RATIO
+    b0 = fixed_batch(torch, cfg, seq)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    g = model._grads(params, b0, cfg, dev)[1]
+    gsq = float(sum((x.float() ** 2).sum() for x in g))
+    del g
+    opt = sgd(SGD_DROP / gsq)
+    state = opt.init(params)
+    step = model.make_train_step(cfg, opt)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+
+    def loss32():
+        with torch.no_grad():
+            return float(model.loss_fn(params, b0, cfg32, dev)[0])
+
+    losses, f32 = [], [loss32()]
+    for i in range(steps + 1):
+        params, state, m = step(params, state, b0)
+        losses.append(float(m["loss"]))
+        if i == 0:
+            f32.append(loss32())
+    del params, state, step, opt
+    torch.cuda.empty_cache()
+    drop = (f32[0] - f32[1]) / SGD_DROP
+    drop_bf16 = (losses[0] - losses[1]) / SGD_DROP
+    print(f"{cfg.name}, one fixed batch, loss before each step: sgd at lr "
+          f"{SGD_DROP} / |g|^2 {losses}; first drop {drop:.4g} of the "
+          f"first-order prediction on the float32 loss ({f32}), "
+          f"{drop_bf16:.4g} on the {cfg.dtype} loss (limits {drop_ratio}) "
+          f"({card_line()})")
+    falls = all(b < a for a, b in zip(losses, losses[1:]))
+    lo, hi = drop_ratio
     if not (falls and lo <= drop <= hi):
         raise AssertionError(f"sgd does not descend as its gradient "
-                             f"predicts at full width: {out['sgd']}")
-    return out | {"sgd_first_drop_ratio": drop}
+                             f"predicts at full width: {losses}, float32 "
+                             f"{f32}")
+    return {"sgd": losses, "sgd_f32": f32, "sgd_first_drop_ratio": drop}
+
+
+def adamw_rise(torch, cfg, total: int, seq: int, steps: int) -> list:
+    """Why phase 26's losses rise over its first steps: from the params of
+    seed 0 on ``fixed_batch``, ``steps`` + 1 steps of ``train_lm``'s AdamW
+    (schedule of ``total`` steps); their losses, beside ``sgd_witness``'s
+    falling ones."""
+    from repro_torch.models import model
+    from repro_torch.optim import adamw, linear_warmup_cosine
+
+    dev = torch.device("cuda")
+    b0 = fixed_batch(torch, cfg, seq)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+    opt = adamw(lr=linear_warmup_cosine(3e-3, 20, total), weight_decay=0.1,
+                max_grad_norm=1.0)
+    state = opt.init(params)
+    step = model.make_train_step(cfg, opt)
+    losses = []
+    for _ in range(steps + 1):
+        params, state, m = step(params, state, b0)
+        losses.append(float(m["loss"]))
+    del params, state, step, opt
+    torch.cuda.empty_cache()
+    print(f"{cfg.name}, one fixed batch, loss before each step: AdamW "
+          f"(train_lm's) {losses} ({card_line()})")
+    return losses
 
 
 def lm_cli() -> None:
@@ -4779,19 +5194,56 @@ def main() -> int:
     flash_bwd = flash_bwd_checks(torch, dev, FLASH_BWD_CASES,
                                  flash[-1]["kernel"])
     print(f"phase 24: {time.perf_counter() - t0:.1f} s ({card})")
-    # phase 25: REDUCED training card vs CPU; what has no backward raises
+    # phase 24b: the backward kernels of WKV and the selective scan
+    # against their plain versions
+    wkv_bwd, scan_bwd = recur_bwd_checks(torch, dev)
+    # phase 25: REDUCED training of nine families card vs CPU
     agree = lm_train_agreement(torch, KERNELS)
     torch.cuda.empty_cache()
-    # phase 26, this slice's main path: StarCoder2-3B training at full
-    # width, counted from zero
+    # phase 26: StarCoder2-3B training at full width, counted from zero
     train = lm_train_path(torch, KERNELS)
+    adamw_rise(torch, train["cfg"], train["total"], 8192, TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    # phase 26b, this slice's main path: RWKV6-1.6B and Hymba-1.5B
+    # training at full width, each counted from zero
+    recur = {arch: lm_train_path(
+        torch, KERNELS, arch, RECUR_TRAIN_SEQ, RECUR_TRAIN_STEPS,
+        RECUR_DROP_RATIO)["launches"]
+        for arch in RECUR_TRAIN}
+    torch.cuda.empty_cache()
     flash_by_path["starcoder2-3b training"] = train["launches"][
         "flash_attention"]
-    launches["flash_attention_bwd"] = train["launches"][
+    flash_by_path["hymba-1.5b training"] = recur["hymba-1.5b"][
+        "flash_attention"]
+    bwd_by_path = {
+        "flash_attention_bwd": {
+            "starcoder2-3b training": train["launches"][
+                "flash_attention_bwd"],
+            "hymba-1.5b training": recur["hymba-1.5b"][
+                "flash_attention_bwd"]},
+        "rwkv6_bwd": {"rwkv6-1.6b training": recur["rwkv6-1.6b"][
+            "rwkv6_bwd"]},
+        "selective_scan_bwd": {"hymba-1.5b training": recur[
+            "hymba-1.5b"]["selective_scan_bwd"]}}
+    for name, by in bwd_by_path.items():
+        launches[name] = sum(by.values())
+        by["train agreement (phase 25)"] = agree[name]
+    flash_bwd[0]["extra"]["launches_by_path"] = bwd_by_path[
         "flash_attention_bwd"]
-    flash_bwd[0]["extra"]["launches_by_path"] = {
-        "starcoder2-3b training": launches["flash_attention_bwd"],
-        "train agreement (phase 25)": agree["flash_attention_bwd"]}
+    wkv_bwd[0]["extra"]["launches_by_path"] = bwd_by_path["rwkv6_bwd"]
+    scan_bwd[0]["extra"]["launches_by_path"] = bwd_by_path[
+        "selective_scan_bwd"]
+    # the forward kernels on the training paths beside serving's
+    for name, arch in (("rwkv6", "rwkv6-1.6b"),
+                       ("selective_scan", "hymba-1.5b")):
+        launches[name] += recur[arch][name]
+    wkv_main = [r for r in wkv if r["name"] == "rwkv6"][-1]
+    wkv_main["extra"] = wkv_main.get("extra", {}) | {"launches_by_path": {
+        "rwkv6-1.6b forward + generate": rwkv_launches["rwkv6"],
+        "rwkv6-1.6b training": recur["rwkv6-1.6b"]["rwkv6"]}}
+    scan[0]["extra"]["launches_by_path"] = {
+        "hymba-1.5b forward + generate": hymba["selective_scan"],
+        "hymba-1.5b training": recur["hymba-1.5b"]["selective_scan"]}
     # phase 27: the LM pretraining CLI
     lm_cli()
     launches["flash_attention"] = sum(flash_by_path.values())
@@ -4839,7 +5291,9 @@ def main() -> int:
         for name in ("fused_gru", "fused_gru_bwd")] + [
         shaped_entry(flash[-1], flash + flash_keys),
         shaped_entry(scan[0], scan),
-        shaped_entry(flash_bwd[0], flash_bwd)]}
+        shaped_entry(flash_bwd[0], flash_bwd),
+        shaped_entry(wkv_bwd[0], wkv_bwd),
+        shaped_entry(scan_bwd[0], scan_bwd)]}
     if len(record["kernels"]) != len(TPU_KERNELS) + len(NEW_KERNELS):
         raise AssertionError("the record misses a kernel")
     print(profile_loss_line())

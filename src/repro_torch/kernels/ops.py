@@ -4,12 +4,13 @@ A CUDA tensor goes to the hand-written kernel; a CPU tensor goes to the
 plain version in ``ref.py``. Nothing else chooses: there is no backend
 switch and no fallback from a kernel that fails to build or launch.
 
-On the CPU autograd differentiates the plain versions. On the card a
-kernel is differentiable only through a ``torch.autograd.Function`` whose
-backward is a kernel too (the GRU, the flush, the temporal attention,
-flash attention); a kernel without one (WKV, the selective scan) raises
-when asked for a gradient, rather than hand back an output that autograd
-does not know and so drop every gradient through it.
+On the CPU autograd differentiates the plain versions. On the card every
+kernel is differentiable through a ``torch.autograd.Function`` whose
+backward is a kernel too (the GRU, the flush, the temporal attention;
+flash attention, WKV and the selective scan where a gradient is wanted,
+so that serving under ``torch.no_grad()`` launches the forward alone): a
+kernel's output that autograd did not know would drop every gradient
+through it.
 
 The JAX package pads feature dims to 128 lanes and K to 8 sublanes here
 (``repro/kernels/ops.py``); that is a TPU layout choice, not semantics, so
@@ -28,13 +29,14 @@ from repro_torch.kernels.fused_flush import FusedFlush
 from repro_torch.kernels.fused_gru import FusedGRU
 from repro_torch.kernels.neighbor_sample import (neighbor_sample_fwd,
                                                  sample_roles_fwd)
-from repro_torch.kernels.rwkv6_scan import rwkv6_fwd
-from repro_torch.kernels.selective_scan import selective_scan_fwd
+from repro_torch.kernels.rwkv6_scan import rwkv6_bwd, rwkv6_fwd
+from repro_torch.kernels.selective_scan import (selective_scan_bwd,
+                                                selective_scan_fwd)
 from repro_torch.kernels.temporal_attn import TemporalAttention
 
 __all__ = ["temporal_attention", "fused_flush", "neighbor_sample",
            "sample_roles", "rwkv6", "gru", "flash_attention",
-           "selective_scan", "FlashAttention"]
+           "selective_scan", "FlashAttention", "RWKV6", "SelectiveScan"]
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -48,16 +50,6 @@ def _on_card(x: torch.Tensor) -> bool:
 def _wants_grad(*xs) -> bool:
     return torch.is_grad_enabled() and any(
         x is not None and x.requires_grad for x in xs)
-
-
-def _forward_only(name: str, *xs) -> None:
-    """Raise if autograd would need the gradient of a kernel that has no
-    backward: its output would carry none."""
-    if _wants_grad(*xs):
-        raise RuntimeError(
-            f"{name}: the CUDA kernel has no backward kernel yet, so a "
-            f"gradient through it would be dropped; call it under "
-            f"torch.no_grad() (serving), or train this family on the CPU")
 
 
 class FlashAttention(torch.autograd.Function):
@@ -81,6 +73,50 @@ class FlashAttention(torch.autograd.Function):
                                          causal=ctx.causal,
                                          window=ctx.window)
         return dq, dk, dv, None, None
+
+
+def _f32(x):
+    """A cotangent as the backward kernels take it: float32, contiguous."""
+    return x.float().contiguous()
+
+
+class RWKV6(torch.autograd.Function):
+    """``rwkv6`` on the card, differentiable: the forward kernel (chunked
+    or sequential, as ``rwkv6_fwd`` picks), and the ``rwkv6_bwd`` kernel
+    for the gradients of r, k, v, w, u and the initial state. Inputs as
+    ``rwkv6_fwd`` takes them (model layout, contiguous, w and u float32);
+    outputs ``(o, final state)``."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state, out_dtype):
+        o, st = rwkv6_fwd(r, k, v, w, u, state, out_dtype=out_dtype)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return o, st
+
+    @staticmethod
+    def backward(ctx, do, dst):
+        r, k, v, w, u, state = ctx.saved_tensors
+        return (*rwkv6_bwd(r, k, v, w, u, _f32(do), state, _f32(dst)),
+                None)
+
+
+class SelectiveScan(torch.autograd.Function):
+    """``selective_scan`` on the card, differentiable: the forward kernel
+    (chunked or per-state, as ``selective_scan_fwd`` picks), and the
+    ``selective_scan_bwd`` kernel for the gradients of x, dt, b, c, a and
+    the initial state. Inputs as ``selective_scan_fwd`` takes them
+    (contiguous, a float32); outputs ``(y, final state)``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, b, c, a, state):
+        y, h = selective_scan_fwd(x, dt, b, c, a, state)
+        ctx.save_for_backward(x, dt, b, c, a, state)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, b, c, a, state = ctx.saved_tensors
+        return selective_scan_bwd(x, dt, b, c, a, _f32(dy), state, _f32(dh))
 
 
 def gru(x, h, wx, wh, bx, bh):
@@ -181,16 +217,19 @@ def rwkv6(r, k, v, w, u, *, state=None, chunk=64, return_state=True):
     |log w| * chunk below about 80, or the scan). On the card S >= 64
     goes to the chunked kernel (chunks of 64 on the tensor cores, every
     decay factor at most 1, any w in (0, 1]) and S < 64, decode, to the
-    sequential one; ``chunk`` sets only the output dtype there. The card's
-    kernels are forward only: they raise where a gradient is wanted."""
+    sequential one; ``chunk`` sets only the output dtype there. Where a
+    gradient is wanted the card goes through ``RWKV6`` (the forward kernel,
+    then the backward kernel); without one the forward kernel runs
+    alone."""
     s = r.shape[1]
     if _on_card(r):
-        _forward_only("rwkv6", r, k, v, w, u, state)
         out_dtype = torch.float32 if (s % chunk or s <= chunk) else r.dtype
-        o, st = rwkv6_fwd(
-            *(x.contiguous() for x in (r, k, v, w.float(), u.float())),
-            None if state is None else state.float().contiguous(),
-            out_dtype=out_dtype)
+        args = (*(x.contiguous() for x in (r, k, v, w.float(), u.float())),
+                None if state is None else state.float().contiguous())
+        if _wants_grad(*args):
+            o, st = RWKV6.apply(*args, out_dtype)
+        else:
+            o, st = rwkv6_fwd(*args, out_dtype=out_dtype)
     else:
         o, st = ref.rwkv6_chunked_ref(
             *(x.transpose(1, 2) for x in (r, k, v, w)), u, state=state,
@@ -205,11 +244,13 @@ def selective_scan(x, dt, b, c, a, *, state=None):
     a: (di, n) float32; state: None (zeros) or (B, di, n) float32. Returns
     (y (B, S, di) in x's dtype, the final state float32). On the card the
     CUDA kernel (n 8 or 16; its chunked form from S 128, its per-state form
-    below; forward only: it raises where a gradient is wanted), on the CPU
-    ``ref.selective_scan_ref``."""
+    below), through ``SelectiveScan`` (with the backward kernel) where a
+    gradient is wanted; on the CPU ``ref.selective_scan_ref``."""
     if _on_card(x):
-        _forward_only("selective_scan", x, dt, b, c, a, state)
-        return selective_scan_fwd(
-            *(t.contiguous() for t in (x, dt, b, c)), a.float().contiguous(),
-            None if state is None else state.float().contiguous())
+        args = (*(t.contiguous() for t in (x, dt, b, c)),
+                a.float().contiguous(),
+                None if state is None else state.float().contiguous())
+        if _wants_grad(*args):
+            return SelectiveScan.apply(*args)
+        return selective_scan_fwd(*args)
     return ref.selective_scan_ref(x, dt, b, c, a, state=state)

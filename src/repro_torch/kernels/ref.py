@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the kernels on the port's paths (TGN training,
-RWKV6, StarCoder2 and hymba serving, LM training's attention backward,
-the ``ops.gru`` cell).
+RWKV6, StarCoder2 and hymba serving, LM training's backwards of attention,
+WKV and the selective scan, the ``ops.gru`` cell).
 
 These mirror ``repro/kernels/ref.py`` line for line and are the semantic
 ground truth of the port: the CPU executes them (``kernels/ops.py`` picks
@@ -18,7 +18,8 @@ __all__ = ["gru_ref", "gru_bwd_ref", "temporal_attention_ref", "segment_mean",
            "scatter_memory", "scatter_last", "flush_ref", "sample_ref",
            "sample_roles_ref", "rwkv6_ref", "rwkv6_chunked_ref", "rwkv6_subchunk_ref",
            "attention_mask", "flash_attention_probs", "flash_attention_ref",
-           "flash_attention_bwd_ref", "selective_scan_ref"]
+           "flash_attention_bwd_ref", "selective_scan_ref", "rwkv6_bwd_ref",
+           "selective_scan_bwd_ref"]
 
 
 def gru_ref(x, h, wx, wh, bx, bh):
@@ -447,3 +448,109 @@ def selective_scan_ref(x, dt, b, c, a, *, state=None):
         hs.append(h)
     y = torch.einsum("bsdn,bsn->bsd", torch.stack(hs, dim=1), c.float())
     return y.to(x.dtype), h
+
+
+def rwkv6_bwd_ref(r, k, v, w, u, do, *, state=None, dstate=None):
+    """The gradients of ``rwkv6_ref`` in its token form, as the backward
+    kernel (``csrc/rwkv6_scan_bwd.cu``) computes them, in float32, right
+    for any w in (0, 1] (nothing divides by w).
+
+    Shapes as ``rwkv6_ref``; ``do``: (B, H, S, Dv) the output's
+    cotangent; ``dstate``: None (zeros) or (B, H, Dk, Dv) the final
+    state's. A forward loop keeps every S_{t-1}; the reverse loop carries
+    G_t = dL/dS_t from G_{S-1} = ``dstate``:
+
+        dr_t = S_{t-1} do_t + u k_t (v_t . do_t)
+        dk_t = G_t v_t + u r_t (v_t . do_t)
+        dv_t = G_t^T k_t + (r_t . (u k_t)) do_t
+        dw_t = rowsum(G_t * S_{t-1})
+        du = sum over (B, S) of r_t k_t (v_t . do_t)
+        G_{t-1} = diag(w_t) G_t + r_t do_t^T
+
+    Returns ``(dr, dk, dv, dw, du, dstate0)``: dr, dk, dv in r's dtype,
+    dw (B, H, S, Dk) and du (H, Dk) float32, and d(initial state) = G_{-1}
+    float32 where ``state`` was given, else None."""
+    b, h, s, dk = r.shape
+    dv_ = v.shape[-1]
+    rf, kf, vf, wf, dof = (x.float() for x in (r, k, v, w, do))
+    uf = u.float()
+    st = (torch.zeros((b, h, dk, dv_), dtype=torch.float32,
+                      device=r.device) if state is None else state.float())
+    before = []
+    for t in range(s):
+        before.append(st)
+        st = wf[:, :, t, :, None] * st + (kf[:, :, t, :, None]
+                                          * vf[:, :, t, None, :])
+    g = (torch.zeros_like(st) if dstate is None else dstate.float())
+    vd = (vf * dof).sum(-1, keepdim=True)                  # (B, H, S, 1)
+    ruk = (rf * uf[None, :, None, :] * kf).sum(-1, keepdim=True)
+    dr, dk_, dw = (torch.empty_like(rf) for _ in range(3))
+    dv = torch.empty_like(vf)
+    for t in reversed(range(s)):
+        rt, kt, vt, wt, dt_ = (x[:, :, t] for x in (rf, kf, vf, wf, dof))
+        dr[:, :, t] = torch.einsum("bhij,bhj->bhi", before[t], dt_)
+        dk_[:, :, t] = torch.einsum("bhij,bhj->bhi", g, vt)
+        dv[:, :, t] = torch.einsum("bhij,bhi->bhj", g, kt)
+        dw[:, :, t] = (g * before[t]).sum(-1)
+        g = wt[..., :, None] * g + rt[..., :, None] * dt_[..., None, :]
+    dr = dr + uf[None, :, None, :] * kf * vd
+    dk_ = dk_ + uf[None, :, None, :] * rf * vd
+    dv = dv + ruk * dof
+    du = (rf * kf * vd).sum((0, 2))
+    return (dr.to(r.dtype), dk_.to(r.dtype), dv.to(r.dtype), dw, du,
+            None if state is None else g)
+
+
+def selective_scan_bwd_ref(x, dt, b, c, a, dy, *, state=None, dstate=None):
+    """The gradients of ``selective_scan_ref``, as the backward kernel
+    (``csrc/selective_scan_bwd.cu``) computes them: the forward's roundings
+    (dt x in the compute dtype, exp(dt a) in float32), then every
+    gradient in float32 until dx, ddt, db and dc are cast to the compute
+    dtype once. The product dt x is rounded in the forward; its gradient
+    is taken as that of the exact product (the rounding's derivative is
+    1), in float32.
+
+    Shapes as ``selective_scan_ref``; ``dy``: (B, S, di), y's cotangent;
+    ``dstate``: None (zeros) or (B, di, n), the final state's. With u_t =
+    dt_t x_t, the reverse loop carries g from ``dstate``:
+
+        g <- g + c_t dy_t                (dL/dh_t)
+        dc_t = sum_d dy_t h_t,   db_t = sum_d g u_t
+        du_t = sum_n g b_t,   dx_t = du_t dt_t
+        ddt_t = sum_n g h_{t-1} exp(dt_t a) a + du_t x_t
+        da += sum_(B, t) g h_{t-1} exp(dt_t a) dt_t
+        g <- exp(dt_t a) g               (dL/dh_{t-1})
+
+    Returns ``(dx, ddt, db, dc, da, dstate0)``: dx, ddt, db, dc in the
+    compute dtype, da (di, n) float32, d(initial state) float32 where
+    ``state`` was given, else None."""
+    bsz, s, di = x.shape
+    n = a.shape[1]
+    h0 = (torch.zeros((bsz, di, n), dtype=torch.float32, device=x.device)
+          if state is None else state.float())
+    dtf, xf, bf, cf, dyf = (t.float() for t in (dt, x, b, c, dy))
+    dec = torch.exp(dtf[..., None] * a)                    # (B, S, di, n)
+    ut = (dt * x).float()
+    ub = ut[..., None] * bf[:, :, None, :]
+    hs = []
+    h = h0
+    for t in range(s):
+        h = dec[:, t] * h + ub[:, t]
+        hs.append(h)
+    g = torch.zeros_like(h0) if dstate is None else dstate.float()
+    dx, ddt = torch.empty_like(xf), torch.empty_like(xf)
+    db, dc = torch.empty_like(bf), torch.empty_like(cf)
+    da = torch.zeros_like(a, dtype=torch.float32)
+    for t in reversed(range(s)):
+        hp = hs[t - 1] if t else h0
+        g = g + cf[:, t, None, :] * dyf[:, t, :, None]
+        dc[:, t] = torch.einsum("bdn,bd->bn", hs[t], dyf[:, t])
+        db[:, t] = torch.einsum("bdn,bd->bn", g, ut[:, t])
+        du = (g * bf[:, t, None, :]).sum(-1)               # (B, di)
+        dda = g * hp * dec[:, t]
+        ddt[:, t] = (dda * a).sum(-1) + du * xf[:, t]
+        dx[:, t] = du * dtf[:, t]
+        da = da + (dda * dtf[:, t, :, None]).sum(0)
+        g = dec[:, t] * g
+    return (dx.to(x.dtype), ddt.to(dt.dtype), db.to(b.dtype), dc.to(c.dtype),
+            da, None if state is None else g)

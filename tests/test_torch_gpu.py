@@ -24,7 +24,10 @@ plain version to 1e-5 of the largest |y| and of the largest |state|
 composes each run's decay product and state by a warp scan), plus one
 bfloat16 unit (2^-7) of each y element where y is bfloat16 (both round
 it). Both of its forms are held to it: the chunked one (S >= 128) and the
-per-state one (decode).
+per-state one (decode). The backward kernels of WKV and of the selective
+scan agree with their plain versions to 1e-5 of each gradient's largest
+magnitude (the same float32 states, sums in another order), plus one
+bfloat16 unit of each element where the gradient is returned in bfloat16.
 """
 
 import numpy as np
@@ -1465,22 +1468,212 @@ def test_flash_autograd_on_card_matches_cpu(cuda):
             w.abs().max())
 
 
-def test_kernels_without_backward_raise_under_grad_on_card(cuda):
-    """WKV and the selective scan have no backward kernel: under grad
-    they raise; under no_grad they run."""
-    r = torch.rand((1, 70, 2, 64), device=cuda)
-    u = torch.zeros((2, 64), device=cuda)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.rwkv6(r.requires_grad_(True), r, r, r, u)
-    with torch.no_grad():
-        ops.rwkv6(r, r, r, r, u)
-    x = torch.rand((1, 130, 64), device=cuda)
-    b = torch.rand((1, 130, 16), device=cuda)
-    a = -torch.rand((64, 16), device=cuda)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.selective_scan(x, x, b, b, a.requires_grad_(True))
-    with torch.no_grad():
-        ops.selective_scan(x, x, b, b, a)
+def _recur_close(got, want, names):
+    """Each gradient within 1e-5 of its largest |plain|, plus one bf16
+    unit (2^-7) of each element where it is returned in bf16."""
+    for name, g, w in zip(names, got, want):
+        assert (g is None) == (w is None), name
+        if g is None:
+            continue
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        gd, wd = g.double().cpu(), w.double().cpu()
+        lim = 1e-5 * float(wd.abs().max()) + (
+            2 ** -7 * wd.abs() if g.dtype == torch.bfloat16 else 0.0)
+        assert bool(((gd - wd).abs() <= lim).all()), name
+
+
+@pytest.mark.parametrize("b,h,s,dtype,strong,state", [
+    (2, 2, 64, torch.float32, False, False),
+    (1, 3, 100, torch.float32, False, True),    # ragged, a state
+    (2, 2, 330, torch.float32, True, True),     # strong decays
+    (1, 4, 97, torch.bfloat16, True, True)])
+def test_wkv_backward_kernel_matches_plain(cuda, b, h, s, dtype, strong,
+                                           state):
+    """``rwkv6_bwd`` against ``ref.rwkv6_bwd_ref`` (dr, dk, dv, dw, du
+    and the initial state's gradient); one launch a call, two calls
+    bitwise equal."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_bwd
+
+    gen = torch.Generator(device=cuda).manual_seed(31)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    r, k, v = (0.3 * randn(b, s, h, 64).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(randn(b, s, h, 64) * 0.5
+                             + (1.5 if strong else -2.0)))
+    u = 0.5 * randn(h, 64)
+    do = randn(b, s, h, 64)
+    st, dst = ((randn(b, h, 64, 64) for _ in range(2)) if state
+               else (None, None))
+    before = KERNELS["rwkv6_bwd"].launches
+    got = rwkv6_bwd(r, k, v, w, u, do, st, dst)
+    again = rwkv6_bwd(r, k, v, w, u, do, st, dst)
+    assert KERNELS["rwkv6_bwd"].launches == before + 2
+    assert all(x is None or torch.equal(x, y) for x, y in zip(got, again))
+    tr = [x.transpose(1, 2) for x in (r, k, v, w, do)]
+    want = ref.rwkv6_bwd_ref(*tr[:4], u, tr[4], state=st, dstate=dst)
+    want = (*(x.transpose(1, 2) for x in want[:4]), *want[4:])
+    _recur_close(got, want, ("dr", "dk", "dv", "dw", "du", "dstate0"))
+
+
+@pytest.mark.parametrize("b,s,di,n,dtype,state", [
+    (2, 64, 256, 8, torch.float32, False),
+    (2, 333, 200, 16, torch.float32, True),     # di not a multiple of 64
+    (1, 100, 320, 16, torch.bfloat16, True),
+    (3, 1, 64, 8, torch.bfloat16, True)])       # one token
+def test_scan_backward_kernel_matches_plain(cuda, b, s, di, n, dtype,
+                                            state):
+    """``selective_scan_bwd`` against ``ref.selective_scan_bwd_ref`` (dx,
+    ddt, db, dc, da and the initial state's gradient); one launch a call,
+    two calls bitwise equal."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.selective_scan import selective_scan_bwd
+
+    gen = torch.Generator(device=cuda).manual_seed(32)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    x = randn(b, s, di).to(dtype)
+    dt = F.softplus(randn(b, s, di) * 0.5 - 4.0).to(dtype)
+    bm, cm = (randn(b, s, n).to(dtype) for _ in range(2))
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device=cuda).repeat(
+        di, 1)
+    dy = randn(b, s, di)
+    h0, dh = ((randn(b, di, n) for _ in range(2)) if state
+              else (None, None))
+    before = KERNELS["selective_scan_bwd"].launches
+    got = selective_scan_bwd(x, dt, bm, cm, a, dy, h0, dh)
+    again = selective_scan_bwd(x, dt, bm, cm, a, dy, h0, dh)
+    assert KERNELS["selective_scan_bwd"].launches == before + 2
+    assert all(p is None or torch.equal(p, q) for p, q in zip(got, again))
+    want = ref.selective_scan_bwd_ref(x, dt, bm, cm, a, dy, state=h0,
+                                      dstate=dh)
+    _recur_close(got, want, ("dx", "ddt", "db", "dc", "da", "dstate0"))
+
+
+def test_recurrences_under_autograd_on_card_match_cpu(cuda):
+    """``ops.rwkv6`` and ``ops.selective_scan`` under autograd on the card
+    (the forward kernel, then the backward kernel) against autograd of
+    the plain versions on the CPU, float32, with a state; under
+    ``no_grad`` the forward kernel alone."""
+    gen = torch.Generator().manual_seed(33)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen)
+
+    r, k, v, do = (0.3 * randn(2, 70, 2, 64) for _ in range(4))
+    w = torch.exp(-torch.exp(randn(2, 70, 2, 64) * 0.5 - 2.0))
+    u, st, dst = 0.5 * randn(2, 64), randn(2, 2, 64, 64), randn(2, 2, 64, 64)
+    x, dy = randn(2, 40, 48), randn(2, 40, 48)
+    dt = torch.rand((2, 40, 48), generator=gen) * 0.1
+    bm, cm = randn(2, 40, 8), randn(2, 40, 8)
+    a = -torch.arange(1, 9, dtype=torch.float32).repeat(48, 1)
+    h0, dh = randn(2, 48, 8), randn(2, 48, 8)
+    for name, fn, args, cots in (
+            ("rwkv6", lambda *t: ops.rwkv6(*t[:5], state=t[5]),
+             (r, k, v, w, u, st), (do, dst)),
+            ("selective_scan",
+             lambda *t: ops.selective_scan(*t[:5], state=t[5]),
+             (x, dt, bm, cm, a, h0), (dy, dh))):
+        leaves = [t.clone().requires_grad_(True) for t in args]
+        want = torch.autograd.grad(fn(*leaves), leaves, cots)
+        live = [t.to(cuda).requires_grad_(True) for t in args]
+        bwd = KERNELS[f"{name}_bwd"]
+        before = (KERNELS[name].launches, bwd.launches)
+        with torch.no_grad():
+            fn(*live)
+        assert (KERNELS[name].launches, bwd.launches) == (before[0] + 1,
+                                                          before[1])
+        got = torch.autograd.grad(fn(*live), live,
+                                  [c.to(cuda) for c in cots])
+        assert (KERNELS[name].launches, bwd.launches) == (before[0] + 2,
+                                                          before[1] + 1)
+        for g, wnt in zip(got, want):
+            assert float((g.cpu() - wnt).abs().max()) <= 1e-5 * float(
+                wnt.abs().max()), name
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repo's root, loaded as a module."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_recurrent_lm_train_step_on_card_matches_cpu(cuda, arch):
+    """Three REDUCED ``make_train_step`` steps with ``sgd`` in float32 on
+    the card (the recurrences' forward and backward kernels) against the
+    CPU, free-running from the same params: each loss to 1e-5 relative,
+    the params after the three steps to 1e-5 of each leaf's largest; the
+    forward kernel twice a layer a step (``remat``), the backward once.
+    RWKV6's three steps amplify float32 rounding past that limit, so its
+    free run is held to ``chip_smoke.ulp_spread`` (what one float32 unit
+    of noise a step grows to on the CPU alone), and a second run, each
+    card step from the CPU's params, to 1e-5 after every step."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model
+    from repro_torch.optim import sgd
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype="float32")
+    fwd = "rwkv6" if cfg.rwkv else "selective_scan"
+    p0 = model.init_params(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
+    opt = sgd(0.5)
+    step_cpu = model.make_train_step(cfg, opt, device="cpu")
+    step_gpu = model.make_train_step(cfg, opt)
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(3):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 65)))
+        batches.append({"tokens": toks[:, :-1], "targets": toks[:, 1:]})
+
+    def spread(p_gpu, p_cpu):
+        return max(float((a.cpu() - b).abs().max()) / float(b.abs().max())
+                   for a, b in zip(tree_leaves(p_gpu), tree_leaves(p_cpu)))
+
+    def run(stepwise):
+        p_cpu = tree_map(torch.clone, p0)
+        p_gpu = tree_map(lambda t: t.to(cuda), p0)
+        s_cpu, s_gpu = opt.init(p_cpu), opt.init(p_gpu)
+        out = []
+        for batch in batches:
+            if stepwise:
+                p_gpu = tree_map(lambda t: t.to(cuda), p_cpu)
+                s_gpu = tree_map(lambda t: t.to(cuda), s_cpu)
+            before = (KERNELS[fwd].launches,
+                      KERNELS[f"{fwd}_bwd"].launches)
+            p_gpu, s_gpu, m_gpu = step_gpu(p_gpu, s_gpu, batch)
+            assert (KERNELS[fwd].launches - before[0],
+                    KERNELS[f"{fwd}_bwd"].launches - before[1]) == (
+                        2 * cfg.n_layers, cfg.n_layers)
+            p_cpu, s_cpu, m_cpu = step_cpu(p_cpu, s_cpu, batch)
+            assert abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) <= \
+                1e-5 * abs(float(m_cpu["loss"]))
+            if stepwise:
+                out.append(spread(p_gpu, p_cpu))
+        return out if stepwise else spread(p_gpu, p_cpu)
+
+    held = bool(cfg.rwkv)
+    lim = 1e-5
+    if held:
+        lim = _chip_smoke().ulp_spread(torch, step_cpu, p0, opt.init(p0),
+                                       batches)
+    assert run(False) <= lim
+    if held:
+        assert max(run(True)) <= 1e-5
 
 
 def test_lm_train_step_on_card_matches_cpu(cuda):

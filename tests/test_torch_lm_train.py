@@ -2,9 +2,10 @@
 and its gradients for every family, one ``make_train_step`` step with
 ``sgd`` and with ``train_lm``'s AdamW and schedule, ``microbatch`` 2,
 ``remat`` and the per-layer split of the stacked params, the plain flash
-attention backward, the card's autograd glue of flash attention (with
-plain versions in the kernels' place), and the MoE dispatch's backward
-over dropped tokens. REDUCED configs, float32 unless stated, params from
+attention backward, the card's autograd glue of flash attention, WKV and
+the selective scan (with plain versions in the kernels' place), REDUCED
+RWKV6 and hymba training steps through that glue against the CPU's, and
+the MoE dispatch's backward over dropped tokens. REDUCED configs, float32 unless stated, params from
 the JAX package through ``convert.params_from_numpy``.
 
 Tolerances:
@@ -384,37 +385,198 @@ def test_flash_autograd_glue(monkeypatch):
         _close_rel(a, w.numpy(), 1e-5, name)
 
 
-def test_kernels_without_backward_raise_under_grad(monkeypatch):
-    """On the card, WKV and the selective scan refuse a gradient rather
-    than drop it; under no_grad (serving) they are not refused."""
+def _fake_recurrences(monkeypatch):
+    """The card's branch of ``ops.rwkv6`` and ``ops.selective_scan`` on
+    CPU tensors, with model-layout plain versions in the forward and
+    backward kernels' place; counts their calls."""
+    calls = {"rwkv6": 0, "rwkv6_bwd": 0, "scan": 0, "scan_bwd": 0}
+
+    def heads(*xs):      # (B, S, H, D) <-> (B, H, S, D)
+        return [x.transpose(1, 2) for x in xs]
+
+    def rwkv6_fwd(r, k, v, w, u, state=None, *, out_dtype=torch.float32):
+        calls["rwkv6"] += 1
+        o, st = ref.rwkv6_ref(*heads(r, k, v, w), u, state=state,
+                              return_state=True)
+        return o.transpose(1, 2).to(out_dtype), st
+
+    def rwkv6_bwd(r, k, v, w, u, do, state=None, dstate=None):
+        calls["rwkv6_bwd"] += 1
+        assert do.dtype == torch.float32
+        dr, dk, dv, dw, du, ds0 = ref.rwkv6_bwd_ref(
+            *heads(r, k, v, w), u, *heads(do), state=state, dstate=dstate)
+        return (*heads(dr, dk, dv, dw), du, ds0)
+
+    def scan_fwd(x, dt, b, c, a, state=None):
+        calls["scan"] += 1
+        return ref.selective_scan_ref(x, dt, b, c, a, state=state)
+
+    def scan_bwd(x, dt, b, c, a, dy, state=None, dstate=None):
+        calls["scan_bwd"] += 1
+        assert dy.dtype == torch.float32
+        return ref.selective_scan_bwd_ref(x, dt, b, c, a, dy, state=state,
+                                          dstate=dstate)
+
     monkeypatch.setattr(ops, "_on_card", lambda x: True)
-    r = torch.zeros((1, 4, 1, 8), requires_grad=True)
-    with pytest.raises(RuntimeError, match="rwkv6: .*no backward"):
-        ops.rwkv6(r, r, r, r, torch.zeros((1, 8)))
-    x = torch.zeros((1, 4, 16), requires_grad=True)
-    b = torch.zeros((1, 4, 8))
-    with pytest.raises(RuntimeError, match="selective_scan: .*no backward"):
-        ops.selective_scan(x, x, b, b, torch.zeros((16, 8)))
-    # without a gradient the call goes on to the kernel (which needs a
-    # CUDA tensor, and says so)
-    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
-        ops.selective_scan(x, x, b, b, torch.zeros((16, 8)))
+    monkeypatch.setattr(ops, "rwkv6_fwd", rwkv6_fwd)
+    monkeypatch.setattr(ops, "rwkv6_bwd", rwkv6_bwd)
+    monkeypatch.setattr(ops, "selective_scan_fwd", scan_fwd)
+    monkeypatch.setattr(ops, "selective_scan_bwd", scan_bwd)
+    return calls
 
 
-def test_rwkv6_and_hymba_train_on_the_card_raise(monkeypatch):
-    """Through ``make_train_step`` the card's path of RWKV6 and hymba
-    raises (here with the card's branch of ``ops`` on CPU tensors, and
-    plain versions in the flash kernels' place)."""
-    _fake_kernels(monkeypatch)
-    for arch, name in (("rwkv6-1.6b", "rwkv6"),
-                       ("hymba-1.5b", "selective_scan")):
-        _, cfg = _cfgs(arch)
-        params = tm.init_params(torch.Generator().manual_seed(0), cfg,
-                                device="cpu")
-        opt = toptim.sgd(0.1)
+def _grads_vs(fn, args, cots):
+    leaves = [x.clone().requires_grad_(True) for x in args]
+    outs = fn(*leaves)
+    assert all(o.grad_fn is not None for o in outs)
+    return outs, torch.autograd.grad(outs, leaves, cots)
+
+
+def test_rwkv6_autograd_glue(monkeypatch):
+    """``ops.rwkv6``'s card branch: the forward kernel alone under
+    ``no_grad``; under autograd ``RWKV6``, whose backward (the backward
+    kernel) gives the gradients of r, k, v, w, u and the initial state
+    that autograd gives through the CPU branch, from the output's and the
+    final state's cotangents (float32, S 70: the token scan on the CPU)."""
+    rng = np.random.default_rng(4)
+    b, s, h, d = 2, 70, 2, 64
+    r, k, v, do = (torch.from_numpy(0.3 * rng.standard_normal(
+        (b, s, h, d)).astype(np.float32)) for _ in range(4))
+    w = torch.from_numpy(np.exp(-np.exp(rng.standard_normal(
+        (b, s, h, d)) * 0.5 - 2.0)).astype(np.float32))
+    u = torch.from_numpy(0.5 * rng.standard_normal((h, d)).astype(
+        np.float32))
+    st, dst = (torch.from_numpy(rng.standard_normal((b, h, d, d)).astype(
+        np.float32)) for _ in range(2))
+
+    def call(r, k, v, w, u, st):
+        return ops.rwkv6(r, k, v, w, u, state=st)
+
+    args = (r, k, v, w, u, st)
+    (o_cpu, _), want = _grads_vs(call, args, (do, dst))
+    calls = _fake_recurrences(monkeypatch)
+    with torch.no_grad():
+        o, _ = call(*args)
+    assert calls == {"rwkv6": 1, "rwkv6_bwd": 0, "scan": 0, "scan_bwd": 0}
+    _close_rel(o, o_cpu.detach().numpy(), 1e-5, "o")
+    (o, _), got = _grads_vs(call, args, (do, dst))
+    assert "RWKV6" in type(o.grad_fn).__name__
+    assert calls == {"rwkv6": 2, "rwkv6_bwd": 1, "scan": 0, "scan_bwd": 0}
+    for name, a, wnt in zip(("dr", "dk", "dv", "dw", "du", "dstate0"), got,
+                            want):
+        _close_rel(a, wnt.numpy(), 1e-5, name)
+
+
+def test_selective_scan_autograd_glue(monkeypatch):
+    """``ops.selective_scan``'s card branch: the forward kernel alone
+    under ``no_grad``; under autograd ``SelectiveScan``, whose backward
+    gives the gradients of x, dt, b, c, a and the initial state that
+    autograd gives through the CPU branch (float32)."""
+    rng = np.random.default_rng(5)
+    bsz, s, di, n = 2, 40, 24, 8
+    x, dt, dy = (torch.from_numpy(rng.standard_normal((bsz, s, di)).astype(
+        np.float32)) for _ in range(3))
+    dt = torch.nn.functional.softplus(dt - 2.0)
+    bm, cm = (torch.from_numpy(rng.standard_normal((bsz, s, n)).astype(
+        np.float32)) for _ in range(2))
+    a = -torch.arange(1, n + 1, dtype=torch.float32).repeat(di, 1)
+    h0, dh = (torch.from_numpy(rng.standard_normal((bsz, di, n)).astype(
+        np.float32)) for _ in range(2))
+
+    def call(x, dt, bm, cm, a, h0):
+        return ops.selective_scan(x, dt, bm, cm, a, state=h0)
+
+    args = (x, dt, bm, cm, a, h0)
+    (y_cpu, _), want = _grads_vs(call, args, (dy, dh))
+    calls = _fake_recurrences(monkeypatch)
+    with torch.no_grad():
+        y, _ = call(*args)
+    assert calls == {"rwkv6": 0, "rwkv6_bwd": 0, "scan": 1, "scan_bwd": 0}
+    assert torch.equal(y, y_cpu.detach())
+    (y, _), got = _grads_vs(call, args, (dy, dh))
+    assert "SelectiveScan" in type(y.grad_fn).__name__
+    assert calls == {"rwkv6": 0, "rwkv6_bwd": 0, "scan": 2, "scan_bwd": 1}
+    for name, g, wnt in zip(("dx", "ddt", "db", "dc", "da", "dstate0"), got,
+                            want):
+        _close_rel(g, wnt.numpy(), 1e-5, name)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_rwkv6_and_hymba_train_steps_on_the_card_branch(arch, monkeypatch):
+    """Two REDUCED ``make_train_step`` steps with ``sgd`` through the
+    card's branch of ``ops`` (plain versions in the kernels' place,
+    ``remat`` on) equal the CPU's: losses to 1e-5 relative, params to
+    1e-5 of each leaf's largest. A step runs each layer's recurrence
+    twice forward (``remat`` recomputes it) and once backward."""
+    _, cfg = _cfgs(arch)
+    assert cfg.remat
+    p0 = tm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batches = [_port_batch(_batch(cfg, seed=i)) for i in range(2)]
+
+    def run():
+        params = tree_map(torch.clone, p0)
+        opt = toptim.sgd(0.5)
+        state = opt.init(params)
         step = tm.make_train_step(cfg, opt, device="cpu")
-        with pytest.raises(RuntimeError, match=f"{name}: .*no backward"):
-            step(params, opt.init(params), _port_batch(_batch(cfg)))
+        losses = []
+        for batch in batches:
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+        return losses, params
+
+    want_losses, want = run()
+    flash = _fake_kernels(monkeypatch)
+    calls = _fake_recurrences(monkeypatch)
+    losses, got = run()
+    fwd, bwd = (("rwkv6", "rwkv6_bwd") if arch.startswith("rwkv")
+                else ("scan", "scan_bwd"))
+    steps = len(batches) * cfg.n_layers
+    assert (calls[fwd], calls[bwd]) == (2 * steps, steps)
+    if arch.startswith("hymba"):
+        assert (flash["fwd"], flash["bwd"]) == (2 * steps, steps)
+    np.testing.assert_allclose(losses, want_losses, rtol=LOSS_REL)
+    for a, wnt in zip(tree_leaves(got), tree_leaves(want)):
+        _close_rel(a, wnt.numpy(), 1e-5, arch)
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repo's root, loaded as a module."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arch,over", [("rwkv6-1.6b", True),
+                                       ("hymba-1.5b", False)])
+def test_ulp_spread(arch, over):
+    """``chip_smoke.ulp_spread``, the probe of the CPU's own float32 noise
+    that sets phase 25's limit for RWKV6's free-running params: on phase
+    25's REDUCED ``sgd`` run (lr 0.5, three steps of 2 x 64 tokens), one
+    float32 unit of noise on every param at each step's start grows past
+    1e-5 of a leaf's largest for RWKV6 (so its card-vs-CPU params are
+    held step by step to 1e-5, and free-running to this spread), and
+    stays under it for hymba (held free-running to 1e-5)."""
+    smoke = _chip_smoke()
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype="float32")
+    p0 = tm.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(3):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 65)))
+        batches.append({"tokens": toks[:, :-1], "targets": toks[:, 1:]})
+    opt = toptim.sgd(0.5)
+    spread = smoke.ulp_spread(torch, tm.make_train_step(cfg, opt,
+                                                        device="cpu"),
+                              p0, opt.init(p0), batches)
+    print(f"{arch}: one float32 unit of noise a step grows to {spread:.3g} "
+          f"of a leaf's largest in three steps")
+    assert math.isfinite(spread) and (spread > 1e-5) == over, spread
 
 
 # ------------------------------------------------- MoE dispatch backward
