@@ -258,7 +258,8 @@ Phases, each fatal on failure:
      query block's window edge dropped from dQ, the tile as the built
      kernel reports it) must fail the same limits; two calls bitwise equal, one launch a call; each shape timed
      beside its plain version, SDPA's backward (a yardstick the port
-     never calls) and its bound; then the forward at phase 11's
+     never calls; the kernels of one profiled call name its backend)
+     and its bound; then the forward at phase 11's
      StarCoder2-3B shape with and without its log-sum-exp, in turns;
  24b. the backward kernels of the two recurrences (each replaces XLA's
      gradient of the JAX package's recurrence): WKV's (``rwkv6_bwd``)
@@ -3116,6 +3117,19 @@ def flash_bwd_controls(torch, q, k, v, o, lse, do, causal, window,
     return out
 
 
+def kernel_names(fn) -> list:
+    """The device kernels of one call of ``fn`` (which SDPA backend ran),
+    the longest first, each name cut to 90 characters, from one round of
+    ``device_spans``."""
+    fn()
+    spans, _ = device_spans(fn)
+    times = {}
+    for start, end, name in spans:
+        times[name[:90]] = times.get(name[:90], 0.0) + end - start
+    return [f"{k} ({t:.1f} us)" for k, t in
+            sorted(times.items(), key=lambda kv: -kv[1])]
+
+
 def flash_bwd_checks(torch, dev, cases, fwd_main=None) -> list:
     """Phase 24: the flash backward kernel against its plain version at
     ``cases``: limits of ``flash_bwd_ratio``, two calls bitwise equal,
@@ -3197,8 +3211,10 @@ def flash_bwd_checks(torch, dev, cases, fwd_main=None) -> list:
 
         lib_err = max(float((x.transpose(1, 2).float() - y.float()).abs()
                             .max()) for x, y in zip(library(), got))
+        sdpa = kernel_names(library)
         print(f"SDPA backward {label} vs the kernel: max abs diff "
-              f"{lib_err:.3g}")
+              f"{lib_err:.3g}; its kernels (one profiled call): "
+              + "; ".join(sdpa))
         elt = q.element_size()
         # read q, k, v, o, dO and lse, write dq, dk, dv
         nbytes = (elt * (4 * q.numel() + 2 * (k.numel() + v.numel()))
@@ -3219,7 +3235,8 @@ def flash_bwd_checks(torch, dev, cases, fwd_main=None) -> list:
                                  rounds=3 if heavy else 5),
             extra={"library_call_ms": call_ms(library, iters=3 if heavy
                                               else 20),
-                   "limit_ratio": ratio, "controls": ctl}))
+                   "limit_ratio": ratio, "controls": ctl,
+                   "library_kernels": sdpa}))
         print_kernel(recs[-1])
         del got, args, q, k, v, o, lse, do, lq, lk, lv, lout, mask
         torch.cuda.empty_cache()

@@ -120,7 +120,7 @@ class Kernel:
         self.launches += 1
 
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 KERNELS: dict[str, Kernel] = {k.name: k for k in (
     # indptr nbr t eidx bat nodes src dst neg valid b batch_of(ptr, step,
@@ -155,10 +155,11 @@ KERNELS: dict[str, Kernel] = {k.name: k for k in (
     Kernel("flash_attention", "flash_attention.cu", "flash_attention_fwd",
            (P, P, P, I, I, I, I, I, I, I, I, I, P, P, P)),
     # q k v o lse do batch seq_q seq_k heads kv_heads head_dim causal
-    # window is_bf16 delta (scratch) dq dk dv stream
+    # window is_bf16 delta part (scratch) part_floats dq dk dv stream
     Kernel("flash_attention_bwd", "flash_attention_bwd.cu",
            "flash_attention_bwd",
-           (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P, P, P, P, P)),
+           (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P, P, L, P, P, P,
+            P)),
     # x dt b c a h0 batch seq channels state is_bf16 form (0: per state,
     # 1: chunked) y h_out stream
     Kernel("selective_scan", "selective_scan.cu", "selective_scan_fwd",

@@ -14,29 +14,32 @@
 //   dK_j = scale sum_i dS_ij q_i,   dQ_i = scale sum_j dS_ij k_j,
 //
 // where the sums over i run over every query head of k_j's KV group (GQA:
-// dk and dv come back per KV head). Three launches on the caller's stream:
-//   1. `bwd_delta`: D, one warp a (batch, row, head);
-//   2. `bwd_dkdv`: a block per (key tile, KV head, batch row) holds its K
-//      and V tiles and the dK and dV accumulators, and walks the query
-//      heads of the group and, for each, the query tiles that see a key
-//      of the tile, in a fixed order;
-//   3. `bwd_dq`: a block per (query tile, head, batch row) holds its Q and
-//      dO tiles and the dQ accumulator, and walks the key tiles its rows
-//      see, in order.
-// Both recompute S and dP = dO V^T tile by tile; no atomics, so two calls
-// agree bit for bit. Two forms of the last two steps:
+// dk and dv come back per KV head). No atomics: every sum runs in a fixed
+// order, so two calls agree bit for bit. Two forms, chosen by dtype and
+// head dim alone (`takes_tc`):
 //   * bf16 at D 32, 64 and 128 (StarCoder2-3B, OLMoE-1B-7B, hymba, the
-//     REDUCED configs): `bwd_dkdv_tc` / `bwd_dq_tc`, every product on the
-//     tensor cores (`mma.sync`, bf16 in, float32 sums), P and dS entering
-//     theirs as bf16 hi + lo parts (see the section below);
-//   * float32, and bf16 at D 256 (Gemma-7B): `bwd_dkdv` / `bwd_dq` on
-//     the CUDA cores. Every tile lives in shared memory as float32 (bf16
-//     inputs widened on the way in), rows padded to an odd stride so the
-//     16 rows a half warp reads fall in 16 banks; each of 256 threads owns
-//     a 4 x 4 (rows x keys) patch of S and dP and 4 (or 2) x NC patches of
-//     the accumulators, all in float32 FMA. Tiles: 64 queries x 64 keys to
-//     D 128 (165,888 bytes of shared memory at D 128), 64 x 32 at D 256
-//     (214,784 of the 232,448 a block may have).
+//     REDUCED configs), on the tensor cores with `wgmma`, TMA and warp
+//     specialisation (see the section below). Four launches: `bwd_delta`
+//     (D, one warp a (batch, row, head)); `bwd_dkdv_wg`, a block per
+//     (128-key tile, KV head, batch row, run of its steps) walking the
+//     query heads of the group and the 64-query tiles that see its keys;
+//     `bwd_dkdv_sum`, the runs added in order; `bwd_dq_wg`, a block per 64
+//     query rows of two heads (or 128 of one) walking 128-key tiles.
+//   * float32, and bf16 at D 256 (Gemma-7B), on the CUDA cores. Three
+//     launches: `bwd_delta`; `bwd_dkdv`, a block per (key tile, KV head,
+//     batch row) holding its K and V tiles and the dK and dV accumulators
+//     and walking the query heads of the group and, for each, the query
+//     tiles that see a key of the tile, in order; `bwd_dq`, a block per
+//     (query tile, head, batch row) holding its Q and dO tiles and the dQ
+//     accumulator and walking the key tiles its rows see, in order. Both
+//     recompute S and dP = dO V^T tile by tile. Every tile lives in shared
+//     memory as float32 (bf16 inputs widened on the way in), rows padded
+//     to an odd stride so the 16 rows a half warp reads fall in 16 banks;
+//     each of 256 threads owns a 4 x 4 (rows x keys) patch of S and dP and
+//     4 (or 2) x NC patches of the accumulators, all in float32 FMA.
+//     Tiles: 64 queries x 64 keys to D 128 (165,888 bytes of shared memory
+//     at D 128), 64 x 32 at D 256 (214,784 of the 232,448 a block may
+//     have).
 //
 // Bound on an H100 at StarCoder2-3B's training shape (B 1, S 8192, H 24,
 // Hkv 2, D 128, window 4096): 25.2 M (query, key) pairs a head; the
@@ -45,15 +48,23 @@
 // outputs (65 us at 3.35 TB/s): operations. The CUDA-core form runs 14 D
 // float32 FMA a pair (S and dP twice, dV, dK, dQ), at most 67 TFLOP/s:
 // 1.08 T FMA, 32 ms at that peak (88.56 ms as it ran, on an H100 at 700
-// W). The tensor-core form runs 20 D products a pair (S, dP twice; dV,
-// dK, dQ twice each, hi and lo) on `mma.sync`, a form below `wgmma`'s
-// rate; `wgmma` and a warp-specialised pipeline, as in the forward, are
-// later work.
+// W). The tensor-core form runs 20 D products a pair (S and dP in both
+// walks; dV, dK, dQ twice each, hi and lo): 1.56 ms at the peak. Its
+// first version (`mma.sync` m16n8k16 through `ldmatrix`, four warps on 64
+// keys and 32 queries a step, the masks evaluated and lse / D read from
+// device memory at every element) ran 8.43 ms there; this one issues
+// `wgmma` from warpgroups fed by TMA, masks only edge tiles, stages lse
+// and D once a tile, and keeps P and dS of the dK / dV walk in shared
+// memory so that the accumulators and each tile's partial fit in
+// registers.
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -359,378 +370,595 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // ------------------------------------------ bf16 on the tensor cores
 
-// The bf16 kernels at D 32, 64 and 128: the same two walks as above, with
-// every product on `mma.sync` m16n8k16 (bf16 in, float32 sums). A block
-// is four warps (16 keys or queries a warp: 64-row tiles; the dK / dV
-// walk takes its queries 32 at a time, for registers),
-// staged as bf16 by 16-byte `cp.async` in rows padded by 16 bytes (so the
-// eight rows an `ldmatrix` reads fall in eight bank groups), the next
-// tile in flight while the block works on this one. The products whose A
-// operand is a float32 tile of P or dS (dV, dK, dQ) take it as two bf16
-// parts, hi + lo (two products), so P and dS keep ~2^-17 of their value,
-// as in the forward; those of the inputs (S, dP) are exact products.
-// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 g + t; A (16 x 16)
-// a0..7 at rows g, g + 8 and columns 2t, 2t + 1, 2t + 8, 2t + 9; B (16 x
-// 8) at rows 2t, 2t + 1, 2t + 8, 2t + 9 and column g; C (16 x 8) at rows
-// g, g + 8 and columns 2t, 2t + 1. A C tile of P becomes, pair by pair,
-// the A fragment of the next product (`split_a`).
-constexpr int TC_THREADS = 128;
-constexpr int TC_ROWS = 64;    // keys of a dK / dV block, queries of dQ's
-constexpr int TC_QROWS = 32;   // queries a step of the dK / dV walk
+// The bf16 kernels at D 32, 64 and 128, on the forward's pattern
+// (`flash_attention.cu`): a block is three warpgroups, a producer that
+// gives up its registers (`setmaxnreg`) and issues every TMA load, and
+// two consumers (240 registers) that run `wgmma`. Tiles come through TMA
+// tensor maps over the model's layout (boxes of 64 columns, 128-byte
+// swizzle; D 32 one 64-byte box) into a 2-stage ring of full / empty
+// mbarriers. P and dS enter the products that accumulate them (dV, dK,
+// dQ) as bf16 hi + lo parts, so they keep ~2^-17 of their value; the
+// products of the inputs (S, dP) are exact. Each tile's products are
+// summed on the tensor cores into a zeroed partial (8 or 16 products
+// deep: their accumulation does not round to nearest, and a chain over
+// every tile failed the limit) that is then added in float32.
+//
+//   * dK / dV: a block per (128-key tile, KV head, batch row, split); K
+//     and V stay in shared memory, each consumer owns 64 keys (dK, dV:
+//     64 x D float32 accumulators). The block walks the query heads of
+//     the group and, for each, the 64-query tiles that see one of its
+//     keys (Q and dO through the ring); the walk's steps are cut into
+//     `splits` contiguous runs, one a block, so that the first key tiles,
+//     which see the most queries, do not hold the card while the rest is
+//     done (`dkdv_splits`: 4 waves of 132 SMs, 8 steps a run at least).
+//     A step: S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16, both
+//     operands in shared memory); P^T = exp2(S^T scale log2(e) - lse
+//     log2(e)) and dS^T = P^T (dP^T - D) in registers, the tile's lse and
+//     D staged in shared memory by the consumer itself; P^T and dS^T as
+//     hi + lo into shared memory (K-major, 128-byte swizzle); then dV +=
+//     P^T dO and dK += dS^T Q (wgmma m64nDk16, A and B from shared
+//     memory, B MN-major through the transpose bit). P^T and dS^T go
+//     through shared memory because dK, dV (128 registers a thread at D
+//     128) and a tile's partial (64) leave no room for their hi + lo
+//     fragments beside S^T and dP^T. Each block writes its run's sums in
+//     float32; `bwd_dkdv_sum` adds the runs in order and rounds (dK
+//     scaled).
+//   * dQ: a block per (64 rows, two heads of a KV group or 128 rows of
+//     one head, batch row), as the forward's: Q and dO stay in shared
+//     memory, K and V tiles of 128 keys through the ring. S = Q K^T and
+//     dP = dO V^T (wgmma m64n128k16 from shared memory); dS in registers
+//     is, pair by pair, the A fragment of dQ += dS K (wgmma m64nDk16, A
+//     from registers, K MN-major); the epilogue writes dQ through a TMA
+//     store.
+// Masks only on tiles that cross the causal diagonal or the window's
+// lower edge (the elementwise loop in a masked and a plain form, chosen
+// once a tile); tiles with no visible pair are passed over. Keys past Sk
+// arrive zero-filled (their dK / dV rows are not written, and in dQ they
+// multiply zero rows of K); rows past Sq get lse = +inf, so P = 0 there.
+constexpr int WG_ROWS = 64;                  // rows a consumer owns
+constexpr int CONSUMERS = 2;                 // consumer warpgroups
+constexpr int TC_THREADS = 128 * (CONSUMERS + 1);
+constexpr int STAGES = 2;                    // the Q / dO or K / V ring
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int KV_KEYS = CONSUMERS * WG_ROWS; // keys of a dK / dV block
+constexpr int BQ = 64;                       // queries a dK / dV step
+constexpr int BK = 128;                      // keys a dQ step
+constexpr int MIN_BLOCKS = 4 * 132;          // dK / dV blocks aimed at
+constexpr int MIN_STEPS = 8;                 // steps of a run at least
+constexpr float LOG2E = 1.4426950408889634f;
+static_assert(BQ == WG_ROWS && BK == KV_KEYS, "one Q and one K box size");
+static_assert(BQ * 2 == 128, "a P^T row is one 128-byte swizzle row");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-// c += a b, m16n8k16, bf16 in, float32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, "
-      "%3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-// (a, b) = hi + lo, each a packed bf16 pair
-__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack2(a - __low2float(h), b - __high2float(h));
-}
-// the A fragments (hi, lo) of 16 columns [16 kk, 16 kk + 16) of a 16-row
-// float32 C tile held as n8 tiles c[2 kk], c[2 kk + 1]
-__device__ __forceinline__ void split_a(const float (&c0)[4],
-                                        const float (&c1)[4],
-                                        uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  split2(c0[0], c0[1], hi[0], lo[0]);
-  split2(c0[2], c0[3], hi[1], lo[1]);
-  split2(c1[0], c1[1], hi[2], lo[2]);
-  split2(c1[2], c1[3], hi[3], lo[3]);
-}
-
-// ROWS rows from row r0 of g (row stride gld elements, D columns) into
-// shared memory at s (row stride D + 8), zero-filled from row lim on; one
-// cp.async group is left to the caller to commit
-template <int D, int ROWS>
-__device__ __forceinline__ void stage_tc(uint32_t s, const __nv_bfloat16* g,
-                                         size_t gld, int r0, int lim) {
-  constexpr int CH = D / 8, LD = D + 8;
-  for (int e = threadIdx.x; e < ROWS * CH; e += TC_THREADS) {
-    const int row = e / CH, c = e % CH;
-    const bool ok = r0 + row < lim;
-    const __nv_bfloat16* src =
-        g + static_cast<size_t>(ok ? r0 + row : 0) * gld + c * 8;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     s + (row * LD + c * 8) * 2),
-                 "l"(src), "r"(ok ? 16 : 0)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// acc_a (16 x NR) += A_w B^T and acc_b += C_w E^T over D: A_w, C_w the
-// warp's 16 rows of two staged tiles a, c (row-major, row stride LD), B,
-// E the NR rows of tiles b, e (so the products' columns are their rows)
-template <int D, int NR>
-__device__ __forceinline__ void two_products(float (&acc_a)[NR / 8][4],
-                                             float (&acc_b)[NR / 8][4],
-                                             uint32_t a, uint32_t b,
-                                             uint32_t c, uint32_t e,
-                                             int warp, int lane) {
-  constexpr int LD = D + 8;
-  const int ar = 16 * warp + lane % 8 + 8 * ((lane / 8) % 2);
-  const int br = lane % 8 + 8 * (lane / 16);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t fa[4], fc[4];
-    const int ac = 16 * kk + 8 * (lane / 16);
-    ldsm_x4(fa, a + (ar * LD + ac) * 2);
-    ldsm_x4(fc, c + (ar * LD + ac) * 2);
-    const int bc = 16 * kk + 8 * ((lane / 8) % 2);
-#pragma unroll
-    for (int jj = 0; jj < NR / 16; ++jj) {
-      uint32_t fb[4], fe[4];
-      ldsm_x4(fb, b + ((16 * jj + br) * LD + bc) * 2);
-      ldsm_x4(fe, e + ((16 * jj + br) * LD + bc) * 2);
-      mma_bf16(acc_a[2 * jj], fa, fb[0], fb[1]);
-      mma_bf16(acc_a[2 * jj + 1], fa, fb[2], fb[3]);
-      mma_bf16(acc_b[2 * jj], fc, fe[0], fe[1]);
-      mma_bf16(acc_b[2 * jj + 1], fc, fe[2], fe[3]);
-    }
-  }
-}
-
-// out (16 x D) += X (16 x 16 KS, float32 C tiles, as hi + lo) T, T the
-// 16 KS rows of a staged tile t (row-major [k][n], row stride LD) read
-// transposed. Up to 64 columns at a time are summed into a zeroed partial
-// that is then added to out: the tensor cores' accumulation (which does
-// not round to nearest) then runs 2 KS products deep, and the long sum
-// over tiles runs in float32 adds.
-template <int D, int KS>
-__device__ __forceinline__ void product_t(float (&out)[D / 8][4],
-                                          const float (&x)[2 * KS][4],
-                                          uint32_t t, int lane) {
-  constexpr int LD = D + 8, NT = D / 8, CH = NT < 8 ? NT : 8;
-  const int tr = lane % 8 + 8 * ((lane / 8) % 2);
-#pragma unroll
-  for (int c0 = 0; c0 < NT; c0 += CH) {
-    float part[CH][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t hi[4], lo[4];
-      split_a(x[2 * kk], x[2 * kk + 1], hi, lo);
-#pragma unroll
-      for (int nn = 0; nn < CH / 2; ++nn) {
-        uint32_t f[4];
-        ldsm_x4_t(f, t + ((16 * kk + tr) * LD + 8 * c0 + 16 * nn +
-                          8 * (lane / 16)) *
-                             2);
-        mma_bf16(part[2 * nn], hi, f[0], f[1]);
-        mma_bf16(part[2 * nn], lo, f[0], f[1]);
-        mma_bf16(part[2 * nn + 1], hi, f[2], f[3]);
-        mma_bf16(part[2 * nn + 1], lo, f[2], f[3]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < CH; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) out[c0 + n][e] += part[n][e];
-  }
-}
-
-// rows (16 r + g + 8 (e >> 1) of the warp's C tile) as bf16 pairs into
-// out (row stride ld elements) from row r0, scaled, up to row lim
+// A D-wide tile is NCH boxes of CH columns side by side, each ROW bytes a
+// row, swizzled over ROW bytes (SWZ: the wgmma descriptor's layout type)
 template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, size_t ld,
-                                           const float (&acc)[D / 8][4],
-                                           int r0, int lim, float scale,
-                                           int lane) {
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = r0 + g + 8 * half;
-    if (row >= lim) continue;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row) * ld +
-                                   8 * n + 2 * t) =
-          pack2(acc[n][2 * half] * scale, acc[n][2 * half + 1] * scale);
-  }
+struct Geo {
+  static constexpr int CH = D < 64 ? D : 64;
+  static constexpr int NCH = D / CH;
+  static constexpr int ROW = 2 * CH;
+  static constexpr uint64_t SWZ = ROW == 128 ? 1 : 2;
+  static constexpr int KV_BYTES = KV_KEYS * D * 2;    // a K or V tile
+  static constexpr int Q_BYTES = WG_ROWS * D * 2;     // a Q or dO tile
+  static constexpr int PDS_BYTES = WG_ROWS * BQ * 2;  // P^T or dS^T, hi or lo
+  static constexpr int BARS = 8 * (2 * STAGES + 1);
+  // dK / dV: K, V; the Q / dO ring; each consumer's P^T, dS^T parts and
+  // its staged lse, D
+  static constexpr int DKDV_SMEM = 1024 + 2 * KV_BYTES +
+                                   2 * STAGES * Q_BYTES +
+                                   CONSUMERS * (4 * PDS_BYTES + 8 * BQ) +
+                                   BARS;
+  // dQ: each consumer's Q, dO; the K / V ring
+  static constexpr int DQ_SMEM =
+      1024 + 2 * CONSUMERS * Q_BYTES + 2 * STAGES * KV_BYTES + BARS;
+  static_assert(D % CH == 0 && (ROW == 128 || ROW == 64), "head dim");
+  static_assert(DKDV_SMEM <= MAX_SMEM && DQ_SMEM <= MAX_SMEM, "smem");
+};
+
+// 2^x on the SFU (`ex2.approx`, to ~2^-22 relative; what underflows is
+// flushed to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// dK, dV: a block per (64-key tile, KV head, batch row), a warp 16 keys,
-// 32 queries a step. Shared memory: K, V (64 x (D + 8) each), then two
-// buffers of (Q, dO) (32 x (D + 8) each).
+// the wgmma descriptor of 16 columns [16 kk, 16 kk + 16) of a K-major
+// tile of `rows` rows at a (rows of the box-major layout above)
 template <int D>
-__global__ void __launch_bounds__(TC_THREADS, 2)
-    bwd_dkdv_tc(const __nv_bfloat16* __restrict__ q,
-                const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v,
-                const __nv_bfloat16* __restrict__ dout,
+__device__ __forceinline__ uint64_t k_major(uint32_t a, int rows, int kk) {
+  using G = Geo<D>;
+  const int c = kk * 16 / G::CH, off = (kk * 16 % G::CH) * 2;
+  return gmma_desc(a + c * rows * G::ROW + off, 16, 8 * G::ROW, G::SWZ);
+}
+// the descriptor of rows [16 kk, 16 kk + 16) of such a tile read MN-major
+// (all D columns): 8-row groups 8 ROW bytes apart, boxes rows ROW apart
+template <int D>
+__device__ __forceinline__ uint64_t mn_major(uint32_t a, int rows, int kk) {
+  using G = Geo<D>;
+  return gmma_desc(a + kk * 16 * G::ROW, rows * G::ROW, 8 * G::ROW, G::SWZ);
+}
+
+__device__ __forceinline__ void wg_sync(int g) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + g) : "memory");
+}
+
+// the dK / dV walk's runs: enough blocks for 4 waves of 132 SMs, each run
+// at least MIN_STEPS of the heaviest key tile's steps
+int dkdv_splits(int batch, const Params& p) {
+  const int blocks =
+      (p.seq_k + KV_KEYS - 1) / KV_KEYS * p.kv_heads * batch;
+  const int i_hi = p.window > 0 && KV_KEYS - 1 + p.window < p.seq
+                       ? KV_KEYS - 1 + p.window
+                       : p.seq;
+  const int steps = p.heads / p.kv_heads * ((i_hi + BQ - 1) / BQ);
+  const int want = (MIN_BLOCKS + blocks - 1) / blocks;
+  const int most = steps / MIN_STEPS;
+  return want < most ? want : most > 1 ? most : 1;
+}
+
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    bwd_dkdv_wg(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                const __grid_constant__ CUtensorMap omap,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                __nv_bfloat16* __restrict__ dv, Params p) {
-  constexpr int TILE = TC_ROWS * (D + 8) * 2;    // bytes: K or V
-  constexpr int QTILE = TC_QROWS * (D + 8) * 2;  // bytes: Q or dO
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  const uint32_t base = smem_u32(tc_smem);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int k0 = blockIdx.x * TC_ROWS, hk = blockIdx.y, b = blockIdx.z;
+                const float* __restrict__ delta, float* __restrict__ part,
+                Params p, int splits) {
+  using G = Geo<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t k_s = base;                            // K
+  const uint32_t v_s = k_s + G::KV_BYTES;               // V
+  const uint32_t q_s = v_s + G::KV_BYTES;               // [STAGES] Q
+  const uint32_t o_s = q_s + STAGES * G::Q_BYTES;       // [STAGES] dO
+  const uint32_t pds_s = o_s + STAGES * G::Q_BYTES;     // [CONSUMERS][4]
+  const uint32_t rows_s = pds_s + CONSUMERS * 4 * G::PDS_BYTES;
+  const uint32_t bars = rows_s + CONSUMERS * 8 * BQ;
+  const uint32_t kvbar = bars + 16 * STAGES;
+  auto full = [&](int i) { return bars + 8 * (i % STAGES); };
+  auto empty = [&](int i) { return bars + 8 * (STAGES + i % STAGES); };
+
+  const int kt = blockIdx.x / splits, split = blockIdx.x % splits;
+  const int k0 = kt * KV_KEYS, hk = blockIdx.y, b = blockIdx.z;
   const int group = p.heads / p.kv_heads;
-  const size_t kv_ld = static_cast<size_t>(p.kv_heads) * D;
-  const size_t q_ld = static_cast<size_t>(p.heads) * D;
-  const size_t kv_off =
-      (static_cast<size_t>(b) * p.seq_k * p.kv_heads + hk) * D;
-  stage_tc<D, TC_ROWS>(base, k + kv_off, kv_ld, k0, p.seq_k);
-  stage_tc<D, TC_ROWS>(base + TILE, v + kv_off, kv_ld, k0, p.seq_k);
-  cp_commit();
-
-  const int i_lo = p.causal ? k0 : 0;
+  // the query tiles that see a key of the block, for every head of the
+  // group: steps (g, t) in that order, this block's run of them
+  const int t_lo = (p.causal ? k0 : 0) / BQ;
   const int i_hi =
-      p.window > 0 ? min(p.seq, k0 + TC_ROWS - 1 + p.window) : p.seq;
-  const int t_lo = i_lo / TC_QROWS;
-  const int n_t = max(0, (i_hi + TC_QROWS - 1) / TC_QROWS - t_lo);
-  const int total = group * n_t;
-  auto buffer = [&](int it) {
-    return base + 2 * TILE + 2 * QTILE * (it & 1);
-  };
-  auto prefetch = [&](int it) {
-    const int h = hk * group + it / n_t;
-    const int q0 = (t_lo + it % n_t) * TC_QROWS;
-    const size_t q_off = (static_cast<size_t>(b) * p.seq * p.heads + h) * D;
-    stage_tc<D, TC_QROWS>(buffer(it), q + q_off, q_ld, q0, p.seq);
-    stage_tc<D, TC_QROWS>(buffer(it) + QTILE, dout + q_off, q_ld, q0,
-                          p.seq);
-    cp_commit();
-  };
+      p.window > 0 ? min(p.seq, k0 + KV_KEYS - 1 + p.window) : p.seq;
+  const int n_t = max(0, (i_hi + BQ - 1) / BQ - t_lo);
+  const long long total = static_cast<long long>(group) * n_t;
+  const int s0 = static_cast<int>(total * split / splits);
+  const int n_steps = static_cast<int>(total * (split + 1) / splits) - s0;
+  const int warp = threadIdx.x / 32;
 
-  float dka[D / 8][4] = {}, dva[D / 8][4] = {};
-  if (total > 0) prefetch(0);
-  for (int it = 0; it < total; ++it) {
-    if (it + 1 < total) {
-      prefetch(it + 1);
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * CONSUMERS);  // one arrival per warp
     }
-    __syncthreads();
-    const int h = hk * group + it / n_t;
-    const int q0 = (t_lo + it % n_t) * TC_QROWS;
-    const size_t row_off = (static_cast<size_t>(b) * p.heads + h) * p.seq;
-    const uint32_t qs = buffer(it), os = qs + QTILE;
-    // S^T = K_w Q^T and dP^T = V_w dO^T: the warp's 16 keys x 32 queries
-    float sa[4][4] = {}, pa[4][4] = {};
-    two_products<D, TC_QROWS>(sa, pa, base, qs, base + TILE, os, warp,
-                              lane);
-    // P^T and dS^T in place
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 16 * warp + g + 8 * (e >> 1);
-        const int qi = q0 + 8 * j + 2 * t + (e & 1);
-        float pv = 0.0f, dsv = 0.0f;
-        if (visible(p, qi, key)) {
-          pv = expf(sa[j][e] * p.scale - lse[row_off + qi]);
-          dsv = pv * (pa[j][e] - delta[row_off + qi]);
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kvbar, 2 * G::KV_BYTES);
+      for (int c = 0; c < G::NCH; ++c) {
+        const int off = c * KV_KEYS * G::ROW;
+        tma_load(k_s + off, &kmap, kvbar, c * G::CH, hk, k0, b);
+        tma_load(v_s + off, &vmap, kvbar, c * G::CH, hk, k0, b);
+      }
+      for (int i = 0; i < n_steps; ++i) {
+        const int s = s0 + i;
+        const int h = hk * group + s / n_t, q0 = (t_lo + s % n_t) * BQ;
+        mbar_wait(empty(i), ((i / STAGES) & 1) ^ 1);  // first pass: free
+        mbar_expect_tx(full(i), 2 * G::Q_BYTES);
+        for (int c = 0; c < G::NCH; ++c) {
+          const int off = (i % STAGES) * G::Q_BYTES + c * BQ * G::ROW;
+          tma_load(q_s + off, &qmap, full(i), c * G::CH, h, q0, b);
+          tma_load(o_s + off, &omap, full(i), c * G::CH, h, q0, b);
         }
-        sa[j][e] = pv;
-        pa[j][e] = dsv;
       }
     }
-    // dV += P^T dO and dK += dS^T Q over the 32 queries
-    product_t<D, 2>(dva, sa, os, lane);
-    product_t<D, 2>(dka, pa, qs, lane);
-    __syncthreads();  // the buffer is free for the tile after next
+    return;
   }
-  store_rows<D>(dk + kv_off, kv_ld, dka, k0 + 16 * warp, p.seq_k, p.scale,
-                lane);
-  store_rows<D>(dv + kv_off, kv_ld, dva, k0 + 16 * warp, p.seq_k, 1.0f,
-                lane);
-}
 
-// dQ: a block per (64-query tile, head, batch row), a warp 16 queries.
-// Shared memory: Q, dO, then two buffers of (K, V).
-template <int D>
-__global__ void __launch_bounds__(TC_THREADS, 2)
-    bwd_dq_tc(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              const __nv_bfloat16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              __nv_bfloat16* __restrict__ dq, Params p) {
-  constexpr int TILE = TC_ROWS * (D + 8) * 2;
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  const uint32_t base = smem_u32(tc_smem);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = qt * TC_ROWS, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.heads / p.kv_heads);
-  const size_t kv_ld = static_cast<size_t>(p.kv_heads) * D;
-  const size_t q_ld = static_cast<size_t>(p.heads) * D;
-  const size_t kv_off =
-      (static_cast<size_t>(b) * p.seq_k * p.kv_heads + hk) * D;
-  const size_t q_off = (static_cast<size_t>(b) * p.seq * p.heads + h) * D;
-  const size_t row_off = (static_cast<size_t>(b) * p.heads + h) * p.seq;
-  stage_tc<D, TC_ROWS>(base, q + q_off, q_ld, q0, p.seq);
-  stage_tc<D, TC_ROWS>(base + TILE, dout + q_off, q_ld, q0, p.seq);
-  cp_commit();
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int g = warp / 4 - 1;  // consumer warpgroup: keys kw + [0, 64)
+  const int tid = threadIdx.x % 128;
+  const int w = tid / 32, lane = tid % 32, gid = lane / 4, tig = lane % 4;
+  const int kw = k0 + g * WG_ROWS;
+  const uint32_t ka = k_s + g * WG_ROWS * G::ROW;
+  const uint32_t va = v_s + g * WG_ROWS * G::ROW;
+  // P^T hi, P^T lo, dS^T hi, dS^T lo: 64 keys x 64 queries each
+  const uint32_t pds = pds_s + g * 4 * G::PDS_BYTES;
+  // the step's lse (log2 units) and D of its 64 queries
+  float* rows = reinterpret_cast<float*>(smem + (rows_s - base)) + g * 2 * BQ;
+  const float sl2 = p.scale * LOG2E;
 
-  const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
-  const int k_hi = p.causal ? min(q0 + TC_ROWS, p.seq_k) : p.seq_k;
-  const int t_lo = k_lo / TC_ROWS;
-  const int total = max(0, (k_hi + TC_ROWS - 1) / TC_ROWS - t_lo);
-  auto prefetch = [&](int it) {
-    const uint32_t buf = base + (2 + 2 * (it & 1)) * TILE;
-    const int k0 = (t_lo + it) * TC_ROWS;
-    stage_tc<D, TC_ROWS>(buf, k + kv_off, kv_ld, k0, p.seq_k);
-    stage_tc<D, TC_ROWS>(buf + TILE, v + kv_off, kv_ld, k0, p.seq_k);
-    cp_commit();
-  };
-  // the thread's two rows' lse and D
-  float lr[2], dr[2];
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.0f;
+
+  mbar_wait(kvbar, 0);
+  for (int i = 0; i < n_steps; ++i) {
+    const int s = s0 + i;
+    const int h = hk * group + s / n_t, q0 = (t_lo + s % n_t) * BQ;
+    const int q_last = min(q0 + BQ, p.seq) - 1;
+    // whether a key of the warpgroup sees a query of the tile
+    const bool live = kw < p.seq_k && (!p.causal || kw <= q_last) &&
+                      (p.window <= 0 || kw + WG_ROWS - 1 > q0 - p.window);
+    float staged = 0.0f;
+    if (live) {
+      const int q = q0 + tid % BQ;
+      const size_t at = (static_cast<size_t>(b) * p.heads + h) * p.seq + q;
+      staged = tid < BQ ? (q < p.seq ? lse[at] * LOG2E : INFINITY)
+                        : (q < p.seq ? delta[at] : 0.0f);
+    }
+    mbar_wait(full(i), (i / STAGES) & 1);
+    if (live) {
+      const uint32_t qa = q_s + (i % STAGES) * G::Q_BYTES;
+      const uint32_t oa = o_s + (i % STAGES) * G::Q_BYTES;
+      // S^T = K_w Q^T and dP^T = V_w dO^T: 64 keys x 64 queries
+      float st[BQ / 2], dpt[BQ / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(st, k_major<D>(ka, KV_KEYS, kk), k_major<D>(qa, BQ, kk),
+                 kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(dpt, k_major<D>(va, KV_KEYS, kk), k_major<D>(oa, BQ, kk),
+                 kk > 0);
+      wgmma_commit();
+      rows[tid] = staged;
+      wg_sync(g);
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T and dS^T, masked where the tile crosses a boundary (the loop
+      // in two forms, so that interior tiles test nothing): key 16 w + gid
+      // + 8 h of the warpgroup against query 8 j + c of the tile is masked
+      // where c' = 8 j + c < kq + 8 h (causal) or c' >= kq + 8 h + window
+      const int kq = kw + 16 * w + gid - q0 - 2 * tig;
+      auto probs = [&](auto masked) {
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(rows + 8 * j + 2 * tig);
+          const float2 dl =
+              *reinterpret_cast<const float2*>(rows + BQ + 8 * j + 2 * tig);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float pv = ex2(fmaf(st[4 * j + e], sl2, (e & 1) ? -l2.y : -l2.x));
+            if constexpr (decltype(masked)::value) {
+              const int c = 8 * j + (e & 1), lim = kq + 8 * (e >> 1);
+              if ((p.causal && c < lim) ||
+                  (p.window > 0 && c >= lim + p.window))
+                pv = 0.0f;
+            }
+            st[4 * j + e] = pv;
+            dpt[4 * j + e] = pv * (dpt[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+          }
+        }
+      };
+      const bool edge = (p.causal && kw + WG_ROWS - 1 > q0) ||
+                        (p.window > 0 && kw <= q_last - p.window);
+      if (edge)
+        probs(std::true_type{});
+      else
+        probs(std::false_type{});
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        // rows (keys) 16 w + gid (+ 8), queries 8 j + 2 tig (+ 1): a
+        // K-major 128-byte row a key, its 16-byte chunks swizzled
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = 16 * w + gid + 8 * half;
+          const uint32_t off = r * 128 + ((j ^ gid) << 4) + 4 * tig;
+          uint32_t hi, lo;
+          unsigned char* at = smem + (pds - base) + off;
+          split_bf16(st[4 * j + 2 * half], st[4 * j + 2 * half + 1], hi, lo);
+          *reinterpret_cast<uint32_t*>(at) = hi;
+          *reinterpret_cast<uint32_t*>(at + G::PDS_BYTES) = lo;
+          split_bf16(dpt[4 * j + 2 * half], dpt[4 * j + 2 * half + 1], hi,
+                     lo);
+          *reinterpret_cast<uint32_t*>(at + 2 * G::PDS_BYTES) = hi;
+          *reinterpret_cast<uint32_t*>(at + 3 * G::PDS_BYTES) = lo;
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      wg_sync(g);
+
+      // dV += P^T dO, then dK += dS^T Q, each tile's sum from zero: A
+      // (hi, then lo) from the parts at a, B the tile at bt, MN-major
+      float part[D / 2];
+      auto tile_sum = [&](uint32_t a, uint32_t bt) {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          const uint64_t bd = mn_major<D>(bt, BQ, kk);
+          wgmma_ss<1>(part, gmma_desc(a + kk * 32, 16, 1024, 1), bd, kk > 0);
+          wgmma_ss<1>(part,
+                      gmma_desc(a + G::PDS_BYTES + kk * 32, 16, 1024, 1), bd,
+                      1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(part);
+      };
+      tile_sum(pds, oa);
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) dv[x] += part[x];
+      tile_sum(pds + 2 * G::PDS_BYTES, qa);
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) dk[x] += part[x];
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(i));  // the consumer is done with it
+  }
+
+  // the run's sums, float32: part[split][dK, dV][b][key][hk][:]
+  const size_t n = static_cast<size_t>(gridDim.z) * p.seq_k * p.kv_heads * D;
+  float* pk = part + static_cast<size_t>(split) * 2 * n;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int row = q0 + 16 * warp + g + 8 * half;
-    lr[half] = row < p.seq ? lse[row_off + row] : 0.0f;
-    dr[half] = row < p.seq ? delta[row_off + row] : 0.0f;
-  }
-
-  float dqa[D / 8][4] = {};
-  if (total > 0) prefetch(0);
-  for (int it = 0; it < total; ++it) {
-    if (it + 1 < total) {
-      prefetch(it + 1);
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const int k0 = (t_lo + it) * TC_ROWS;
-    const uint32_t ks = base + (2 + 2 * (it & 1)) * TILE, vs = ks + TILE;
-    // S = Q_w K^T and dP = dO_w V^T: the warp's 16 queries x 64 keys
-    float sa[8][4] = {}, pa[8][4] = {};
-    two_products<D, TC_ROWS>(sa, pa, base, ks, base + TILE, vs, warp,
-                             lane);
+    const int key = kw + 16 * w + gid + 8 * half;
+    if (key >= p.seq_k) continue;
+    const size_t off =
+        ((static_cast<size_t>(b) * p.seq_k + key) * p.kv_heads + hk) * D;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = q0 + 16 * warp + g + 8 * (e >> 1);
-        const int key = k0 + 8 * j + 2 * t + (e & 1);
-        pa[j][e] = visible(p, row, key)
-                       ? expf(sa[j][e] * p.scale - lr[e >> 1]) *
-                             (pa[j][e] - dr[e >> 1])
-                       : 0.0f;
-      }
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * tig;
+      *reinterpret_cast<float2*>(pk + off + col) =
+          make_float2(dk[4 * j + 2 * half], dk[4 * j + 2 * half + 1]);
+      *reinterpret_cast<float2*>(pk + n + off + col) =
+          make_float2(dv[4 * j + 2 * half], dv[4 * j + 2 * half + 1]);
     }
-    // dQ += dS K over the 64 keys
-    product_t<D, 4>(dqa, pa, ks, lane);
-    __syncthreads();
   }
-  store_rows<D>(dq + q_off, q_ld, dqa, q0 + 16 * warp, p.seq, p.scale,
-                lane);
 }
 
-// the dynamic shared-memory limit of `Kernel`, raised once per device
-template <auto Kernel>
-cudaError_t allow_smem(int bytes) {
-  static bool done[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
-  err = cudaFuncSetAttribute(
-      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && dev < 64) done[dev] = true;
-  return err;
+// dK = scale sum of the runs, dV = sum, in run order; n elements each, 4
+// a thread
+__global__ void __launch_bounds__(256)
+    bwd_dkdv_sum(const float* __restrict__ part, __nv_bfloat16* __restrict__ dk,
+                 __nv_bfloat16* __restrict__ dv, size_t n, int splits,
+                 float scale) {
+  const size_t e = (static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x) * 4;
+  if (e >= n) return;
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+    float4 s = *reinterpret_cast<const float4*>(part + which * n + e);
+    for (int r = 1; r < splits; ++r) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(part + (2 * r + which) * n + e);
+      s.x += x.x;
+      s.y += x.y;
+      s.z += x.z;
+      s.w += x.w;
+    }
+    const float f = which ? 1.0f : scale;
+    uint2 out;
+    out.x = pack_bf16(s.x * f, s.y * f);
+    out.y = pack_bf16(s.z * f, s.w * f);
+    *reinterpret_cast<uint2*>((which ? dv : dk) + e) = out;
+  }
+}
+
+// dQ: two slots of 64 query rows, one per consumer: with `pair` (an even
+// number of query heads per KV head) heads 2 y and 2 y + 1 on the same
+// rows, else rows [0, 64) and [64, 128) of one head; both share every K /
+// V tile the block loads
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    bwd_dq_wg(const __grid_constant__ CUtensorMap qmap,
+              const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap,
+              const __grid_constant__ CUtensorMap omap,
+              const __grid_constant__ CUtensorMap dqmap,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              Params p, int pair) {
+  using G = Geo<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t q_s = base;                           // [CONSUMERS] Q / dQ
+  const uint32_t o_s = q_s + CONSUMERS * G::Q_BYTES;   // [CONSUMERS] dO
+  const uint32_t k_s = o_s + CONSUMERS * G::Q_BYTES;   // [STAGES] K
+  const uint32_t v_s = k_s + STAGES * G::KV_BYTES;     // [STAGES] V
+  const uint32_t bars = v_s + STAGES * G::KV_BYTES;
+  const uint32_t qbar = bars + 16 * STAGES;
+  auto full = [&](int i) { return bars + 8 * (i % STAGES); };
+  auto empty = [&](int i) { return bars + 8 * (STAGES + i % STAGES); };
+
+  // causal: the last query tiles see the most keys, and start first
+  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int rows = pair ? WG_ROWS : CONSUMERS * WG_ROWS;
+  const int q0 = qt * rows, b = blockIdx.z;
+  const int h0 = pair ? CONSUMERS * blockIdx.y : blockIdx.y;
+  const int hk = h0 / (p.heads / p.kv_heads);
+  auto slot_head = [&](int g) { return h0 + (pair ? g : 0); };
+  auto slot_row = [&](int g) { return q0 + (pair ? 0 : g * WG_ROWS); };
+  // key tiles of the block: [t_begin, t_begin + n_tiles)
+  const int k_end = p.causal ? min(q0 + rows, p.seq_k) : p.seq_k;
+  const int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  const int t_begin = k_begin / BK;
+  const int n_tiles = (k_end + BK - 1) / BK - t_begin;
+  const int warp = threadIdx.x / 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * CONSUMERS);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qbar, 2 * CONSUMERS * G::Q_BYTES);
+      for (int g = 0; g < CONSUMERS; ++g)
+        for (int c = 0; c < G::NCH; ++c) {
+          const int off = g * G::Q_BYTES + c * WG_ROWS * G::ROW;
+          tma_load(q_s + off, &qmap, qbar, c * G::CH, slot_head(g),
+                   slot_row(g), b);
+          tma_load(o_s + off, &omap, qbar, c * G::CH, slot_head(g),
+                   slot_row(g), b);
+        }
+      for (int i = 0; i < n_tiles; ++i) {
+        mbar_wait(empty(i), ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(i), 2 * G::KV_BYTES);
+        const int key = (t_begin + i) * BK;
+        for (int c = 0; c < G::NCH; ++c) {
+          const int off = (i % STAGES) * G::KV_BYTES + c * BK * G::ROW;
+          tma_load(k_s + off, &kmap, full(i), c * G::CH, hk, key, b);
+          tma_load(v_s + off, &vmap, full(i), c * G::CH, hk, key, b);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int g = warp / 4 - 1;
+  const int tid = threadIdx.x % 128;
+  const int w = tid / 32, lane = tid % 32, gid = lane / 4, tig = lane % 4;
+  const int h = slot_head(g), r0 = slot_row(g);
+  const int r_last = min(r0 + WG_ROWS, p.seq) - 1;
+  const uint32_t qa = q_s + g * G::Q_BYTES, oa = o_s + g * G::Q_BYTES;
+  const float sl2 = p.scale * LOG2E;
+  // the slot's tiles [i_lo, i_hi): those with a key for one of its rows
+  int i_lo = 0, i_hi = n_tiles;
+  if (p.window > 0) i_lo = max(0, r0 - p.window + 1) / BK - t_begin;
+  if (p.causal) i_hi = min(n_tiles, r_last / BK + 1 - t_begin);
+  if (r0 > r_last) i_hi = i_lo;
+  // the thread's two rows' lse (log2 units) and D
+  float l2[2], dl[2];
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const int row = r0 + 16 * w + gid + 8 * rh;
+    const size_t at = (static_cast<size_t>(b) * p.heads + h) * p.seq + row;
+    l2[rh] = row < p.seq ? lse[at] * LOG2E : INFINITY;
+    dl[rh] = row < p.seq ? delta[at] : 0.0f;
+  }
+
+  float dq[D / 2];
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x) dq[x] = 0.0f;
+
+  mbar_wait(qbar, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    mbar_wait(full(i), (i / STAGES) & 1);
+    if (i >= i_lo && i < i_hi) {
+      const int kt = (t_begin + i) * BK;
+      const uint32_t ka = k_s + (i % STAGES) * G::KV_BYTES;
+      const uint32_t va = v_s + (i % STAGES) * G::KV_BYTES;
+      // S = Q K^T and dP = dO V^T: 64 rows x 128 keys
+      float sc[BK / 2], dp[BK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(sc, k_major<D>(qa, WG_ROWS, kk), k_major<D>(ka, BK, kk),
+                 kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(dp, k_major<D>(oa, WG_ROWS, kk), k_major<D>(va, BK, kk),
+                 kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // dS = P (dP - D) into sc, masked where the tile crosses a boundary
+      // (the loop in two forms): row 16 w + gid + 8 h against key 8 j + c
+      // of the tile is masked where c' = 8 j + c > rk + 8 h (causal) or
+      // c' <= rk + 8 h - window
+      const int rk = r0 + 16 * w + gid - kt - 2 * tig;
+      auto ds = [&](auto masked) {
+#pragma unroll
+        for (int x = 0; x < BK / 2; ++x) {
+          const int h2 = (x & 3) >> 1;
+          float pv = ex2(fmaf(sc[x], sl2, -l2[h2]));
+          if constexpr (decltype(masked)::value) {
+            const int c = 8 * (x >> 2) + (x & 1), lim = rk + 8 * h2;
+            if ((p.causal && c > lim) || (p.window > 0 && c <= lim - p.window))
+              pv = 0.0f;
+          }
+          sc[x] = pv * (dp[x] - dl[h2]);
+        }
+      };
+      const bool edge = (p.causal && kt + BK - 1 > r0) ||
+                        (p.window > 0 && kt <= r_last - p.window);
+      if (edge)
+        ds(std::true_type{});
+      else
+        ds(std::false_type{});
+
+      // dQ += dS K, dS = hi + lo: the dS accumulator of keys [16 kk, 16
+      // kk + 16) is, pair by pair, the A fragment of the 16-key slice
+      uint32_t hi[BK / 16][4], lo[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          split_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], hi[kk][r],
+                     lo[kk][r]);
+      float part[D / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t bd = mn_major<D>(ka, BK, kk);
+        wgmma_rs(part, hi[kk], bd, kk > 0);
+        wgmma_rs(part, lo[kk], bd, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(part);
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) dq[x] += part[x];
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(i));
+  }
+  if (r0 > r_last) return;
+
+  // epilogue: dQ scale in bf16 into the slot's Q tile (its last reader,
+  // the final S product, is done), in the swizzled layout of the dQ map;
+  // one TMA store per box, clipped at Sq
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const int row = 16 * w + gid + 8 * rh;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int col = 8 * j + 2 * tig;
+      uint32_t off = (col / G::CH) * WG_ROWS * G::ROW + row * G::ROW +
+                     (col % G::CH) * 2;
+      off ^= ((off >> 7) & (G::ROW / 16 - 1)) << 4;
+      *reinterpret_cast<uint32_t*>(smem + (qa - base) + off) =
+          pack_bf16(dq[4 * j + 2 * rh] * p.scale,
+                    dq[4 * j + 2 * rh + 1] * p.scale);
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  wg_sync(g);
+  if (tid == 0) {
+    for (int c = 0; c < G::NCH; ++c)
+      tma_store(&dqmap, qa + c * WG_ROWS * G::ROW, c * G::CH, h, r0, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
 }
 
 template <typename T>
@@ -743,35 +971,57 @@ cudaError_t launch_delta(const void* o, const void* dout, int batch,
   return cudaGetLastError();
 }
 
+// the floats of the dK / dV runs' scratch a call needs (0: the CUDA-core
+// form, which needs none)
+size_t scratch_floats(int batch, const Params& p, int is_bf16) {
+  if (!takes_tc(is_bf16, p.d)) return 0;
+  return static_cast<size_t>(dkdv_splits(batch, p)) * 2 * batch * p.seq_k *
+         p.kv_heads * p.d;
+}
+
 // bf16 at head dim D (32, 64 or 128) on the tensor cores
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, const void* o,
               const void* lse, const void* dout, int batch, const Params& p,
-              float* delta, void* dq, void* dk, void* dv, cudaStream_t st) {
-  using bf = __nv_bfloat16;
-  constexpr int ROW = (D + 8) * 2;
-  constexpr int SMEM_KV = (2 * TC_ROWS + 4 * TC_QROWS) * ROW;
-  constexpr int SMEM_Q = 6 * TC_ROWS * ROW;
-  cudaError_t err = allow_smem<bwd_dkdv_tc<D>>(SMEM_KV);
-  if (err == cudaSuccess) err = allow_smem<bwd_dq_tc<D>>(SMEM_Q);
-  if (err == cudaSuccess) err = launch_delta<bf>(o, dout, batch, p, delta,
-                                                 st);
+              float* delta, float* part, void* dq, void* dk, void* dv,
+              cudaStream_t st) {
+  using G = Geo<D>;
+  CUtensorMap qm, km, vm, om, dqm;
+  if (!tensor_map_bf16(&qm, q, batch, p.seq, p.heads, D, G::CH, WG_ROWS) ||
+      !tensor_map_bf16(&om, dout, batch, p.seq, p.heads, D, G::CH,
+                       WG_ROWS) ||
+      !tensor_map_bf16(&dqm, dq, batch, p.seq, p.heads, D, G::CH,
+                       WG_ROWS) ||
+      !tensor_map_bf16(&km, k, batch, p.seq_k, p.kv_heads, D, G::CH,
+                       KV_KEYS) ||
+      !tensor_map_bf16(&vm, v, batch, p.seq_k, p.kv_heads, D, G::CH,
+                       KV_KEYS))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem<bwd_dkdv_wg<D>>(G::DKDV_SMEM);
+  if (err == cudaSuccess) err = allow_smem<bwd_dq_wg<D>>(G::DQ_SMEM);
+  if (err == cudaSuccess)
+    err = launch_delta<__nv_bfloat16>(o, dout, batch, p, delta, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bf* tq = static_cast<const bf*>(q);
-  const bf* tk = static_cast<const bf*>(k);
-  const bf* tv = static_cast<const bf*>(v);
-  const bf* tdo = static_cast<const bf*>(dout);
   const float* tl = static_cast<const float*>(lse);
-  bwd_dkdv_tc<D><<<dim3((p.seq_k + TC_ROWS - 1) / TC_ROWS, p.kv_heads,
-                        batch),
-                   TC_THREADS, SMEM_KV, st>>>(tq, tk, tv, tdo, tl, delta,
-                                              static_cast<bf*>(dk),
-                                              static_cast<bf*>(dv), p);
+  const int splits = dkdv_splits(batch, p);
+  bwd_dkdv_wg<D><<<dim3((p.seq_k + KV_KEYS - 1) / KV_KEYS * splits,
+                        p.kv_heads, batch),
+                   TC_THREADS, G::DKDV_SMEM, st>>>(qm, km, vm, om, tl, delta,
+                                                   part, p, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dq_tc<D><<<dim3((p.seq + TC_ROWS - 1) / TC_ROWS, p.heads, batch),
-                 TC_THREADS, SMEM_Q, st>>>(tq, tk, tv, tdo, tl, delta,
-                                           static_cast<bf*>(dq), p);
+  const size_t n = static_cast<size_t>(batch) * p.seq_k * p.kv_heads * D;
+  bwd_dkdv_sum<<<(n / 4 + 255) / 256, 256, 0, st>>>(
+      part, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+      n, splits, p.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int pair = (p.heads / p.kv_heads) % CONSUMERS == 0;
+  const int rows = pair ? WG_ROWS : CONSUMERS * WG_ROWS;
+  bwd_dq_wg<D><<<dim3((p.seq + rows - 1) / rows,
+                      pair ? p.heads / CONSUMERS : p.heads, batch),
+                 TC_THREADS, G::DQ_SMEM, st>>>(qm, km, vm, om, dqm, tl, delta,
+                                               p, pair);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -823,39 +1073,59 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
+namespace {
+
+// the call's parameters, or false where the kernels do not take it
+bool params_of(int seq_q, int seq_k, int heads, int kv_heads, int head_dim,
+               int causal, int window, Params* p) {
+  if (kv_heads <= 0 || heads % kv_heads || head_dim <= 0 ||
+      head_dim > 256 || seq_k <= 0 || seq_q <= 0 ||
+      ((causal || window > 0) && seq_k != seq_q))
+    return false;
+  *p = Params{seq_q,  seq_k,  heads,    kv_heads,
+              causal, window, head_dim,
+              1.0f / sqrtf(static_cast<float>(head_dim))};
+  return true;
+}
+
+}  // namespace
+
 // q, o, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, Hkv, D); all
-// bfloat16 (is_bf16 = 1) or all float32, D <= 256, contiguous; lse (B, H,
-// Sq) float32 from `flash_attention_fwd`; delta: (B, H, Sq) float32
-// scratch. H a multiple of Hkv; window <= 0 for none; Sk >= 1, and Sk =
-// Sq where the call is causal or has a window. The tensor cores where
-// they take the call (bf16 at D 32, 64, 128), else the CUDA cores. Three
-// launches on `stream`; returns the first error.
+// bfloat16 (is_bf16 = 1) or all float32, D <= 256, contiguous, 16-byte
+// aligned; lse (B, H, Sq) float32 from `flash_attention_fwd`; delta: (B,
+// H, Sq) float32 scratch; part: `part_floats` float32 of scratch, as many
+// as `flash_attention_bwd_scratch` gives for the call (else refused). H a
+// multiple of Hkv; window <= 0 for none; Sk >= 1, and Sk = Sq where the
+// call is causal or has a window. The tensor cores where they take the
+// call (bf16 at D 32, 64, 128: four launches), else the CUDA cores
+// (three) on `stream`; returns the first error.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* lse, const void* dout,
                                    int batch, int seq_q, int seq_k,
                                    int heads, int kv_heads, int head_dim,
                                    int causal, int window, int is_bf16,
-                                   void* delta, void* dq, void* dk,
-                                   void* dv, void* stream) {
+                                   void* delta, void* part,
+                                   long long part_floats, void* dq,
+                                   void* dk, void* dv, void* stream) {
   if (batch == 0 || heads == 0) return 0;
-  if (kv_heads <= 0 || heads % kv_heads || head_dim <= 0 ||
-      head_dim > 256 || seq_k <= 0 || seq_q <= 0 ||
-      ((causal || window > 0) && seq_k != seq_q))
+  Params p;
+  if (!params_of(seq_q, seq_k, heads, kv_heads, head_dim, causal, window,
+                 &p) ||
+      static_cast<size_t>(part_floats) !=
+          scratch_floats(batch, p, is_bf16))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{seq_q,  seq_k,  heads,    kv_heads,
-                 causal, window, head_dim,
-                 1.0f / sqrtf(static_cast<float>(head_dim))};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* dl = static_cast<float*>(delta);
+  float* pt = static_cast<float*>(part);
   if (takes_tc(is_bf16, head_dim)) {
     switch (head_dim) {
-      case 32: return launch_tc<32>(q, k, v, o, lse, dout, batch, p, dl, dq,
-                                    dk, dv, st);
-      case 64: return launch_tc<64>(q, k, v, o, lse, dout, batch, p, dl, dq,
-                                    dk, dv, st);
+      case 32: return launch_tc<32>(q, k, v, o, lse, dout, batch, p, dl, pt,
+                                    dq, dk, dv, st);
+      case 64: return launch_tc<64>(q, k, v, o, lse, dout, batch, p, dl, pt,
+                                    dq, dk, dv, st);
       default: return launch_tc<128>(q, k, v, o, lse, dout, batch, p, dl,
-                                     dq, dk, dv, st);
+                                     pt, dq, dk, dv, st);
     }
   }
   return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, lse, dout, batch, p,
@@ -864,12 +1134,28 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    dk, dv, st);
 }
 
+// The float32 scratch (`part`) that `flash_attention_bwd` needs for the
+// call: the tensor-core form's dK / dV runs, (splits, 2, B, Sk, Hkv, D);
+// 0 for the CUDA-core form; -1 for a call the kernels refuse. Launches
+// nothing.
+extern "C" long long flash_attention_bwd_scratch(int batch, int seq_q,
+                                                 int seq_k, int heads,
+                                                 int kv_heads, int head_dim,
+                                                 int causal, int window,
+                                                 int is_bf16) {
+  Params p;
+  if (!params_of(seq_q, seq_k, heads, kv_heads, head_dim, causal, window,
+                 &p))
+    return -1;
+  return static_cast<long long>(scratch_floats(batch, p, is_bf16));
+}
+
 // The dQ walk's tile in the form that takes a call at (head_dim,
 // is_bf16): *rows queries by *keys keys, key tiles starting at multiples
 // of *keys. Launches nothing.
 extern "C" void flash_attention_bwd_dq_tile(int head_dim, int is_bf16,
                                             int* rows, int* keys) {
   const bool tc = takes_tc(is_bf16, head_dim);
-  *rows = tc ? TC_ROWS : CC_BQ;
-  *keys = tc ? TC_ROWS : cc_block_kv(nc_of(head_dim));
+  *rows = tc ? WG_ROWS : CC_BQ;
+  *keys = tc ? BK : cc_block_kv(nc_of(head_dim));
 }

@@ -14,6 +14,7 @@ an encoder's memory), one step past the TPU kernel, which takes one S.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -22,7 +23,7 @@ from repro_torch.kernels._checks import check, stream
 from repro_torch.kernels.build import KERNELS, library
 
 __all__ = ["flash_attention_fwd", "flash_attention_bwd", "check_key_length",
-           "bwd_dq_tile", "BLOCK_Q", "BLOCK_KV"]
+           "bwd_dq_tile", "bwd_scratch", "BLOCK_Q", "BLOCK_KV"]
 
 # the bf16 kernel's instantiations: StarCoder2-3B and OLMoE-1B-7B (128),
 # Gemma-7B (256), hymba-1.5B (64) and the REDUCED configs (32)
@@ -117,9 +118,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     gradient ``do`` (B, Sq, H, D) in q's dtype: (dq, dk, dv) in the
     inputs' dtype, dk and dv per KV head (summed over the query heads of
     its group). The same inputs as the forward's; float32 sums, no
-    atomics (two calls agree bit for bit); one count a call of its three
-    launches. The kernel runs on the tensor cores for bf16 at head dims
-    32, 64 and 128, else on the CUDA cores."""
+    atomics (two calls agree bit for bit); one count a call of its
+    launches (four on the tensor cores, for bf16 at head dims 32, 64 and
+    128; three on the CUDA cores, else)."""
     b, s, sk, h, hkv, d = _check_inputs(q, k, v, causal, window)
     check("o", o, q.dtype, (b, s, h, d), q.device)
     check("do", do, q.dtype, (b, s, h, d), q.device)
@@ -127,25 +128,49 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    bf16 = q.dtype == torch.bfloat16
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _aligned(q=q, k=k, v=v, o=o, do=do)
+    part = torch.empty(bwd_scratch(b, s, sk, h, hkv, d, causal, window,
+                                   bf16),
+                       dtype=torch.float32, device=q.device)
+    _aligned(q=q, k=k, v=v, o=o, do=do, dq=dq, dk=dk, dv=dv)
     KERNELS["flash_attention_bwd"](
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), b, s, sk, h, hkv, d, int(causal),
-        int(window or 0), int(q.dtype == torch.bfloat16),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        stream(q.device))
+        int(window or 0), int(bf16), delta.data_ptr(),
+        part.data_ptr() if part.numel() else None, part.numel(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stream(q.device))
     return dq, dk, dv
+
+
+@functools.cache
+def _bwd_query(name: str, argtypes: tuple, restype):
+    fn = getattr(library("flash_attention_bwd.cu"), name)
+    fn.argtypes, fn.restype = list(argtypes), restype
+    return fn
+
+
+def bwd_scratch(b: int, sq: int, sk: int, h: int, hkv: int, d: int,
+                causal: bool, window: Optional[int], bf16: bool) -> int:
+    """The float32 scratch, in elements, that the backward kernel needs
+    for a call (the tensor-core form's dK / dV sums of each run of its
+    walk; none on the CUDA cores), as the built kernel reports it:
+    ``csrc/flash_attention_bwd.cu`` owns its tiles and runs."""
+    n = _bwd_query("flash_attention_bwd_scratch", (ctypes.c_int,) * 9,
+                   ctypes.c_longlong)(b, sq, sk, h, hkv, d, int(causal),
+                                      int(window or 0), int(bf16))
+    if n < 0:
+        raise ValueError("the flash backward kernel refuses the call")
+    return n
 
 
 def bwd_dq_tile(head_dim: int, bf16: bool) -> tuple:
     """(query rows, keys) of a tile of the backward's dQ walk at
     ``head_dim`` (key tiles start at multiples of keys), as the built
     kernel reports it: ``csrc/flash_attention_bwd.cu`` owns its tiles."""
-    fn = library("flash_attention_bwd.cu").flash_attention_bwd_dq_tile
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = None
+    fn = _bwd_query("flash_attention_bwd_dq_tile",
+                    (ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_void_p), None)
     rows, keys = ctypes.c_int(), ctypes.c_int()
     fn(head_dim, int(bf16), ctypes.byref(rows), ctypes.byref(keys))
     return rows.value, keys.value

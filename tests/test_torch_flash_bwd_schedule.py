@@ -1,0 +1,252 @@
+"""An emulation, in plain PyTorch on the CPU, of the flash backward
+kernel's tensor-core form (``csrc/flash_attention_bwd.cu``, bf16 at D 32
+/ 64 / 128): its two walks' tiling, its masks and its products.
+
+* dK / dV: blocks of 128 keys (two warpgroups of 64) and KV head, whose
+  steps (query head of the group, 64-query tile that sees one of the
+  block's keys) are cut into runs (``_splits``, the kernel's
+  ``dkdv_splits``); a warpgroup passes over a tile none of its keys see,
+  masks only a tile that crosses the causal diagonal or the window's
+  lower edge, and adds each tile's P^T dO and dS^T Q (P and dS as bf16 hi
+  + lo) to float32 sums; the runs' sums are added in order.
+* dQ: 64 query rows a warpgroup (two heads of a KV group on the same
+  rows where the group is even, else 128 rows of one head), 128-key tiles
+  from the block's first window key to its last row, each warpgroup over
+  the tiles that hold a key for one of its rows.
+
+The emulation is held to ``ref.flash_attention_bwd_ref`` within phase
+24's limit (``chip_smoke.flash_bwd_ratio``: 1e-5 of each gradient's
+largest |plain| plus one bf16 unit, 2^-7, of each element, outputs
+rounded to bf16 as the kernel's are); two faulty schedules must fail it:
+tiles at the window's lower edge passed over, and P / dS rounded once to
+bf16 with no lo part.
+"""
+
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ref  # noqa: E402
+
+TOL, BF16_UNIT = 1e-5, 2.0 ** -7       # phase 24's limits
+WG_ROWS, KV_KEYS, BQ, BK = 64, 128, 64, 128   # the kernel's tiles
+MIN_BLOCKS, MIN_STEPS = 4 * 132, 8     # its dK / dV runs
+
+
+def _splits(sq, sk, h, hkv, window):
+    """The runs of a dK / dV block's steps, as ``dkdv_splits`` (B 1)."""
+    blocks = -(-sk // KV_KEYS) * hkv
+    i_hi = min(sq, KV_KEYS - 1 + window) if window else sq
+    steps = h // hkv * -(-i_hi // BQ)
+    return max(1, min(-(-MIN_BLOCKS // blocks), steps // MIN_STEPS))
+
+
+def _rows(x, r0, n):
+    """Rows [r0, r0 + n) of x, zero past its end (TMA's fill)."""
+    out = x.new_zeros((n,) + x.shape[1:])
+    part = x[r0:r0 + n]
+    out[:part.shape[0]] = part
+    return out
+
+
+def _parts(x, no_lo):
+    """x as bf16 hi + lo parts (float32 values), or hi alone."""
+    hi = x.bfloat16().float()
+    return (hi,) if no_lo else (hi, (x - hi).bfloat16().float())
+
+
+def _visible(rows, keys, causal, window):
+    m = torch.ones(rows.shape[0], keys.shape[0], dtype=torch.bool)
+    if causal:
+        m &= keys[None, :] <= rows[:, None]
+    if window:
+        m &= keys[None, :] > rows[:, None] - window
+    return m
+
+
+def _dkdv(q, k, v, do, lse2, dl, causal, window, drop_edge, no_lo):
+    sq, h, d = q.shape
+    sk, hkv = k.shape[:2]
+    group, sl2 = h // hkv, math.log2(math.e) / math.sqrt(d)
+    splits = _splits(sq, sk, h, hkv, window)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for k0 in range(0, sk, KV_KEYS):
+        t_lo = (k0 if causal else 0) // BQ
+        i_hi = min(sq, k0 + KV_KEYS - 1 + window) if window else sq
+        n_t = max(0, -(-i_hi // BQ) - t_lo)
+        total = group * n_t
+        for hk in range(hkv):
+            runs = []
+            for split in range(splits):
+                acc = torch.zeros(2, 2, WG_ROWS, d)     # [wg][dk, dv]
+                for s in range(total * split // splits,
+                               total * (split + 1) // splits):
+                    hh, q0 = hk * group + s // n_t, (t_lo + s % n_t) * BQ
+                    q_last = min(q0 + BQ, sq) - 1
+                    qs = torch.arange(q0, q0 + BQ)
+                    for wg in range(2):
+                        kw = k0 + wg * WG_ROWS
+                        if not (kw < sk and (not causal or kw <= q_last) and (
+                                not window or kw + WG_ROWS - 1 > q0 - window)):
+                            continue
+                        at_window = bool(window) and kw <= q_last - window
+                        if drop_edge and at_window:
+                            continue
+                        kt, vt = (_rows(x[:, hk], kw, WG_ROWS) for x in (k, v))
+                        qt, ot = (_rows(x[:, hh], q0, BQ) for x in (q, do))
+                        p = torch.exp2(kt @ qt.T * sl2
+                                       - _rows(lse2[hh], q0, BQ)[None, :])
+                        ds = p * (vt @ ot.T - _rows(dl[hh], q0, BQ)[None, :])
+                        if (causal and kw + WG_ROWS - 1 > q0) or at_window:
+                            m = ~_visible(qs, torch.arange(kw, kw + WG_ROWS),
+                                          causal, window).T
+                            p, ds = p.masked_fill(m, 0.0), ds.masked_fill(m, 0.0)
+                        acc[wg, 1] += sum(x @ ot for x in _parts(p, no_lo))
+                        acc[wg, 0] += sum(x @ qt for x in _parts(ds, no_lo))
+                runs.append(acc)
+            total_sum = runs[0]
+            for r in runs[1:]:
+                total_sum = total_sum + r
+            n = min(KV_KEYS, sk - k0)
+            both = torch.cat([total_sum[0], total_sum[1]], dim=1)  # dk, dv
+            dk[k0:k0 + n, hk] = both[0, :n] / math.sqrt(d)
+            dv[k0:k0 + n, hk] = both[1, :n]
+    return dk, dv
+
+
+def _dq(q, k, v, do, lse2, dl, causal, window, drop_edge, no_lo):
+    sq, h, d = q.shape
+    sk, hkv = k.shape[:2]
+    group, sl2 = h // hkv, math.log2(math.e) / math.sqrt(d)
+    pair = group % 2 == 0
+    rows = WG_ROWS if pair else 2 * WG_ROWS
+    dq = torch.zeros_like(q)
+    for q0 in range(0, sq, rows):
+        k_end = min(q0 + rows, sk) if causal else sk
+        k_begin = max(0, q0 - window + 1) if window else 0
+        t_begin = k_begin // BK
+        n_tiles = -(-k_end // BK) - t_begin
+        for h0 in range(0, h, 2 if pair else 1):
+            for slot in range(2):
+                hh = h0 + (slot if pair else 0)
+                r0 = q0 + (0 if pair else slot * WG_ROWS)
+                r_last = min(r0 + WG_ROWS, sq) - 1
+                if r0 > r_last:
+                    continue
+                i_lo = (max(0, r0 - window + 1) // BK - t_begin
+                        if window else 0)
+                i_hi = (min(n_tiles, r_last // BK + 1 - t_begin)
+                        if causal else n_tiles)
+                qt, ot = (_rows(x[:, hh], r0, WG_ROWS) for x in (q, do))
+                l2 = _rows(lse2[hh], r0, WG_ROWS)[:, None]
+                d_ = _rows(dl[hh], r0, WG_ROWS)[:, None]
+                acc = torch.zeros(WG_ROWS, d)
+                for i in range(i_lo, i_hi):
+                    kt0 = (t_begin + i) * BK
+                    at_window = bool(window) and kt0 <= r_last - window
+                    if drop_edge and at_window:
+                        continue
+                    kt, vt = (_rows(x[:, hh // group], kt0, BK) for x in (k, v))
+                    ds = torch.exp2(qt @ kt.T * sl2 - l2) * (ot @ vt.T - d_)
+                    if (causal and kt0 + BK - 1 > r0) or at_window:
+                        ds = ds.masked_fill(~_visible(
+                            torch.arange(r0, r0 + WG_ROWS),
+                            torch.arange(kt0, kt0 + BK), causal, window), 0.0)
+                    acc += sum(x @ kt for x in _parts(ds, no_lo))
+                dq[r0:r_last + 1, hh] = acc[:r_last + 1 - r0] / math.sqrt(d)
+    return dq
+
+
+def _case(seed, sq, sk, h, hkv, d, causal, window):
+    """bf16-valued q, k, v, dO (one batch row, the model's layout) and the
+    forward's o (rounded to bf16) and lse, float32."""
+    rng = np.random.default_rng(seed)
+    q, do = (torch.from_numpy(rng.standard_normal((sq, h, d)).astype(
+        np.float32)).bfloat16().float() for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((sk, hkv, d)).astype(
+        np.float32)).bfloat16().float() for _ in range(2))
+    kh, vh = (x.repeat_interleave(h // hkv, 1).transpose(0, 1)[None]
+              for x in (k, v))
+    qh = q.transpose(0, 1)[None]
+    m = ref.attention_mask(sq, sk, causal, window, "cpu")
+    s = (qh @ kh.transpose(-1, -2) / math.sqrt(d)).masked_fill(~m, -math.inf)
+    lse = torch.logsumexp(s, -1)
+    o = (torch.softmax(s, -1) @ vh).bfloat16().float()
+    return q, k, v, do, o[0].transpose(0, 1), lse[0]
+
+
+def _emulate(q, k, v, do, o, lse, causal, window, drop_edge=False,
+             no_lo=False):
+    """(dq, dk, dv) of the emulated kernel, rounded to bf16."""
+    sq = q.shape[0]
+    lse2 = torch.cat([lse * math.log2(math.e),
+                      torch.full((lse.shape[0], BQ), math.inf)], 1)
+    dl = torch.cat([(do * o).sum(-1).T, torch.zeros(lse.shape[0], BQ)], 1)
+    lse2, dl = lse2[:, :sq + BQ], dl[:, :sq + BQ]
+    args = (q, k, v, do, lse2, dl, causal, window, drop_edge, no_lo)
+    dk, dv = _dkdv(*args)
+    return [x.bfloat16().float() for x in (_dq(*args), dk, dv)]
+
+
+def _plain(q, k, v, do, o, lse, causal, window):
+    h, hkv = q.shape[1], k.shape[1]
+    g = h // hkv
+    qh, oh, doh = (x.transpose(0, 1)[None] for x in (q, o, do))
+    kh, vh = (x.repeat_interleave(g, 1).transpose(0, 1)[None] for x in (k, v))
+    dq, dk, dv = ref.flash_attention_bwd_ref(qh, kh, vh, oh, lse[None], doh,
+                                             causal=causal, window=window)
+    sk, d = k.shape[0], k.shape[2]
+
+    def per_kv(x):
+        return x[0].view(hkv, g, sk, d).sum(1).transpose(0, 1)
+
+    return dq[0].transpose(0, 1), per_kv(dk), per_kv(dv)
+
+
+def _ratio(got, want) -> float:
+    """Phase 24's limit ratio over dq, dk, dv."""
+    ratio = 0.0
+    for g, w in zip(got, want):
+        lim = TOL * float(w.abs().max()) + BF16_UNIT * w.bfloat16().float().abs()
+        ratio = max(ratio, float(((g - w).abs() / lim).max()))
+    return ratio
+
+
+@pytest.mark.parametrize("sq,sk,h,hkv,d,causal,window", [
+    (300, 300, 24, 2, 128, True, 100),    # G 12, diagonal and window edge
+    (257, 257, 5, 1, 64, True, 70),       # G 5: unpaired dQ slots
+    (200, 200, 2, 2, 32, True, None),     # G 1, ragged causal
+    (100, 300, 4, 4, 64, False, None),    # Sk > Sq, non-causal
+    (333, 129, 6, 2, 64, False, None)])   # Sk < Sq, one past a key tile
+def test_emulated_schedule_holds_phase_24_limit(sq, sk, h, hkv, d, causal,
+                                                window):
+    """The emulated tensor-core form against the plain backward, within
+    phase 24's limit."""
+    x = _case(sq * 7 + h, sq, sk, h, hkv, d, causal, window)
+    got = _emulate(*x, causal, window)
+    ratio = _ratio(got, _plain(*x, causal, window))
+    assert ratio <= 1.0, ratio
+
+
+@pytest.mark.parametrize("fault", ["edge tile passed over", "no lo part"])
+def test_faulty_schedules_fail_phase_24_limit(fault):
+    """Passing over the tiles at the window's lower edge, or rounding P
+    and dS once to bf16 with no lo part, fails the same limit."""
+    sq, h, hkv, d, window = 300, 24, 2, 128, 100
+    x = _case(11, sq, sq, h, hkv, d, True, window)
+    got = _emulate(*x, True, window, drop_edge=fault == "edge tile passed over",
+                   no_lo=fault == "no lo part")
+    ratio = _ratio(got, _plain(*x, True, window))
+    assert ratio > 1.0, ratio
+
+
+def test_runs_split_the_heaviest_key_tile():
+    """StarCoder2-3B's training call is cut into 5 runs a key tile (64
+    key tiles x 2 KV heads = 128 blocks, 640 with the runs); a call whose
+    heaviest key tile has few steps is not cut."""
+    assert _splits(8192, 8192, 24, 2, 4096) == 5
+    assert _splits(4096, 4096, 25, 5, 1024) == 4
+    assert _splits(512, 1024, 16, 16, None) == 1

@@ -1388,7 +1388,16 @@ def _flash_bwd_plain(q, k, v, o, lse, do, causal, window):
     (torch.bfloat16, 1, 77, 333, 4, 4, 64, False, None),    # Sk > Sq
     (torch.float32, 2, 100, 100, 4, 2, 32, True, 64),
     (torch.float32, 1, 333, 100, 3, 1, 21, False, None),    # Sk < Sq
-    (torch.float32, 1, 64, 64, 2, 2, 256, True, None)])
+    (torch.float32, 1, 64, 64, 2, 2, 256, True, None),
+    # the tensor-core form's tile edges: 128-key dK / dV blocks of two
+    # 64-key halves over 64-query steps, 128-key dQ steps
+    (torch.bfloat16, 1, 129, 129, 24, 2, 128, True, None),  # S one past
+    (torch.bfloat16, 1, 65, 65, 4, 2, 64, True, None),      # a tile
+    (torch.bfloat16, 1, 400, 400, 4, 2, 64, True, 100),     # window edge
+    (torch.bfloat16, 2, 333, 333, 24, 2, 128, True, 200),   # G 12, D 128
+    (torch.bfloat16, 1, 200, 200, 2, 2, 64, True, 70),      # G 1, D 64
+    (torch.bfloat16, 1, 100, 300, 4, 4, 128, False, None),  # Sk != Sq
+    (torch.bfloat16, 1, 333, 129, 6, 2, 64, False, None)])
 def test_flash_backward_kernel_matches_plain(cuda, dtype, b, sq, sk, h, hkv,
                                              d, causal, window):
     """dq, dk, dv within 1e-5 of each one's largest |plain| (float32
@@ -1433,14 +1442,36 @@ def test_flash_backward_kernel_matches_plain(cuda, dtype, b, sq, sk, h, hkv,
 
 
 def test_flash_backward_dq_tile_is_the_kernels(cuda):
-    """The dQ walk's tile as the built kernel reports it: 64 x 64 on the
-    tensor cores and on the CUDA cores to D 128, 64 x 32 above."""
+    """The dQ walk's tile as the built kernel reports it: 64 rows x 128
+    keys on the tensor cores (a consumer warpgroup's rows, the K / V
+    ring's tile), 64 x 64 on the CUDA cores to D 128, 64 x 32 above."""
     from repro_torch.kernels.flash_attention import bwd_dq_tile
 
-    assert bwd_dq_tile(128, True) == (64, 64)
+    assert bwd_dq_tile(128, True) == (64, 128)
+    assert bwd_dq_tile(64, True) == (64, 128)
     assert bwd_dq_tile(64, False) == (64, 64)
     assert bwd_dq_tile(256, True) == (64, 32)
     assert bwd_dq_tile(256, False) == (64, 32)
+
+
+def test_flash_backward_scratch_is_the_kernels(cuda):
+    """The float32 scratch the built kernel asks for: the tensor-core
+    form's dK / dV sums of each run, (runs, 2, B, Sk, Hkv, D), with the
+    runs of ``tests/test_torch_flash_bwd_schedule.py``'s emulation (5 at
+    StarCoder2-3B's training call, 4 at hymba's, 1 at seamless's cross
+    shape); none on the CUDA cores; -1 for a call it refuses."""
+    from repro_torch.kernels.flash_attention import bwd_scratch
+
+    assert bwd_scratch(1, 8192, 8192, 24, 2, 128, True, 4096,
+                       True) == 5 * 2 * 8192 * 2 * 128
+    assert bwd_scratch(1, 4096, 4096, 25, 5, 64, True, 1024,
+                       True) == 4 * 2 * 4096 * 5 * 64
+    assert bwd_scratch(1, 512, 1024, 16, 16, 64, False, None,
+                       True) == 2 * 1024 * 16 * 64
+    assert bwd_scratch(1, 4096, 4096, 16, 16, 256, True, None, True) == 0
+    assert bwd_scratch(2, 100, 100, 8, 2, 32, True, 64, False) == 0
+    with pytest.raises(ValueError, match="refuses"):
+        bwd_scratch(1, 100, 200, 8, 2, 32, True, None, True)
 
 
 def test_flash_autograd_on_card_matches_cpu(cuda):
