@@ -256,7 +256,10 @@ Phases, each fatal on failure:
      of each element; faulty plain versions (the D term omitted, dK / dV
      from the first query head of each group only, the key tile at each
      query block's window edge dropped from dQ, the tile as the built
-     kernel reports it) must fail the same limits; two calls bitwise equal, one launch a call; each shape timed
+     kernel reports it) must fail the same limits; two calls bitwise
+     equal, one launch a call, and the kernels of one profiled call the
+     two walks of its form (bf16: ``bwd_dkdv_wg`` / ``bwd_dq_wg``, at D
+     256 ``bwd_dkdv_wg256`` / ``bwd_dq_wg256``); each shape timed
      beside its plain version, SDPA's backward (a yardstick the port
      never calls; the kernels of one profiled call name its backend)
      and its bound; then the forward at phase 11's
@@ -303,13 +306,20 @@ Phases, each fatal on failure:
      loss must fall at every step, the first drop within 0.5-1.5x of
      0.25 on the float32 loss; and why its losses rise: AdamW's on that
      batch;
- 26b. this slice's main path: RWKV6-1.6B (24 layers, d_model 2048, 32
-     WKV heads of 64, vocab 65,536) and Hymba-1.5B (32 layers, d_model
-     1600, SSM di 3200, n 16, window 1024) training at full width, as
+ 26b. RWKV6-1.6B (24 layers, d_model 2048, 32 WKV heads of 64, vocab
+     65,536) and Hymba-1.5B (32 layers, d_model 1600, SSM di 3200, n
+     16, window 1024) training at full width, as
      phase 26 on (1, 4096) tokens, 3 counted steps each: launches a step
      48 WKV forward and 24 WKV backward (RWKV6); 64 flash and 64 scan
      forward, 32 of each backward (hymba); the ``sgd`` witness, its
      first drop within 0.8-1.0 of 0.25 on the float32 loss;
+ 26c. this slice's main path: Gemma-7B training at full width (d_model
+     3072, 16 / 16 heads of 256, d_ff 24,576, vocab 256,000; 3.00 B
+     float32 params) with its depth cut to 8 of 28 layers (at 28 its
+     params, grads and AdamW's moments take 127.2 GiB), as phase 26 on
+     (1, 4096) tokens, 3 counted steps: 16 flash forward and 8 backward
+     launches a step (the backward's D 256 tensor-core form), nothing
+     else; the ``sgd`` witness within phase 26's 0.5-1.5;
  27. the LM pretraining CLI: ``python -m repro_torch.launch.train --arch
      starcoder2-3b --reduced --steps 20 --batch 8 --seq 128`` exits 0
      with finite losses.
@@ -3177,15 +3187,23 @@ def flash_bwd_checks(torch, dev, cases, fwd_main=None) -> list:
                   for g, w in zip(got, want))
         del want
         ctl = flash_bwd_controls(torch, *args, causal, window, bf16)
+        own = kernel_names(kernel)
         print(f"flash backward {label} (B {b}, Sq {sq}, Sk {sk}, H {h}, "
               f"Hkv {hkv}, D {d}, window {window}, causal {causal}, "
               f"{str(dtype)[6:]}): max |kernel - plain| {err:.3g}, at "
               f"most {ratio:.3g} of the limit; two calls bitwise equal "
               f"{same}; launches for two calls {launches}; dQ tile "
-              f"{bwd_dq_tile(d, bf16)}; controls "
+              f"{bwd_dq_tile(d, bf16)}; its kernels (one profiled call): "
+              + "; ".join(own) + "; controls "
               + ", ".join(f"{n} {r:.3g}" for n, r in ctl.items()))
         if not (ratio <= 1.0 and same and launches == 2):
             raise AssertionError(f"flash backward fails at {label}")
+        # bf16 takes the tensor-core form: its two wgmma walks
+        walks = ("bwd_dkdv_wg", "bwd_dq_wg") if bf16 else ("bwd_dkdv",
+                                                         "bwd_dq")
+        if not all(any(w in n for n in own) for w in walks):
+            raise AssertionError(f"flash backward at {label} ran {own}, "
+                                 f"not {walks}")
         bad = [n for n, r in ctl.items() if n in FLASH_BWD_FAULTS
                and r <= 1.0]
         if bad:
@@ -3831,6 +3849,13 @@ RECUR_TRAIN = ("rwkv6-1.6b", "hymba-1.5b")
 RECUR_TRAIN_SEQ = 4096
 RECUR_TRAIN_STEPS = 3
 RECUR_DROP_RATIO = (0.8, 1.0)
+# phase 26c: Gemma-7B at full width on (1, 4096) tokens, its depth cut to
+# 8 of 28 layers (at 28, params, grads and AdamW's moments take 127.2 GiB
+# of float32 state, past the card's 80 GB); the witness as phase 26's
+GEMMA_TRAIN = "gemma-7b"
+GEMMA_TRAIN_LAYERS = 8
+GEMMA_TRAIN_SEQ = 4096
+GEMMA_TRAIN_STEPS = 3
 
 
 def classify(name: str) -> str:
@@ -3883,18 +3908,23 @@ def step_breakdown(torch, label: str, run) -> dict:
 
 
 def lm_train_path(torch, kernels, arch="starcoder2-3b", seq=8192,
-                  steps=TRAIN_STEPS, drop_ratio=SGD_DROP_RATIO) -> dict:
+                  steps=TRAIN_STEPS, drop_ratio=SGD_DROP_RATIO,
+                  layers=None) -> dict:
     """Phase 26 (StarCoder2-3B: 30 layers, d_model 3072, 3.18 B float32
-    params) and phase 26b (RWKV6-1.6B, Hymba-1.5B): ``arch`` at full width
-    (random params from a seed, bf16 compute) with ``train_lm``'s
-    optimizer (AdamW, linear warm-up and cosine decay, weight decay 0.1,
-    clipping at 1.0) on ``packed_batches`` (1, ``seq``) tokens, ``remat``
-    on: one warm step, then ``steps`` steps with the launch counts zeroed
-    before and read after (``train_launches`` and nothing else), each
-    loss finite, step seconds, tokens/s, peak memory under the card's;
-    then where one more step's time goes (its gradient and its optimizer
-    update profiled apart), and ``sgd_witness``. Returns the launches,
-    ``cfg`` and the schedule's length ``total``."""
+    params), phase 26b (RWKV6-1.6B, Hymba-1.5B) and phase 26c (Gemma-7B,
+    ``layers`` 8 of its 28): ``arch`` at full width, its depth cut to
+    ``layers`` where given (random params from a seed, bf16 compute) with
+    ``train_lm``'s optimizer (AdamW, linear warm-up and cosine decay,
+    weight decay 0.1, clipping at 1.0) on ``packed_batches`` (1,
+    ``seq``) tokens, ``remat`` on: one warm step, then ``steps`` steps
+    with the launch counts zeroed before and read after
+    (``train_launches`` and nothing else), each loss finite, step
+    seconds, tokens/s, peak memory under the card's; then where one more
+    step's time goes (its gradient and its optimizer update profiled
+    apart), and ``sgd_witness``. Returns the launches, ``cfg`` and the
+    schedule's length ``total``."""
+    import dataclasses
+
     from repro_torch.configs.base import get_config
     from repro_torch.data import LMDataConfig, packed_batches
     from repro_torch.models import model
@@ -3902,24 +3932,33 @@ def lm_train_path(torch, kernels, arch="starcoder2-3b", seq=8192,
     from repro_torch.tree import tree_leaves, tree_map
 
     t_phase = time.perf_counter()
-    cfg = get_config(arch)
+    cfg = full = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(full, n_layers=layers)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     params = model.init_params(torch.Generator(device=dev).manual_seed(0),
                                cfg)
     n_params = sum(x.numel() for x in tree_leaves(params))
+    per_layer = sum(x.numel() for x in tree_leaves(
+        params["layers"])) // cfg.n_layers
+    n_full = n_params + per_layer * (full.n_layers - cfg.n_layers)
     total = steps + 2
     opt = adamw(lr=linear_warmup_cosine(3e-3, 20, total), weight_decay=0.1,
                 max_grad_norm=1.0)
     opt_state = opt.init(params)
     torch.cuda.synchronize()
-    shape = (f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
+    shape = ((f"{cfg.n_layers} of {full.n_layers} layers (depth cut: "
+              f"{16 * n_full / 2 ** 30:.1f} GiB of float32 state at "
+              f"{full.n_layers})" if cfg.n_layers < full.n_layers else
+              f"{cfg.n_layers} layers") + f", d_model {cfg.d_model}, "
              + (f"{cfg.d_model // cfg.rwkv_head_dim} WKV heads of "
                 f"{cfg.rwkv_head_dim}" if cfg.rwkv else
                 f"{cfg.n_heads} / {cfg.n_kv_heads} heads of "
                 f"{cfg.resolved_head_dim}, window {cfg.window}")
              + (f", SSM di {cfg.ssm_expand * cfg.d_model}, n "
-                f"{cfg.ssm_state}" if cfg.ssm_state else ""))
+                f"{cfg.ssm_state}" if cfg.ssm_state else "")
+             + f", d_ff {cfg.d_ff}")
     print(f"{arch} training: {shape}, vocab {cfg.vocab}, {n_params} "
           f"float32 params ({16 * n_params / 2 ** 30:.1f} GiB with grads "
           f"and AdamW's moments), {cfg.dtype} compute, remat {cfg.remat}; "
@@ -5221,23 +5260,31 @@ def main() -> int:
     train = lm_train_path(torch, KERNELS)
     adamw_rise(torch, train["cfg"], train["total"], 8192, TRAIN_STEPS)
     torch.cuda.empty_cache()
-    # phase 26b, this slice's main path: RWKV6-1.6B and Hymba-1.5B
-    # training at full width, each counted from zero
+    # phase 26b: RWKV6-1.6B and Hymba-1.5B training at full width, each
+    # counted from zero
     recur = {arch: lm_train_path(
         torch, KERNELS, arch, RECUR_TRAIN_SEQ, RECUR_TRAIN_STEPS,
         RECUR_DROP_RATIO)["launches"]
         for arch in RECUR_TRAIN}
     torch.cuda.empty_cache()
+    # phase 26c, this slice's main path: Gemma-7B training at full width,
+    # 8 of its 28 layers, counted from zero (the flash backward at D 256)
+    gemma = lm_train_path(torch, KERNELS, GEMMA_TRAIN, GEMMA_TRAIN_SEQ,
+                          GEMMA_TRAIN_STEPS,
+                          layers=GEMMA_TRAIN_LAYERS)["launches"]
+    torch.cuda.empty_cache()
     flash_by_path["starcoder2-3b training"] = train["launches"][
         "flash_attention"]
     flash_by_path["hymba-1.5b training"] = recur["hymba-1.5b"][
         "flash_attention"]
+    flash_by_path["gemma-7b training (8 layers)"] = gemma["flash_attention"]
     bwd_by_path = {
         "flash_attention_bwd": {
             "starcoder2-3b training": train["launches"][
                 "flash_attention_bwd"],
             "hymba-1.5b training": recur["hymba-1.5b"][
-                "flash_attention_bwd"]},
+                "flash_attention_bwd"],
+            "gemma-7b training (8 layers)": gemma["flash_attention_bwd"]},
         "rwkv6_bwd": {"rwkv6-1.6b training": recur["rwkv6-1.6b"][
             "rwkv6_bwd"]},
         "selective_scan_bwd": {"hymba-1.5b training": recur[

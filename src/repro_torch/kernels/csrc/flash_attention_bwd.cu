@@ -15,26 +15,28 @@
 //
 // where the sums over i run over every query head of k_j's KV group (GQA:
 // dk and dv come back per KV head). No atomics: every sum runs in a fixed
-// order, so two calls agree bit for bit. Two forms, chosen by dtype and
-// head dim alone (`takes_tc`):
-//   * bf16 at D 32, 64 and 128 (StarCoder2-3B, OLMoE-1B-7B, hymba, the
-//     REDUCED configs), on the tensor cores with `wgmma`, TMA and warp
-//     specialisation (see the section below). Four launches: `bwd_delta`
-//     (D, one warp a (batch, row, head)); `bwd_dkdv_wg`, a block per
-//     (128-key tile, KV head, batch row, run of its steps) walking the
-//     query heads of the group and the 64-query tiles that see its keys;
-//     `bwd_dkdv_sum`, the runs added in order; `bwd_dq_wg`, a block per 64
-//     query rows of two heads (or 128 of one) walking 128-key tiles.
-//   * float32, and bf16 at D 256 (Gemma-7B), on the CUDA cores. Three
-//     launches: `bwd_delta`; `bwd_dkdv`, a block per (key tile, KV head,
-//     batch row) holding its K and V tiles and the dK and dV accumulators
-//     and walking the query heads of the group and, for each, the query
-//     tiles that see a key of the tile, in order; `bwd_dq`, a block per
-//     (query tile, head, batch row) holding its Q and dO tiles and the dQ
-//     accumulator and walking the key tiles its rows see, in order. Both
-//     recompute S and dP = dO V^T tile by tile. Every tile lives in shared
-//     memory as float32 (bf16 inputs widened on the way in), rows padded
-//     to an odd stride so the 16 rows a half warp reads fall in 16 banks;
+// order, so two calls agree bit for bit. Two forms, chosen by dtype alone
+// (`takes_tc`):
+//   * bf16 (D 32, 64, 128 and 256: StarCoder2-3B, OLMoE-1B-7B, Gemma-7B,
+//     hymba, the REDUCED configs), on the tensor cores with `wgmma`, TMA
+//     and warp specialisation (see the two sections below). Four
+//     launches: `bwd_delta` (D, one warp a (batch, row, head)); the dK /
+//     dV walk, a block per (key tile, KV head, batch row, run of its
+//     steps) walking the query heads of the group and the 64-query tiles
+//     that see its keys (`bwd_dkdv_wg`, 128-key tiles to D 128;
+//     `bwd_dkdv_wg256`, 64-key tiles at D 256); `bwd_dkdv_sum`, the runs
+//     added in order; the dQ walk (`bwd_dq_wg`, a block per 64 query rows
+//     of two heads or 128 of one, walking 128-key tiles; `bwd_dq_wg256`,
+//     64 rows of one head, 64-key tiles).
+//   * float32, on the CUDA cores. Three launches: `bwd_delta`;
+//     `bwd_dkdv`, a block per (key tile, KV head, batch row) holding its K
+//     and V tiles and the dK and dV accumulators and walking the query
+//     heads of the group and, for each, the query tiles that see a key of
+//     the tile, in order; `bwd_dq`, a block per (query tile, head, batch
+//     row) holding its Q and dO tiles and the dQ accumulator and walking
+//     the key tiles its rows see, in order. Both recompute S and dP = dO
+//     V^T tile by tile. Every tile lives in shared memory, rows padded to
+//     an odd stride so the 16 rows a half warp reads fall in 16 banks;
 //     each of 256 threads owns a 4 x 4 (rows x keys) patch of S and dP and
 //     4 (or 2) x NC patches of the accumulators, all in float32 FMA.
 //     Tiles: 64 queries x 64 keys to D 128 (165,888 bytes of shared memory
@@ -45,18 +47,19 @@
 // Hkv 2, D 128, window 4096): 25.2 M (query, key) pairs a head; the
 // function's work is 2.5x the forward's 4 D FLOP a pair, 0.77 TFLOP at
 // 989 TFLOP/s of dense bf16 = 0.78 ms, against 219 MB of inputs and
-// outputs (65 us at 3.35 TB/s): operations. The CUDA-core form runs 14 D
-// float32 FMA a pair (S and dP twice, dV, dK, dQ), at most 67 TFLOP/s:
-// 1.08 T FMA, 32 ms at that peak (88.56 ms as it ran, on an H100 at 700
-// W). The tensor-core form runs 20 D products a pair (S and dP in both
-// walks; dV, dK, dQ twice each, hi and lo): 1.56 ms at the peak. Its
-// first version (`mma.sync` m16n8k16 through `ldmatrix`, four warps on 64
-// keys and 32 queries a step, the masks evaluated and lse / D read from
-// device memory at every element) ran 8.43 ms there; this one issues
-// `wgmma` from warpgroups fed by TMA, masks only edge tiles, stages lse
-// and D once a tile, and keeps P and dS of the dK / dV walk in shared
-// memory so that the accumulators and each tile's partial fit in
-// registers.
+// outputs (65 us at 3.35 TB/s): operations. At Gemma-7B's (B 1, S 4096,
+// 16 / 16 heads of 256, causal): 8.39 M pairs a head, 0.34 TFLOP, 0.35
+// ms. The CUDA-core form runs 14 D float32 FMA a pair (S and dP twice,
+// dV, dK, dQ), at most 67 TFLOP/s. The tensor-core form runs 20 D
+// products a pair (S and dP in both walks; dV, dK, dQ twice each, hi and
+// lo): 1.56 ms at the peak at StarCoder2-3B's shape, 0.69 ms at
+// Gemma-7B's. Its first version (`mma.sync` m16n8k16
+// through `ldmatrix`, four warps on 64 keys and 32 queries a step, the
+// masks evaluated and lse / D read from device memory at every element)
+// ran 8.43 ms at StarCoder2-3B's; this one issues `wgmma` from
+// warpgroups fed by TMA, masks only edge tiles, stages lse and D once a
+// tile, and keeps P and dS of the dK / dV walk in shared memory so that
+// the accumulators and each tile's partial fit in registers.
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
@@ -79,9 +82,10 @@ __host__ __device__ constexpr int cc_block_kv(int nc) {
 constexpr int nc_of(int d) {
   return d <= 32 ? 2 : d <= 64 ? 4 : d <= 128 ? 8 : 16;
 }
-// whether the tensor-core form takes a call: bf16 at D 32, 64 and 128
+// whether the tensor-core form takes a call: bf16 at D 32, 64, 128 and
+// 256, the only head dims bf16 calls may have
 constexpr bool takes_tc(int is_bf16, int d) {
-  return is_bf16 && (d == 32 || d == 64 || d == 128);
+  return is_bf16 && (d == 32 || d == 64 || d == 128 || d == 256);
 }
 
 struct Params {
@@ -92,16 +96,6 @@ struct Params {
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 __device__ __forceinline__ bool visible(const Params& p, int row, int key) {
@@ -131,16 +125,14 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // `rows` rows from row r0 of g (row stride gld elements, d columns) into
-// s as float32 (row stride ld), zeros from row lim on
-template <typename T>
-__device__ __forceinline__ void stage(float* s, int ld, const T* g,
+// s (row stride ld), zeros from row lim on
+__device__ __forceinline__ void stage(float* s, int ld, const float* g,
                                       size_t gld, int r0, int lim, int rows,
                                       int d) {
   for (int e = threadIdx.x; e < rows * d; e += THREADS) {
     const int row = e / d, col = e - row * d;
     s[row * ld + col] =
-        r0 + row < lim ? to_f(g[static_cast<size_t>(r0 + row) * gld + col])
-                       : 0.0f;
+        r0 + row < lim ? g[static_cast<size_t>(r0 + row) * gld + col] : 0.0f;
   }
 }
 
@@ -196,12 +188,12 @@ __host__ __device__ constexpr int smem_floats(int ld) {
   return 2 * (BQ + BK) * ld + 2 * BQ * (BK + 1) + 2 * BQ;
 }
 
-template <typename T, int BQ, int BK, int NC>
+template <int BQ, int BK, int NC>
 __global__ void __launch_bounds__(THREADS, 1)
-    bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ dout,
+    bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             T* __restrict__ dk, T* __restrict__ dv, Params p) {
+             float* __restrict__ dk, float* __restrict__ dv, Params p) {
   constexpr int RK = BK / 16;
   extern __shared__ float sm[];
   const int d = p.d, ld = d | 1;
@@ -281,19 +273,19 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int c = 0; c < NC; ++c) {
       const int col = tx + 16 * c;
       if (col < d) {
-        dk[off + col] = from_f<T>(acc_k[r][c] * p.scale);
-        dv[off + col] = from_f<T>(acc_v[r][c]);
+        dk[off + col] = acc_k[r][c] * p.scale;
+        dv[off + col] = acc_v[r][c];
       }
     }
   }
 }
 
-template <typename T, int BQ, int BK, int NC>
+template <int BQ, int BK, int NC>
 __global__ void __launch_bounds__(THREADS, 1)
-    bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, const T* __restrict__ dout,
+    bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
-           T* __restrict__ dq, Params p) {
+           float* __restrict__ dq, Params p) {
   constexpr int RQ = BQ / 16;
   extern __shared__ float sm[];
   const int d = p.d, ld = d | 1;
@@ -363,7 +355,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = tx + 16 * c;
-      if (col < d) dq[off + col] = from_f<T>(acc[r][c] * p.scale);
+      if (col < d) dq[off + col] = acc[r][c] * p.scale;
     }
   }
 }
@@ -432,11 +424,16 @@ static_assert(BQ * 2 == 128, "a P^T row is one 128-byte swizzle row");
 // A D-wide tile is NCH boxes of CH columns side by side, each ROW bytes a
 // row, swizzled over ROW bytes (SWZ: the wgmma descriptor's layout type)
 template <int D>
-struct Geo {
+struct Box {
   static constexpr int CH = D < 64 ? D : 64;
   static constexpr int NCH = D / CH;
   static constexpr int ROW = 2 * CH;
   static constexpr uint64_t SWZ = ROW == 128 ? 1 : 2;
+  static_assert(D % CH == 0 && (ROW == 128 || ROW == 64), "head dim");
+};
+// the shared memory of the kernels to D 128
+template <int D>
+struct Geo : Box<D> {
   static constexpr int KV_BYTES = KV_KEYS * D * 2;    // a K or V tile
   static constexpr int Q_BYTES = WG_ROWS * D * 2;     // a Q or dO tile
   static constexpr int PDS_BYTES = WG_ROWS * BQ * 2;  // P^T or dS^T, hi or lo
@@ -450,7 +447,6 @@ struct Geo {
   // dQ: each consumer's Q, dO; the K / V ring
   static constexpr int DQ_SMEM =
       1024 + 2 * CONSUMERS * Q_BYTES + 2 * STAGES * KV_BYTES + BARS;
-  static_assert(D % CH == 0 && (ROW == 128 || ROW == 64), "head dim");
   static_assert(DKDV_SMEM <= MAX_SMEM && DQ_SMEM <= MAX_SMEM, "smem");
 };
 
@@ -466,29 +462,38 @@ __device__ __forceinline__ float ex2(float x) {
 // tile of `rows` rows at a (rows of the box-major layout above)
 template <int D>
 __device__ __forceinline__ uint64_t k_major(uint32_t a, int rows, int kk) {
-  using G = Geo<D>;
+  using G = Box<D>;
   const int c = kk * 16 / G::CH, off = (kk * 16 % G::CH) * 2;
   return gmma_desc(a + c * rows * G::ROW + off, 16, 8 * G::ROW, G::SWZ);
 }
 // the descriptor of rows [16 kk, 16 kk + 16) of such a tile read MN-major
-// (all D columns): 8-row groups 8 ROW bytes apart, boxes rows ROW apart
+// (the columns from a on): 8-row groups 8 ROW bytes apart, boxes rows ROW
+// apart
 template <int D>
 __device__ __forceinline__ uint64_t mn_major(uint32_t a, int rows, int kk) {
-  using G = Geo<D>;
+  using G = Box<D>;
   return gmma_desc(a + kk * 16 * G::ROW, rows * G::ROW, 8 * G::ROW, G::SWZ);
 }
 
 __device__ __forceinline__ void wg_sync(int g) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + g) : "memory");
 }
+// both consumer warpgroups (the D 256 kernels)
+__device__ __forceinline__ void pair_sync() {
+  asm volatile("bar.sync 3, 256;\n" ::: "memory");
+}
+
+// keys of a dK / dV block: 128 to D 128, 64 at D 256 (W_KEYS)
+constexpr int W_KEYS = 64;
+constexpr int dkdv_keys(int d) { return d > 128 ? W_KEYS : KV_KEYS; }
 
 // the dK / dV walk's runs: enough blocks for 4 waves of 132 SMs, each run
 // at least MIN_STEPS of the heaviest key tile's steps
 int dkdv_splits(int batch, const Params& p) {
-  const int blocks =
-      (p.seq_k + KV_KEYS - 1) / KV_KEYS * p.kv_heads * batch;
-  const int i_hi = p.window > 0 && KV_KEYS - 1 + p.window < p.seq
-                       ? KV_KEYS - 1 + p.window
+  const int keys = dkdv_keys(p.d);
+  const int blocks = (p.seq_k + keys - 1) / keys * p.kv_heads * batch;
+  const int i_hi = p.window > 0 && keys - 1 + p.window < p.seq
+                       ? keys - 1 + p.window
                        : p.seq;
   const int steps = p.heads / p.kv_heads * ((i_hi + BQ - 1) / BQ);
   const int want = (MIN_BLOCKS + blocks - 1) / blocks;
@@ -961,6 +966,477 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   }
 }
 
+// ------------------------------------------ bf16 at D 256 on the tensor cores
+
+// At D 256 the kernels above do not fit: a consumer's dK and dV for its 64
+// keys would take 256 registers a thread on their own, and 128-key tiles
+// overflow shared memory. So both consumers work on the same 64 rows, and
+// each product is split between them by columns (the forward's D 256 form
+// walks 64-key tiles too):
+//
+//   * dK / dV (`bwd_dkdv_wg256`): a block per (64-key tile, KV head, batch
+//     row, run), K and V resident (64 KB), Q and dO through the 2-stage
+//     ring (128 KB). Consumer g computes S^T = K Q^T and dP^T = V dO^T for
+//     query columns [32 g, 32 g + 32) of the 64-query step (wgmma
+//     m64n32k16, 16 deep), forms P^T and dS^T there and writes their hi +
+//     lo parts into one P^T / dS^T tile of the block (32 KB, K-major,
+//     128-byte swizzle); after a 256-thread barrier it adds P^T dO and
+//     dS^T Q over all 64 queries to head-dim columns [128 g, 128 g + 128)
+//     of dV and dK (wgmma m64n128k16, B MN-major), each step's sum from a
+//     zeroed partial. Registers a consumer thread: dK and dV 64 + 64, the
+//     partial 64, S^T and dP^T 16 + 16. Shared memory: 230,952 of the
+//     232,448 bytes a block may have, so the P^T / dS^T tile is single: a
+//     second barrier a step (before the parts are written) keeps a
+//     consumer from overwriting what the other still reads.
+//   * dQ (`bwd_dq_wg256`): a block per (64 query rows, head, batch row), Q
+//     and dO resident (64 KB), 64-key K / V tiles through the ring (128
+//     KB). Consumer g computes S and dP for keys [32 g, 32 g + 32) of the
+//     tile, writes dS as hi + lo into a tile of the block (16 KB), and
+//     after the barrier adds dS K to columns [128 g, 128 g + 128) of dQ;
+//     in the epilogue each consumer writes its columns through a TMA
+//     store.
+// Runs, masks (each consumer tests its own 32 columns), keys past Sk and
+// rows past Sq as in the kernels above.
+constexpr int W_HALF = 32;   // a consumer's columns of S^T (queries) or S
+constexpr int W_COLS = 128;  // a consumer's head-dim columns of dK, dV, dQ
+struct Wide {
+  using B = Box<256>;
+  static constexpr int TILE = W_KEYS * 256 * 2;  // 64 rows: K, V, Q or dO
+  static constexpr int PART = W_KEYS * BQ * 2;   // a 64 x 64 bf16 part
+  static constexpr int BARS = 8 * (2 * STAGES + 1);
+  // dK / dV: K, V; the Q / dO ring; P^T hi, lo, dS^T hi, lo; each
+  // consumer's staged lse and D
+  static constexpr int DKDV_SMEM = 1024 + 2 * TILE + 2 * STAGES * TILE +
+                                   4 * PART + CONSUMERS * 2 * W_HALF * 4 +
+                                   BARS;
+  // dQ: Q, dO; the K / V ring; dS hi, lo
+  static constexpr int DQ_SMEM =
+      1024 + 2 * TILE + 2 * STAGES * TILE + 2 * PART + BARS;
+  static_assert(W_KEYS == WG_ROWS && 2 * W_HALF == BQ, "tiles");
+  static_assert(DKDV_SMEM <= MAX_SMEM && DQ_SMEM <= MAX_SMEM, "smem");
+};
+
+// A consumer's columns [32 g, 32 g + 32) of a 64 x 64 tile, from its
+// wgmma m64n32 accumulator x, as bf16 hi + lo into the parts at `at` (hi)
+// and `at` + PART (lo): K-major, a 128-byte row a tile row, its 16-byte
+// chunks swizzled
+__device__ __forceinline__ void store_half(unsigned char* at,
+                                           const float (&x)[W_HALF / 2],
+                                           int g, int w, int gid, int tig) {
+#pragma unroll
+  for (int j = 0; j < W_HALF / 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = 16 * w + gid + 8 * half;
+      const uint32_t off =
+          r * 128 + (((W_HALF / 8 * g + j) ^ gid) << 4) + 4 * tig;
+      uint32_t hi, lo;
+      split_bf16(x[4 * j + 2 * half], x[4 * j + 2 * half + 1], hi, lo);
+      *reinterpret_cast<uint32_t*>(at + off) = hi;
+      *reinterpret_cast<uint32_t*>(at + Wide::PART + off) = lo;
+    }
+}
+
+// acc = A B summed from zero: A the 64 x 64 tile at a as hi + lo parts
+// (`store_half`'s layout), B 64 rows of a D 256 tile at bt read MN-major,
+// 128 columns (two boxes) from bt on
+__device__ __forceinline__ void wide_sum(float (&acc)[W_COLS / 2], uint32_t a,
+                                         uint32_t bt) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BQ / 16; ++kk) {
+    const uint64_t bd = mn_major<256>(bt, W_KEYS, kk);
+    wgmma_ss<1>(acc, gmma_desc(a + kk * 32, 16, 1024, 1), bd, kk > 0);
+    wgmma_ss<1>(acc, gmma_desc(a + Wide::PART + kk * 32, 16, 1024, 1), bd,
+                1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    bwd_dkdv_wg256(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const __grid_constant__ CUtensorMap omap,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ part,
+                   Params p, int splits) {
+  constexpr int D = 256;
+  using B = Wide::B;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t k_s = base;                          // K
+  const uint32_t v_s = k_s + Wide::TILE;              // V
+  const uint32_t q_s = v_s + Wide::TILE;              // [STAGES] Q
+  const uint32_t o_s = q_s + STAGES * Wide::TILE;     // [STAGES] dO
+  const uint32_t pds = o_s + STAGES * Wide::TILE;     // P^T, dS^T: hi, lo
+  const uint32_t rows_s = pds + 4 * Wide::PART;       // [CONSUMERS] lse, D
+  const uint32_t bars = rows_s + CONSUMERS * 2 * W_HALF * 4;
+  const uint32_t kvbar = bars + 16 * STAGES;
+  auto full = [&](int i) { return bars + 8 * (i % STAGES); };
+  auto empty = [&](int i) { return bars + 8 * (STAGES + i % STAGES); };
+
+  const int kt = blockIdx.x / splits, split = blockIdx.x % splits;
+  const int k0 = kt * W_KEYS, hk = blockIdx.y, b = blockIdx.z;
+  const int group = p.heads / p.kv_heads;
+  // steps (head of the group, query tile that sees a key of the block),
+  // this block's run of them
+  const int t_lo = (p.causal ? k0 : 0) / BQ;
+  const int i_hi =
+      p.window > 0 ? min(p.seq, k0 + W_KEYS - 1 + p.window) : p.seq;
+  const int n_t = max(0, (i_hi + BQ - 1) / BQ - t_lo);
+  const long long total = static_cast<long long>(group) * n_t;
+  const int s0 = static_cast<int>(total * split / splits);
+  const int n_steps = static_cast<int>(total * (split + 1) / splits) - s0;
+  const int warp = threadIdx.x / 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * CONSUMERS);  // one arrival per warp
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kvbar, 2 * Wide::TILE);
+      for (int c = 0; c < B::NCH; ++c) {
+        const int off = c * W_KEYS * B::ROW;
+        tma_load(k_s + off, &kmap, kvbar, c * B::CH, hk, k0, b);
+        tma_load(v_s + off, &vmap, kvbar, c * B::CH, hk, k0, b);
+      }
+      for (int i = 0; i < n_steps; ++i) {
+        const int s = s0 + i;
+        const int h = hk * group + s / n_t, q0 = (t_lo + s % n_t) * BQ;
+        mbar_wait(empty(i), ((i / STAGES) & 1) ^ 1);  // first pass: free
+        mbar_expect_tx(full(i), 2 * Wide::TILE);
+        for (int c = 0; c < B::NCH; ++c) {
+          const int off = (i % STAGES) * Wide::TILE + c * BQ * B::ROW;
+          tma_load(q_s + off, &qmap, full(i), c * B::CH, h, q0, b);
+          tma_load(o_s + off, &omap, full(i), c * B::CH, h, q0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  // consumer g: queries [32 g, 32 g + 32) of S^T, columns [128 g, 128 g +
+  // 128) of dK and dV
+  const int g = warp / 4 - 1;
+  const int tid = threadIdx.x % 128;
+  const int w = tid / 32, lane = tid % 32, gid = lane / 4, tig = lane % 4;
+  // the step's lse (log2 units) and D of the consumer's 32 queries
+  float* rows =
+      reinterpret_cast<float*>(smem + (rows_s - base)) + g * 2 * W_HALF;
+  unsigned char* pds_at = smem + (pds - base);
+  const float sl2 = p.scale * LOG2E;
+
+  float dk[W_COLS / 2], dv[W_COLS / 2];
+#pragma unroll
+  for (int x = 0; x < W_COLS / 2; ++x) dk[x] = dv[x] = 0.0f;
+
+  mbar_wait(kvbar, 0);
+  for (int i = 0; i < n_steps; ++i) {
+    const int s = s0 + i;
+    const int h = hk * group + s / n_t, q0 = (t_lo + s % n_t) * BQ;
+    const int q_last = min(q0 + BQ, p.seq) - 1;
+    // whether a key of the block sees a query of the tile: the same for
+    // both consumers, which meet at the barriers below
+    const bool live = (!p.causal || k0 <= q_last) &&
+                      (p.window <= 0 || k0 + W_KEYS - 1 > q0 - p.window);
+    const int qc = q0 + W_HALF * g;  // the consumer's first query
+    const int qc_last = min(qc + W_HALF, p.seq) - 1;
+    float staged = 0.0f;
+    if (live && tid < 2 * W_HALF) {
+      const int q = qc + tid % W_HALF;
+      const size_t at = (static_cast<size_t>(b) * p.heads + h) * p.seq + q;
+      staged = tid < W_HALF ? (q < p.seq ? lse[at] * LOG2E : INFINITY)
+                            : (q < p.seq ? delta[at] : 0.0f);
+    }
+    mbar_wait(full(i), (i / STAGES) & 1);
+    if (live) {
+      const uint32_t qa = q_s + (i % STAGES) * Wide::TILE;
+      const uint32_t oa = o_s + (i % STAGES) * Wide::TILE;
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x the consumer's 32 queries
+      float st[W_HALF / 2], dpt[W_HALF / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(st, k_major<D>(k_s, W_KEYS, kk),
+                 k_major<D>(qa + W_HALF * g * B::ROW, BQ, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(dpt, k_major<D>(v_s, W_KEYS, kk),
+                 k_major<D>(oa + W_HALF * g * B::ROW, BQ, kk), kk > 0);
+      wgmma_commit();
+      if (tid < 2 * W_HALF) rows[tid] = staged;
+      // the rows staged, and both consumers done with the last step's
+      // P^T / dS^T parts
+      pair_sync();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T and dS^T, masked where the consumer's columns cross a
+      // boundary: key 16 w + gid + 8 h of the block against query 8 j + c
+      // of the consumer's columns is masked where c' = 8 j + c < kq + 8 h
+      // (causal) or c' >= kq + 8 h + window
+      const int kq = k0 + 16 * w + gid - qc - 2 * tig;
+      auto probs = [&](auto masked) {
+#pragma unroll
+        for (int j = 0; j < W_HALF / 8; ++j) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(rows + 8 * j + 2 * tig);
+          const float2 dl = *reinterpret_cast<const float2*>(
+              rows + W_HALF + 8 * j + 2 * tig);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float pv = ex2(fmaf(st[4 * j + e], sl2, (e & 1) ? -l2.y : -l2.x));
+            if constexpr (decltype(masked)::value) {
+              const int c = 8 * j + (e & 1), lim = kq + 8 * (e >> 1);
+              if ((p.causal && c < lim) ||
+                  (p.window > 0 && c >= lim + p.window))
+                pv = 0.0f;
+            }
+            st[4 * j + e] = pv;
+            dpt[4 * j + e] = pv * (dpt[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+          }
+        }
+      };
+      const bool edge = (p.causal && k0 + W_KEYS - 1 > qc) ||
+                        (p.window > 0 && k0 <= qc_last - p.window);
+      if (edge)
+        probs(std::true_type{});
+      else
+        probs(std::false_type{});
+      store_half(pds_at, st, g, w, gid, tig);
+      store_half(pds_at + 2 * Wide::PART, dpt, g, w, gid, tig);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      pair_sync();  // the parts of all 64 queries written
+
+      // dV += P^T dO, then dK += dS^T Q, the consumer's 128 columns
+      float acc[W_COLS / 2];
+      wide_sum(acc, pds, oa + 2 * g * BQ * B::ROW);
+#pragma unroll
+      for (int x = 0; x < W_COLS / 2; ++x) dv[x] += acc[x];
+      wide_sum(acc, pds + 2 * Wide::PART, qa + 2 * g * BQ * B::ROW);
+#pragma unroll
+      for (int x = 0; x < W_COLS / 2; ++x) dk[x] += acc[x];
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(i));  // the consumer is done with it
+  }
+
+  // the run's sums, float32: part[split][dK, dV][b][key][hk][:], the
+  // consumer's columns
+  const size_t n = static_cast<size_t>(gridDim.z) * p.seq_k * p.kv_heads * D;
+  float* pk = part + static_cast<size_t>(split) * 2 * n;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = k0 + 16 * w + gid + 8 * half;
+    if (key >= p.seq_k) continue;
+    const size_t off =
+        ((static_cast<size_t>(b) * p.seq_k + key) * p.kv_heads + hk) * D +
+        W_COLS * g;
+#pragma unroll
+    for (int j = 0; j < W_COLS / 8; ++j) {
+      const int col = 8 * j + 2 * tig;
+      *reinterpret_cast<float2*>(pk + off + col) =
+          make_float2(dk[4 * j + 2 * half], dk[4 * j + 2 * half + 1]);
+      *reinterpret_cast<float2*>(pk + n + off + col) =
+          make_float2(dv[4 * j + 2 * half], dv[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    bwd_dq_wg256(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 const __grid_constant__ CUtensorMap omap,
+                 const __grid_constant__ CUtensorMap dqmap,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, Params p) {
+  constexpr int D = 256;
+  using B = Wide::B;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t q_s = base;                          // Q, then dQ
+  const uint32_t o_s = q_s + Wide::TILE;              // dO
+  const uint32_t k_s = o_s + Wide::TILE;              // [STAGES] K
+  const uint32_t v_s = k_s + STAGES * Wide::TILE;     // [STAGES] V
+  const uint32_t ds_s = v_s + STAGES * Wide::TILE;    // dS: hi, lo
+  const uint32_t bars = ds_s + 2 * Wide::PART;
+  const uint32_t qbar = bars + 16 * STAGES;
+  auto full = [&](int i) { return bars + 8 * (i % STAGES); };
+  auto empty = [&](int i) { return bars + 8 * (STAGES + i % STAGES); };
+
+  // causal: the last query tiles see the most keys, and start first
+  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int r0 = qt * WG_ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.heads / p.kv_heads);
+  const int r_last = min(r0 + WG_ROWS, p.seq) - 1;
+  // the key tiles the rows see: [t_begin, t_begin + n_tiles)
+  const int k_end = p.causal ? min(r0 + WG_ROWS, p.seq_k) : p.seq_k;
+  const int k_begin = p.window > 0 ? max(0, r0 - p.window + 1) : 0;
+  const int t_begin = k_begin / W_KEYS;
+  const int n_tiles = (k_end + W_KEYS - 1) / W_KEYS - t_begin;
+  const int warp = threadIdx.x / 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * CONSUMERS);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qbar, 2 * Wide::TILE);
+      for (int c = 0; c < B::NCH; ++c) {
+        const int off = c * WG_ROWS * B::ROW;
+        tma_load(q_s + off, &qmap, qbar, c * B::CH, h, r0, b);
+        tma_load(o_s + off, &omap, qbar, c * B::CH, h, r0, b);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        mbar_wait(empty(i), ((i / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(i), 2 * Wide::TILE);
+        const int key = (t_begin + i) * W_KEYS;
+        for (int c = 0; c < B::NCH; ++c) {
+          const int off = (i % STAGES) * Wide::TILE + c * W_KEYS * B::ROW;
+          tma_load(k_s + off, &kmap, full(i), c * B::CH, hk, key, b);
+          tma_load(v_s + off, &vmap, full(i), c * B::CH, hk, key, b);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  // consumer g: keys [32 g, 32 g + 32) of S, columns [128 g, 128 g + 128)
+  // of dQ
+  const int g = warp / 4 - 1;
+  const int tid = threadIdx.x % 128;
+  const int w = tid / 32, lane = tid % 32, gid = lane / 4, tig = lane % 4;
+  unsigned char* ds_at = smem + (ds_s - base);
+  const float sl2 = p.scale * LOG2E;
+  // the thread's two rows' lse (log2 units) and D
+  float l2[2], dl[2];
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const int row = r0 + 16 * w + gid + 8 * rh;
+    const size_t at = (static_cast<size_t>(b) * p.heads + h) * p.seq + row;
+    l2[rh] = row < p.seq ? lse[at] * LOG2E : INFINITY;
+    dl[rh] = row < p.seq ? delta[at] : 0.0f;
+  }
+
+  float dq[W_COLS / 2];
+#pragma unroll
+  for (int x = 0; x < W_COLS / 2; ++x) dq[x] = 0.0f;
+
+  mbar_wait(qbar, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    mbar_wait(full(i), (i / STAGES) & 1);
+    const int kc = (t_begin + i) * W_KEYS + W_HALF * g;  // consumer's keys
+    const uint32_t ka = k_s + (i % STAGES) * Wide::TILE;
+    const uint32_t va = v_s + (i % STAGES) * Wide::TILE;
+    // S = Q K^T and dP = dO V^T: 64 rows x the consumer's 32 keys
+    float sc[W_HALF / 2], dp[W_HALF / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(sc, k_major<D>(q_s, WG_ROWS, kk),
+               k_major<D>(ka + W_HALF * g * B::ROW, W_KEYS, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, k_major<D>(o_s, WG_ROWS, kk),
+               k_major<D>(va + W_HALF * g * B::ROW, W_KEYS, kk), kk > 0);
+    wgmma_commit();
+    pair_sync();  // both consumers done with the last tile's dS parts
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // dS = P (dP - D) into sc, masked where the consumer's keys cross a
+    // boundary: row 16 w + gid + 8 h against key 8 j + c of its keys is
+    // masked where c' = 8 j + c > rk + 8 h (causal) or c' <= rk + 8 h -
+    // window
+    const int rk = r0 + 16 * w + gid - kc - 2 * tig;
+    auto ds = [&](auto masked) {
+#pragma unroll
+      for (int x = 0; x < W_HALF / 2; ++x) {
+        const int h2 = (x & 3) >> 1;
+        float pv = ex2(fmaf(sc[x], sl2, -l2[h2]));
+        if constexpr (decltype(masked)::value) {
+          const int c = 8 * (x >> 2) + (x & 1), lim = rk + 8 * h2;
+          if ((p.causal && c > lim) || (p.window > 0 && c <= lim - p.window))
+            pv = 0.0f;
+        }
+        sc[x] = pv * (dp[x] - dl[h2]);
+      }
+    };
+    const bool edge = (p.causal && kc + W_HALF - 1 > r0) ||
+                      (p.window > 0 && kc <= r_last - p.window);
+    if (edge)
+      ds(std::true_type{});
+    else
+      ds(std::false_type{});
+    store_half(ds_at, sc, g, w, gid, tig);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    pair_sync();  // the dS parts of all 64 keys written
+
+    // dQ += dS K, the consumer's 128 columns
+    float acc[W_COLS / 2];
+    wide_sum(acc, ds_s, ka + 2 * g * W_KEYS * B::ROW);
+#pragma unroll
+    for (int x = 0; x < W_COLS / 2; ++x) dq[x] += acc[x];
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(i));
+  }
+
+  // epilogue: dQ scale in bf16 into the consumer's two boxes of the Q
+  // tile, in the dQ map's swizzled layout; one TMA store per box, clipped
+  // at Sq. The other consumer's last read of Q, its last S product, ended
+  // before it reached the last tile's second barrier.
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const int row = 16 * w + gid + 8 * rh;
+#pragma unroll
+    for (int j = 0; j < W_COLS / 8; ++j) {
+      const int col = W_COLS * g + 8 * j + 2 * tig;
+      uint32_t off = (col / B::CH) * WG_ROWS * B::ROW + row * B::ROW +
+                     (col % B::CH) * 2;
+      off ^= ((off >> 7) & (B::ROW / 16 - 1)) << 4;
+      *reinterpret_cast<uint32_t*>(smem + off) =
+          pack_bf16(dq[4 * j + 2 * rh] * p.scale,
+                    dq[4 * j + 2 * rh + 1] * p.scale);
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  wg_sync(g);
+  if (tid == 0) {
+    for (int c = 2 * g; c < 2 * g + 2; ++c)
+      tma_store(&dqmap, q_s + c * WG_ROWS * B::ROW, c * B::CH, h, r0, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
 template <typename T>
 cudaError_t launch_delta(const void* o, const void* dout, int batch,
                          const Params& p, float* delta, cudaStream_t st) {
@@ -979,35 +1455,42 @@ size_t scratch_floats(int batch, const Params& p, int is_bf16) {
          p.kv_heads * p.d;
 }
 
-// bf16 at head dim D (32, 64 or 128) on the tensor cores
+// bf16 at head dim D (32, 64, 128 or 256) on the tensor cores
 template <int D>
 int launch_tc(const void* q, const void* k, const void* v, const void* o,
               const void* lse, const void* dout, int batch, const Params& p,
               float* delta, float* part, void* dq, void* dk, void* dv,
               cudaStream_t st) {
-  using G = Geo<D>;
+  constexpr bool wide = D > 128;
+  constexpr int ch = Box<D>::CH, keys = dkdv_keys(D);
   CUtensorMap qm, km, vm, om, dqm;
-  if (!tensor_map_bf16(&qm, q, batch, p.seq, p.heads, D, G::CH, WG_ROWS) ||
-      !tensor_map_bf16(&om, dout, batch, p.seq, p.heads, D, G::CH,
-                       WG_ROWS) ||
-      !tensor_map_bf16(&dqm, dq, batch, p.seq, p.heads, D, G::CH,
-                       WG_ROWS) ||
-      !tensor_map_bf16(&km, k, batch, p.seq_k, p.kv_heads, D, G::CH,
-                       KV_KEYS) ||
-      !tensor_map_bf16(&vm, v, batch, p.seq_k, p.kv_heads, D, G::CH,
-                       KV_KEYS))
+  if (!tensor_map_bf16(&qm, q, batch, p.seq, p.heads, D, ch, WG_ROWS) ||
+      !tensor_map_bf16(&om, dout, batch, p.seq, p.heads, D, ch, WG_ROWS) ||
+      !tensor_map_bf16(&dqm, dq, batch, p.seq, p.heads, D, ch, WG_ROWS) ||
+      !tensor_map_bf16(&km, k, batch, p.seq_k, p.kv_heads, D, ch, keys) ||
+      !tensor_map_bf16(&vm, v, batch, p.seq_k, p.kv_heads, D, ch, keys))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem<bwd_dkdv_wg<D>>(G::DKDV_SMEM);
-  if (err == cudaSuccess) err = allow_smem<bwd_dq_wg<D>>(G::DQ_SMEM);
+  cudaError_t err;
+  if constexpr (wide) {
+    err = allow_smem<bwd_dkdv_wg256>(Wide::DKDV_SMEM);
+    if (err == cudaSuccess) err = allow_smem<bwd_dq_wg256>(Wide::DQ_SMEM);
+  } else {
+    err = allow_smem<bwd_dkdv_wg<D>>(Geo<D>::DKDV_SMEM);
+    if (err == cudaSuccess) err = allow_smem<bwd_dq_wg<D>>(Geo<D>::DQ_SMEM);
+  }
   if (err == cudaSuccess)
     err = launch_delta<__nv_bfloat16>(o, dout, batch, p, delta, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float* tl = static_cast<const float*>(lse);
   const int splits = dkdv_splits(batch, p);
-  bwd_dkdv_wg<D><<<dim3((p.seq_k + KV_KEYS - 1) / KV_KEYS * splits,
-                        p.kv_heads, batch),
-                   TC_THREADS, G::DKDV_SMEM, st>>>(qm, km, vm, om, tl, delta,
-                                                   part, p, splits);
+  const dim3 dkdv_grid((p.seq_k + keys - 1) / keys * splits, p.kv_heads,
+                       batch);
+  if constexpr (wide)
+    bwd_dkdv_wg256<<<dkdv_grid, TC_THREADS, Wide::DKDV_SMEM, st>>>(
+        qm, km, vm, om, tl, delta, part, p, splits);
+  else
+    bwd_dkdv_wg<D><<<dkdv_grid, TC_THREADS, Geo<D>::DKDV_SMEM, st>>>(
+        qm, km, vm, om, tl, delta, part, p, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t n = static_cast<size_t>(batch) * p.seq_k * p.kv_heads * D;
@@ -1016,57 +1499,63 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o,
       n, splits, p.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int pair = (p.heads / p.kv_heads) % CONSUMERS == 0;
-  const int rows = pair ? WG_ROWS : CONSUMERS * WG_ROWS;
-  bwd_dq_wg<D><<<dim3((p.seq + rows - 1) / rows,
-                      pair ? p.heads / CONSUMERS : p.heads, batch),
-                 TC_THREADS, G::DQ_SMEM, st>>>(qm, km, vm, om, dqm, tl, delta,
-                                               p, pair);
+  if constexpr (wide) {
+    bwd_dq_wg256<<<dim3((p.seq + WG_ROWS - 1) / WG_ROWS, p.heads, batch),
+                   TC_THREADS, Wide::DQ_SMEM, st>>>(qm, km, vm, om, dqm, tl,
+                                                    delta, p);
+  } else {
+    const int pair = (p.heads / p.kv_heads) % CONSUMERS == 0;
+    const int rows = pair ? WG_ROWS : CONSUMERS * WG_ROWS;
+    bwd_dq_wg<D><<<dim3((p.seq + rows - 1) / rows,
+                        pair ? p.heads / CONSUMERS : p.heads, batch),
+                   TC_THREADS, Geo<D>::DQ_SMEM, st>>>(qm, km, vm, om, dqm, tl,
+                                                      delta, p, pair);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // head dims up to NC * 16 with BQ x BK tiles, float32 on the CUDA cores
-template <typename T, int BQ, int BK, int NC>
+template <int BQ, int BK, int NC>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* lse, const void* dout, int batch, const Params& p,
            float* delta, void* dq, void* dk, void* dv, cudaStream_t st) {
   static_assert(4 * smem_floats<BQ, BK>(NC * 16 + 1) <= MAX_SMEM, "smem");
   const int smem = 4 * smem_floats<BQ, BK>(p.d | 1);
   const int max_smem = 4 * smem_floats<BQ, BK>(NC * 16 + 1);
-  cudaError_t err = allow_smem<bwd_dkdv<T, BQ, BK, NC>>(max_smem);
-  if (err == cudaSuccess) err = allow_smem<bwd_dq<T, BQ, BK, NC>>(max_smem);
+  cudaError_t err = allow_smem<bwd_dkdv<BQ, BK, NC>>(max_smem);
+  if (err == cudaSuccess) err = allow_smem<bwd_dq<BQ, BK, NC>>(max_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
+  const float* tq = static_cast<const float*>(q);
+  const float* tk = static_cast<const float*>(k);
+  const float* tv = static_cast<const float*>(v);
+  const float* tdo = static_cast<const float*>(dout);
   const float* tl = static_cast<const float*>(lse);
-  err = launch_delta<T>(o, dout, batch, p, delta, st);
+  err = launch_delta<float>(o, dout, batch, p, delta, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dkdv<T, BQ, BK, NC>
+  bwd_dkdv<BQ, BK, NC>
       <<<dim3((p.seq_k + BK - 1) / BK, p.kv_heads, batch), THREADS, smem,
-         st>>>(tq, tk, tv, tdo, tl, delta, static_cast<T*>(dk),
-               static_cast<T*>(dv), p);
+         st>>>(tq, tk, tv, tdo, tl, delta, static_cast<float*>(dk),
+               static_cast<float*>(dv), p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dq<T, BQ, BK, NC><<<dim3((p.seq + BQ - 1) / BQ, p.heads, batch),
-                          THREADS, smem, st>>>(tq, tk, tv, tdo, tl, delta,
-                                               static_cast<T*>(dq), p);
+  bwd_dq<BQ, BK, NC><<<dim3((p.seq + BQ - 1) / BQ, p.heads, batch), THREADS,
+                       smem, st>>>(tq, tk, tv, tdo, tl, delta,
+                                   static_cast<float*>(dq), p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+// float32 at any head dim up to 256
 int dispatch(const void* q, const void* k, const void* v, const void* o,
              const void* lse, const void* dout, int batch, const Params& p,
              float* delta, void* dq, void* dk, void* dv, cudaStream_t st) {
   switch (nc_of(p.d)) {
-    case 2: return launch<T, CC_BQ, cc_block_kv(2), 2>(
+    case 2: return launch<CC_BQ, cc_block_kv(2), 2>(
         q, k, v, o, lse, dout, batch, p, delta, dq, dk, dv, st);
-    case 4: return launch<T, CC_BQ, cc_block_kv(4), 4>(
+    case 4: return launch<CC_BQ, cc_block_kv(4), 4>(
         q, k, v, o, lse, dout, batch, p, delta, dq, dk, dv, st);
-    case 8: return launch<T, CC_BQ, cc_block_kv(8), 8>(
+    case 8: return launch<CC_BQ, cc_block_kv(8), 8>(
         q, k, v, o, lse, dout, batch, p, delta, dq, dk, dv, st);
-    default: return launch<T, CC_BQ, cc_block_kv(16), 16>(
+    default: return launch<CC_BQ, cc_block_kv(16), 16>(
         q, k, v, o, lse, dout, batch, p, delta, dq, dk, dv, st);
   }
 }
@@ -1077,10 +1566,10 @@ namespace {
 
 // the call's parameters, or false where the kernels do not take it
 bool params_of(int seq_q, int seq_k, int heads, int kv_heads, int head_dim,
-               int causal, int window, Params* p) {
+               int causal, int window, int is_bf16, Params* p) {
   if (kv_heads <= 0 || heads % kv_heads || head_dim <= 0 ||
-      head_dim > 256 || seq_k <= 0 || seq_q <= 0 ||
-      ((causal || window > 0) && seq_k != seq_q))
+      head_dim > 256 || (is_bf16 && !takes_tc(1, head_dim)) || seq_k <= 0 ||
+      seq_q <= 0 || ((causal || window > 0) && seq_k != seq_q))
     return false;
   *p = Params{seq_q,  seq_k,  heads,    kv_heads,
               causal, window, head_dim,
@@ -1091,14 +1580,15 @@ bool params_of(int seq_q, int seq_k, int heads, int kv_heads, int head_dim,
 }  // namespace
 
 // q, o, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, Hkv, D); all
-// bfloat16 (is_bf16 = 1) or all float32, D <= 256, contiguous, 16-byte
-// aligned; lse (B, H, Sq) float32 from `flash_attention_fwd`; delta: (B,
-// H, Sq) float32 scratch; part: `part_floats` float32 of scratch, as many
-// as `flash_attention_bwd_scratch` gives for the call (else refused). H a
+// bfloat16 (is_bf16 = 1; D 32, 64, 128 or 256) or all float32 (D <= 256),
+// contiguous, 16-byte aligned; lse (B, H, Sq) float32 from
+// `flash_attention_fwd`; delta: (B, H, Sq) float32 scratch; part:
+// `part_floats` float32 of scratch, as many as
+// `flash_attention_bwd_scratch` gives for the call (else refused). H a
 // multiple of Hkv; window <= 0 for none; Sk >= 1, and Sk = Sq where the
-// call is causal or has a window. The tensor cores where they take the
-// call (bf16 at D 32, 64, 128: four launches), else the CUDA cores
-// (three) on `stream`; returns the first error.
+// call is causal or has a window. bf16 on the tensor cores (four
+// launches), float32 on the CUDA cores (three), on `stream`; returns the
+// first error.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* lse, const void* dout,
@@ -1111,27 +1601,25 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   if (batch == 0 || heads == 0) return 0;
   Params p;
   if (!params_of(seq_q, seq_k, heads, kv_heads, head_dim, causal, window,
-                 &p) ||
+                 is_bf16, &p) ||
       static_cast<size_t>(part_floats) !=
           scratch_floats(batch, p, is_bf16))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* dl = static_cast<float*>(delta);
   float* pt = static_cast<float*>(part);
-  if (takes_tc(is_bf16, head_dim)) {
-    switch (head_dim) {
-      case 32: return launch_tc<32>(q, k, v, o, lse, dout, batch, p, dl, pt,
+  if (!is_bf16)
+    return dispatch(q, k, v, o, lse, dout, batch, p, dl, dq, dk, dv, st);
+  switch (head_dim) {
+    case 32: return launch_tc<32>(q, k, v, o, lse, dout, batch, p, dl, pt,
+                                  dq, dk, dv, st);
+    case 64: return launch_tc<64>(q, k, v, o, lse, dout, batch, p, dl, pt,
+                                  dq, dk, dv, st);
+    case 128: return launch_tc<128>(q, k, v, o, lse, dout, batch, p, dl, pt,
                                     dq, dk, dv, st);
-      case 64: return launch_tc<64>(q, k, v, o, lse, dout, batch, p, dl, pt,
-                                    dq, dk, dv, st);
-      default: return launch_tc<128>(q, k, v, o, lse, dout, batch, p, dl,
-                                     pt, dq, dk, dv, st);
-    }
+    default: return launch_tc<256>(q, k, v, o, lse, dout, batch, p, dl, pt,
+                                   dq, dk, dv, st);
   }
-  return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, lse, dout, batch, p,
-                                           dl, dq, dk, dv, st)
-                 : dispatch<float>(q, k, v, o, lse, dout, batch, p, dl, dq,
-                                   dk, dv, st);
 }
 
 // The float32 scratch (`part`) that `flash_attention_bwd` needs for the
@@ -1145,7 +1633,7 @@ extern "C" long long flash_attention_bwd_scratch(int batch, int seq_q,
                                                  int is_bf16) {
   Params p;
   if (!params_of(seq_q, seq_k, heads, kv_heads, head_dim, causal, window,
-                 &p))
+                 is_bf16, &p))
     return -1;
   return static_cast<long long>(scratch_floats(batch, p, is_bf16));
 }
@@ -1157,5 +1645,6 @@ extern "C" void flash_attention_bwd_dq_tile(int head_dim, int is_bf16,
                                             int* rows, int* keys) {
   const bool tc = takes_tc(is_bf16, head_dim);
   *rows = tc ? WG_ROWS : CC_BQ;
-  *keys = tc ? BK : cc_block_kv(nc_of(head_dim));
+  *keys = tc ? (head_dim > 128 ? W_KEYS : BK)
+             : cc_block_kv(nc_of(head_dim));
 }

@@ -119,8 +119,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     inputs' dtype, dk and dv per KV head (summed over the query heads of
     its group). The same inputs as the forward's; float32 sums, no
     atomics (two calls agree bit for bit); one count a call of its
-    launches (four on the tensor cores, for bf16 at head dims 32, 64 and
-    128; three on the CUDA cores, else)."""
+    launches (four on the tensor cores, for bf16; three on the CUDA
+    cores, for float32)."""
     b, s, sk, h, hkv, d = _check_inputs(q, k, v, causal, window)
     check("o", o, q.dtype, (b, s, h, d), q.device)
     check("do", do, q.dtype, (b, s, h, d), q.device)
@@ -154,7 +154,8 @@ def bwd_scratch(b: int, sq: int, sk: int, h: int, hkv: int, d: int,
                 causal: bool, window: Optional[int], bf16: bool) -> int:
     """The float32 scratch, in elements, that the backward kernel needs
     for a call (the tensor-core form's dK / dV sums of each run of its
-    walk; none on the CUDA cores), as the built kernel reports it:
+    walk, bf16; none on the CUDA cores, float32), as the built kernel
+    reports it:
     ``csrc/flash_attention_bwd.cu`` owns its tiles and runs."""
     n = _bwd_query("flash_attention_bwd_scratch", (ctypes.c_int,) * 9,
                    ctypes.c_longlong)(b, sq, sk, h, hkv, d, int(causal),

@@ -7,20 +7,22 @@ the variants of it that were tried, and the kernel it replaced.
 
 Builds the port's kernels (``build.build_all``) and prints what ``ptxas``
 says of the backward's kernels (registers, spills) and an opcode count of
-each one's SASS (``cuobjdump -sass``). Then, at the bf16 shapes of
-``chip_smoke.FLASH_BWD_CASES`` that the tensor-core form takes (D 32, 64,
-128; inputs as phase 24 makes them), it holds the kernel to phase 24's
-limits (``chip_smoke.flash_bwd_ratio`` against ``flash_bwd_plain``) and
-times it through the kernel entry into outputs and scratch allocated once
-(``chip_smoke.call_ms``: CUDA events over back-to-back calls;
-``chip_smoke.device_ms``: the profiler), beside SDPA's backward and the
-bound of phase 24.
+each one's SASS (``cuobjdump -sass``). Then, at the shapes of
+``chip_smoke.FLASH_BWD_CASES`` (bf16 on the tensor cores at D 32, 64, 128
+and 256, float32 on the CUDA cores; inputs as phase 24 makes them), it
+holds the kernel to phase 24's limits (``chip_smoke.flash_bwd_ratio``
+against ``flash_bwd_plain``) and times it through the kernel entry into
+outputs and scratch allocated once (``chip_smoke.call_ms``: CUDA events
+over back-to-back calls; ``chip_smoke.device_ms``: the profiler), beside
+the bound of phase 24.
 
 ``--parent`` builds another checkout's ``flash_attention.cu`` and
 ``flash_attention_bwd.cu`` (its ``src/repro_torch/kernels/csrc``) into
 ``build/study/`` (ignored by git): its forward must agree with this one's
-bit for bit (o and the lse) at each shape, and its backward is held to
-the same limits and timed in turns, parent, this, this, parent.
+bit for bit (o and the lse) at each shape, its backward is held to the
+same limits and timed in turns, parent, this, this, parent, and where
+``--same`` names the shape's head dim (bf16; 0 for float32) the two
+backwards' outputs must agree bit for bit.
 ``--variants`` builds ``VARIANTS`` (this source with a few lines
 replaced: the dK / dV walk's runs, and diagnostics that are wrong by
 design) and times each in turns against this kernel at ``--shapes``
@@ -58,13 +60,22 @@ VARIANTS = {
     # diagnostics, wrong by design or slower by design: what a part costs
     "diagnostic: every tile masked": (
         ("const bool edge = (p.causal", "const bool edge = true || (p.causal",
-         2),),
+         4),),
     "diagnostic: no lo parts in dK / dV": (
         ("          wgmma_ss<1>(part,\n"
          "                      gmma_desc(a + G::PDS_BYTES + kk * 32, 16, "
          "1024, 1), bd,\n                      1);\n", "", 1),),
+    # D 256: what the lo parts and the first of a step's two barriers
+    # cost (without it the consumers race on the shared parts)
+    "diagnostic: no lo parts at D 256": (
+        ("    wgmma_ss<1>(acc, gmma_desc(a + Wide::PART + kk * 32, 16, 1024, "
+         "1), bd,\n                1);\n", "", 1),),
+    "diagnostic: one barrier a step at D 256": (
+        ("      pair_sync();\n      wgmma_wait<0>();",
+         "      wgmma_wait<0>();", 1),
+        ("    pair_sync();  // both consumers done with the last tile's dS "
+         "parts\n", "", 1)),
 }
-TC_DIMS = (32, 64, 128)
 
 
 def sass_counts(lib: Path) -> dict:
@@ -124,9 +135,11 @@ def print_ptxas(name: str, log: str) -> None:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             sym = line.split("'")[1]
-            kernel = next((k for k in ("bwd_dkdv_wg", "bwd_dq_wg",
+            kernel = next((k for k in ("bwd_dkdv_wg256", "bwd_dq_wg256",
+                                       "bwd_dkdv_wg", "bwd_dq_wg",
                                        "bwd_dkdv_sum", "bwd_dkdv_tc",
-                                       "bwd_dq_tc", "fa_bf16_kernel")
+                                       "bwd_dq_tc", "bwd_dkdv", "bwd_dq",
+                                       "fa_bf16_kernel")
                            if k in sym), None)
             if kernel and "ILi" in sym:
                 kernel += " D " + sym.split("ILi")[1].split("E")[0]
@@ -180,16 +193,18 @@ def fwd_entry(lib_path: Path):
     return fn
 
 
-def compare(torch, cs, case, gen, dev, entries, parent_fwd=None) -> bool:
+def compare(torch, cs, case, gen, dev, entries, parent_fwd=None,
+            same=False) -> bool:
     """One phase-24 shape: each of ``entries`` (name: ``bwd_entry``) held
     to the limits and bitwise over two calls, then timed in turns (first,
     second, second, first); with ``parent_fwd``, the forward of the
-    parent against this one's, bit for bit. Returns whether every check
-    held."""
+    parent against this one's, bit for bit; with ``same``, the entries'
+    outputs bit for bit. Returns whether every check held."""
     from repro_torch.kernels.flash_attention import flash_attention_fwd
 
     label, b, sq, sk, h, hkv, d, window, causal, dtype = case
     dtype = getattr(torch, dtype)
+    bf16 = dtype == torch.bfloat16
     q, do = (torch.randn((b, sq, h, d), generator=gen, device=dev)
              .to(dtype) for _ in range(2))
     k, v = (torch.randn((b, sk, hkv, d), generator=gen, device=dev)
@@ -200,26 +215,32 @@ def compare(torch, cs, case, gen, dev, entries, parent_fwd=None) -> bool:
     if parent_fwd is not None:
         o2, lse2 = torch.empty_like(o), torch.empty_like(lse)
         err = parent_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), b, sq, sk,
-                         h, hkv, d, int(causal), int(window or 0), 1,
+                         h, hkv, d, int(causal), int(window or 0),
+                         int(bf16),
                          o2.data_ptr(), lse2.data_ptr(),
                          torch.cuda.current_stream(dev).cuda_stream)
-        same = not err and torch.equal(o, o2) and torch.equal(lse, lse2)
-        ok &= same
-        notes.append(f"forward bitwise the parent's {same}")
+        fwd_same = not err and torch.equal(o, o2) and torch.equal(lse, lse2)
+        ok &= fwd_same
+        notes.append(f"forward bitwise the parent's {fwd_same}")
     args = (q, k, v, o, lse, do)
-    shape = (b, sq, sk, h, hkv, d, int(causal), int(window or 0), 1)
+    shape = (b, sq, sk, h, hkv, d, int(causal), int(window or 0), int(bf16))
     want = cs.flash_bwd_plain(torch, *args, causal, window)
-    runs = []
+    runs, outs = [], []
     for name, make in entries.items():
         run = make(torch, args, shape, dev)
         got = [x.clone() for x in run()]
-        same = all(torch.equal(x, y) for x, y in zip(got, run()))
-        ratio = cs.flash_bwd_ratio(torch, got, want, True)
-        ok &= same and (ratio <= 1.0 or name.startswith("diagnostic"))
+        again = all(torch.equal(x, y) for x, y in zip(got, run()))
+        ratio = cs.flash_bwd_ratio(torch, got, want, bf16)
+        ok &= again and (ratio <= 1.0 or name.startswith("diagnostic"))
         notes.append(f"{name} {ratio:.3g} of the limit, two calls bitwise "
-                     f"{same}")
+                     f"{again}")
         runs.append(run)
-        del got
+        outs.append(got)
+    if same:
+        equal = all(torch.equal(x, y) for x, y in zip(*outs))
+        ok &= equal
+        notes.append(f"outputs bitwise the {list(entries)[0]}'s {equal}")
+    del outs
     iters = 3 if sq * sk > 1024 * 1024 else 20
     names = list(entries)
     order = [0, 1, 1, 0] if len(runs) > 1 else [0, 0]
@@ -227,8 +248,10 @@ def compare(torch, cs, case, gen, dev, entries, parent_fwd=None) -> bool:
     dev_us = [cs.device_ms(fn, iters=iters, rounds=3) * 1e3 for fn in runs]
     pairs = cs.causal_pairs(sq, window) if causal else sq * sk
     bound_ms, by = cs.bound(
-        2 * (4 * q.numel() + 2 * (k.numel() + v.numel())) + 4 * lse.numel(),
-        2.5 * 4.0 * d * b * h * pairs, cs.BF16_FLOP_PER_S)
+        q.element_size() * (4 * q.numel() + 2 * (k.numel() + v.numel()))
+        + 4 * lse.numel(),
+        2.5 * 4.0 * d * b * h * pairs,
+        cs.BF16_FLOP_PER_S if bf16 else cs.FP32_FLOP_PER_S)
     split = breakdown(torch, runs[-1])
     print(f"{label} (B {b}, Sq {sq}, Sk {sk}, H {h}, Hkv {hkv}, D {d}, "
           f"window {window}, causal {causal}): {'; '.join(notes)}; us "
@@ -272,6 +295,9 @@ def main() -> int:
                     help="names of VARIANTS to build (none named: all)")
     ap.add_argument("--shapes", nargs="*",
                     help="labels of FLASH_BWD_CASES to time variants at")
+    ap.add_argument("--same", nargs="*", type=int, default=[],
+                    help="head dims (0: float32) whose outputs must be "
+                         "bitwise the parent's")
     opts = ap.parse_args()
 
     import torch
@@ -286,14 +312,13 @@ def main() -> int:
     print_ptxas("this", build_all().get("flash_attention_bwd.cu") or "")
     lib = library_path("flash_attention_bwd.cu")
     for sym, ops in sass_counts(lib).items():
-        if "_wg" in sym or "dkdv_sum" in sym:
+        if "bwd_" in sym:
             top = ", ".join(f"{o} {c}" for o, c in ops.most_common(12))
             print(f"SASS {sym[-60:]}: {sum(ops.values())} instructions "
                   f"({top})")
 
     dev = torch.device("cuda")
-    cases = [c for c in cs.FLASH_BWD_CASES
-             if c[-1] == "bfloat16" and c[6] in TC_DIMS]
+    cases = list(cs.FLASH_BWD_CASES)
     entries = {"this": bwd_entry(lib)}
     parent_fwd = None
     if opts.parent:
@@ -305,7 +330,9 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(24)
     ok = True
     for case in cases:
-        ok &= compare(torch, cs, case, gen, dev, entries, parent_fwd)
+        key = case[6] if case[-1] == "bfloat16" else 0
+        ok &= compare(torch, cs, case, gen, dev, entries, parent_fwd,
+                      same=opts.parent is not None and key in opts.same)
         torch.cuda.empty_cache()
     print(f"every shape within the limits and bitwise: {ok}")
     if opts.variants is not None:

@@ -1,6 +1,6 @@
 """An emulation, in plain PyTorch on the CPU, of the flash backward
-kernel's tensor-core form (``csrc/flash_attention_bwd.cu``, bf16 at D 32
-/ 64 / 128): its two walks' tiling, its masks and its products.
+kernel's tensor-core form (``csrc/flash_attention_bwd.cu``, bf16): its
+two walks' tiling, its masks and its products.
 
 * dK / dV: blocks of 128 keys (two warpgroups of 64) and KV head, whose
   steps (query head of the group, 64-query tile that sees one of the
@@ -13,6 +13,11 @@ kernel's tensor-core form (``csrc/flash_attention_bwd.cu``, bf16 at D 32
   rows where the group is even, else 128 rows of one head), 128-key tiles
   from the block's first window key to its last row, each warpgroup over
   the tiles that hold a key for one of its rows.
+* At D 256: dK / dV blocks of 64 keys whose two warpgroups split each
+  64-query step's S^T and dP^T by query halves (each masking its own half
+  where that half crosses a boundary) and dK / dV by column halves, over
+  P^T and dS^T of all 64 queries; dQ blocks of 64 rows of one head over
+  64-key tiles, S and dP split by key halves, dQ by column halves.
 
 The emulation is held to ``ref.flash_attention_bwd_ref`` within phase
 24's limit (``chip_smoke.flash_bwd_ratio``: 1e-5 of each gradient's
@@ -33,13 +38,15 @@ from repro_torch.kernels import ref  # noqa: E402
 
 TOL, BF16_UNIT = 1e-5, 2.0 ** -7       # phase 24's limits
 WG_ROWS, KV_KEYS, BQ, BK = 64, 128, 64, 128   # the kernel's tiles
+W_KEYS, W_HALF = 64, 32                # its tiles at D 256
 MIN_BLOCKS, MIN_STEPS = 4 * 132, 8     # its dK / dV runs
 
 
-def _splits(sq, sk, h, hkv, window):
-    """The runs of a dK / dV block's steps, as ``dkdv_splits`` (B 1)."""
-    blocks = -(-sk // KV_KEYS) * hkv
-    i_hi = min(sq, KV_KEYS - 1 + window) if window else sq
+def _splits(sq, sk, h, hkv, window, keys=KV_KEYS):
+    """The runs of a dK / dV block's steps, as ``dkdv_splits`` (B 1;
+    ``keys`` a block, W_KEYS at D 256)."""
+    blocks = -(-sk // keys) * hkv
+    i_hi = min(sq, keys - 1 + window) if window else sq
     steps = h // hkv * -(-i_hi // BQ)
     return max(1, min(-(-MIN_BLOCKS // blocks), steps // MIN_STEPS))
 
@@ -160,6 +167,96 @@ def _dq(q, k, v, do, lse2, dl, causal, window, drop_edge, no_lo):
     return dq
 
 
+def _dkdv_wide(q, k, v, do, lse2, dl, causal, window, drop_edge, no_lo):
+    """The D 256 dK / dV walk: 64-key blocks, S^T and dP^T by query halves,
+    the step's products over all 64 queries."""
+    sq, h, d = q.shape
+    sk, hkv = k.shape[:2]
+    group, sl2 = h // hkv, math.log2(math.e) / math.sqrt(d)
+    splits = _splits(sq, sk, h, hkv, window, W_KEYS)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    keys = torch.arange(W_KEYS)
+    for k0 in range(0, sk, W_KEYS):
+        t_lo = (k0 if causal else 0) // BQ
+        i_hi = min(sq, k0 + W_KEYS - 1 + window) if window else sq
+        n_t = max(0, -(-i_hi // BQ) - t_lo)
+        total = group * n_t
+        for hk in range(hkv):
+            kt, vt = (_rows(x[:, hk], k0, W_KEYS) for x in (k, v))
+            runs = []
+            for split in range(splits):
+                acc = torch.zeros(2, W_KEYS, d)           # dk, dv
+                for s in range(total * split // splits,
+                               total * (split + 1) // splits):
+                    hh, q0 = hk * group + s // n_t, (t_lo + s % n_t) * BQ
+                    q_last = min(q0 + BQ, sq) - 1
+                    if not ((not causal or k0 <= q_last) and (
+                            not window or k0 + W_KEYS - 1 > q0 - window)):
+                        continue
+                    qt, ot = (_rows(x[:, hh], q0, BQ) for x in (q, do))
+                    p = torch.exp2(kt @ qt.T * sl2
+                                   - _rows(lse2[hh], q0, BQ)[None, :])
+                    ds = p * (vt @ ot.T - _rows(dl[hh], q0, BQ)[None, :])
+                    for g in range(2):                    # query halves
+                        qc = q0 + W_HALF * g
+                        qc_last = min(qc + W_HALF, sq) - 1
+                        at_window = bool(window) and k0 <= qc_last - window
+                        cols = slice(W_HALF * g, W_HALF * (g + 1))
+                        if drop_edge and at_window:
+                            p[:, cols], ds[:, cols] = 0.0, 0.0
+                        elif (causal and k0 + W_KEYS - 1 > qc) or at_window:
+                            m = ~_visible(torch.arange(qc, qc + W_HALF),
+                                          k0 + keys, causal, window).T
+                            p[:, cols] = p[:, cols].masked_fill(m, 0.0)
+                            ds[:, cols] = ds[:, cols].masked_fill(m, 0.0)
+                    acc[1] += sum(x @ ot for x in _parts(p, no_lo))
+                    acc[0] += sum(x @ qt for x in _parts(ds, no_lo))
+                runs.append(acc)
+            total_sum = runs[0]
+            for r in runs[1:]:
+                total_sum = total_sum + r
+            n = min(W_KEYS, sk - k0)
+            dk[k0:k0 + n, hk] = total_sum[0, :n] / math.sqrt(d)
+            dv[k0:k0 + n, hk] = total_sum[1, :n]
+    return dk, dv
+
+
+def _dq_wide(q, k, v, do, lse2, dl, causal, window, drop_edge, no_lo):
+    """The D 256 dQ walk: 64 rows of one head over 64-key tiles, S and dP
+    by key halves."""
+    sq, h, d = q.shape
+    sk, hkv = k.shape[:2]
+    group, sl2 = h // hkv, math.log2(math.e) / math.sqrt(d)
+    dq = torch.zeros_like(q)
+    for r0 in range(0, sq, WG_ROWS):
+        r_last = min(r0 + WG_ROWS, sq) - 1
+        k_end = min(r0 + WG_ROWS, sk) if causal else sk
+        k_begin = max(0, r0 - window + 1) if window else 0
+        rows = torch.arange(r0, r0 + WG_ROWS)
+        for hh in range(h):
+            qt, ot = (_rows(x[:, hh], r0, WG_ROWS) for x in (q, do))
+            l2 = _rows(lse2[hh], r0, WG_ROWS)[:, None]
+            d_ = _rows(dl[hh], r0, WG_ROWS)[:, None]
+            acc = torch.zeros(WG_ROWS, d)
+            for kt0 in range(k_begin // W_KEYS * W_KEYS, k_end, W_KEYS):
+                kt, vt = (_rows(x[:, hh // group], kt0, W_KEYS)
+                          for x in (k, v))
+                ds = torch.exp2(qt @ kt.T * sl2 - l2) * (ot @ vt.T - d_)
+                for g in range(2):                        # key halves
+                    kc = kt0 + W_HALF * g
+                    at_window = bool(window) and kc <= r_last - window
+                    cols = slice(W_HALF * g, W_HALF * (g + 1))
+                    if drop_edge and at_window:
+                        ds[:, cols] = 0.0
+                    elif (causal and kc + W_HALF - 1 > r0) or at_window:
+                        ds[:, cols] = ds[:, cols].masked_fill(~_visible(
+                            rows, torch.arange(kc, kc + W_HALF), causal,
+                            window), 0.0)
+                acc += sum(x @ kt for x in _parts(ds, no_lo))
+            dq[r0:r_last + 1, hh] = acc[:r_last + 1 - r0] / math.sqrt(d)
+    return dq
+
+
 def _case(seed, sq, sk, h, hkv, d, causal, window):
     """bf16-valued q, k, v, dO (one batch row, the model's layout) and the
     forward's o (rounded to bf16) and lse, float32."""
@@ -187,8 +284,9 @@ def _emulate(q, k, v, do, o, lse, causal, window, drop_edge=False,
     dl = torch.cat([(do * o).sum(-1).T, torch.zeros(lse.shape[0], BQ)], 1)
     lse2, dl = lse2[:, :sq + BQ], dl[:, :sq + BQ]
     args = (q, k, v, do, lse2, dl, causal, window, drop_edge, no_lo)
-    dk, dv = _dkdv(*args)
-    return [x.bfloat16().float() for x in (_dq(*args), dk, dv)]
+    dkdv, dq = (_dkdv_wide, _dq_wide) if q.shape[2] == 256 else (_dkdv, _dq)
+    dk, dv = dkdv(*args)
+    return [x.bfloat16().float() for x in (dq(*args), dk, dv)]
 
 
 def _plain(q, k, v, do, o, lse, causal, window):
@@ -220,7 +318,9 @@ def _ratio(got, want) -> float:
     (257, 257, 5, 1, 64, True, 70),       # G 5: unpaired dQ slots
     (200, 200, 2, 2, 32, True, None),     # G 1, ragged causal
     (100, 300, 4, 4, 64, False, None),    # Sk > Sq, non-causal
-    (333, 129, 6, 2, 64, False, None)])   # Sk < Sq, one past a key tile
+    (333, 129, 6, 2, 64, False, None),    # Sk < Sq, one past a key tile
+    (200, 200, 4, 2, 256, True, 70),      # D 256: window edge, GQA
+    (77, 130, 2, 2, 256, False, None)])   # D 256: Sk != Sq, ragged
 def test_emulated_schedule_holds_phase_24_limit(sq, sk, h, hkv, d, causal,
                                                 window):
     """The emulated tensor-core form against the plain backward, within
@@ -243,6 +343,18 @@ def test_faulty_schedules_fail_phase_24_limit(fault):
     assert ratio > 1.0, ratio
 
 
+@pytest.mark.parametrize("fault", ["edge tile passed over", "no lo part"])
+def test_faulty_d256_schedules_fail_phase_24_limit(fault):
+    """The same faults in the D 256 tiling fail the limit too."""
+    sq, h, hkv, d, window = 200, 4, 2, 256, 70
+    x = _case(13, sq, sq, h, hkv, d, True, window)
+    got = _emulate(*x, True, window,
+                   drop_edge=fault == "edge tile passed over",
+                   no_lo=fault == "no lo part")
+    ratio = _ratio(got, _plain(*x, True, window))
+    assert ratio > 1.0, ratio
+
+
 def test_runs_split_the_heaviest_key_tile():
     """StarCoder2-3B's training call is cut into 5 runs a key tile (64
     key tiles x 2 KV heads = 128 blocks, 640 with the runs); a call whose
@@ -250,3 +362,6 @@ def test_runs_split_the_heaviest_key_tile():
     assert _splits(8192, 8192, 24, 2, 4096) == 5
     assert _splits(4096, 4096, 25, 5, 1024) == 4
     assert _splits(512, 1024, 16, 16, None) == 1
+    # D 256: Gemma-7B's training call fills the card with 64-key blocks
+    assert _splits(4096, 4096, 16, 16, None, W_KEYS) == 1
+    assert _splits(4096, 4096, 16, 2, None, W_KEYS) == 5
