@@ -274,9 +274,16 @@ Phases, each fatal on failure:
      REDUCED, ragged with a state), against their plain versions: each
      gradient within 1e-5 of its largest |plain|, plus one bf16 unit of
      each element where it is returned in bf16; two calls bitwise equal,
-     one launch a call; faulty plain versions (the carry dropped between
-     the kernel's chunks; WKV also without u's term) must fail; each
-     shape timed beside its plain version and its bound;
+     one launch a call; each call's launches profiled (each launch's
+     device us, and the form that ran: WKV's chunked form, 64-token
+     chunks with 8-token sub-chunk edge states on wgmma, and the scan's
+     scanned form, 128-token chunks of runs of 16, at every case);
+     faulty plain versions must fail: the carry dropped between the
+     kernel's chunks (where a call has two), WKV without u's term, and at
+     the new designs' seams the products of the sub-chunks between two
+     reference points dropped (WKV) and the carry between the runs of a
+     chunk dropped (the scan); each shape timed beside its plain version
+     and its bound;
  25. small-input training agreement: REDUCED StarCoder2-3B, Minitron-4B,
      Qwen3-32B, Gemma-7B, OLMoE-1B-7B, SeamlessM4T-medium (with frames),
      Qwen2-VL-7B (with patches), RWKV6-1.6B and Hymba-1.5B in float32,
@@ -311,7 +318,8 @@ Phases, each fatal on failure:
      16, window 1024) training at full width, as
      phase 26 on (1, 4096) tokens, 3 counted steps each: launches a step
      48 WKV forward and 24 WKV backward (RWKV6); 64 flash and 64 scan
-     forward, 32 of each backward (hymba); the ``sgd`` witness, its
+     forward, 32 of each backward (hymba); the step's device busy ms,
+     idle share and the backward kernels' share; the ``sgd`` witness, its
      first drop within 0.8-1.0 of 0.25 on the float32 loss;
  26c. this slice's main path: Gemma-7B training at full width (d_model
      3072, 16 / 16 heads of 256, d_ff 24,576, vocab 256,000; 3.00 B
@@ -3309,7 +3317,29 @@ SCAN_BWD_CASES = (
 # for each (channel, state index), so no product form puts it on the
 # tensor cores. WKV's is bounded by ``wkv_bwd_bound``.
 SCAN_BWD_FLOPS = 19
-RECUR_FAULTS = ("carry dropped between chunks", "u's term left out")
+RECUR_FAULTS = ("carry dropped between chunks", "u's term left out",
+                "sub-chunk products dropped", "carry dropped between runs")
+# the launches of each backward's design, in order: (kernel name as the
+# profiler reports it, the form it marks)
+RECUR_LAUNCHES = {
+    "rwkv6_bwd": (("wkv_bwd_sum", "wkv_bwd_edges", "wkv_bwd_grad",
+                   "wkv_bwd_du"), "chunked (64-token chunks, 8-token "
+                  "sub-chunks, wgmma)"),
+    "selective_scan_bwd": (("scan_bwd_sum", "scan_bwd_carry",
+                            "scan_bwd_grad", "scan_bwd_reduce"),
+                           "scanned (128-token chunks, runs of 16)")}
+
+
+def scan_bwd_scanned(torch, x, dt, b, c, a, dy, state, dstate,
+                     fault=None):
+    """``ref.selective_scan_bwd_scanned_ref`` (the kernel's order);
+    ``fault="run_carry"`` drops the carry between the runs inside a chunk
+    (a faulty version for the controls)."""
+    from repro_torch.kernels import ref
+
+    return ref.selective_scan_bwd_scanned_ref(x, dt, b, c, a, dy,
+                                              state=state, dstate=dstate,
+                                              fault=fault)
 
 
 def recur_ratio(torch, got, want, names) -> dict:
@@ -3362,6 +3392,18 @@ def wkv_bwd_plain(torch, r, k, v, w, u, do, state, dstate, *,
     return (*cat, du, parts[0][5])
 
 
+def wkv_bwd_chunked(torch, r, k, v, w, u, do, state, dstate, fault=None):
+    """``ref.rwkv6_bwd_chunked_ref`` (the kernel's algebra) in the model's
+    layout; ``fault="sub_ref"`` drops the products of the sub-chunks
+    between two reference points (a faulty version for the controls)."""
+    from repro_torch.kernels import ref
+
+    got = ref.rwkv6_bwd_chunked_ref(
+        *(x.transpose(1, 2) for x in (r, k, v, w)), u, do.transpose(1, 2),
+        state=state, dstate=dstate, fault=fault)
+    return (*(x.transpose(1, 2) for x in got[:4]), *got[4:])
+
+
 def scan_bwd_plain(torch, x, dt, b, c, a, dy, state, dstate, *,
                    chunk=None):
     """``ref.selective_scan_bwd_ref``; with ``chunk``, the faulty version
@@ -3385,6 +3427,72 @@ def scan_bwd_plain(torch, x, dt, b, c, a, dy, state, dstate, *,
     return (*cat, da, parts[0][5])
 
 
+def launch_times(fn, calls: int = 3) -> dict:
+    """The device time of each kernel ``fn()`` launches, us a call over
+    ``calls`` profiled calls, by kernel name (namespaces and template
+    arguments cut)."""
+    def run():
+        for _ in range(calls):
+            fn()
+
+    spans, _ = device_spans(run, attempts=6, pause=0.25)
+    split: dict = {}
+    for s0, e0, full in spans:
+        key = full.replace("(anonymous namespace)::", "").replace(
+            "void ", "").split("<")[0].split("(")[0].split("::")[-1]
+        split[key] = split.get(key, 0.0) + (e0 - s0) / calls
+    return split
+
+
+def launch_split(torch, name: str, fn, calls: int = 3) -> tuple:
+    """``launch_times`` of ``fn()`` (one call of the backward ``name``),
+    and the form that ran: RECUR_LAUNCHES' form if its launches, and only
+    they, ran, each as ``classify`` names its part."""
+    split = launch_times(fn, calls)
+    want, form = RECUR_LAUNCHES[name]
+    part = "WKV backward" if name == "rwkv6_bwd" else "scan backward"
+    ok = set(split) == set(want) and all(classify(k) == part for k in want)
+    return split, (form if ok else f"unexpected launches {sorted(split)}")
+
+
+def wkv_bwd_inputs(torch, randn, case) -> tuple:
+    """Phase 24b's inputs of a WKV_BWD_CASES case, from ``randn``: (r, k,
+    v, w, u, do, state, dstate) in the model's layout, r, k, v in the
+    case's dtype, do of its values in float32, the decays trained (w =
+    exp(-exp(N(-2, 0.5)))) or strong (N(1.5, 0.5))."""
+    _, b, h, s, dt_name, decays, with_state = case
+    dtype = getattr(torch, dt_name)
+    r, k, v = (0.3 * randn(b, s, h, 64) for _ in range(3))
+    r, k, v = (x.to(dtype) for x in (r, k, v))
+    w = torch.exp(-torch.exp(
+        randn(b, s, h, 64) * 0.5 + (1.5 if decays == "strong" else -2.0)))
+    u = 0.5 * randn(h, 64)
+    do = randn(b, s, h, 64).to(dtype).float()
+    st = 0.3 * randn(b, h, 64, 64) if with_state else None
+    dst = randn(b, h, 64, 64) if with_state else None
+    return r, k, v, w, u, do, st, dst
+
+
+def scan_bwd_inputs(torch, randn, case) -> tuple:
+    """Phase 24b's inputs of a SCAN_BWD_CASES case, from ``randn``: (x,
+    dt, b, c, a, dy, state, dstate), dt a softplus output ~0.02, a = -(1
+    .. n), dy of the dtype's values in float32."""
+    import torch.nn.functional as F
+
+    _, b, s, di, n, dt_name, with_state = case
+    dtype = getattr(torch, dt_name)
+    dev = torch.device("cuda")
+    x = randn(b, s, di).to(dtype)
+    dt = F.softplus(randn(b, s, di) * 0.5 - 4.0).to(dtype)
+    bm, cm = (randn(b, s, n).to(dtype) for _ in range(2))
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).repeat(
+        di, 1)
+    dy = randn(b, s, di).to(dtype).float()
+    h0 = randn(b, di, n) if with_state else None
+    dh = randn(b, di, n) if with_state else None
+    return x, dt, bm, cm, a, dy, h0, dh
+
+
 def recur_bwd_checks(torch, dev) -> tuple[list, list]:
     """Phase 24b: the backward kernels of WKV (``rwkv6_bwd``) and of the
     selective scan (``selective_scan_bwd``), which replace XLA's
@@ -3397,13 +3505,17 @@ def recur_bwd_checks(torch, dev) -> tuple[list, list]:
     (w = exp(-exp(N(1.5, 0.5)))). Every gradient within
     ``recur_ratio``'s limits; two calls bitwise equal; one launch a call.
     Faulty plain versions must fail the limits: the carry dropped between
-    the kernel's chunks (both), and u's term left out (WKV). Each shape
-    timed beside its plain version and its bound (``wkv_bwd_bound``;
+    the kernel's chunks (both; where the call has more than one chunk), u's
+    term left out (WKV), and at the new designs' own seams the products of
+    the sub-chunks between two reference points dropped (WKV,
+    ``rwkv6_bwd_chunked_ref``) and the carry between the runs inside a
+    chunk dropped (the scan, ``selective_scan_bwd_scanned_ref``). Each
+    call's launches profiled (``launch_split``: each launch's device us,
+    and the form that ran, which must be the new one at every case). Each
+    shape timed beside its plain version and its bound (``wkv_bwd_bound``;
     SCAN_BWD_FLOPS and the SFU's exponentials, against the bytes); no
     PyTorch call computes either function. The plain versions' times are
     CUDA events over one call (host-bound token loops)."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels.build import KERNELS
     from repro_torch.kernels.rwkv6_scan import bwd_chunk, rwkv6_bwd
     from repro_torch.kernels.selective_scan import (bwd_tiles,
@@ -3417,6 +3529,12 @@ def recur_bwd_checks(torch, dev) -> tuple[list, list]:
 
     def run_case(kind, label, at, kern, call, plain, faults, names, bnd,
                  dtype):
+        split, form = launch_split(torch, kern.name, call)
+        print(f"{kind} backward {label}: form {form}; device us a call by "
+              "launch " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                    split.items()))
+        if form != RECUR_LAUNCHES[kern.name][1]:
+            raise AssertionError(f"{kind} backward at {label}: {form}")
         before = kern.launches
         got = call()
         again = call()
@@ -3457,50 +3575,39 @@ def recur_bwd_checks(torch, dev) -> tuple[list, list]:
             plain={"ms": t_plain, "call_ms": t_plain}, bound=bnd,
             library_ms=None,
             extra={"limit_ratios": ratios, "controls": ctl,
-                   "bitwise_repeat": same})
+                   "bitwise_repeat": same, "form": form,
+                   "launch_split_us": split})
         print_kernel(rec)
         return rec
 
     wkv = []
-    for label, b, h, s, dt_name, decays, with_state in WKV_BWD_CASES:
-        dtype = getattr(torch, dt_name)
-        r, k, v = (0.3 * randn(b, s, h, 64) for _ in range(3))
-        r, k, v = (x.to(dtype) for x in (r, k, v))
-        w = torch.exp(-torch.exp(
-            randn(b, s, h, 64) * 0.5 + (1.5 if decays == "strong" else -2.0)))
-        u = 0.5 * randn(h, 64)
-        do = randn(b, s, h, 64).to(dtype).float()
-        st = 0.3 * randn(b, h, 64, 64) if with_state else None
-        dst = randn(b, h, 64, 64) if with_state else None
-        args = (r, k, v, w, u, do, st, dst)
+    for case in WKV_BWD_CASES:
+        label, b, h, s, dt_name, decays, with_state = case
+        args = wkv_bwd_inputs(torch, randn, case)
+        r = args[0]
         wkv.append(run_case(
             "WKV", label, f"B {b}, S {s}, H {h}, {decays} decays"
             + (", with a state" if with_state else ""),
             KERNELS["rwkv6_bwd"], lambda: rwkv6_bwd(*args),
             lambda: wkv_bwd_plain(torch, *args),
-            {RECUR_FAULTS[0]: lambda: wkv_bwd_plain(torch, *args,
-                                                    chunk=bwd_chunk()),
+            {**({RECUR_FAULTS[0]: lambda: wkv_bwd_plain(
+                torch, *args, chunk=bwd_chunk())} if s > bwd_chunk()
+                else {}),
              RECUR_FAULTS[1]: lambda: wkv_bwd_plain(torch, *args,
-                                                    bonus=False)},
+                                                    bonus=False),
+             RECUR_FAULTS[2]: lambda: wkv_bwd_chunked(torch, *args,
+                                                      fault="sub_ref")},
             ("dr", "dk", "dv", "dw", "du", "dstate0"),
             wkv_bwd_bound(b, h, s, r.element_size(), with_state),
             dt_name))
-        del args, r, k, v, w, do, st, dst
+        del args, r
         torch.cuda.empty_cache()
 
     scan = []
-    for label, b, s, di, n, dt_name, with_state in SCAN_BWD_CASES:
-        dtype = getattr(torch, dt_name)
-        x = randn(b, s, di).to(dtype)
-        dt = F.softplus(randn(b, s, di) * 0.5 - 4.0).to(dtype)
-        bm, cm = (randn(b, s, n).to(dtype) for _ in range(2))
-        a = -torch.arange(1, n + 1, dtype=torch.float32,
-                          device=dev).repeat(di, 1)
-        dy = randn(b, s, di).to(dtype).float()
-        h0 = randn(b, di, n) if with_state else None
-        dh = randn(b, di, n) if with_state else None
-        args = (x, dt, bm, cm, a, dy, h0, dh)
-        elt = x.element_size()
+    for case in SCAN_BWD_CASES:
+        label, b, s, di, n, dt_name, with_state = case
+        args = scan_bwd_inputs(torch, randn, case)
+        elt = args[0].element_size()
         nbytes = (b * s * (4 * di + 4 * n) * elt + 4 * b * s * di
                   + 8 * di * n + (3 if with_state else 0) * b * di * n * 4)
         elems = float(b) * s * di * n
@@ -3515,10 +3622,13 @@ def recur_bwd_checks(torch, dev) -> tuple[list, list]:
             KERNELS["selective_scan_bwd"],
             lambda: selective_scan_bwd(*args),
             lambda: scan_bwd_plain(torch, *args),
-            {RECUR_FAULTS[0]: lambda: scan_bwd_plain(
-                torch, *args, chunk=bwd_tiles()[0])},
+            {**({RECUR_FAULTS[0]: lambda: scan_bwd_plain(
+                torch, *args, chunk=bwd_tiles()[0])} if s > bwd_tiles()[0]
+                else {}),
+             RECUR_FAULTS[3]: lambda: scan_bwd_scanned(
+                 torch, *args, fault="run_carry")},
             ("dx", "ddt", "db", "dc", "da", "dstate0"), bnd, dt_name))
-        del args, x, dt, bm, cm, dy, h0, dh
+        del args
         torch.cuda.empty_cache()
     print(f"phase 24b: {time.perf_counter() - t_phase:.1f} s "
           f"({card_line()})")
@@ -4026,6 +4136,10 @@ def lm_train_path(torch, kernels, arch="starcoder2-3b", seq=8192,
     print(f"{arch} step, where the time goes (profiled, {wall:.1f} ms): "
           + ", ".join(f"{k} {v:.1f} ms ({v / wall:.1%})" for k, v
                       in sorted(parts.items(), key=lambda kv: -kv[1])))
+    bwd_ms = sum(v for k, v in parts.items() if k.endswith("backward"))
+    print(f"{arch} step: device busy {wall - parts['idle']:.1f} ms of "
+          f"{wall:.1f} (idle {parts['idle'] / wall:.1%}), the backward "
+          f"kernels {bwd_ms:.1f} ms ({bwd_ms / wall:.1%} of the step)")
     del params, opt_state, grads, b
     torch.cuda.empty_cache()
     witness = sgd_witness(torch, cfg, seq, steps, drop_ratio)

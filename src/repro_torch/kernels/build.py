@@ -164,16 +164,16 @@ KERNELS: dict[str, Kernel] = {k.name: k for k in (
     # 1: chunked) y h_out stream
     Kernel("selective_scan", "selective_scan.cu", "selective_scan_fwd",
            (P, P, P, P, P, P, I, I, I, I, I, I, P, P, P)),
-    # r k v w u dout s0 ds_out batch heads seq in_bf16 chunks sb gb
+    # r k v w u dout s0 ds_out batch heads seq in_bf16 chunks sb gb dec
     # du_part (scratch) dr dk dv dw du ds0 (null: not written) stream
     Kernel("rwkv6_bwd", "rwkv6_scan_bwd.cu", "rwkv6_wkv_bwd",
            (P, P, P, P, P, P, P, P, I, I, I, I, I, P, P, P, P, P, P, P, P,
-            P, P)),
+            P, P, P)),
     # x dt b c a dy h0 dh_out batch seq channels state is_bf16 chunks
-    # groups hb gb part_db part_dc part_da (scratch) dx ddt db dc da dh0
-    # (null: not written) stream
+    # groups hb gb csdt part_db part_dc part_da (scratch) dx ddt db dc da
+    # dh0 (null: not written) stream
     Kernel("selective_scan_bwd", "selective_scan_bwd.cu",
            "selective_scan_bwd",
            (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P, P, P, P, P, P,
-            P, P, P, P, P, P)),
+            P, P, P, P, P, P, P)),
 )}

@@ -1,9 +1,10 @@
 // Hopper primitives shared by the flash attention kernels
-// (`flash_attention.cu`, `flash_attention_bwd.cu`): mbarriers, TMA loads
-// and stores through 4-D tensor maps over the model's (B, S, H, D)
-// layout, wgmma descriptors and products (bf16 in, float32 sums; sm_90a
-// only), bf16 pairs split into hi + lo parts, and the dynamic
-// shared-memory limit.
+// (`flash_attention.cu`, `flash_attention_bwd.cu`) and the WKV backward
+// (`rwkv6_scan_bwd.cu`): mbarriers, TMA loads and stores through 4-D
+// tensor maps over the model's (B, S, H, D) layout, wgmma descriptors and
+// products (bf16 in, float32 sums; sm_90a only), the 128-byte swizzle of
+// a tile written by threads, bf16 pairs split into hi + lo or hi + mid +
+// lo parts, and the dynamic shared-memory limit.
 #pragma once
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -389,6 +390,60 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// N = 8, B K-major (TB 0) or MN-major (TB 1): d (64 x 8) += A B, A from
+// registers
+template <int TB>
+__device__ __forceinline__ void wgmma_rs8(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, 1, 1, 1, %9;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TB));
+}
+
+// N = 8, A and B from shared memory, each K-major (0) or MN-major (1, the
+// transpose bit): d (64 x 8) += A B
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss8(float (&d)[4], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, 1, 1, 1, %6, %7;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "n"(TA), "n"(TB));
+}
+
+// generic-proxy writes of shared memory made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// byte offset of element (row, col) of a bf16 tile of 64-column (128-byte)
+// rows in the 128-byte swizzle, as TMA's SWIZZLE_128B lays it out from a
+// 1024-byte aligned base: 16-byte chunk c of row x at chunk c ^ (x % 8)
+__device__ __forceinline__ int sw128(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ (row & 7)) << 4) | ((col & 7) << 1));
+}
+
+// (x, y) = hi + mid + lo, exactly: each part a bfloat16 cut from the
+// float32 bits (hi the top 8 significant bits, mid the next 8 of the exact
+// remainder, lo the rest), the parts of x and y packed two a register, x
+// in the low half
+__device__ __forceinline__ void split3_bf16(float x, float y,
+                                            uint32_t (&p)[3]) {
+  constexpr uint32_t TOP = 0xffff0000u;
+  const uint32_t x0 = __float_as_uint(x) & TOP, y0 = __float_as_uint(y) & TOP;
+  const float xr = x - __uint_as_float(x0), yr = y - __uint_as_float(y0);
+  const uint32_t x1 = __float_as_uint(xr) & TOP, y1 = __float_as_uint(yr) & TOP;
+  const uint32_t x2 = __float_as_uint(xr - __uint_as_float(x1));
+  const uint32_t y2 = __float_as_uint(yr - __uint_as_float(y1));
+  p[0] = __byte_perm(x0, y0, 0x7632);
+  p[1] = __byte_perm(x1, y1, 0x7632);
+  p[2] = __byte_perm(x2, y2, 0x7632);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

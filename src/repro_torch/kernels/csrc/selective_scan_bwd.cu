@@ -5,44 +5,52 @@
 // Replaces no TPU kernel: the JAX package differentiates its
 // `jax.lax.scan` of the cell `step` under `jax.checkpoint` as XLA
 // (src/repro/models/ssm.py:79-105). Per batch row b, channel d and state
-// index k the forward is h_t = exp(dt_t a) h_{t-1} + u_t b_t, y_t =
-// sum_k c_t h_t, with u_t = dt_t x_t rounded to the compute dtype (see
-// csrc/selective_scan.cu). With g = dL/dh, carried from the final state's
-// cotangent (or 0), a token t in reverse:
+// index k the forward is h_t = a_t h_{t-1} + u_t b_t, a_t = exp(dt_t a),
+// y_t = sum_k c_t h_t, with u_t = dt_t x_t rounded to the compute dtype
+// (see csrc/selective_scan.cu). With gamma_t the cotangent carried into
+// token t from the later ones (the final state's cotangent, or 0, after
+// the last), a token t in reverse:
 //
-//   g <- g + c_t dy_t
-//   dc_t = sum_d dy_t h_t,   db_t = sum_d g u_t
-//   du_t = sum_k g b_t,      dx_t = du_t dt_t
-//   ddt_t = sum_k g h_{t-1} exp(dt_t a) a + du_t x_t
-//   da += g h_{t-1} exp(dt_t a) dt_t   (summed over b and t)
-//   g <- exp(dt_t a) g,      d(initial state) = g after token 0.
+//   G_t = c_t dy_t + gamma_t                 (dL/dh_t)
+//   dc_t = sum_d dy_t h_t,   db_t = sum_d G_t u_t
+//   du_t = sum_k G_t b_t,    dx_t = du_t dt_t
+//   ddt_t = sum_k G_t h_{t-1} a_t a + du_t x_t
+//   da += G_t h_{t-1} a_t dt_t               (summed over b and t)
+//   gamma_{t-1} = a_t G_t,   d(initial state) = gamma_{-1}.
 //
-// `ref.selective_scan_bwd_ref` is the plain version: the forward's
-// roundings, then float32 until dx, ddt, db and dc are rounded once to the
-// compute dtype. u's rounding is taken to have derivative 1 (the gradient
-// of the exact product), formed in float32; autograd through the plain
-// forward in bfloat16 rounds du, du dt and ddt's two terms to bfloat16
-// instead, which parts the two by up to three bfloat16 roundings.
+// `ref.selective_scan_bwd_ref` is the plain version (the forward's
+// roundings, float32 until dx, ddt, db and dc are rounded once);
+// `ref.selective_scan_bwd_scanned_ref` follows this kernel's order.
 //
-// Three launches:
-//   1. `bounds`: h before each chunk of T = 32 tokens (forward from h0)
-//      and g's carry into each chunk's last token (backward from the
-//      final state's cotangent), into scratch (B, NC, di, n) float32: a
-//      thread a (b, d, k), every token in turn, 64-token tiles staged in
-//      shared memory as in the forward's per-state form; blockIdx.y picks
-//      the pass.
-//   2. `chunk`: a block a (b, chunk, 64 channels), 256 threads, a thread
-//      a (channel, state index), the 64 channels in passes of 256 / n. A
-//      forward walk from the chunk's h keeps h_t and exp(dt_t a) of its 32
-//      tokens in registers; the reverse walk forms the gradients: sums
-//      over k (dx, ddt) by shuffles within the channel's n lanes, sums over
-//      the channels (db, dc) by shuffles within a warp and then over the
-//      warps and passes in order in shared memory, into per-block partials
-//      (B, S, groups, n); a's gradient as a per-chunk partial (B, NC, di,
-//      n).
-//   3. `reduce`: db and dc over the channel groups and da over (b, chunk),
-//      each in a fixed order.
-// No atomics: two calls give the same bits.
+// The chunked forward's layout run in both directions (selective_scan.cu's
+// `chunked`): chunks of CHUNK = 128 tokens, TPC = 8 threads a channel each
+// owning a run of ITEMS = 16 consecutive tokens, a loop over the state
+// index k. Both recurrences are affine maps, h <- a_t h + u_t b_t and
+// gamma <- a_t (gamma + c_t dy_t), so a run is a pair (its decay, its
+// value from zero), the decay one exponential of a times the run's summed
+// dt, and pairs compose by a warp scan. Four launches:
+//   1. `sum`: each chunk's pairs (its h from zero at its end, its gamma
+//      from zero at its start) and its summed dt, a block a (b, chunk, 32
+//      channels): the runs' pairs composed in order by shuffles.
+//   2. `carry`: a thread a (b, d, k) walks the chunks: h before each
+//      chunk and gamma after it, in place over the pairs (the chunk's
+//      decay, one exponential of a times its summed dt), and the initial
+//      state's gradient.
+//   3. `grad`: a block a (b, chunk, 32 channels), two blocks an SM. Per
+//      k: the run pairs
+//      again, composed with the chunk's carries by a forward and a reverse
+//      warp scan (the carry folded into the first / last run); each run's
+//      h_t from its start, then its tokens in reverse with G_t. dx and ddt
+//      are sums over k in registers across the loop; db and dc, sums over
+//      channels, are reduced over a warp's 4 channels by a reduce-scatter
+//      of shuffles and then over the block's 8 warps in order through
+//      shared memory, into partials (B, groups, S, n); a's gradient a
+//      partial a (b, chunk).
+//   4. `reduce`: db and dc over the channel groups and da over (b,
+//      chunk), each in a fixed order.
+// Each exponential exp(dt_t a) is formed twice (launches 1 and 3), as the
+// SFU's ex2.approx, as the forward forms it. No atomics: two calls give
+// the same bits.
 //
 // Bound on an H100 at Hymba-1.5B's training call (B 1, S 4096, di 3200, n
 // 16, bf16): the backward needs exp(dt a) once a (b, t, d, k), 210 M
@@ -52,9 +60,12 @@
 // and da) 4.0 GFLOP, ~60 us at 67 TFLOP/s; the bytes (x, dt, b, c and
 // the float32 dy read, dx, ddt, db, dc written, a and the states in
 // float32) ~158 MB, ~47 us. The operations bound it; chip_smoke.py
-// computes the bound from each call's shape. The kernel forms each
-// exponential three times (launch 1's two passes and launch 2) and h
-// twice.
+// computes the bound from each call's shape. This design issues ~20
+// instructions a (b, t, d, k) in launch 3 (the two recurrences each
+// twice, the five gradient terms, two shuffles of the channel sums) and
+// ~8 in launch 1; its scratch (the chunks' pairs and carries, 2 x 6.6 MB;
+// the db / dc partials at 100 groups, 2 x 26 MB; da's, 6.6 MB) is read
+// and written once.
 #include <cuda_bf16.h>
 
 #include <cstdint>
@@ -63,8 +74,14 @@
 
 namespace {
 
-constexpr int T = 32;                   // tokens a chunk of the backward
+constexpr int TPC = 8;                  // threads (runs) a channel
+constexpr int ITEMS = 16;               // consecutive tokens a run
+constexpr int CHUNK = TPC * ITEMS;      // tokens a chunk
+constexpr int WARP_CH = 32 / TPC;       // channels a warp
+constexpr int GRAD_CH = 32;             // channels a block of launch 3
+constexpr int SUM_CH = 32;              // channels a block of launch 1
 constexpr unsigned FULL = 0xffffffffu;
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <typename TT>
 struct Num;
@@ -90,264 +107,548 @@ struct Num<__nv_bfloat16> {
   }
 };
 
-// ------------------------------------------------------ 1. chunk bounds
+// 2^v, the SFU's approximation (MUFU.EX2), subnormal results flushed
+__device__ __forceinline__ float ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
 
-namespace bounds {
+// Shared memory of a block of CH channels: x, dt and dy of the chunk as
+// float32 [run][item][channel], each run's rows followed by 4 floats so
+// that the 8 runs of a warp's channels read distinct banks; b and c as
+// float32 [state][token].
+template <int CH, int N>
+struct Tiles {
+  static constexpr int RUN = ITEMS * CH + 4;
+  static constexpr int TOK = TPC * RUN;           // floats of x (or dt, dy)
+  float x[TOK], dt[TOK], dy[TOK];
+  float b[N * CHUNK], c[N * CHUNK];
+  static __device__ __forceinline__ int at(int t, int ch) {
+    return (t / ITEMS) * RUN + (t % ITEMS) * CH + ch;
+  }
+};
 
-constexpr int THREADS = 128;
-constexpr int TILE = 64;                // tokens staged a round
+// 8 bf16 (or 4 float32) values from 16 bytes at p, as float32
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* v) {
+  const uint4 w = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load16(const float* p, float* v) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  v[0] = f.x;
+  v[1] = f.y;
+  v[2] = f.z;
+  v[3] = f.w;
+}
 
-template <typename TT, int N>
-__global__ void __launch_bounds__(THREADS)
-scan_bwd_bounds(const TT* __restrict__ x, const TT* __restrict__ dt,
-              const TT* __restrict__ b, const TT* __restrict__ c,
-              const float* __restrict__ dy, const float* __restrict__ a,
-              const float* __restrict__ h0, const float* __restrict__ dh_out,
-              int seq, int di, int nc, float* __restrict__ hb,
-              float* __restrict__ gb) {
-  constexpr int CH = THREADS / N;       // channels a block
-  __shared__ float sx[TILE * CH];       // x (state pass), dy (cotangent)
-  __shared__ float sdt[TILE * CH];
-  __shared__ float sbc[TILE * N];       // b (state pass), c (cotangent)
-
-  const bool rev = blockIdx.y == 1;
-  const int groups = (di + CH - 1) / CH;
-  const int bi = blockIdx.x / groups;
-  const int c0 = (blockIdx.x % groups) * CH;
-  const int tid = threadIdx.x;
-  const int lc = tid / N, kk = tid % N;
-  const int ch = c0 + lc;
-  const bool live = ch < di;
-  const float ak = live ? a[static_cast<size_t>(ch) * N + kk] : 0.0f;
-  const float* init = rev ? dh_out : h0;
-  float hh = (live && init != nullptr)
-                 ? init[(static_cast<size_t>(bi) * di + ch) * N + kk]
-                 : 0.0f;
-  float* out = rev ? gb : hb;
-
-  const size_t row0 = static_cast<size_t>(bi) * seq;   // token (bi, 0)
-  const int ntiles = (seq + TILE - 1) / TILE;
-  for (int q = 0; q < ntiles; ++q) {
-    const int t0 = (rev ? ntiles - 1 - q : q) * TILE;
-    const int nt = min(TILE, seq - t0);
-    __syncthreads();                    // the previous tile is consumed
-    for (int e = tid; e < nt * CH; e += THREADS) {
-      const int tt = e / CH, cc = e % CH;
-      float xv = 0.0f, dv = 0.0f;
-      if (c0 + cc < di) {
-        const size_t g = (row0 + t0 + tt) * di + c0 + cc;
-        xv = rev ? dy[g] : Num<TT>::load(x + g);
-        dv = Num<TT>::load(dt + g);
+// The chunk from token t0 (nt tokens) of batch row bi and channels [c0,
+// c0 + CH) into the tiles; past the sequence and past di zeros (dt 0:
+// decay 1, no input). Every load is issued before the first store; with
+// `vec` (di a multiple of 8, the rows 16-byte aligned) x, dt and dy by
+// 16-byte loads.
+template <typename TT, int CH, int N, int THREADS>
+__device__ __forceinline__ void load_chunk(Tiles<CH, N>& tl,
+                                           const TT* __restrict__ x,
+                                           const TT* __restrict__ dt,
+                                           const float* __restrict__ dy,
+                                           const TT* __restrict__ b,
+                                           const TT* __restrict__ c,
+                                           size_t row0, int t0, int nt,
+                                           int di, int c0, bool vec) {
+  constexpr int PER = CHUNK * CH / THREADS;
+  constexpr int PBC = (CHUNK * N + THREADS - 1) / THREADS;
+  static_assert(CHUNK * CH % THREADS == 0, "whole rounds");
+  float xv[PER], dv[PER], yv[PER], bv[PBC], cv[PBC];
+#pragma unroll
+  for (int q = 0; q < PBC; ++q) {
+    const int e = threadIdx.x + q * THREADS;
+    const bool in = e < CHUNK * N && e / N < nt;
+    bv[q] = in ? Num<TT>::load(b + (row0 + t0) * N + e) : 0.0f;
+    cv[q] = in ? Num<TT>::load(c + (row0 + t0) * N + e) : 0.0f;
+  }
+  if (vec) {
+    // x and dt: 8 channels a load (as float32 in xv, dv: the thread's
+    // PER / 8 loads, 8 values each); dy: 4 channels a load
+    constexpr int EX = 16 / static_cast<int>(sizeof(TT));
+    static_assert(PER % 8 == 0 && CH % 8 == 0, "whole 16-byte loads");
+#pragma unroll
+    for (int q = 0; q < PER / EX; ++q) {
+      const int e = threadIdx.x + q * THREADS;       // (t, channel / EX)
+      const int t = e / (CH / EX), cc = (e % (CH / EX)) * EX;
+      const bool in = t < nt && c0 + cc < di;
+      const size_t g = (row0 + t0 + t) * di + c0 + cc;
+      if (in) {
+        load16(x + g, xv + q * EX);
+        load16(dt + g, dv + q * EX);
+      } else {
+#pragma unroll
+        for (int m = 0; m < EX; ++m) xv[q * EX + m] = dv[q * EX + m] = 0.0f;
       }
-      sx[e] = xv;
-      sdt[e] = dv;
     }
-    for (int e = tid; e < nt * N; e += THREADS) {
-      const size_t g = (row0 + t0) * N + e;
-      sbc[e] = Num<TT>::load((rev ? c : b) + g);
+#pragma unroll
+    for (int q = 0; q < PER / 4; ++q) {
+      const int e = threadIdx.x + q * THREADS;       // (t, channel / 4)
+      const int t = e / (CH / 4), cc = (e % (CH / 4)) * 4;
+      const bool in = t < nt && c0 + cc < di;
+      if (in)
+        load16(dy + (row0 + t0 + t) * di + c0 + cc, yv + q * 4);
+      else
+        yv[q * 4] = yv[q * 4 + 1] = yv[q * 4 + 2] = yv[q * 4 + 3] = 0.0f;
     }
-    __syncthreads();
-    for (int p = 0; p < nt; ++p) {
-      const int tt = rev ? nt - 1 - p : p;
-      const int t = t0 + tt;
-      const float dv = sdt[tt * CH + lc];
-      const float da = expf(__fmul_rn(dv, ak));
-      const size_t o =
-          ((static_cast<size_t>(bi) * nc + t / T) * di + ch) * N + kk;
-      if (!rev) {               // h before each chunk's first token
-        if (t % T == 0 && live) out[o] = hh;
-        const float u = Num<TT>::round(__fmul_rn(dv, sx[tt * CH + lc]));
-        hh = __fadd_rn(__fmul_rn(da, hh), __fmul_rn(u, sbc[tt * N + kk]));
-      } else {                  // g's carry into each chunk's last token
-        if ((t == seq - 1 || (t + 1) % T == 0) && live) out[o] = hh;
-        hh = __fmul_rn(da, __fadd_rn(hh, __fmul_rn(sbc[tt * N + kk],
-                                                   sx[tt * CH + lc])));
+#pragma unroll
+    for (int q = 0; q < PER / EX; ++q) {
+      const int e = threadIdx.x + q * THREADS;
+      const int t = e / (CH / EX), cc = (e % (CH / EX)) * EX;
+#pragma unroll
+      for (int m = 0; m < EX; ++m) {
+        const int s = Tiles<CH, N>::at(t, cc + m);
+        tl.x[s] = xv[q * EX + m];
+        tl.dt[s] = dv[q * EX + m];
       }
+    }
+#pragma unroll
+    for (int q = 0; q < PER / 4; ++q) {
+      const int e = threadIdx.x + q * THREADS;
+      const int t = e / (CH / 4), cc = (e % (CH / 4)) * 4;
+#pragma unroll
+      for (int m = 0; m < 4; ++m) tl.dy[Tiles<CH, N>::at(t, cc + m)] =
+          yv[q * 4 + m];
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const int e = threadIdx.x + q * THREADS;
+      const int t = e / CH, cc = e % CH;
+      const bool in = t < nt && c0 + cc < di;
+      const size_t g = in ? (row0 + t0 + t) * di + c0 + cc : 0;
+      xv[q] = in ? Num<TT>::load(x + g) : 0.0f;
+      dv[q] = in ? Num<TT>::load(dt + g) : 0.0f;
+      yv[q] = in ? dy[g] : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      const int e = threadIdx.x + q * THREADS;
+      const int s = Tiles<CH, N>::at(e / CH, e % CH);
+      tl.x[s] = xv[q];
+      tl.dt[s] = dv[q];
+      tl.dy[s] = yv[q];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < PBC; ++q) {
+    const int e = threadIdx.x + q * THREADS;
+    if (e < CHUNK * N) {
+      tl.b[(e % N) * CHUNK + e / N] = bv[q];
+      tl.c[(e % N) * CHUNK + e / N] = cv[q];
     }
   }
 }
 
-}  // namespace bounds
+// ITEMS consecutive float32 values, 16-byte aligned, by float4
+__device__ __forceinline__ void load_items(const float* src,
+                                           float (&v)[ITEMS]) {
+#pragma unroll
+  for (int q = 0; q < ITEMS / 4; ++q) {
+    const float4 f = reinterpret_cast<const float4*>(src)[q];
+    v[4 * q] = f.x;
+    v[4 * q + 1] = f.y;
+    v[4 * q + 2] = f.z;
+    v[4 * q + 3] = f.w;
+  }
+}
 
-// ------------------------------------------------- 2. the reverse walk
+// value i of a run read as float4s (i a constant after unrolling)
+__device__ __forceinline__ float at(const float4* v, int i) {
+  const float4 q = v[i / 4];
+  return i % 4 == 0 ? q.x : i % 4 == 1 ? q.y : i % 4 == 2 ? q.z : q.w;
+}
 
-namespace chunk {
+// The thread's run: dt, u = dt x (rounded to TT) and dy of its ITEMS
+// tokens and their summed dt.
+template <typename TT, int CH, int N>
+__device__ __forceinline__ float load_run(const Tiles<CH, N>& tl, int j,
+                                          int lc, float (&dv)[ITEMS],
+                                          float (&u)[ITEMS],
+                                          float (&yv)[ITEMS]) {
+  float sdt = 0.0f;
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const int s = j * Tiles<CH, N>::RUN + i * CH + lc;
+    dv[i] = tl.dt[s];
+    u[i] = Num<TT>::round(__fmul_rn(dv[i], tl.x[s]));
+    yv[i] = tl.dy[s];
+    sdt = __fadd_rn(sdt, dv[i]);
+  }
+  return sdt;
+}
+
+// ------------------------------------------------------ 1. chunk pairs
+
+namespace sum {
+
+constexpr int THREADS = SUM_CH * TPC;   // 256
+
+template <typename TT, int N>
+__global__ void __launch_bounds__(THREADS)
+scan_bwd_sum(const TT* __restrict__ x, const TT* __restrict__ dt,
+             const TT* __restrict__ b, const TT* __restrict__ c,
+             const float* __restrict__ dy, const float* __restrict__ a,
+             int seq, int di, int nc, int vec, float* __restrict__ hb,
+             float* __restrict__ gb, float* __restrict__ csdt) {
+  using TL = Tiles<SUM_CH, N>;
+  extern __shared__ __align__(16) unsigned char raw[];
+  TL& tl = *reinterpret_cast<TL*>(raw);
+  __shared__ float oh[SUM_CH * N], og[SUM_CH * N];
+  const int groups = (di + SUM_CH - 1) / SUM_CH;
+  const int grp = blockIdx.x % groups;
+  const int ci = (blockIdx.x / groups) % nc;
+  const int bi = blockIdx.x / (groups * nc);
+  const int c0 = grp * SUM_CH, t0 = ci * CHUNK;
+  const size_t row0 = static_cast<size_t>(bi) * seq;
+  load_chunk<TT, SUM_CH, N, THREADS>(tl, x, dt, dy, b, c, row0, t0,
+                                     min(CHUNK, seq - t0), di, c0, vec);
+  __syncthreads();
+  const int lane = threadIdx.x % 32;
+  const int j = lane / WARP_CH;
+  const int lc = (threadIdx.x / 32) * WARP_CH + lane % WARP_CH;
+  const int ch = c0 + lc;
+  const bool live = ch < di;
+  float dv[ITEMS], u[ITEMS], yv[ITEMS];
+  float sdt = load_run<TT, SUM_CH, N>(tl, j, lc, dv, u, yv);
+  float tot = sdt;                       // the chunk's summed dt
+#pragma unroll
+  for (int d = 1; d < TPC; d <<= 1) {
+    const float o = __shfl_down_sync(FULL, tot, d * WARP_CH);
+    if (j + d < TPC) tot = __fadd_rn(tot, o);
+  }
+#pragma unroll 1
+  for (int k = 0; k < N; ++k) {
+    const float ak =
+        live ? __fmul_rn(a[static_cast<size_t>(ch) * N + k], LOG2E) : 0.0f;
+    float bc[ITEMS], cc[ITEMS], da[ITEMS];
+    load_items(tl.b + k * CHUNK + j * ITEMS, bc);
+    load_items(tl.c + k * CHUNK + j * ITEMS, cc);
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) da[i] = ex2(__fmul_rn(dv[i], ak));
+    float pa = ex2(__fmul_rn(sdt, ak));
+    float ph = __fmul_rn(u[0], bc[0]), pg = 0.0f;
+#pragma unroll
+    for (int i = 1; i < ITEMS; ++i)
+      ph = fmaf(da[i], ph, __fmul_rn(u[i], bc[i]));
+#pragma unroll
+    for (int i = ITEMS - 1; i >= 0; --i)
+      pg = __fmul_rn(da[i], fmaf(cc[i], yv[i], pg));
+    // the runs composed in order (h) and in reverse (gamma): lane j takes
+    // the pair of lane j + d
+    float qa = pa;
+#pragma unroll
+    for (int d = 1; d < TPC; d <<= 1) {
+      const float oa = __shfl_down_sync(FULL, qa, d * WARP_CH);
+      const float oph = __shfl_down_sync(FULL, ph, d * WARP_CH);
+      const float opg = __shfl_down_sync(FULL, pg, d * WARP_CH);
+      if (j + d < TPC) {
+        ph = fmaf(oa, ph, oph);
+        pg = fmaf(qa, opg, pg);
+        qa = __fmul_rn(qa, oa);
+      }
+    }
+    if (j == 0) {
+      oh[lc * N + k] = ph;
+      og[lc * N + k] = pg;
+    }
+  }
+  __syncthreads();
+  const size_t base = (static_cast<size_t>(bi) * nc + ci) * di;
+  for (int e = threadIdx.x; e < SUM_CH * N; e += THREADS) {
+    if (c0 + e / N < di) {
+      hb[(base + c0) * N + e] = oh[e];
+      gb[(base + c0) * N + e] = og[e];
+    }
+  }
+  if (j == 0 && live) csdt[base + ch] = tot;
+}
+
+}  // namespace sum
+
+// ------------------------------------------------- 2. the chunk carries
+
+namespace carry {
 
 constexpr int THREADS = 256;
+
+// blockIdx.y 0: h before each chunk, forward from h0 over hb in place;
+// 1: gamma after each chunk, backward from dh_out over gb in place, and
+// the initial state's gradient
+template <int N>
+__global__ void __launch_bounds__(THREADS)
+scan_bwd_carry(const float* __restrict__ a, const float* __restrict__ h0,
+               const float* __restrict__ dh_out,
+               const float* __restrict__ csdt, int batch, int di, int nc,
+               float* __restrict__ hb, float* __restrict__ gb,
+               float* __restrict__ dh0) {
+  const int e = blockIdx.x * THREADS + threadIdx.x;   // (b, d, k)
+  if (e >= batch * di * N) return;
+  const int bi = e / (di * N), dk = e % (di * N), d = dk / N;
+  const float ak = __fmul_rn(a[dk], LOG2E);
+  const bool rev = blockIdx.y == 1;
+  const float* init = rev ? dh_out : h0;
+  float v = init != nullptr ? init[e] : 0.0f;
+  float* buf = rev ? gb : hb;
+  // eight chunks' loads in flight, then their stores
+  for (int q0 = 0; q0 < nc; q0 += 8) {
+    float p[8], sd[8];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const int q = min(q0 + m, nc - 1);
+      const size_t row = static_cast<size_t>(bi) * nc + (rev ? nc - 1 - q : q);
+      p[m] = buf[row * di * N + dk];
+      sd[m] = csdt[row * di + d];
+    }
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      if (q0 + m >= nc) break;
+      const int q = q0 + m;
+      const size_t row = static_cast<size_t>(bi) * nc + (rev ? nc - 1 - q : q);
+      buf[row * di * N + dk] = v;
+      v = fmaf(ex2(__fmul_rn(sd[m], ak)), v, p[m]);
+    }
+  }
+  if (rev && dh0 != nullptr) dh0[e] = v;
+}
+
+}  // namespace carry
+
+// ------------------------------------------------------ 3. the gradients
+
+namespace grad {
+
+constexpr int THREADS = GRAD_CH * TPC;  // 256
 constexpr int WARPS = THREADS / 32;
-constexpr int CHB = 64;                 // channels a block
 
 template <int N>
 struct Smem {
-  float x[T][CHB], dt[T][CHB], dy[T][CHB];
-  float b[T][N], c[T][N];
-  float dx[T][CHB], ddt[T][CHB];
-  float db[T][WARPS][N], dc[T][WARPS][N];   // a pass's warp sums
-  float accb[T][N], accc[T][N];             // the block's, over passes
+  Tiles<GRAD_CH, N> tl;
+  float stage[2][2][WARPS][CHUNK];      // a warp's db, dc sums a k
+  float pb[CHUNK * N], pc[CHUNK * N];   // the block's [token][state]
+  float a[GRAD_CH * N];                 // a, and the carries, [ch][state]
+  float hin[GRAD_CH * N], gin[GRAD_CH * N];
+  float da[GRAD_CH * N];
 };
 
-template <typename TT, int N>
-__global__ void __launch_bounds__(THREADS)
-scan_bwd_chunk(const TT* __restrict__ x, const TT* __restrict__ dt,
-             const TT* __restrict__ b, const TT* __restrict__ c,
-             const float* __restrict__ dy, const float* __restrict__ a,
-             const float* __restrict__ hb, const float* __restrict__ gb,
-             int seq, int di, int nc, int groups, TT* __restrict__ dx,
-             TT* __restrict__ ddt, float* __restrict__ part_db,
-             float* __restrict__ part_dc, float* __restrict__ part_da,
-             float* __restrict__ dh0) {
-  constexpr int P = THREADS / N;        // channels a pass
-  static_assert(CHB % P == 0, "whole passes");
-  extern __shared__ __align__(16) unsigned char raw[];
-  Smem<N>& sm = *reinterpret_cast<Smem<N>*>(raw);
-  const int grp = blockIdx.x % groups;
-  const int cidx = (blockIdx.x / groups) % nc;
-  const int bi = blockIdx.x / (groups * nc);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int c0 = grp * CHB;
-  const int t0 = cidx * T;
-  const int n = min(T, seq - t0);
-  const size_t row0 = static_cast<size_t>(bi) * seq + t0;
-
-  // the chunk's tokens; past the sequence (and past di) zeros, which
-  // leave h and g as they are (dt 0: decay 1)
-  for (int e = tid; e < T * CHB; e += THREADS) {
-    const int tt = e / CHB, cc = e % CHB;
-    float xv = 0.0f, dv = 0.0f, yv = 0.0f;
-    if (tt < n && c0 + cc < di) {
-      const size_t g = (row0 + tt) * di + c0 + cc;
-      xv = Num<TT>::load(x + g);
-      dv = Num<TT>::load(dt + g);
-      yv = dy[g];
-    }
-    sm.x[tt][cc] = xv;
-    sm.dt[tt][cc] = dv;
-    sm.dy[tt][cc] = yv;
+// x[0, 8) summed over the 4 lanes of a warp's channels (lane bits 0 and
+// 1), scattered: the lane keeps entries 4 b0 + 2 b1 + [0, 2) in x[0, 2)
+__device__ __forceinline__ void channel_sum(float (&x)[8], int lane) {
+  const bool up0 = lane & 1, up1 = lane & 2;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float keep = up0 ? x[4 + i] : x[i];
+    const float send = up0 ? x[i] : x[4 + i];
+    x[i] = keep + __shfl_xor_sync(FULL, send, 1);
   }
-  for (int e = tid; e < T * N; e += THREADS) {
-    const int tt = e / N, kk = e % N;
-    float bv = 0.0f, cv = 0.0f;
-    if (tt < n) {
-      const size_t g = (row0 + tt) * N + kk;
-      bv = Num<TT>::load(b + g);
-      cv = Num<TT>::load(c + g);
-    }
-    sm.b[tt][kk] = bv;
-    sm.c[tt][kk] = cv;
-    sm.accb[tt][kk] = 0.0f;
-    sm.accc[tt][kk] = 0.0f;
-  }
-  __syncthreads();
-
-  const int kk = tid % N;
-  for (int pass = 0; pass < CHB / P; ++pass) {
-    const int lc = pass * P + tid / N;  // the block's channel
-    const int ch = c0 + lc;
-    const bool live = ch < di;
-    const float ak = live ? a[static_cast<size_t>(ch) * N + kk] : 0.0f;
-    const size_t si =
-        ((static_cast<size_t>(bi) * nc + cidx) * di + ch) * N + kk;
-    const float hstart = live ? hb[si] : 0.0f;
-    float g = live ? gb[si] : 0.0f;
-    float hs[T], ds[T];                 // h_t and exp(dt_t a) of the chunk
-    float h = hstart;
 #pragma unroll
-    for (int m = 0; m < T; ++m) {
-      const float dv = sm.dt[m][lc];
-      ds[m] = expf(__fmul_rn(dv, ak));
-      const float u = Num<TT>::round(__fmul_rn(dv, sm.x[m][lc]));
-      h = __fadd_rn(__fmul_rn(ds[m], h), __fmul_rn(u, sm.b[m][kk]));
-      hs[m] = h;
-    }
-    float dacc = 0.0f;
-#pragma unroll
-    for (int m = T - 1; m >= 0; --m) {
-      const float dv = sm.dt[m][lc], xv = sm.x[m][lc], yv = sm.dy[m][lc];
-      const float u = Num<TT>::round(__fmul_rn(dv, xv));
-      g = __fadd_rn(g, __fmul_rn(sm.c[m][kk], yv));
-      float pc = __fmul_rn(yv, hs[m]);
-      float pb = __fmul_rn(g, u);
-      float pu = __fmul_rn(g, sm.b[m][kk]);
-      const float hp = m > 0 ? hs[m > 0 ? m - 1 : 0] : hstart;
-      const float dda = __fmul_rn(__fmul_rn(g, hp), ds[m]);
-      float pt = __fmul_rn(dda, ak);
-      dacc = __fadd_rn(dacc, __fmul_rn(dda, dv));
-      g = __fmul_rn(ds[m], g);
-#pragma unroll
-      for (int off = N / 2; off > 0; off >>= 1) {   // over the n states
-        pu += __shfl_xor_sync(FULL, pu, off);
-        pt += __shfl_xor_sync(FULL, pt, off);
-      }
-      if (kk == 0) {
-        sm.dx[m][lc] = __fmul_rn(pu, dv);
-        sm.ddt[m][lc] = pt + __fmul_rn(pu, xv);
-      }
-#pragma unroll
-      for (int off = N; off < 32; off <<= 1) {      // over the warp's channels
-        pb += __shfl_xor_sync(FULL, pb, off);
-        pc += __shfl_xor_sync(FULL, pc, off);
-      }
-      if (lane < N) {
-        sm.db[m][warp][kk] = pb;
-        sm.dc[m][warp][kk] = pc;
-      }
-    }
-    if (live) {
-      part_da[si] = dacc;
-      if (dh0 != nullptr && cidx == 0)
-        dh0[(static_cast<size_t>(bi) * di + ch) * N + kk] = g;
-    }
-    __syncthreads();
-    for (int e = tid; e < T * N; e += THREADS) {   // the warps, in order
-      const int m = e / N, q = e % N;
-      float sb = sm.accb[m][q], sc = sm.accc[m][q];
-#pragma unroll
-      for (int wv = 0; wv < WARPS; ++wv) {
-        sb += sm.db[m][wv][q];
-        sc += sm.dc[m][wv][q];
-      }
-      sm.accb[m][q] = sb;
-      sm.accc[m][q] = sc;
-    }
-    __syncthreads();                    // before the next pass's sums
-  }
-  for (int e = tid; e < n * CHB; e += THREADS) {
-    const int tt = e / CHB, cc = e % CHB;
-    if (c0 + cc < di) {
-      const size_t g = (row0 + tt) * di + c0 + cc;
-      Num<TT>::store(dx + g, sm.dx[tt][cc]);
-      Num<TT>::store(ddt + g, sm.ddt[tt][cc]);
-    }
-  }
-  for (int e = tid; e < n * N; e += THREADS) {
-    const int tt = e / N, q = e % N;
-    const size_t o = ((row0 + tt) * groups + grp) * N + q;
-    part_db[o] = sm.accb[tt][q];
-    part_dc[o] = sm.accc[tt][q];
+  for (int i = 0; i < 2; ++i) {
+    const float keep = up1 ? x[2 + i] : x[i];
+    const float send = up1 ? x[i] : x[2 + i];
+    x[i] = keep + __shfl_xor_sync(FULL, send, 2);
   }
 }
 
-}  // namespace chunk
+// two blocks an SM, so that one's staging overlaps the other's loop
+template <typename TT, int N>
+__global__ void __launch_bounds__(THREADS, 2)
+scan_bwd_grad(const TT* __restrict__ x, const TT* __restrict__ dt,
+              const TT* __restrict__ b, const TT* __restrict__ c,
+              const float* __restrict__ dy, const float* __restrict__ a,
+              const float* __restrict__ hb, const float* __restrict__ gb,
+              int seq, int di, int nc, int groups, int vec,
+              TT* __restrict__ dx, TT* __restrict__ ddt,
+              float* __restrict__ part_db, float* __restrict__ part_dc,
+              float* __restrict__ part_da) {
+  using TL = Tiles<GRAD_CH, N>;
+  extern __shared__ __align__(16) unsigned char raw[];
+  Smem<N>& sm = *reinterpret_cast<Smem<N>*>(raw);
+  const int grp = blockIdx.x % groups;
+  const int ci = (blockIdx.x / groups) % nc;
+  const int bi = blockIdx.x / (groups * nc);
+  const int c0 = grp * GRAD_CH, t0 = ci * CHUNK;
+  const int nt = min(CHUNK, seq - t0);
+  const size_t row0 = static_cast<size_t>(bi) * seq;
+  const size_t cbase = (static_cast<size_t>(bi) * nc + ci) * di;
+  load_chunk<TT, GRAD_CH, N, THREADS>(sm.tl, x, dt, dy, b, c, row0, t0, nt,
+                                      di, c0, vec);
+  for (int e = threadIdx.x; e < GRAD_CH * N; e += THREADS) {
+    const bool live = c0 + e / N < di;
+    sm.a[e] = live ? a[static_cast<size_t>(c0) * N + e] : 0.0f;
+    sm.hin[e] = live ? hb[(cbase + c0) * N + e] : 0.0f;
+    sm.gin[e] = live ? gb[(cbase + c0) * N + e] : 0.0f;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int j = lane / WARP_CH;
+  const int lc = warp * WARP_CH + lane % WARP_CH;
+  float dv[ITEMS], u[ITEMS], yv[ITEMS], du[ITEMS], dd[ITEMS];
+  const float sdt = load_run<TT, GRAD_CH, N>(sm.tl, j, lc, dv, u, yv);
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) du[i] = dd[i] = 0.0f;
+  // the token slots of this lane's channel sums (+ 8 for the upper half)
+  const int slot = j * ITEMS + 4 * (lane & 1) + 2 * ((lane >> 1) & 1);
 
-// ---------------------------------------------------------- 3. reduce
+#pragma unroll 1
+  for (int k = 0; k < N; ++k) {
+    const float akn = sm.a[lc * N + k];
+    const float ak = __fmul_rn(akn, LOG2E);
+    const float4* bk = reinterpret_cast<const float4*>(
+        sm.tl.b + k * CHUNK + j * ITEMS);
+    const float4* ck = reinterpret_cast<const float4*>(
+        sm.tl.c + k * CHUNK + j * ITEMS);
+    float da[ITEMS], hs[ITEMS];
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) da[i] = ex2(__fmul_rn(dv[i], ak));
+    // h: the run's pair, the chunk's carry folded into run 0, an
+    // inclusive scan over the runs; h_in the state before the run
+    float pa = ex2(__fmul_rn(sdt, ak));
+    float ph = 0.0f;
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i)
+      ph = fmaf(da[i], ph, __fmul_rn(u[i], at(bk, i)));
+    const float hin = sm.hin[lc * N + k];
+    if (j == 0) ph = fmaf(pa, hin, ph);
+    float qa = pa;
+#pragma unroll
+    for (int d = 1; d < TPC; d <<= 1) {
+      const float ua = __shfl_up_sync(FULL, qa, d * WARP_CH);
+      const float uh = __shfl_up_sync(FULL, ph, d * WARP_CH);
+      if (j >= d) {
+        ph = fmaf(qa, uh, ph);
+        qa = __fmul_rn(qa, ua);
+      }
+    }
+    float h = __shfl_up_sync(FULL, ph, WARP_CH);
+    if (j == 0) h = hin;
+    const float h_in = h;
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) {
+      h = fmaf(da[i], h, __fmul_rn(u[i], at(bk, i)));
+      hs[i] = h;
+    }
+    // gamma: the run's pair, the chunk's carry folded into the last run,
+    // an inclusive scan over the runs in reverse; gam the carry into the
+    // run's last token
+    float pg = 0.0f;
+#pragma unroll
+    for (int i = ITEMS - 1; i >= 0; --i)
+      pg = __fmul_rn(da[i], fmaf(at(ck, i), yv[i], pg));
+    const float gin = sm.gin[lc * N + k];
+    if (j == TPC - 1) pg = fmaf(pa, gin, pg);
+    qa = pa;
+#pragma unroll
+    for (int d = 1; d < TPC; d <<= 1) {
+      const float oa = __shfl_down_sync(FULL, qa, d * WARP_CH);
+      const float og = __shfl_down_sync(FULL, pg, d * WARP_CH);
+      if (j + d < TPC) {
+        pg = fmaf(qa, og, pg);
+        qa = __fmul_rn(qa, oa);
+      }
+    }
+    float gam = __shfl_down_sync(FULL, pg, WARP_CH);
+    if (j == TPC - 1) gam = gin;
+    // the run's tokens in reverse, in halves of 8: db and dc of a half
+    // summed over the warp's channels, into the stage
+    float dak = 0.0f;
+#pragma unroll
+    for (int half = 1; half >= 0; --half) {
+      float pb[8], pc[8];
+#pragma unroll
+      for (int m = 7; m >= 0; --m) {
+        const int i = 8 * half + m;
+        const float gg = fmaf(at(ck, i), yv[i], gam);
+        const float hp = i > 0 ? hs[i > 0 ? i - 1 : 0] : h_in;
+        pc[m] = __fmul_rn(yv[i], hs[i]);
+        pb[m] = __fmul_rn(gg, u[i]);
+        du[i] = fmaf(gg, at(bk, i), du[i]);
+        const float q = __fmul_rn(__fmul_rn(gg, hp), da[i]);
+        dd[i] = fmaf(q, akn, dd[i]);
+        dak = fmaf(q, dv[i], dak);
+        gam = __fmul_rn(da[i], gg);
+      }
+      channel_sum(pb, lane);
+      channel_sum(pc, lane);
+      const int t = slot + 8 * half;
+      *reinterpret_cast<float2*>(&sm.stage[k & 1][0][warp][t]) =
+          make_float2(pb[0], pb[1]);
+      *reinterpret_cast<float2*>(&sm.stage[k & 1][1][warp][t]) =
+          make_float2(pc[0], pc[1]);
+    }
+    // da over the channel's runs (lane bits 2-4), in a fixed order
+    dak += __shfl_xor_sync(FULL, dak, WARP_CH);
+    dak += __shfl_xor_sync(FULL, dak, 2 * WARP_CH);
+    dak += __shfl_xor_sync(FULL, dak, 4 * WARP_CH);
+    if (j == 0) sm.da[lc * N + k] = dak;
+    __syncthreads();
+    if (threadIdx.x < 2 * CHUNK) {
+      const int q = threadIdx.x / CHUNK, t = threadIdx.x % CHUNK;
+      float s = 0.0f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) s += sm.stage[k & 1][q][w][t];
+      (q ? sm.pc : sm.pb)[t * N + k] = s;
+    }
+  }
+  // dx, ddt through the x tile (read last here), then out by rows
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    const int s = j * TL::RUN + i * GRAD_CH + lc;
+    const float xv = sm.tl.x[s];
+    sm.tl.x[s] = __fmul_rn(du[i], dv[i]);
+    sm.tl.dy[s] = fmaf(du[i], xv, dd[i]);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < nt * GRAD_CH; e += THREADS) {
+    const int t = e / GRAD_CH, cc = e % GRAD_CH;
+    if (c0 + cc < di) {
+      const size_t g = (row0 + t0 + t) * di + c0 + cc;
+      const int s = TL::at(t, cc);
+      Num<TT>::store(dx + g, sm.tl.x[s]);
+      Num<TT>::store(ddt + g, sm.tl.dy[s]);
+    }
+  }
+  const size_t prow =
+      ((static_cast<size_t>(bi) * groups + grp) * seq + t0) * N;
+  for (int e = threadIdx.x; e < nt * N; e += THREADS) {
+    part_db[prow + e] = sm.pb[e];
+    part_dc[prow + e] = sm.pc[e];
+  }
+  for (int e = threadIdx.x; e < GRAD_CH * N; e += THREADS)
+    if (c0 + e / N < di) part_da[(cbase + c0) * N + e] = sm.da[e];
+}
+
+}  // namespace grad
+
+// ---------------------------------------------------------- 4. reduce
 
 constexpr int RED_THREADS = 256;
 
-// db, dc (rows = B S, n each) over the channel groups; da (di n) over the
-// (b, chunk) partials; each sum in order
+// db, dc (B rows of S n) over the channel groups; da (di n) over the (b,
+// chunk) partials; each sum in order
 template <typename TT>
 __global__ void __launch_bounds__(RED_THREADS)
 scan_bwd_reduce(const float* __restrict__ part_db,
-              const float* __restrict__ part_dc,
-              const float* __restrict__ part_da, int rows, int groups, int n,
-              int bnc, int dn, TT* __restrict__ db, TT* __restrict__ dc,
-              float* __restrict__ da) {
+                const float* __restrict__ part_dc,
+                const float* __restrict__ part_da, int batch, int sn,
+                int groups, int bnc, int dn, TT* __restrict__ db,
+                TT* __restrict__ dc, float* __restrict__ da) {
   const int e = blockIdx.x * RED_THREADS + threadIdx.x;
-  if (e < rows * n) {
-    const int row = e / n, q = e % n;
+  if (e < batch * sn) {
+    const int bi = e / sn, r = e % sn;
     float sb = 0.0f, sc = 0.0f;
     for (int g = 0; g < groups; ++g) {
-      const size_t o = (static_cast<size_t>(row) * groups + g) * n + q;
+      const size_t o = (static_cast<size_t>(bi) * groups + g) * sn + r;
       sb += part_db[o];
       sc += part_dc[o];
     }
@@ -356,7 +657,8 @@ scan_bwd_reduce(const float* __restrict__ part_db,
   }
   if (e < dn) {
     float s = 0.0f;
-    for (int q = 0; q < bnc; ++q) s += part_da[static_cast<size_t>(q) * dn + e];
+    for (int q = 0; q < bnc; ++q)
+      s += part_da[static_cast<size_t>(q) * dn + e];
     da[e] = s;
   }
 }
@@ -365,48 +667,74 @@ template <typename TT, int N>
 int launch(const void* x, const void* dt, const void* b, const void* c,
            const void* a, const void* dy, const void* h0,
            const void* dh_out, int batch, int seq, int di, void* hb,
-           void* gb, void* part_db, void* part_dc, void* part_da, void* dx,
-           void* ddt, void* db, void* dc, void* da, void* dh0,
-           cudaStream_t stream) {
-  const int nc = (seq + T - 1) / T;
-  constexpr int CH1 = bounds::THREADS / N;
-  const dim3 grid1(batch * ((di + CH1 - 1) / CH1), 2);
-  bounds::scan_bwd_bounds<TT, N><<<grid1, bounds::THREADS, 0, stream>>>(
-      static_cast<const TT*>(x), static_cast<const TT*>(dt),
-      static_cast<const TT*>(b), static_cast<const TT*>(c),
-      static_cast<const float*>(dy), static_cast<const float*>(a),
-      static_cast<const float*>(h0), static_cast<const float*>(dh_out), seq,
-      di, nc, static_cast<float*>(hb), static_cast<float*>(gb));
+           void* gb, void* csdt, void* part_db, void* part_dc,
+           void* part_da, void* dx, void* ddt, void* db, void* dc, void* da,
+           void* dh0, cudaStream_t stream) {
+  const int nc = (seq + CHUNK - 1) / CHUNK;
+  const auto* xx = static_cast<const TT*>(x);
+  const auto* dtt = static_cast<const TT*>(dt);
+  const auto* bb = static_cast<const TT*>(b);
+  const auto* cc = static_cast<const TT*>(c);
+  const auto* af = static_cast<const float*>(a);
+  const auto* dyf = static_cast<const float*>(dy);
+  auto* hbf = static_cast<float*>(hb);
+  auto* gbf = static_cast<float*>(gb);
+  auto* sdt = static_cast<float*>(csdt);
+
+  const long long blocks1 = static_cast<long long>(batch) * nc *
+                            ((di + SUM_CH - 1) / SUM_CH);
+  const int groups = (di + GRAD_CH - 1) / GRAD_CH;
+  const long long blocks3 = static_cast<long long>(batch) * nc * groups;
+  if (blocks1 > 0x7fffffffLL || blocks3 > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  constexpr auto k1 = sum::scan_bwd_sum<TT, N>;
+  constexpr int smem1 = sizeof(Tiles<SUM_CH, N>);
+  constexpr auto k3 = grad::scan_bwd_grad<TT, N>;
+  constexpr int smem3 = sizeof(grad::Smem<N>);
+  // above 48 KB a kernel needs an attribute, set at its first launch
+  // (the port drives one card a process)
+  static const cudaError_t attr = [] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k1, cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
+    return e != cudaSuccess ? e : cudaFuncSetAttribute(
+        k3, cudaFuncAttributeMaxDynamicSharedMemorySize, smem3);
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+
+  // 16-byte loads of x, dt and dy where every row allows them
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int vec = di % 8 == 0 && aligned(x) && aligned(dt) && aligned(dy);
+  k1<<<static_cast<unsigned>(blocks1), sum::THREADS, smem1, stream>>>(
+      xx, dtt, bb, cc, dyf, af, seq, di, nc, vec, hbf, gbf, sdt);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const int groups = (di + chunk::CHB - 1) / chunk::CHB;
-  constexpr auto kernel = chunk::scan_bwd_chunk<TT, N>;
-  constexpr int smem = sizeof(chunk::Smem<N>);
-  // above 48 KB the kernel needs an attribute, set at its first launch
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const long long blocks = static_cast<long long>(batch) * nc * groups;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(blocks), chunk::THREADS, smem, stream>>>(
-      static_cast<const TT*>(x), static_cast<const TT*>(dt),
-      static_cast<const TT*>(b), static_cast<const TT*>(c),
-      static_cast<const float*>(dy), static_cast<const float*>(a),
-      static_cast<const float*>(hb), static_cast<const float*>(gb), seq, di,
-      nc, groups, static_cast<TT*>(dx), static_cast<TT*>(ddt),
-      static_cast<float*>(part_db), static_cast<float*>(part_dc),
-      static_cast<float*>(part_da), static_cast<float*>(dh0));
+  const dim3 grid2((batch * di * N + carry::THREADS - 1) / carry::THREADS,
+                   2);
+  carry::scan_bwd_carry<N><<<grid2, carry::THREADS, 0, stream>>>(
+      af, static_cast<const float*>(h0), static_cast<const float*>(dh_out),
+      sdt, batch, di, nc, hbf, gbf, static_cast<float*>(dh0));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const int rows = batch * seq;
+  k3<<<static_cast<unsigned>(blocks3), grad::THREADS, smem3, stream>>>(
+      xx, dtt, bb, cc, dyf, af, hbf, gbf, seq, di, nc, groups, vec,
+      static_cast<TT*>(dx), static_cast<TT*>(ddt),
+      static_cast<float*>(part_db), static_cast<float*>(part_dc),
+      static_cast<float*>(part_da));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int sn = seq * N;
   const int dn = di * N;
-  const int total = rows * N > dn ? rows * N : dn;
+  const int total = batch * sn > dn ? batch * sn : dn;
   scan_bwd_reduce<TT><<<(total + RED_THREADS - 1) / RED_THREADS, RED_THREADS,
-                      0, stream>>>(
+                        0, stream>>>(
       static_cast<const float*>(part_db), static_cast<const float*>(part_dc),
-      static_cast<const float*>(part_da), rows, groups, N, batch * nc, dn,
+      static_cast<const float*>(part_da), batch, sn, groups, batch * nc, dn,
       static_cast<TT*>(db), static_cast<TT*>(dc), static_cast<float*>(da));
   return static_cast<int>(cudaGetLastError());
 }
@@ -414,7 +742,7 @@ int launch(const void* x, const void* dt, const void* b, const void* c,
 using Launch = int (*)(const void*, const void*, const void*, const void*,
                        const void*, const void*, const void*, const void*,
                        int, int, int, void*, void*, void*, void*, void*,
-                       void*, void*, void*, void*, void*, void*,
+                       void*, void*, void*, void*, void*, void*, void*,
                        cudaStream_t);
 
 }  // namespace
@@ -424,13 +752,14 @@ using Launch = int (*)(const void*, const void*, const void*, const void*,
 // dy (y's cotangent): (batch, seq, channels) float32; h0 (the initial
 // state) and dh_out (the final state's cotangent): (batch, channels,
 // state) float32, or null for zeros. Scratch (float32): hb, gb and part_da
-// (batch, NC, channels, state), part_db and part_dc (batch, seq, groups,
-// state), NC = `chunks` and groups = `groups`, which must be ceil(seq /
-// T) and ceil(channels / chunk::CHB) (`selective_scan_bwd_tiles` gives
-// both). Out: dx, ddt in x's dtype, (batch, seq, channels); db, dc in x's
-// dtype, (batch, seq, state); da (channels, state) float32; dh0 (batch,
-// channels, state) float32, or null where no initial-state gradient is
-// wanted. All contiguous; seq >= 1; state 8 or 16.
+// (batch, NC, channels, state), csdt (batch, NC, channels), part_db and
+// part_dc (batch, groups, seq, state), NC = `chunks` and groups =
+// `groups`, which must be ceil(seq / CHUNK) and ceil(channels / GRAD_CH)
+// (`selective_scan_bwd_tiles` gives both). Out: dx, ddt in x's dtype,
+// (batch, seq, channels); db, dc in x's dtype, (batch, seq, state); da
+// (channels, state) float32; dh0 (batch, channels, state) float32, or
+// null where no initial-state gradient is wanted. All contiguous; seq >=
+// 1; state 8 or 16.
 extern "C" int selective_scan_bwd(const void* x, const void* dt,
                                   const void* b, const void* c,
                                   const void* a, const void* dy,
@@ -438,13 +767,13 @@ extern "C" int selective_scan_bwd(const void* x, const void* dt,
                                   int batch, int seq, int channels,
                                   int state, int is_bf16, int chunks,
                                   int groups, void* hb, void* gb,
-                                  void* part_db, void* part_dc,
+                                  void* csdt, void* part_db, void* part_dc,
                                   void* part_da, void* dx, void* ddt,
                                   void* db, void* dc, void* da, void* dh0,
                                   void* stream) {
   if (batch == 0 || channels == 0) return 0;
-  if (seq < 1 || chunks != (seq + T - 1) / T ||
-      groups != (channels + chunk::CHB - 1) / chunk::CHB)
+  if (seq < 1 || chunks != (seq + CHUNK - 1) / CHUNK ||
+      groups != (channels + GRAD_CH - 1) / GRAD_CH)
     return static_cast<int>(cudaErrorInvalidValue);
   using BF = __nv_bfloat16;
   Launch fn = nullptr;
@@ -452,14 +781,14 @@ extern "C" int selective_scan_bwd(const void* x, const void* dt,
   if (state == 8) fn = is_bf16 ? launch<BF, 8> : launch<float, 8>;
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return fn(x, dt, b, c, a, dy, h0, dh_out, batch, seq, channels, hb, gb,
-            part_db, part_dc, part_da, dx, ddt, db, dc, da, dh0,
+            csdt, part_db, part_dc, part_da, dx, ddt, db, dc, da, dh0,
             static_cast<cudaStream_t>(stream));
 }
 
 // The backward's tiles, with which the wrapper sizes its scratch: *chunk
-// tokens T between two stored states, *group channels a block of the
-// reverse walk. Launches nothing.
+// tokens CHUNK between two stored carries, *group channels a block of the
+// gradients' launch. Launches nothing.
 extern "C" void selective_scan_bwd_tiles(int* chunk, int* group) {
-  *chunk = T;
-  *group = chunk::CHB;
+  *chunk = CHUNK;
+  *group = GRAD_CH;
 }

@@ -19,7 +19,8 @@ __all__ = ["gru_ref", "gru_bwd_ref", "temporal_attention_ref", "segment_mean",
            "sample_roles_ref", "rwkv6_ref", "rwkv6_chunked_ref", "rwkv6_subchunk_ref",
            "attention_mask", "flash_attention_probs", "flash_attention_ref",
            "flash_attention_bwd_ref", "selective_scan_ref", "rwkv6_bwd_ref",
-           "selective_scan_bwd_ref"]
+           "rwkv6_bwd_chunked_ref", "selective_scan_bwd_ref",
+           "selective_scan_bwd_scanned_ref"]
 
 
 def gru_ref(x, h, wx, wh, bx, bh):
@@ -451,9 +452,10 @@ def selective_scan_ref(x, dt, b, c, a, *, state=None):
 
 
 def rwkv6_bwd_ref(r, k, v, w, u, do, *, state=None, dstate=None):
-    """The gradients of ``rwkv6_ref`` in its token form, as the backward
-    kernel (``csrc/rwkv6_scan_bwd.cu``) computes them, in float32, right
-    for any w in (0, 1] (nothing divides by w).
+    """The gradients of ``rwkv6_ref`` in its token form, in float32, right
+    for any w in (0, 1] (nothing divides by w): the plain version the
+    backward kernel (``csrc/rwkv6_scan_bwd.cu``, whose algebra is
+    ``rwkv6_bwd_chunked_ref``) is held to.
 
     Shapes as ``rwkv6_ref``; ``do``: (B, H, S, Dv) the output's
     cotangent; ``dstate``: None (zeros) or (B, H, Dk, Dv) the final
@@ -502,8 +504,9 @@ def rwkv6_bwd_ref(r, k, v, w, u, do, *, state=None, dstate=None):
 
 
 def selective_scan_bwd_ref(x, dt, b, c, a, dy, *, state=None, dstate=None):
-    """The gradients of ``selective_scan_ref``, as the backward kernel
-    (``csrc/selective_scan_bwd.cu``) computes them: the forward's roundings
+    """The gradients of ``selective_scan_ref``, the plain version the
+    backward kernel (``csrc/selective_scan_bwd.cu``, whose order is
+    ``selective_scan_bwd_scanned_ref``) is held to: the forward's roundings
     (dt x in the compute dtype, exp(dt a) in float32), then every
     gradient in float32 until dx, ddt, db and dc are cast to the compute
     dtype once. The product dt x is rounded in the forward; its gradient
@@ -554,3 +557,260 @@ def selective_scan_bwd_ref(x, dt, b, c, a, dy, *, state=None, dstate=None):
         g = dec[:, t] * g
     return (dx.to(x.dtype), ddt.to(dt.dtype), db.to(b.dtype), dc.to(c.dtype),
             da, None if state is None else g)
+
+
+def rwkv6_bwd_chunked_ref(r, k, v, w, u, do, *, state=None, dstate=None,
+                          chunk: int = 64, sub: int = 8, fault=None):
+    """The backward kernel's algebra (``csrc/rwkv6_scan_bwd.cu``): the
+    gradients of ``rwkv6_ref`` as ``rwkv6_bwd_ref`` gives them, formed
+    chunk by chunk in float32, every decay factor a product of w (at most
+    1), so any w in (0, 1] is in range. Arguments and returns as
+    ``rwkv6_bwd_ref``.
+
+    Chunks of ``chunk`` tokens (a ragged last one padded with r = k = v =
+    do = 0, w = 1) cut into sub-chunks of ``sub``; Q'_t, K'_t the products
+    of w in a sub-chunk before and after token t, omega its whole product,
+    rho_a / kappa_a those of the sub-chunks before / after a, g(a, b) of
+    those strictly between b < a; Rq = Q' r, Kc = K' k.
+
+    1. Chunk summaries: U = (Kc kappa)^T V, Y = (Rq rho)^T dO, dec.
+    2. A scan over the chunks: the state before each chunk, S_0 (S_0 <-
+       dec S_0 + U), and the cotangent after it, G_C (G_C <- dec G_C + Y),
+       whose last value is the initial state's gradient.
+    3. In each chunk, at each sub-chunk a, the state at its start and the
+       cotangent at its end as products,
+       S_a = rho_a S_0 + sum_{b<a} (g(a, b) Kc_b)^T V_b,
+       G_a = kappa_a G_C + sum_{e>a} (g(e, a) Rq_e)^T dO_e,
+       then X_a = rowsum(G_a * S_a), Sdo_t = S_a do_t, Gv_t = G_a v_t and
+       dvx_t = G_a^T Kc_t for its tokens, and per element, with W(i, j)
+       the product of w strictly between j and i and dA(i, j) = do_i . v_j:
+         dr_t = Q'_t Sdo_t + sum_{j<t} W(t, j) k_j dA(t, j) + u k_t dA(t, t)
+         dk_t = K'_t Gv_t + sum_{i>t} W(i, t) r_i dA(i, t) + u r_t dA(t, t)
+         dv_t = dvx_t + sum_{i>=t} A(i, t) do_i   (A the forward's weights)
+         dw_t = K'_t Q'_t X_a + K'_t sum_{j<t} W(t, j) k_j Gv_j
+                + Q'_t sum_{i>t} W(i, t) r_i Sdo_i
+                + sum_{j<t<i} W(i, t) W(t, j) r_i k_j dA(i, j),
+       the sums over the sub-chunk's tokens: dw = rowsum(G_t * S_{t-1})
+       expanded about the sub-chunk's edges, with no difference of large
+       terms and no division by w.
+
+    ``fault="sub_ref"``, a faulty version for the checks: the products
+    g(a, b) of the sub-chunks between two reference points dropped (taken
+    as 1)."""
+    import torch.nn.functional as F
+
+    b, h, s, d = r.shape
+    f32 = torch.float32
+    nc, ns = -(-s // chunk), chunk // sub
+    pad = nc * chunk - s
+
+    def blocks(x, fill):       # (B, H, S, D) -> (B, H, NC, NS, SUB, D)
+        x = F.pad(x.to(f32), (0, 0, 0, pad), value=fill)
+        return x.reshape(b, h, nc, ns, sub, d)
+
+    rr, kk, vv, oo = (blocks(x, 0.0) for x in (r, k, v, do))
+    ww = blocks(w, 1.0)
+    uf = u.to(f32)[None, :, None, None, None, :]
+    ones = torch.ones_like(ww[..., :1, :])
+    pre = torch.cumprod(ww, dim=-2)
+    qf = torch.cat([ones, pre[..., :-1, :]], dim=-2)          # Q'_t
+    suf = torch.flip(torch.cumprod(torch.flip(ww, [-2]), dim=-2), [-2])
+    kf = torch.cat([suf[..., 1:, :], ones], dim=-2)           # K'_t
+    om = pre[..., -1, :]                                      # (B,H,NC,NS,D)
+    one = torch.ones_like(om[..., :1, :])
+    ompre = torch.cumprod(om, dim=-2)
+    rho = torch.cat([one, ompre[..., :-1, :]], dim=-2)
+    dec = ompre[..., -1, :]                                   # (B,H,NC,D)
+    kap = torch.flip(torch.cumprod(torch.flip(om, [-2]), dim=-2), [-2])
+    kap = torch.cat([kap[..., 1:, :], one], dim=-2)
+    g = torch.zeros(om.shape[:-2] + (ns, ns, d), dtype=f32, device=r.device)
+    for kb in range(ns - 1):
+        p = torch.ones_like(om[..., 0, :])
+        for qa in range(kb + 1, ns):
+            g[..., qa, kb, :] = 1.0 if fault == "sub_ref" else p
+            p = p * om[..., qa, :]
+    rq, kc = rr * qf, kk * kf
+
+    # 1. chunk summaries
+    u_sum = torch.einsum("bhnstd,bhnstc->bhndc", kc * kap[..., None, :], vv)
+    y_sum = torch.einsum("bhnstd,bhnstc->bhndc", rq * rho[..., None, :], oo)
+    # 2. the scan over chunks
+    st = (torch.zeros((b, h, d, d), dtype=f32, device=r.device)
+          if state is None else state.to(f32))
+    s0 = []
+    for n in range(nc):
+        s0.append(st)
+        st = dec[:, :, n, :, None] * st + u_sum[:, :, n]
+    gt = (torch.zeros((b, h, d, d), dtype=f32, device=r.device)
+          if dstate is None else dstate.to(f32))
+    gc = [None] * nc
+    for n in reversed(range(nc)):
+        gc[n] = gt
+        gt = dec[:, :, n, :, None] * gt + y_sum[:, :, n]
+    s0, gc = torch.stack(s0, dim=2), torch.stack(gc, dim=2)  # (B,H,NC,D,D)
+
+    # 3. the sub-chunks' edge states, then the chunk's gradients
+    sa = rho[..., None] * s0[:, :, :, None]                   # (B,H,NC,NS,D,D)
+    ga = kap[..., None] * gc[:, :, :, None]
+    sa, ga = sa.clone(), ga.clone()
+    for a in range(ns):
+        if a > 0:
+            kg = (g[..., a, :a, None, :] * kc[..., :a, :, :]).reshape(
+                b, h, nc, a * sub, d)
+            sa[..., a, :, :] += torch.einsum(
+                "bhntd,bhntc->bhndc", kg, vv[..., :a, :, :].reshape(
+                    b, h, nc, a * sub, d))
+        if a < ns - 1:
+            m = ns - 1 - a
+            rg = (g[..., a + 1:, a, None, :] * rq[..., a + 1:, :, :]).reshape(
+                b, h, nc, m * sub, d)
+            ga[..., a, :, :] += torch.einsum(
+                "bhntd,bhntc->bhndc", rg, oo[..., a + 1:, :, :].reshape(
+                    b, h, nc, m * sub, d))
+    xs = (ga * sa).sum(-1)                                    # (B,H,NC,NS,D)
+    sdo = torch.einsum("bhnadc,bhnatc->bhnatd", sa, oo)
+    gv = torch.einsum("bhnadc,bhnatc->bhnatd", ga, vv)
+    dvx = torch.einsum("bhnadc,bhnatd->bhnatc", ga, kc)
+    del sa, ga
+
+    da_ = torch.einsum("...ic,...jc->...ij", oo, vv)          # dA(i, j)
+    dad = torch.diagonal(da_, dim1=-2, dim2=-1)[..., None]    # dA(t, t)
+    wm = torch.zeros(ww.shape[:-1] + (sub, d), dtype=f32, device=r.device)
+    for j in range(sub):
+        p = torch.ones_like(ww[..., 0, :])
+        for i in range(j + 1, sub):
+            wm[..., i, j, :] = p
+            p = p * ww[..., i, :]
+    aw = torch.einsum("...id,...ijd,...jd->...ij", rr, wm, kk)
+    aw = aw + torch.diag_embed((rr * uf * kk).sum(-1))
+    dr = (qf * sdo + torch.einsum("...tjd,...jd,...tj->...td", wm, kk, da_)
+          + uf * kk * dad)
+    dk = (kf * gv + torch.einsum("...itd,...id,...it->...td", wm, rr, da_)
+          + uf * rr * dad)
+    dv = dvx + torch.einsum("...it,...ic->...tc", aw, oo)
+    trip = torch.zeros_like(dr)
+    for t in range(1, sub - 1):
+        psi = torch.einsum("...jd,...jd,...ij->...id", wm[..., t, :, :], kk,
+                           da_)
+        trip[..., t, :] = torch.einsum("...id,...id,...id->...d",
+                                       wm[..., :, t, :], rr, psi)
+    dw = (kf * qf * xs[..., None, :]
+          + kf * torch.einsum("...tjd,...jd,...jd->...td", wm, kk, gv)
+          + qf * torch.einsum("...itd,...id,...id->...td", wm, rr, sdo)
+          + trip)
+    du = (rr * kk * dad).sum((0, 2, 3, 4))
+
+    def tokens(x):
+        return x.reshape(b, h, nc * chunk, d)[:, :, :s]
+
+    dr, dk, dv, dw = (tokens(x) for x in (dr, dk, dv, dw))
+    return (dr.to(r.dtype), dk.to(r.dtype), dv.to(r.dtype), dw, du,
+            None if state is None else gt)
+
+
+def selective_scan_bwd_scanned_ref(x, dt, b, c, a, dy, *, state=None,
+                                   dstate=None, chunk: int = 128,
+                                   items: int = 16, fault=None):
+    """The backward kernel's order (``csrc/selective_scan_bwd.cu``): the
+    gradients of ``selective_scan_ref`` as ``selective_scan_bwd_ref``
+    gives them (arguments, roundings and returns as there), formed from
+    runs of ``items`` tokens, ``chunk`` tokens a chunk (a ragged tail
+    padded with x = dt = dy = 0, b = c = 0: decay 1, no input).
+
+    Per (batch, channel, state index), with a_t = exp(dt_t a) and the
+    affine maps h <- a_t h + u_t b_t (forward) and gamma <- a_t (gamma +
+    c_t dy_t) (the cotangent carried back from token t to t - 1):
+
+    1. each run's pair from zero, (its decay, its state) and (its decay,
+       its carry), the decay one exponential of a times the run's summed
+       dt; composed over a chunk's runs into the chunk's pairs;
+    2. a scan over the chunks (the chunk's decay, one exponential of a
+       times its summed dt): h before each chunk, gamma after it, and the
+       initial state's gradient;
+    3. in each chunk, the runs' carries composed from the chunk's (h in
+       order, gamma in reverse), then each run's tokens: h_t, G_t = c_t
+       dy_t + gamma_t (dL/dh_t), and the gradients of
+       ``selective_scan_bwd_ref`` from them.
+
+    ``fault="run_carry"``, a faulty version for the checks: the carry
+    between runs inside a chunk dropped (every run but a chunk's first
+    starts h from 0, every run but its last ends gamma at 0)."""
+    import torch.nn.functional as F
+
+    bsz, s, di = x.shape
+    n = a.shape[1]
+    f32 = torch.float32
+    nc, runs = -(-s // chunk), chunk // items
+    pad = nc * chunk - s
+
+    def blocks(z):              # (B, S, ...) -> (B, NC, R, I, ...)
+        z = F.pad(z.to(f32), (0, 0, 0, pad))
+        return z.reshape(bsz, nc, runs, items, z.shape[-1])
+
+    dtf, xf, ut, dyf = (blocks(z) for z in (dt, x, dt * x, dy))
+    bf, cf = blocks(b), blocks(c)
+    dec = torch.exp(dtf[..., None] * a)              # (B, NC, R, I, di, n)
+    ub = ut[..., None] * bf[..., None, :]
+    cdy = cf[..., None, :] * dyf[..., None]
+    ra = torch.exp(dtf.sum(3)[..., None] * a)        # (B, NC, R, di, n)
+    zero = torch.zeros_like(ra[:, :, 0])
+    hl, gl = torch.zeros_like(ra), torch.zeros_like(ra)
+    for i in range(items):
+        hl = dec[:, :, :, i] * hl + ub[:, :, :, i]
+        gl = dec[:, :, :, items - 1 - i] * (gl + cdy[:, :, :, items - 1 - i])
+    hc, gcs = zero, zero
+    for j in range(runs):
+        hc = ra[:, :, j] * hc + hl[:, :, j]
+        gcs = ra[:, :, runs - 1 - j] * gcs + gl[:, :, runs - 1 - j]
+    ac = torch.exp(dtf.sum((2, 3))[..., None] * a)   # (B, NC, di, n)
+
+    hs = (torch.zeros((bsz, di, n), dtype=f32, device=x.device)
+          if state is None else state.to(f32))
+    hstart = []
+    for m in range(nc):
+        hstart.append(hs)
+        hs = ac[:, m] * hs + hc[:, m]
+    gs = (torch.zeros((bsz, di, n), dtype=f32, device=x.device)
+          if dstate is None else dstate.to(f32))
+    gend = [None] * nc
+    for m in reversed(range(nc)):
+        gend[m] = gs
+        gs = ac[:, m] * gs + gcs[:, m]
+
+    drop = fault == "run_carry"
+    hb, car = [], torch.stack(hstart, 1)
+    for j in range(runs):
+        hb.append(car if j == 0 or not drop else zero.expand_as(car))
+        car = ra[:, :, j] * hb[-1] + hl[:, :, j]
+    ga, car = [None] * runs, torch.stack(gend, 1)
+    for j in reversed(range(runs)):
+        ga[j] = car if j == runs - 1 or not drop else zero.expand_as(car)
+        car = ra[:, :, j] * ga[j] + gl[:, :, j]
+    h, gam = torch.stack(hb, 2), torch.stack(ga, 2)  # (B, NC, R, di, n)
+
+    hp, hn = [], []
+    for i in range(items):
+        hp.append(h)
+        h = dec[:, :, :, i] * h + ub[:, :, :, i]
+        hn.append(h)
+    dx, ddt, db, dc = [None] * items, [None] * items, [None] * items, [
+        None] * items
+    da = torch.zeros_like(a, dtype=f32)
+    for i in reversed(range(items)):
+        gg = cdy[:, :, :, i] + gam
+        dc[i] = torch.einsum("...dn,...d->...n", hn[i], dyf[:, :, :, i])
+        db[i] = torch.einsum("...dn,...d->...n", gg, ut[:, :, :, i])
+        du = (gg * bf[:, :, :, i, None, :]).sum(-1)
+        dda = gg * hp[i] * dec[:, :, :, i]
+        ddt[i] = (dda * a).sum(-1) + du * xf[:, :, :, i]
+        dx[i] = du * dtf[:, :, :, i]
+        da = da + (dda * dtf[:, :, :, i, :, None]).sum((0, 1, 2))
+        gam = dec[:, :, :, i] * gg
+
+    def tokens(zs):
+        z = torch.stack(zs, 3)
+        return z.reshape(bsz, nc * chunk, z.shape[-1])[:, :s]
+
+    dx, ddt, db, dc = (tokens(z) for z in (dx, ddt, db, dc))
+    return (dx.to(x.dtype), ddt.to(dt.dtype), db.to(b.dtype),
+            dc.to(c.dtype), da, None if state is None else gs)

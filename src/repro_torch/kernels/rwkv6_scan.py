@@ -11,10 +11,12 @@ algebra is ``ref.rwkv6_subchunk_ref``. They read and write the model's (B,
 S, H, 64) layout; the plain versions keep the JAX package's (B, H, S, 64).
 
 ``rwkv6_bwd`` wraps the backward kernel of ``csrc/rwkv6_scan_bwd.cu``
-(three launches: the states and cotangents at chunk boundaries, a reverse
-walk a chunk, u's sum), which replaces no TPU kernel: the JAX package
-differentiates its XLA path there. ``ops.RWKV6`` runs it where a gradient
-is wanted; ``ref.rwkv6_bwd_ref`` is its plain version.
+(four launches: each 64-token chunk's summaries on the tensor cores, a
+scan over the chunks for the states and cotangents at their edges, the
+chunks' gradients from sub-chunk edge states, u's sum), which replaces no
+TPU kernel: the JAX package differentiates its XLA path there.
+``ops.RWKV6`` runs it where a gradient is wanted; ``ref.rwkv6_bwd_ref`` is
+its plain version and ``ref.rwkv6_bwd_chunked_ref`` its algebra.
 """
 
 from __future__ import annotations
@@ -87,8 +89,9 @@ def _launch(kernel, r, k, v, w, u, state, out_dtype):
 
 
 def bwd_chunk() -> int:
-    """The tokens between two stored states of the backward, as the built
-    kernel reports it: ``csrc/rwkv6_scan_bwd.cu`` owns its chunk."""
+    """The tokens of a chunk of the backward (between two stored edge
+    states), as the built kernel reports it: ``csrc/rwkv6_scan_bwd.cu``
+    owns its chunk."""
     fn = library("rwkv6_scan_bwd.cu").rwkv6_wkv_bwd_chunk
     fn.argtypes = []
     fn.restype = ctypes.c_int
@@ -98,10 +101,10 @@ def bwd_chunk() -> int:
 def rwkv6_bwd(r, k, v, w, u, do, state=None, dstate=None):
     """The backward kernel: r, k, v, w, u and state as ``rwkv6_fwd`` takes
     them; do: (B, S, H, 64) float32, the output's cotangent; dstate: None
-    (zeros) or (B, H, 64, 64) float32, the final state's. Returns ``(dr,
-    dk, dv, dw, du, dstate0)``: dr, dk, dv in r's dtype and dw float32,
-    (B, S, H, 64); du (H, 64) float32; dstate0 (B, H, 64, 64) float32
-    where ``state`` is given, else None."""
+    (zeros) or (B, H, 64, 64) float32, the final state's; each 8-byte
+    aligned. Returns ``(dr, dk, dv, dw, du, dstate0)``: dr, dk, dv in r's
+    dtype and dw float32, (B, S, H, 64); du (H, 64) float32; dstate0 (B,
+    H, 64, 64) float32 where ``state`` is given, else None."""
     dev = r.device
     if r.dim() != 4:
         raise ValueError(f"r: expected (B, S, H, {HEAD_DIM}), got "
@@ -122,10 +125,16 @@ def rwkv6_bwd(r, k, v, w, u, do, state=None, dstate=None):
         check("state", state, torch.float32, mat, dev)
     if dstate is not None:
         check("dstate", dstate, torch.float32, mat, dev)
+    for name, x in (("r", r), ("k", k), ("v", v), ("w", w), ("do", do),
+                    ("u", u)):
+        if x.data_ptr() % 8:
+            raise ValueError(f"{name}: the backward kernel needs an 8-byte "
+                             f"aligned tensor")
     nc = -(-s // bwd_chunk())
     f32 = dict(dtype=torch.float32, device=dev)
     sb = torch.empty((b, h, nc, HEAD_DIM, HEAD_DIM), **f32)
     gb = torch.empty_like(sb)
+    dec = torch.empty((b, h, nc, HEAD_DIM), **f32)
     du_part = torch.empty((b, nc, h, HEAD_DIM), **f32)
     dr, dk, dv = (torch.empty_like(x) for x in (r, k, v))
     dw = torch.empty(shape, **f32)
@@ -137,7 +146,8 @@ def rwkv6_bwd(r, k, v, w, u, do, state=None, dstate=None):
         None if state is None else state.data_ptr(),
         None if dstate is None else dstate.data_ptr(), b, h, s,
         int(r.dtype == torch.bfloat16), nc, sb.data_ptr(), gb.data_ptr(),
-        du_part.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dec.data_ptr(), du_part.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(),
         dw.data_ptr(), du.data_ptr(),
         None if ds0 is None else ds0.data_ptr(), stream(dev))
     return dr, dk, dv, dw, du, ds0

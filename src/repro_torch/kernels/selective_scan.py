@@ -17,11 +17,13 @@ a (batch, channel, state index)). Both count on
 ``KERNELS["selective_scan"]``.
 
 ``selective_scan_bwd`` wraps the backward kernel of
-``csrc/selective_scan_bwd.cu`` (three launches: h and g's carry at chunk
-boundaries, a reverse walk a chunk and 64 channels, the sums over channel
-groups and chunks), which replaces XLA's gradient of the JAX package's
-scan. ``ops.SelectiveScan`` runs it where a gradient is wanted;
-``ref.selective_scan_bwd_ref`` is its plain version.
+``csrc/selective_scan_bwd.cu`` (four launches: each 128-token chunk's
+pairs from runs of 16 tokens composed by a warp scan, a scan over the
+chunks for h and the cotangent at their edges, the chunks' gradients, the
+sums over channel groups and chunks), which replaces XLA's gradient of
+the JAX package's scan. ``ops.SelectiveScan`` runs it where a gradient is
+wanted; ``ref.selective_scan_bwd_ref`` is its plain version and
+``ref.selective_scan_bwd_scanned_ref`` its order.
 """
 
 from __future__ import annotations
@@ -119,9 +121,9 @@ def _launch(form, x, dt, b, c, a, state):
 
 
 def bwd_tiles() -> tuple:
-    """(tokens between two stored states, channels a block) of the
-    backward, as the built kernel reports them:
-    ``csrc/selective_scan_bwd.cu`` owns its tiles."""
+    """(tokens of a chunk, between two stored carries; channels a block
+    of the gradients' launch) of the backward, as the built kernel reports
+    them: ``csrc/selective_scan_bwd.cu`` owns its tiles."""
     fn = library("selective_scan_bwd.cu").selective_scan_bwd_tiles
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = None
@@ -164,7 +166,8 @@ def selective_scan_bwd(x, dt, b, c, a, dy, state=None, dstate=None):
     f32 = dict(dtype=torch.float32, device=dev)
     hb = torch.empty((bsz, nc, di, n), **f32)
     gb, part_da = torch.empty_like(hb), torch.empty_like(hb)
-    part_db = torch.empty((bsz, s, groups, n), **f32)
+    csdt = torch.empty((bsz, nc, di), **f32)
+    part_db = torch.empty((bsz, groups, s, n), **f32)
     part_dc = torch.empty_like(part_db)
     dx, ddt = torch.empty_like(x), torch.empty_like(x)
     db, dc = torch.empty_like(b), torch.empty_like(c)
@@ -176,7 +179,8 @@ def selective_scan_bwd(x, dt, b, c, a, dy, state=None, dstate=None):
         None if state is None else state.data_ptr(),
         None if dstate is None else dstate.data_ptr(), bsz, s, di, n,
         int(x.dtype == torch.bfloat16), nc, groups, hb.data_ptr(),
-        gb.data_ptr(), part_db.data_ptr(), part_dc.data_ptr(),
+        gb.data_ptr(), csdt.data_ptr(), part_db.data_ptr(),
+        part_dc.data_ptr(),
         part_da.data_ptr(),
         dx.data_ptr(), ddt.data_ptr(), db.data_ptr(), dc.data_ptr(),
         da.data_ptr(), None if dh0 is None else dh0.data_ptr(), stream(dev))

@@ -40,6 +40,18 @@ from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.models import serve  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tests: the suite runs in
+    several worker processes at once, and a torch that takes every core
+    in each of them makes the workers contend for the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "starcoder2-3b"
 TOL = 1e-5
 LOGIT_TOL = 1e-4

@@ -36,6 +36,18 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ref  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tests: the suite runs in
+    several worker processes at once, and a torch that takes every core
+    in each of them makes the workers contend for the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL, BF16_UNIT = 1e-5, 2.0 ** -7       # phase 24's limits
 WG_ROWS, KV_KEYS, BQ, BK = 64, 128, 64, 128   # the kernel's tiles
 W_KEYS, W_HALF = 64, 32                # its tiles at D 256

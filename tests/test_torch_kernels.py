@@ -39,6 +39,18 @@ from repro_torch.kernels.neighbor_sample import (  # noqa: E402
     neighbor_sample_fwd as torch_sample_fwd)
 from repro_torch.tig.sampler import ChronoNeighborIndex  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tests: the suite runs in
+    several worker processes at once, and a torch that takes every core
+    in each of them makes the workers contend for the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-5
 
 

@@ -55,6 +55,18 @@ from repro_torch.models import model as tm  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tests: the suite runs in
+    several worker processes at once, and a torch that takes every core
+    in each of them makes the workers contend for the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FAMILIES = ("starcoder2-3b", "minitron-4b", "qwen3-32b", "gemma-7b",
             "olmoe-1b-7b", "seamless-m4t-medium", "qwen2-vl-7b",
             "rwkv6-1.6b", "hymba-1.5b")

@@ -56,6 +56,18 @@ from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import serve  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tests: the suite runs in
+    several worker processes at once, and a torch that takes every core
+    in each of them makes the workers contend for the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ("olmoe-1b-7b", "qwen3-moe-235b-a22b", "gemma-7b", "minitron-4b",
          "qwen3-32b")
 MOE_ARCHS = ARCHS[:2]

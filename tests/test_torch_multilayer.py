@@ -59,6 +59,18 @@ from repro_torch.tree import tree_map  # noqa: E402
 from test_torch_graph import (CaptureProbe,  # noqa: E402,F401
                               kernels_unprobed)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tests: the suite runs in
+    several worker processes at once, and a torch that takes every core
+    in each of them makes the workers contend for the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SMALL = dict(flavor="tgn", dim=16, dim_time=8, dim_edge=16, dim_node=16,
              num_neighbors=4, n_heads=2, batch_size=50)
 L2 = dict(SMALL, n_layers=2)

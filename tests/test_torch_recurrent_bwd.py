@@ -3,7 +3,15 @@ backward kernels (``csrc/rwkv6_scan_bwd.cu``, ``csrc/selective_scan_bwd.cu``)
 are held to on the card: ``ref.rwkv6_bwd_ref`` against autograd of
 ``ref.rwkv6_ref`` and against ``jax.vjp`` of the JAX package's WKV, and
 ``ref.selective_scan_bwd_ref`` against autograd of
-``ref.selective_scan_ref``. Inputs from numpy, small shapes.
+``ref.selective_scan_ref``. Then the kernels' own algebra in plain
+PyTorch: ``ref.rwkv6_bwd_chunked_ref`` (64-token chunks, sub-chunk edge
+states, every decay a product of w) against ``rwkv6_bwd_ref`` and
+``jax.vjp`` at trained and strong decays, ragged S, with a state and a
+final cotangent; ``ref.selective_scan_bwd_scanned_ref`` (runs of 16
+tokens composed into 128-token chunks) against ``selective_scan_bwd_ref``
+and autograd; and the faulty versions the card's checks use at the new
+seams (the sub-chunk products dropped, the carry between runs dropped),
+which must miss the limit. Inputs from numpy, small shapes.
 
 Tolerances:
 - float32: every gradient within 1e-5 of its largest |autograd| (the
@@ -19,6 +27,11 @@ Tolerances:
   bf16, then du dt, du x and ddt's sum, up to three roundings of 2^-8
   where the plain backward forms them in float32 and rounds once
   (measured at most 5.0e-3).
+- The kernels' algebra against the plain versions: 1e-5 of each
+  gradient's largest (the same function, its sums in another order), plus
+  one bf16 unit of each element for the gradients both sides return in
+  bf16; against ``jax.vjp`` of the token scan, 1e-5; against autograd of
+  the scan, as the plain backward above.
 """
 
 import numpy as np
@@ -31,6 +44,18 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for this module's tests: the suite runs in
+    several worker processes at once, and a torch that takes every core
+    in each of them makes the workers contend for the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REL = 1e-5
 BF16_UNIT = 2.0 ** -7
@@ -177,3 +202,162 @@ def test_scan_plain_backward_matches_autograd(s, state, dtype):
             _close_rel(g, wnt, SCAN_BF16_DX_REL, name)
         else:
             _close_rel(g, wnt, REL, name, BF16_UNIT if bf16 else 0.0)
+
+
+def _ratio(got, want, unit_bf16=True):
+    """The largest error over its limit (1e-5 of the largest |want|, plus
+    one bf16 unit of each element for bf16 gradients) across the
+    gradients; None pairs skipped."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        if g is None and w is None:
+            continue
+        gd, wd = g.detach().double(), w.detach().double()
+        lim = REL * float(wd.abs().max()) + (
+            BF16_UNIT * wd.abs() if unit_bf16 and g.dtype == torch.bfloat16
+            else 0.0)
+        worst = max(worst, float(((gd - wd).abs() / lim).max()))
+    return worst
+
+
+@pytest.mark.parametrize("case", list(WKV_CASES))
+def test_wkv_chunked_algebra_matches_plain_backward(case):
+    """``rwkv6_bwd_chunked_ref`` (the kernel's chunks, sub-chunk edge
+    states and dw expanded about them) against ``rwkv6_bwd_ref``, every
+    gradient and the initial state's, within 1e-5 of the largest (+ one
+    bf16 unit in bf16), at trained and strong decays, ragged S and with a
+    state and a final cotangent."""
+    b, h, s, strong, state, dtype = WKV_CASES[case]
+    (r, k, v, w, u, do), st, dst = (
+        lambda a: ([_t(x) for x in a[0]], _t(a[1]), _t(a[2])))(
+            _wkv_inputs(len(case) + s, b, h, s, strong=strong, state=state))
+    r, k, v = (x.to(dtype) for x in (r, k, v))
+    want = ref.rwkv6_bwd_ref(r, k, v, w, u, do, state=st, dstate=dst)
+    got = ref.rwkv6_bwd_chunked_ref(r, k, v, w, u, do, state=st,
+                                    dstate=dst)
+    names = ("dr", "dk", "dv", "dw", "du", "dstate0")
+    for name, g, wnt in zip(names, got, want):
+        if wnt is None:
+            assert g is None, name
+            continue
+        assert g.shape == wnt.shape and g.dtype == wnt.dtype, name
+        assert bool(torch.isfinite(g).all()), name
+        unit = BF16_UNIT if g.dtype == torch.bfloat16 else 0.0
+        _close_rel(g, wnt, REL, f"{case} {name}", unit)
+
+
+@pytest.mark.parametrize("strong,s,state", [
+    (False, 128, False), (True, 100, True), (False, 77, True),
+    (True, 200, False)])
+def test_wkv_chunked_algebra_matches_jax_vjp(strong, s, state):
+    """``rwkv6_bwd_chunked_ref`` against ``jax.vjp`` of the JAX package's
+    token scan ``repro.kernels.ref.rwkv6_ref``, to 1e-5 of each gradient's
+    largest, at trained and strong decays (w = exp(-exp(N(1.5, 0.5))),
+    where the TPU form's log-space decays overflow) and ragged S."""
+    (r, k, v, w, u, do), st, dst = _wkv_inputs(7 + s, 1, 2, s, strong=strong,
+                                               state=state)
+    prim = [jnp.asarray(x) for x in (r, k, v, w, u)] + (
+        [jnp.asarray(st)] if state else [])
+
+    def f(*a):
+        return jref.rwkv6_ref(*a[:5], state=a[5] if state else None,
+                              return_state=True)
+
+    _, vjp = jax.vjp(f, *prim)
+    want = vjp((jnp.asarray(do), jnp.asarray(dst) if state else
+                jnp.zeros((1, 2, 64, 64), jnp.float32)))
+    got = ref.rwkv6_bwd_chunked_ref(*(_t(x) for x in (r, k, v, w, u, do)),
+                                    state=_t(st), dstate=_t(dst))
+    for name, g, wnt in zip(("dr", "dk", "dv", "dw", "du", "dstate0"), got,
+                            want):
+        _close_rel(g, torch.from_numpy(np.array(wnt)), REL, f"jax {name}")
+
+
+@pytest.mark.parametrize("strong", [False, True])
+def test_wkv_chunked_algebra_without_sub_chunk_products_fails(strong):
+    """The card's control at the new design's seam: the chunked algebra
+    with the products of the sub-chunks between two reference points
+    dropped (``fault="sub_ref"``) misses the limit the kernel is held to,
+    at trained and strong decays."""
+    (r, k, v, w, u, do), st, dst = (
+        lambda a: ([_t(x) for x in a[0]], _t(a[1]), _t(a[2])))(
+            _wkv_inputs(11, 1, 2, 100, strong=strong, state=True))
+    want = ref.rwkv6_bwd_ref(r, k, v, w, u, do, state=st, dstate=dst)
+    good = ref.rwkv6_bwd_chunked_ref(r, k, v, w, u, do, state=st,
+                                     dstate=dst)
+    bad = ref.rwkv6_bwd_chunked_ref(r, k, v, w, u, do, state=st,
+                                    dstate=dst, fault="sub_ref")
+    assert _ratio(good, want) <= 1.0
+    assert _ratio(bad, want) > 1.0
+
+
+SCAN_CASES = {   # (B, S, di, n, dtype, a state and its cotangent)
+    "S 40": (2, 40, 24, 8, torch.float32, False),
+    "S 128, state": (2, 128, 24, 16, torch.float32, True),
+    "ragged S 333, state": (1, 333, 20, 8, torch.float32, True),
+    "bf16, ragged, state": (2, 300, 24, 16, torch.bfloat16, True),
+    "one token": (3, 1, 16, 8, torch.bfloat16, True),
+}
+
+
+@pytest.mark.parametrize("case", list(SCAN_CASES))
+def test_scan_scanned_order_matches_plain_backward(case):
+    """``selective_scan_bwd_scanned_ref`` (the kernel's runs, chunk pairs
+    and carries) against ``selective_scan_bwd_ref`` within 1e-5 of each
+    gradient's largest, plus one bf16 unit of each element where both
+    round a bf16 gradient once."""
+    b, s, di, n, dtype, state = SCAN_CASES[case]
+    x, dt, bm, cm, a, dy, h0, dh = _scan_inputs(len(case) + s, b, s, di, n,
+                                                dtype, state)
+    want = ref.selective_scan_bwd_ref(x, dt, bm, cm, a, dy, state=h0,
+                                      dstate=dh)
+    got = ref.selective_scan_bwd_scanned_ref(x, dt, bm, cm, a, dy,
+                                             state=h0, dstate=dh)
+    for name, g, wnt in zip(("dx", "ddt", "db", "dc", "da", "dstate0"), got,
+                            want):
+        if wnt is None:
+            assert g is None, name
+            continue
+        assert g.shape == wnt.shape and g.dtype == wnt.dtype, name
+        unit = BF16_UNIT if g.dtype == torch.bfloat16 else 0.0
+        _close_rel(g, wnt, REL, f"{case} {name}", unit)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [100, 257])
+def test_scan_scanned_order_matches_autograd(s, dtype):
+    """``selective_scan_bwd_scanned_ref`` against autograd of
+    ``selective_scan_ref`` with a state and its cotangent, at the plain
+    backward's tolerances (float32 1e-5 of the largest; in bf16 dx and ddt
+    within 2^-6 of their largest, the rest 1e-5 plus one bf16 unit)."""
+    x, dt, bm, cm, a, dy, h0, dh = _scan_inputs(s + 3, 2, s, 24, 8, dtype,
+                                                True)
+    leaves = [z.clone().requires_grad_(True) for z in (x, dt, bm, cm, a, h0)]
+    y, h = ref.selective_scan_ref(*leaves[:5], state=leaves[5])
+    want = torch.autograd.grad([y, h], leaves, [dy, dh])
+    got = ref.selective_scan_bwd_scanned_ref(x, dt, bm, cm, a, dy, state=h0,
+                                             dstate=dh)
+    for name, g, wnt in zip(("dx", "ddt", "db", "dc", "da", "dstate0"), got,
+                            want):
+        bf16 = g.dtype == torch.bfloat16
+        if bf16 and name in ("dx", "ddt"):
+            _close_rel(g, wnt, SCAN_BF16_DX_REL, name)
+        else:
+            _close_rel(g, wnt, REL, name, BF16_UNIT if bf16 else 0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_scanned_order_without_run_carry_fails(dtype):
+    """The card's control at the new design's seam: the scanned order
+    with the carry between the runs inside a chunk dropped
+    (``fault="run_carry"``) misses the limit the kernel is held to."""
+    x, dt, bm, cm, a, dy, h0, dh = _scan_inputs(5, 2, 200, 24, 8, dtype,
+                                                True)
+    want = ref.selective_scan_bwd_ref(x, dt, bm, cm, a, dy, state=h0,
+                                      dstate=dh)
+    good = ref.selective_scan_bwd_scanned_ref(x, dt, bm, cm, a, dy,
+                                              state=h0, dstate=dh)
+    bad = ref.selective_scan_bwd_scanned_ref(x, dt, bm, cm, a, dy, state=h0,
+                                             dstate=dh, fault="run_carry")
+    assert _ratio(good, want) <= 1.0
+    assert _ratio(bad, want) > 1.0
