@@ -171,9 +171,12 @@ Phases, each fatal on failure:
      bf16, window 4096; the plain version a batch row and 4 heads at a
      time) and the shapes listed below, where faulty versions of the
      plain one (P in float8, a key tile dropped at the kernel's tiles)
-     must fail the same check and two calls must agree bitwise, and at a
-     small ragged float32 shape without a window, timed beside
-     ``F.scaled_dot_product_attention`` with the same mask;
+     must fail the same check and two calls must agree bitwise, at a
+     small ragged float32 shape without a window and at phase 26d's
+     float32 training call (B 1, S 8192, 24 / 2 heads, window 4096),
+     timed beside ``F.scaled_dot_product_attention`` with the same mask
+     (in float32 at GQA with its GQA flag and over K / V expanded, the
+     faster kept);
  12. small-input agreement: REDUCED StarCoder2 in float32, ``forward``
      logits and 16 greedy ``generate`` tokens after a 56-token prompt (the
      ring buffer of the window of 64 wraps) on the card against the CPU;
@@ -247,9 +250,10 @@ Phases, each fatal on failure:
  24. the flash backward kernel (dq, dk, dv; it replaces no TPU kernel:
      the JAX package differentiates ``chunked_attention`` as XLA)
      against its plain version at FLASH_BWD_CASES: StarCoder2-3B's
-     training call (B 1, S 8192, 24 / 2 heads of 128, window 4096, bf16),
-     Gemma-7B's (16 / 16 heads of 256, causal), hymba's (25 / 5 heads of
-     64, window 1024), seamless's cross-attention (Sq 512 over Sk 1024),
+     training call (B 1, S 8192, 24 / 2 heads of 128, window 4096, bf16,
+     and the same in float32: phase 26d's), Gemma-7B's (16 / 16 heads of
+     256, causal), hymba's (25 / 5 heads of 64, window 1024), seamless's
+     cross-attention (Sq 512 over Sk 1024),
      ragged cross-attention (Sq 333, Sk 1000) in float32 and bf16 and a
      REDUCED shape (D 32, S 100, float32, window 64), each of dq / dk /
      dv within 1e-5 of its largest |plain| plus, in bf16, one bf16 unit
@@ -259,10 +263,14 @@ Phases, each fatal on failure:
      kernel reports it) must fail the same limits; two calls bitwise
      equal, one launch a call, and the kernels of one profiled call the
      two walks of its form (bf16: ``bwd_dkdv_wg`` / ``bwd_dq_wg``, at D
-     256 ``bwd_dkdv_wg256`` / ``bwd_dq_wg256``); each shape timed
-     beside its plain version, SDPA's backward (a yardstick the port
-     never calls; the kernels of one profiled call name its backend)
-     and its bound; then the forward at phase 11's
+     256 ``bwd_dkdv_wg256`` / ``bwd_dq_wg256``; float32: ``bwd_dkdv_f32``
+     / ``bwd_dkdv_sum_f32`` / ``bwd_dq_f32``); each shape timed beside
+     its plain version, SDPA's backward (a yardstick the port never
+     calls; the kernels of one profiled call name its backend; in
+     float32 at GQA with its GQA flag and over K / V expanded, the
+     faster kept) and its bound (float32: the function's FLOPs three
+     times at the TF32 rate, as 3xTF32 runs them; beside it, once at
+     the CUDA cores' float32 rate); then the forward at phase 11's
      StarCoder2-3B shape with and without its log-sum-exp, in turns;
  24b. the backward kernels of the two recurrences (each replaces XLA's
      gradient of the JAX package's recurrence): WKV's (``rwkv6_bwd``)
@@ -321,13 +329,21 @@ Phases, each fatal on failure:
      forward, 32 of each backward (hymba); the step's device busy ms,
      idle share and the backward kernels' share; the ``sgd`` witness, its
      first drop within 0.8-1.0 of 0.25 on the float32 loss;
- 26c. this slice's main path: Gemma-7B training at full width (d_model
+ 26c. Gemma-7B training at full width (d_model
      3072, 16 / 16 heads of 256, d_ff 24,576, vocab 256,000; 3.00 B
      float32 params) with its depth cut to 8 of 28 layers (at 28 its
      params, grads and AdamW's moments take 127.2 GiB), as phase 26 on
      (1, 4096) tokens, 3 counted steps: 16 flash forward and 8 backward
      launches a step (the backward's D 256 tensor-core form), nothing
      else; the ``sgd`` witness within phase 26's 0.5-1.5;
+ 26d. this slice's main path: StarCoder2-3B training at full width in
+     float32 compute (``dataclasses.replace(cfg, dtype="float32")``;
+     depth not cut), as phase 26 on (1, 8192) tokens, 3 counted steps:
+     60 flash forward and 30 backward launches a step (the backward's
+     float32 form, 3xTF32 on the tensor cores), nothing else; step
+     seconds, tokens/s, peak memory under the card's, where a step's
+     time goes with the flash backward's share; the ``sgd`` witness
+     within phase 26's 0.5-1.5;
  27. the LM pretraining CLI: ``python -m repro_torch.launch.train --arch
      starcoder2-3b --reduced --steps 20 --batch 8 --seq 128`` exits 0
      with finite losses.
@@ -441,6 +457,8 @@ FLASH_CASES = (
     ("gemma-7b forward", 2, 4096, 4096, 16, 16, 256, None, True, "bfloat16"),
     ("hymba-1.5b shape (D 64)", 2, 4096, 4096, 25, 5, 64, 1024, True,
      "bfloat16"),
+    ("starcoder2-3b training f32", 1, 8192, 8192, 24, 2, 128, 4096, True,
+     "float32"),
     ("starcoder2 forward", 2, 8192, 8192, 24, 2, 128, 4096, True,
      "bfloat16"),
 )
@@ -2819,6 +2837,23 @@ def causal_pairs(s: int, window) -> int:
     return sum(min(i + 1, w) for i in range(s))
 
 
+def sdpa_forms(q, k, v, bf16: bool) -> dict:
+    """The forms in which phases 11, 20 and 24 call
+    ``F.scaled_dot_product_attention`` on the model-layout q (B, S, H, D),
+    k, v (B, S, Hkv, D): {form: (q, k, v in (B, H, S, D), enable_gqa,
+    query heads a KV head)}. With its GQA flag always; in float32 with
+    fewer KV heads than query heads also over K / V expanded to every
+    query head, which SDPA may send to another backend. Each form is
+    timed and the faster is the yardstick."""
+    g = q.shape[2] // k.shape[2]
+    forms = {"GQA flag": (1, True)}
+    if not bf16 and g > 1:
+        forms["K / V expanded"] = (g, False)
+    return {name: tuple(x.transpose(1, 2).repeat_interleave(
+        1 if x is q else e, 1) for x in (q, k, v)) + (flag, e)
+            for name, (e, flag) in forms.items()}
+
+
 def head_chunks(q, k, v, heads=4):
     """The model-layout q (B, S, H, D) and k, v (B, S, Hkv, D) one batch row
     and ``heads`` query heads at a time, in the plain version's (1, heads,
@@ -2900,7 +2935,8 @@ def flash_checks(torch, dev, cases) -> list:
     0, heads 0-3) must fail the same check. Yardstick:
     ``F.scaled_dot_product_attention`` with the causal flag (or the
     window's mask) and ``enable_gqa=True``, timed from the profiler and by
-    CUDA events over back-to-back calls, as the kernel is."""
+    CUDA events over back-to-back calls, as the kernel is (in float32 at
+    GQA also over K / V expanded, the faster kept: ``sdpa_forms``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -2964,21 +3000,28 @@ def flash_checks(torch, dev, cases) -> list:
         ki = torch.arange(sk, device=dev)[None, :]
         # without a window the causal flag, else the window's mask
         mask = None if window is None else (ki <= qi) & (ki > qi - window)
-        qt, kt, vt = (x.transpose(1, 2) for x in args)
+        heavy = sq * sk > 1024 * 1024
+        forms = {}
+        for form, (qt, kt, vt, gqa, _) in sdpa_forms(*args, bf16).items():
+            def library(qt=qt, kt=kt, vt=vt, gqa=gqa):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask,
+                    is_causal=causal and mask is None, enable_gqa=gqa)
 
-        def library():
-            return F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
-                enable_gqa=True)
-
-        lib_err = float((library().transpose(1, 2).float()
-                         - got.float()).abs().max())
-        print(f"SDPA {label} vs the kernel: max abs diff {lib_err:.3g}")
+            lib_err = float((library().transpose(1, 2).float()
+                             - got.float()).abs().max())
+            forms[form] = {
+                "ms": device_ms(library, iters=5 if heavy else 20,
+                                rounds=3 if heavy else 5),
+                "call_ms": call_ms(library, iters=10 if heavy else 50)}
+            print(f"SDPA {label} ({form}) vs the kernel: max abs diff "
+                  f"{lib_err:.3g}; {forms[form]['ms'] * 1e3:.2f} us")
+            del qt, kt, vt, library
+        best = min(forms, key=lambda f: forms[f]["ms"])
         elt = q.element_size()
         nbytes = elt * (2 * q.numel() + k.numel() + v.numel())
         pairs = causal_pairs(sq, window) if causal else sq * sk
         flops = 4.0 * d * b * h * pairs
-        heavy = sq * sk > 1024 * 1024
         recs.append(dict(
             name="flash_attention", label=label,
             at=f"B {b}, Sq {sq}, Sk {sk}, H {h}, Hkv {hkv}, D {d}, window "
@@ -2987,14 +3030,14 @@ def flash_checks(torch, dev, cases) -> list:
             kernel=timings(kernel), plain=timings(plain, heavy=heavy),
             bound=bound(nbytes, flops, BF16_FLOP_PER_S
                         if bf16 else FP32_FLOP_PER_S),
-            library_ms=device_ms(library, iters=5 if heavy else 20,
-                                 rounds=3 if heavy else 5),
+            library_ms=forms[best]["ms"],
             # CUDA events over back-to-back calls, beside the kernel's own
             # call_ms: a bound on each where the profiler loses events
-            extra={"library_call_ms": call_ms(library, iters=10 if heavy
-                                              else 50),
+            extra={"library_call_ms": forms[best]["call_ms"],
+                   "library_form": best, "library_forms": forms,
                    "controls": {n: r for n, (_, r) in ctl.items()}}))
-        print(f"SDPA {label}: {recs[-1]['extra']['library_call_ms'] * 1e3:.2f}"
+        print(f"SDPA {label} ({best}): "
+              f"{recs[-1]['extra']['library_call_ms'] * 1e3:.2f}"
               f" us back to back (CUDA events)")
         del got, args, q, k, v, mask
         torch.cuda.empty_cache()
@@ -3007,6 +3050,8 @@ def flash_checks(torch, dev, cases) -> list:
 FLASH_BWD_CASES = (
     ("starcoder2-3b training", 1, 8192, 8192, 24, 2, 128, 4096, True,
      "bfloat16"),
+    ("starcoder2-3b training f32", 1, 8192, 8192, 24, 2, 128, 4096, True,
+     "float32"),
     ("gemma-7b", 1, 4096, 4096, 16, 16, 256, None, True, "bfloat16"),
     ("hymba-1.5b", 1, 4096, 4096, 25, 5, 64, 1024, True, "bfloat16"),
     ("seamless cross", 1, 512, 1024, 16, 16, 64, None, False, "bfloat16"),
@@ -3154,10 +3199,11 @@ def flash_bwd_checks(torch, dev, cases, fwd_main=None) -> list:
     one launch a call, faulty plain versions (``FLASH_BWD_FAULTS``, where
     one changes the call) failing the same limits; each shape timed
     beside the plain version, SDPA's backward alone (from one forward
-    graph, the causal flag or the window's mask, ``enable_gqa``) and its
-    bound: 2.5x the forward's FLOPs (bf16 dense peak for bf16 inputs,
-    float32 outside the tensor cores for float32) against the bytes of
-    q, k, v, o, dO, lse, dq, dk, dv. Then the forward at StarCoder2-3B's
+    graph, the causal flag or the window's mask; the faster of
+    ``sdpa_forms``) and its bound: 2.5x the forward's FLOPs (bf16 dense
+    peak for bf16 inputs; three times at the TF32 rate for float32,
+    which runs as 3xTF32) against the bytes of q, k, v, o, dO, lse, dq,
+    dk, dv. Then the forward at StarCoder2-3B's
     serving shape with and without the log-sum-exp, in turns, beside
     phase 11's time (``fwd_main``)."""
     import torch.nn.functional as F
@@ -3206,9 +3252,9 @@ def flash_bwd_checks(torch, dev, cases, fwd_main=None) -> list:
               + ", ".join(f"{n} {r:.3g}" for n, r in ctl.items()))
         if not (ratio <= 1.0 and same and launches == 2):
             raise AssertionError(f"flash backward fails at {label}")
-        # bf16 takes the tensor-core form: its two wgmma walks
-        walks = ("bwd_dkdv_wg", "bwd_dq_wg") if bf16 else ("bwd_dkdv",
-                                                         "bwd_dq")
+        # bf16 takes the wgmma form, float32 the 3xTF32 one
+        walks = (("bwd_dkdv_wg", "bwd_dq_wg") if bf16 else
+                 ("bwd_dkdv_f32", "bwd_dkdv_sum_f32", "bwd_dq_f32"))
         if not all(any(w in n for n in own) for w in walks):
             raise AssertionError(f"flash backward at {label} ran {own}, "
                                  f"not {walks}")
@@ -3224,30 +3270,47 @@ def flash_bwd_checks(torch, dev, cases, fwd_main=None) -> list:
         qi = torch.arange(sq, device=dev)[:, None]
         ki = torch.arange(sk, device=dev)[None, :]
         mask = None if window is None else (ki <= qi) & (ki > qi - window)
-        lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_(True)
-                      for x in (q, k, v))
-        lout = F.scaled_dot_product_attention(
-            lq, lk, lv, attn_mask=mask, is_causal=causal and mask is None,
-            enable_gqa=True)
         ldo = do.transpose(1, 2)
+        heavy = sq * sk > 1024 * 1024
+        forms = {}
+        for form, (lq, lk, lv, gqa, expand) in sdpa_forms(
+                q, k, v, bf16).items():
+            # the leaves of SDPA's backward, from one forward graph
+            lq, lk, lv = (x.detach().requires_grad_(True)
+                          for x in (lq, lk, lv))
+            lout = F.scaled_dot_product_attention(
+                lq, lk, lv, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=gqa)
 
-        def library():
-            return torch.autograd.grad(lout, (lq, lk, lv), ldo,
-                                       retain_graph=True)
+            def library(lout=lout, leaves=(lq, lk, lv)):
+                return torch.autograd.grad(lout, leaves, ldo,
+                                           retain_graph=True)
 
-        lib_err = max(float((x.transpose(1, 2).float() - y.float()).abs()
-                            .max()) for x, y in zip(library(), got))
-        sdpa = kernel_names(library)
-        print(f"SDPA backward {label} vs the kernel: max abs diff "
-              f"{lib_err:.3g}; its kernels (one profiled call): "
-              + "; ".join(sdpa))
+            def per_kv(x, expand=expand):
+                return x.unflatten(1, (x.shape[1] // expand, expand)).sum(2)
+
+            lib = library()
+            lib_err = max(float(((x if x is lib[0] else per_kv(x)).transpose(
+                1, 2).float() - y.float()).abs().max())
+                          for x, y in zip(lib, got))
+            del lib
+            forms[form] = {
+                "ms": device_ms(library, iters=3 if heavy else 20,
+                                rounds=3 if heavy else 5),
+                "call_ms": call_ms(library, iters=3 if heavy else 20),
+                "kernels": kernel_names(library)}
+            print(f"SDPA backward {label} ({form}) vs the kernel: max abs "
+                  f"diff {lib_err:.3g}; {forms[form]['ms'] * 1e3:.2f} us; "
+                  f"its kernels (one profiled call): "
+                  + "; ".join(forms[form]["kernels"]))
+            del lq, lk, lv, lout, library
+        best = min(forms, key=lambda f: forms[f]["ms"])
         elt = q.element_size()
         # read q, k, v, o, dO and lse, write dq, dk, dv
         nbytes = (elt * (4 * q.numel() + 2 * (k.numel() + v.numel()))
                   + 4 * lse.numel())
         pairs = causal_pairs(sq, window) if causal else sq * sk
         flops = 2.5 * 4.0 * d * b * h * pairs
-        heavy = sq * sk > 1024 * 1024
         recs.append(dict(
             name="flash_attention_bwd", label=label,
             at=f"B {b}, Sq {sq}, Sk {sk}, H {h}, Hkv {hkv}, D {d}, window "
@@ -3255,16 +3318,30 @@ def flash_bwd_checks(torch, dev, cases, fwd_main=None) -> list:
             out_dtype=str(dtype).split(".")[-1], max_abs_err=err,
             kernel=timings(kernel, heavy=heavy),
             plain=timings(plain, heavy=True),
-            bound=bound(nbytes, flops, BF16_FLOP_PER_S if bf16
-                        else FP32_FLOP_PER_S),
-            library_ms=device_ms(library, iters=3 if heavy else 20,
-                                 rounds=3 if heavy else 5),
-            extra={"library_call_ms": call_ms(library, iters=3 if heavy
-                                              else 20),
+            # float32 runs as 3xTF32: the function's FLOPs three times at
+            # the TF32 rate
+            bound=(bound(nbytes, flops, BF16_FLOP_PER_S) if bf16 else
+                   bound(nbytes, 3 * flops, TF32_FLOP_PER_S)),
+            library_ms=forms[best]["ms"],
+            extra={"library_call_ms": forms[best]["call_ms"],
                    "limit_ratio": ratio, "controls": ctl,
-                   "library_kernels": sdpa}))
+                   "library_form": best,
+                   "library_forms": {f: {"ms": r["ms"],
+                                         "call_ms": r["call_ms"]}
+                                     for f, r in forms.items()},
+                   "library_kernels": forms[best]["kernels"]}))
+        if not bf16:
+            # beside it, the function's FLOPs on the CUDA cores' float32
+            # FMA
+            recs[-1]["extra"]["fp32_fma_bound_ms"] = (
+                flops / FP32_FLOP_PER_S * 1e3)
+            print(f"flash backward {label}: bound {recs[-1]['bound'][0]:.4g}"
+                  f" ms (3xTF32), on float32 FMA "
+                  f"{recs[-1]['extra']['fp32_fma_bound_ms']:.4g} ms, kernel "
+                  f"{recs[-1]['kernel']['ms']:.4g} ms, SDPA ({best}) "
+                  f"{forms[best]['ms']:.4g} ms ({card_line()})")
         print_kernel(recs[-1])
-        del got, args, q, k, v, o, lse, do, lq, lk, lv, lout, mask
+        del got, args, q, k, v, o, lse, do, ldo, mask
         torch.cuda.empty_cache()
 
     # the optional lse costs serving nothing: phase 11's StarCoder2-3B
@@ -3289,6 +3366,7 @@ def flash_bwd_checks(torch, dev, cases, fwd_main=None) -> list:
              f"back {fwd_main['call_ms'] * 1e3:.2f} us")
           + f" ({card_line()})")
     recs[0]["extra"]["forward_lse_turns_ms"] = turns
+    del q, k, v
     return recs
 
 
@@ -3966,6 +4044,11 @@ GEMMA_TRAIN = "gemma-7b"
 GEMMA_TRAIN_LAYERS = 8
 GEMMA_TRAIN_SEQ = 4096
 GEMMA_TRAIN_STEPS = 3
+# phase 26d: StarCoder2-3B at full width in float32 compute on (1, 8192)
+# tokens, depth not cut (the flash backward's float32 form on the main
+# path); the witness as phase 26's
+F32_TRAIN_SEQ = 8192
+F32_TRAIN_STEPS = 3
 
 
 def classify(name: str) -> str:
@@ -4019,11 +4102,13 @@ def step_breakdown(torch, label: str, run) -> dict:
 
 def lm_train_path(torch, kernels, arch="starcoder2-3b", seq=8192,
                   steps=TRAIN_STEPS, drop_ratio=SGD_DROP_RATIO,
-                  layers=None) -> dict:
+                  layers=None, dtype=None) -> dict:
     """Phase 26 (StarCoder2-3B: 30 layers, d_model 3072, 3.18 B float32
-    params), phase 26b (RWKV6-1.6B, Hymba-1.5B) and phase 26c (Gemma-7B,
-    ``layers`` 8 of its 28): ``arch`` at full width, its depth cut to
-    ``layers`` where given (random params from a seed, bf16 compute) with
+    params), phase 26b (RWKV6-1.6B, Hymba-1.5B), phase 26c (Gemma-7B,
+    ``layers`` 8 of its 28) and phase 26d (StarCoder2-3B, ``dtype``
+    float32): ``arch`` at full width, its depth cut to ``layers`` where
+    given (random params from a seed, the config's bf16 compute or
+    ``dtype``) with
     ``train_lm``'s optimizer (AdamW, linear warm-up and cosine decay,
     weight decay 0.1, clipping at 1.0) on ``packed_batches`` (1,
     ``seq``) tokens, ``remat`` on: one warm step, then ``steps`` steps
@@ -4045,6 +4130,8 @@ def lm_train_path(torch, kernels, arch="starcoder2-3b", seq=8192,
     cfg = full = get_config(arch)
     if layers is not None:
         cfg = dataclasses.replace(full, n_layers=layers)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     params = model.init_params(torch.Generator(device=dev).manual_seed(0),
@@ -5381,21 +5468,30 @@ def main() -> int:
         RECUR_DROP_RATIO)["launches"]
         for arch in RECUR_TRAIN}
     torch.cuda.empty_cache()
-    # phase 26c, this slice's main path: Gemma-7B training at full width,
-    # 8 of its 28 layers, counted from zero (the flash backward at D 256)
+    # phase 26c: Gemma-7B training at full width, 8 of its 28 layers,
+    # counted from zero (the flash backward at D 256)
     gemma = lm_train_path(torch, KERNELS, GEMMA_TRAIN, GEMMA_TRAIN_SEQ,
                           GEMMA_TRAIN_STEPS,
                           layers=GEMMA_TRAIN_LAYERS)["launches"]
+    torch.cuda.empty_cache()
+    # phase 26d, this slice's main path: StarCoder2-3B training at full
+    # width in float32 compute, counted from zero (the flash backward's
+    # float32 form)
+    train32 = lm_train_path(torch, KERNELS, "starcoder2-3b", F32_TRAIN_SEQ,
+                            F32_TRAIN_STEPS, dtype="float32")["launches"]
     torch.cuda.empty_cache()
     flash_by_path["starcoder2-3b training"] = train["launches"][
         "flash_attention"]
     flash_by_path["hymba-1.5b training"] = recur["hymba-1.5b"][
         "flash_attention"]
     flash_by_path["gemma-7b training (8 layers)"] = gemma["flash_attention"]
+    flash_by_path["starcoder2-3b float32 training"] = train32[
+        "flash_attention"]
     bwd_by_path = {
         "flash_attention_bwd": {
             "starcoder2-3b training": train["launches"][
                 "flash_attention_bwd"],
+            "starcoder2-3b float32 training": train32["flash_attention_bwd"],
             "hymba-1.5b training": recur["hymba-1.5b"][
                 "flash_attention_bwd"],
             "gemma-7b training (8 layers)": gemma["flash_attention_bwd"]},
@@ -5406,7 +5502,11 @@ def main() -> int:
     for name, by in bwd_by_path.items():
         launches[name] = sum(by.values())
         by["train agreement (phase 25)"] = agree[name]
-    flash_bwd[0]["extra"]["launches_by_path"] = bwd_by_path[
+    # the backward's entry at this slice's main shape: StarCoder2-3B's
+    # float32 training call (phase 26d)
+    bwd_main = next(r for r in flash_bwd
+                    if r["label"] == "starcoder2-3b training f32")
+    bwd_main["extra"]["launches_by_path"] = bwd_by_path[
         "flash_attention_bwd"]
     wkv_bwd[0]["extra"]["launches_by_path"] = bwd_by_path["rwkv6_bwd"]
     scan_bwd[0]["extra"]["launches_by_path"] = bwd_by_path[
@@ -5459,7 +5559,8 @@ def main() -> int:
 
     # WKV: the prompt-scoring shape (the sequential kernel: decode); GRU:
     # TGN's updater shape; flash: the StarCoder2-3B forward's shape; the
-    # selective scan: the Hymba-1.5B forward's shape
+    # selective scan: the Hymba-1.5B forward's shape; the flash backward:
+    # StarCoder2-3B's float32 training call
     record = {"kernels": [entry(r) for r in recs] + [
         shaped_entry([r for r in wkv if r["name"] == name][-1],
                      [r for r in wkv if r["name"] == name])
@@ -5469,7 +5570,7 @@ def main() -> int:
         for name in ("fused_gru", "fused_gru_bwd")] + [
         shaped_entry(flash[-1], flash + flash_keys),
         shaped_entry(scan[0], scan),
-        shaped_entry(flash_bwd[0], flash_bwd),
+        shaped_entry(bwd_main, flash_bwd),
         shaped_entry(wkv_bwd[0], wkv_bwd),
         shaped_entry(scan_bwd[0], scan_bwd)]}
     if len(record["kernels"]) != len(TPU_KERNELS) + len(NEW_KERNELS):

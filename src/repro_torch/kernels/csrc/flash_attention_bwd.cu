@@ -16,32 +16,21 @@
 // where the sums over i run over every query head of k_j's KV group (GQA:
 // dk and dv come back per KV head). No atomics: every sum runs in a fixed
 // order, so two calls agree bit for bit. Two forms, chosen by dtype alone
-// (`takes_tc`):
+// (`takes_wgmma`), each four launches: `bwd_delta` (D, one warp a (batch,
+// row, head)); the dK / dV walk, a block per (key tile, KV head, batch
+// row, run of its steps) walking the query heads of the group and the
+// query tiles that see its keys; the runs' sums added in order; the dQ
+// walk, a block per query tile walking the key tiles its rows see.
 //   * bf16 (D 32, 64, 128 and 256: StarCoder2-3B, OLMoE-1B-7B, Gemma-7B,
 //     hymba, the REDUCED configs), on the tensor cores with `wgmma`, TMA
-//     and warp specialisation (see the two sections below). Four
-//     launches: `bwd_delta` (D, one warp a (batch, row, head)); the dK /
-//     dV walk, a block per (key tile, KV head, batch row, run of its
-//     steps) walking the query heads of the group and the 64-query tiles
-//     that see its keys (`bwd_dkdv_wg`, 128-key tiles to D 128;
-//     `bwd_dkdv_wg256`, 64-key tiles at D 256); `bwd_dkdv_sum`, the runs
-//     added in order; the dQ walk (`bwd_dq_wg`, a block per 64 query rows
-//     of two heads or 128 of one, walking 128-key tiles; `bwd_dq_wg256`,
-//     64 rows of one head, 64-key tiles).
-//   * float32, on the CUDA cores. Three launches: `bwd_delta`;
-//     `bwd_dkdv`, a block per (key tile, KV head, batch row) holding its K
-//     and V tiles and the dK and dV accumulators and walking the query
-//     heads of the group and, for each, the query tiles that see a key of
-//     the tile, in order; `bwd_dq`, a block per (query tile, head, batch
-//     row) holding its Q and dO tiles and the dQ accumulator and walking
-//     the key tiles its rows see, in order. Both recompute S and dP = dO
-//     V^T tile by tile. Every tile lives in shared memory, rows padded to
-//     an odd stride so the 16 rows a half warp reads fall in 16 banks;
-//     each of 256 threads owns a 4 x 4 (rows x keys) patch of S and dP and
-//     4 (or 2) x NC patches of the accumulators, all in float32 FMA.
-//     Tiles: 64 queries x 64 keys to D 128 (165,888 bytes of shared memory
-//     at D 128), 64 x 32 at D 256 (214,784 of the 232,448 a block may
-//     have).
+//     and warp specialisation (see the two sections below):
+//     `bwd_dkdv_wg` (128-key tiles to D 128) or `bwd_dkdv_wg256` (64-key
+//     tiles at D 256), `bwd_dkdv_sum`, `bwd_dq_wg` (64 query rows of two
+//     heads or 128 of one, walking 128-key tiles) or `bwd_dq_wg256` (64
+//     rows of one head, 64-key tiles).
+//   * float32 (any D to 256), on the tensor cores as 3xTF32 with
+//     `mma.sync` (the section after them): `bwd_dkdv_f32`,
+//     `bwd_dkdv_sum_f32`, `bwd_dq_f32`.
 //
 // Bound on an H100 at StarCoder2-3B's training shape (B 1, S 8192, H 24,
 // Hkv 2, D 128, window 4096): 25.2 M (query, key) pairs a head; the
@@ -49,17 +38,20 @@
 // 989 TFLOP/s of dense bf16 = 0.78 ms, against 219 MB of inputs and
 // outputs (65 us at 3.35 TB/s): operations. At Gemma-7B's (B 1, S 4096,
 // 16 / 16 heads of 256, causal): 8.39 M pairs a head, 0.34 TFLOP, 0.35
-// ms. The CUDA-core form runs 14 D float32 FMA a pair (S and dP twice,
-// dV, dK, dQ), at most 67 TFLOP/s. The tensor-core form runs 20 D
-// products a pair (S and dP in both walks; dV, dK, dQ twice each, hi and
-// lo): 1.56 ms at the peak at StarCoder2-3B's shape, 0.69 ms at
-// Gemma-7B's. Its first version (`mma.sync` m16n8k16
+// ms. The bf16 form runs 20 D products a pair (S and dP in both walks;
+// dV, dK, dQ twice each, hi and lo): 1.56 ms at the peak at StarCoder2-3B's
+// shape, 0.69 ms at Gemma-7B's. Its first version (`mma.sync` m16n8k16
 // through `ldmatrix`, four warps on 64 keys and 32 queries a step, the
 // masks evaluated and lse / D read from device memory at every element)
 // ran 8.43 ms at StarCoder2-3B's; this one issues `wgmma` from
 // warpgroups fed by TMA, masks only edge tiles, stages lse and D once a
 // tile, and keeps P and dS of the dK / dV walk in shared memory so that
-// the accumulators and each tile's partial fit in registers.
+// the accumulators and each tile's partial fit in registers. In float32
+// the same call is 0.77 TFLOP at 67 TFLOP/s of float32 FMA = 11.55 ms;
+// the float32 form runs 42 D tf32 FLOP a pair (S, dP, dV, dK, dQ and S,
+// dP again, three passes each), 3.25 TFLOP at 495 TFLOP/s of dense tf32 =
+// 6.6 ms. Its first version ran 14 D float32 FMA a pair on the CUDA cores
+// (16.2 ms at best), its inner loops held by scalar shared-memory reads.
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
@@ -67,24 +59,16 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "gru_tile.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;     // 16 x 16 threads
+constexpr int THREADS = 256;     // bwd_delta's block
 constexpr int MAX_SMEM = 232448;
-// the CUDA-core form's tiles: CC_BQ queries by cc_block_kv(NC) keys at
-// head dims up to NC * 16 (nc_of), for shared memory at D 256
-constexpr int CC_BQ = 64;
-__host__ __device__ constexpr int cc_block_kv(int nc) {
-  return nc > 8 ? 32 : 64;
-}
-constexpr int nc_of(int d) {
-  return d <= 32 ? 2 : d <= 64 ? 4 : d <= 128 ? 8 : 16;
-}
-// whether the tensor-core form takes a call: bf16 at D 32, 64, 128 and
+// whether the bf16 (wgmma) form takes a call: bf16 at D 32, 64, 128 and
 // 256, the only head dims bf16 calls may have
-constexpr bool takes_tc(int is_bf16, int d) {
+constexpr bool takes_wgmma(int is_bf16, int d) {
   return is_bf16 && (d == 32 || d == 64 || d == 128 || d == 256);
 }
 
@@ -121,242 +105,6 @@ __global__ void __launch_bounds__(THREADS)
     const int h = r % p.heads, i = (r / p.heads) % p.seq;
     const int b = r / (p.heads * p.seq);
     delta[(static_cast<size_t>(b) * p.heads + h) * p.seq + i] = s;
-  }
-}
-
-// `rows` rows from row r0 of g (row stride gld elements, d columns) into
-// s (row stride ld), zeros from row lim on
-__device__ __forceinline__ void stage(float* s, int ld, const float* g,
-                                      size_t gld, int r0, int lim, int rows,
-                                      int d) {
-  for (int e = threadIdx.x; e < rows * d; e += THREADS) {
-    const int row = e / d, col = e - row * d;
-    s[row * ld + col] =
-        r0 + row < lim ? g[static_cast<size_t>(r0 + row) * gld + col] : 0.0f;
-  }
-}
-
-// The tile's P and dS (BQ x BK, row stride BK + 1) from the staged Q, dO
-// (BQ rows) and K, V (BK rows) and the rows' lse and D: thread (ty, tx)
-// computes rows ty + 16 r and keys tx + 16 c
-template <int BQ, int BK>
-__device__ __forceinline__ void p_and_ds(const Params& p, const float* qs,
-                                         const float* dos, const float* ks,
-                                         const float* vs, const float* ls,
-                                         const float* dls, float* ps,
-                                         float* dss, int ld, int q0, int k0) {
-  constexpr int RQ = BQ / 16, RK = BK / 16;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float s[RQ][RK] = {}, dp[RQ][RK] = {};
-#pragma unroll 2
-  for (int dd = 0; dd < p.d; ++dd) {
-    float qv[RQ], ov[RQ];
-#pragma unroll
-    for (int r = 0; r < RQ; ++r) {
-      qv[r] = qs[(ty + 16 * r) * ld + dd];
-      ov[r] = dos[(ty + 16 * r) * ld + dd];
-    }
-#pragma unroll
-    for (int c = 0; c < RK; ++c) {
-      const float kv = ks[(tx + 16 * c) * ld + dd];
-      const float vv = vs[(tx + 16 * c) * ld + dd];
-#pragma unroll
-      for (int r = 0; r < RQ; ++r) {
-        s[r][c] = fmaf(qv[r], kv, s[r][c]);
-        dp[r][c] = fmaf(ov[r], vv, dp[r][c]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < RQ; ++r) {
-    const int i = ty + 16 * r;
-#pragma unroll
-    for (int c = 0; c < RK; ++c) {
-      const int j = tx + 16 * c;
-      const float pij = visible(p, q0 + i, k0 + j)
-                            ? expf(s[r][c] * p.scale - ls[i])
-                            : 0.0f;
-      ps[i * (BK + 1) + j] = pij;
-      dss[i * (BK + 1) + j] = pij * (dp[r][c] - dls[i]);
-    }
-  }
-}
-
-// floats of shared memory: Q, dO (BQ rows), K, V (BK rows), P, dS, lse, D
-template <int BQ, int BK>
-__host__ __device__ constexpr int smem_floats(int ld) {
-  return 2 * (BQ + BK) * ld + 2 * BQ * (BK + 1) + 2 * BQ;
-}
-
-template <int BQ, int BK, int NC>
-__global__ void __launch_bounds__(THREADS, 1)
-    bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             float* __restrict__ dk, float* __restrict__ dv, Params p) {
-  constexpr int RK = BK / 16;
-  extern __shared__ float sm[];
-  const int d = p.d, ld = d | 1;
-  float* qs = sm;
-  float* dos = qs + BQ * ld;
-  float* ks = dos + BQ * ld;
-  float* vs = ks + BK * ld;
-  float* ps = vs + BK * ld;
-  float* dss = ps + BQ * (BK + 1);
-  float* ls = dss + BQ * (BK + 1);
-  float* dls = ls + BQ;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  // the first key tiles see the most queries: they start first
-  const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
-  const int group = p.heads / p.kv_heads;
-  const size_t kv_ld = static_cast<size_t>(p.kv_heads) * d;
-  const size_t q_ld = static_cast<size_t>(p.heads) * d;
-  const size_t kv_off =
-      (static_cast<size_t>(b) * p.seq_k * p.kv_heads + hk) * d;
-  stage(ks, ld, k + kv_off, kv_ld, k0, p.seq_k, BK, d);
-  stage(vs, ld, v + kv_off, kv_ld, k0, p.seq_k, BK, d);
-
-  // the query rows that see a key of the tile: [i_lo, i_hi)
-  const int i_lo = p.causal ? k0 : 0;
-  const int i_hi =
-      p.window > 0 ? min(p.seq, k0 + BK - 1 + p.window) : p.seq;
-  const int t_lo = i_lo / BQ, t_hi = (i_hi + BQ - 1) / BQ;
-
-  float acc_k[RK][NC] = {}, acc_v[RK][NC] = {};
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    const size_t q_off = (static_cast<size_t>(b) * p.seq * p.heads + h) * d;
-    const size_t row_off = (static_cast<size_t>(b) * p.heads + h) * p.seq;
-    for (int t = t_lo; t < t_hi; ++t) {
-      const int q0 = t * BQ;
-      __syncthreads();  // the last tile's readers are done
-      stage(qs, ld, q + q_off, q_ld, q0, p.seq, BQ, d);
-      stage(dos, ld, dout + q_off, q_ld, q0, p.seq, BQ, d);
-      for (int i = threadIdx.x; i < BQ; i += THREADS) {
-        const bool ok = q0 + i < p.seq;
-        ls[i] = ok ? lse[row_off + q0 + i] : 0.0f;
-        dls[i] = ok ? delta[row_off + q0 + i] : 0.0f;
-      }
-      __syncthreads();
-      p_and_ds<BQ, BK>(p, qs, dos, ks, vs, ls, dls, ps, dss, ld, q0, k0);
-      __syncthreads();
-      // dV += P^T dO, dK += dS^T Q: keys ty + 16 r, columns tx + 16 c
-#pragma unroll 2
-      for (int i = 0; i < BQ; ++i) {
-        float pv[RK], sv[RK];
-#pragma unroll
-        for (int r = 0; r < RK; ++r) {
-          pv[r] = ps[i * (BK + 1) + ty + 16 * r];
-          sv[r] = dss[i * (BK + 1) + ty + 16 * r];
-        }
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int col = tx + 16 * c;
-          if (col < d) {
-            const float o = dos[i * ld + col], x = qs[i * ld + col];
-#pragma unroll
-            for (int r = 0; r < RK; ++r) {
-              acc_v[r][c] = fmaf(pv[r], o, acc_v[r][c]);
-              acc_k[r][c] = fmaf(sv[r], x, acc_k[r][c]);
-            }
-          }
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < RK; ++r) {
-    const int key = k0 + ty + 16 * r;
-    if (key >= p.seq_k) continue;
-    const size_t off = kv_off + static_cast<size_t>(key) * kv_ld;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < d) {
-        dk[off + col] = acc_k[r][c] * p.scale;
-        dv[off + col] = acc_v[r][c];
-      }
-    }
-  }
-}
-
-template <int BQ, int BK, int NC>
-__global__ void __launch_bounds__(THREADS, 1)
-    bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, const float* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ delta,
-           float* __restrict__ dq, Params p) {
-  constexpr int RQ = BQ / 16;
-  extern __shared__ float sm[];
-  const int d = p.d, ld = d | 1;
-  float* qs = sm;
-  float* dos = qs + BQ * ld;
-  float* ks = dos + BQ * ld;
-  float* vs = ks + BK * ld;
-  float* ps = vs + BK * ld;
-  float* dss = ps + BQ * (BK + 1);
-  float* ls = dss + BQ * (BK + 1);
-  float* dls = ls + BQ;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  // causal: the last query tiles see the most keys, and start first
-  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = qt * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.heads / p.kv_heads);
-  const size_t kv_ld = static_cast<size_t>(p.kv_heads) * d;
-  const size_t q_ld = static_cast<size_t>(p.heads) * d;
-  const size_t kv_off =
-      (static_cast<size_t>(b) * p.seq_k * p.kv_heads + hk) * d;
-  const size_t q_off = (static_cast<size_t>(b) * p.seq * p.heads + h) * d;
-  const size_t row_off = (static_cast<size_t>(b) * p.heads + h) * p.seq;
-  stage(qs, ld, q + q_off, q_ld, q0, p.seq, BQ, d);
-  stage(dos, ld, dout + q_off, q_ld, q0, p.seq, BQ, d);
-  for (int i = threadIdx.x; i < BQ; i += THREADS) {
-    const bool ok = q0 + i < p.seq;
-    ls[i] = ok ? lse[row_off + q0 + i] : 0.0f;
-    dls[i] = ok ? delta[row_off + q0 + i] : 0.0f;
-  }
-
-  // the key tiles the rows see
-  const int k_lo = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
-  const int k_hi = p.causal ? min(q0 + BQ, p.seq_k) : p.seq_k;
-  const int t_lo = k_lo / BK, t_hi = (k_hi + BK - 1) / BK;
-
-  float acc[RQ][NC] = {};
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the last tile's readers are done
-    stage(ks, ld, k + kv_off, kv_ld, k0, p.seq_k, BK, d);
-    stage(vs, ld, v + kv_off, kv_ld, k0, p.seq_k, BK, d);
-    __syncthreads();
-    p_and_ds<BQ, BK>(p, qs, dos, ks, vs, ls, dls, ps, dss, ld, q0, k0);
-    __syncthreads();
-    // dQ += dS K: rows ty + 16 r, columns tx + 16 c
-#pragma unroll 2
-    for (int j = 0; j < BK; ++j) {
-      float sv[RQ];
-#pragma unroll
-      for (int r = 0; r < RQ; ++r) sv[r] = dss[(ty + 16 * r) * (BK + 1) + j];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = tx + 16 * c;
-        if (col < d) {
-          const float x = ks[j * ld + col];
-#pragma unroll
-          for (int r = 0; r < RQ; ++r) acc[r][c] = fmaf(sv[r], x, acc[r][c]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < RQ; ++r) {
-    const int row = q0 + ty + 16 * r;
-    if (row >= p.seq) continue;
-    const size_t off = q_off + static_cast<size_t>(row) * q_ld;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < d) dq[off + col] = acc[r][c] * p.scale;
-    }
   }
 }
 
@@ -1437,6 +1185,601 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   }
 }
 
+// ------------------------------------------ float32 on the tensor cores
+
+// float32 at any head dim to 256 (float32 training, the REDUCED configs'
+// float32 checks), on the tensor cores as 3xTF32 with `mma.sync` m16n8k8
+// (`gru_tile.cuh`): each float32 operand is split into a tf32 hi (rounded
+// on its bits) and lo = x - hi, which the tensor cores read truncated to
+// tf32, and a b is summed as a_lo b_hi + a_hi b_lo + a_hi b_hi (a_lo b_lo,
+// ~2^-22 of a b, is dropped). `wgmma` takes tf32 operands K-major only, so
+// dV = P^T dO and dK = dS^T Q would need dO and Q staged transposed;
+// `mma.sync` with fragments read by hand takes them as they lie. The
+// tensor cores' float32 accumulation does not round to nearest, so every
+// chain is short: S and dP sum each 32 columns of the head dim (4
+// k-steps, each pass in an accumulator of its own) into a zeroed partial
+// that is then added in float32, and dV, dK, dQ sum each step's columns
+// of P^T, dS^T or dS the same way.
+//
+// Both walks are a block of eight warps holding FR rows (the keys of a
+// dK / dV block, the queries of a dQ block) and walking steps of FC
+// columns (the queries that see its keys, for each query head of the
+// group in turn; the keys its rows see): FR x FC = 64 x 64 to D 64, 64 x
+// 32 (dK / dV) or 64 x 64 (dQ) to D 128, 32 x 32 to D 256 (`f_rows`,
+// `f_cols`, `f_dq_cols`), the largest that fit shared memory with the
+// step double-buffered. `cp.async` stages
+// rows and steps (16 bytes a copy where D is a multiple of 4, else 4),
+// the next step's copies issued before the current step is used. Rows
+// hold the head dim padded with zeros to 8 NK columns (NK: its 8-column
+// k-steps rounded up to 4, 8, 16 or 32, the kernels' instantiations), +
+// 4 floats, so that `ldmatrix` rows and the sums' column-wise reads fall
+// in distinct banks. A step: (1) each warp forms S and dP for 16 rows x 8
+// NT1 columns (fragments by `ldmatrix`), then P and dS in registers
+// (masked only where its sub-tile crosses the causal diagonal, the
+// window's lower edge or Sk), and writes P^T and dS^T (dK / dV) or dS
+// (dQ) to shared memory; (2) each warp adds P^T dO and dS^T Q (or dS K)
+// for 16 rows x its half (quarter at D 256) of the head dim. The sums'
+// k index is permuted (column 2 t for t, 2 t + 1 for t + 4), so that an
+// A fragment is a float2 of the tile that S's accumulator layout wrote
+// and B's rows fall in distinct banks, and so is their n index (column 2
+// n + j % 2 of a pair of tiles j), so that a thread reads two tiles' B
+// values as a float2. dK / dV blocks are cut into runs of their steps as
+// the bf16 form's (`f_splits`: 4 waves of 132 SMs, 2 steps a run at
+// least), added in order by `bwd_dkdv_sum_f32`.
+constexpr int F_THREADS = 256;         // eight warps
+constexpr int F_MIN_BLOCKS = 4 * 132;  // dK / dV blocks aimed at
+constexpr int F_MIN_STEPS = 2;         // steps of a run at least
+
+// NK of head dim d; FR rows resident, FC columns a step
+__host__ __device__ constexpr int f_nk(int d) {
+  return d <= 32 ? 4 : d <= 64 ? 8 : d <= 128 ? 16 : 32;
+}
+__host__ __device__ constexpr int f_rows(int nk) { return nk > 16 ? 32 : 64; }
+__host__ __device__ constexpr int f_cols(int nk) { return nk > 8 ? 32 : 64; }
+// the dQ walk's key tiles: 64 to D 128 too (its ring holds no lse or D,
+// and no P^T beside dS: 221,184 bytes at D 128)
+__host__ __device__ constexpr int f_dq_cols(int nk) {
+  return nk > 16 ? 32 : 64;
+}
+// shared row strides (floats): a staged tile's, 8 NK + 4 (a quarter of it
+// odd); P^T's, dS^T's and dS's, a step's FC columns + 8 (8 mod 32: float2
+// reads and writes without conflicts)
+__host__ __device__ constexpr int f_ld(int nk) { return 8 * nk + 4; }
+__host__ __device__ constexpr int f_ldp(int fc) { return fc + 8; }
+// bytes of shared memory: K, V; the Q / dO ring and its lse, D; P^T, dS^T
+__host__ __device__ constexpr int f_dkdv_smem(int nk) {
+  return 4 * (2 * f_rows(nk) * f_ld(nk) + 4 * f_cols(nk) * f_ld(nk) +
+              4 * f_cols(nk) + 2 * f_rows(nk) * f_ldp(f_cols(nk)));
+}
+// Q, dO; the K / V ring; dS
+__host__ __device__ constexpr int f_dq_smem(int nk) {
+  return 4 * (2 * f_rows(nk) * f_ld(nk) + 4 * f_dq_cols(nk) * f_ld(nk) +
+              f_rows(nk) * f_ldp(f_dq_cols(nk)));
+}
+static_assert(f_dkdv_smem(4) <= MAX_SMEM && f_dkdv_smem(8) <= MAX_SMEM &&
+                  f_dkdv_smem(16) <= MAX_SMEM && f_dkdv_smem(32) <= MAX_SMEM,
+              "smem");
+static_assert(f_dq_smem(4) <= MAX_SMEM && f_dq_smem(8) <= MAX_SMEM &&
+                  f_dq_smem(16) <= MAX_SMEM && f_dq_smem(32) <= MAX_SMEM,
+              "smem");
+
+// the dK / dV walk's runs: enough blocks for 4 waves of 132 SMs, each run
+// at least F_MIN_STEPS of the heaviest key tile's steps
+int f_splits(int batch, const Params& p) {
+  const int nk = f_nk(p.d), rows = f_rows(nk), cols = f_cols(nk);
+  const int blocks = (p.seq_k + rows - 1) / rows * p.kv_heads * batch;
+  const int i_hi = p.window > 0 && rows - 1 + p.window < p.seq
+                       ? rows - 1 + p.window
+                       : p.seq;
+  const int steps = p.heads / p.kv_heads * ((i_hi + cols - 1) / cols);
+  const int want = (F_MIN_BLOCKS + blocks - 1) / blocks;
+  const int most = steps / F_MIN_STEPS;
+  return want < most ? want : most > 1 ? most : 1;
+}
+
+// n rows from row r0 of g (row stride gld floats, d columns) into s (row
+// stride LD), zeros from row lim on; VEC: 16-byte copies (d a multiple of
+// 4, g 16-byte aligned), else 4 bytes. Issues the copies only.
+template <int LD, bool VEC>
+__device__ __forceinline__ void f_stage(float* s, const float* g, size_t gld,
+                                        int r0, int lim, int n, int d) {
+  const int per = VEC ? d / 4 : d;
+  for (int e = threadIdx.x; e < n * per; e += F_THREADS) {
+    const int row = e / per, col = (e - row * per) * (VEC ? 4 : 1);
+    const bool ok = r0 + row < lim;
+    const float* src =
+        g + static_cast<size_t>(ok ? r0 + row : 0) * gld + col;
+    if constexpr (VEC)
+      gru::cp_async16(s + row * LD + col, src, ok ? 16 : 0);
+    else
+      gru::cp_async4(s + row * LD + col, src, ok ? 4 : 0);
+  }
+}
+// n floats from g[r0] on into s, zeros from lim on
+__device__ __forceinline__ void f_stage_row(float* s, const float* g, int r0,
+                                            int lim, int n) {
+  for (int e = threadIdx.x; e < n; e += F_THREADS) {
+    const bool ok = r0 + e < lim;
+    gru::cp_async4(s + e, g + (ok ? r0 + e : 0), ok ? 4 : 0);
+  }
+}
+// zeros in columns [d, LD) of n rows: the head dim's padding, which no
+// copy writes
+template <int LD>
+__device__ __forceinline__ void f_zero_pad(float* s, int n, int d) {
+  const int w = LD - d;
+  for (int e = threadIdx.x; e < n * w; e += F_THREADS)
+    s[(e / w) * LD + d + e % w] = 0.0f;
+}
+
+// four (two) 8 x 4 float32 tiles from shared memory (`ldmatrix` of 8 x 8
+// b16 matrices): lane l gives the address of row l % 8 of tile l / 8 and
+// gets element (l / 4, l % 4) of each
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
+// c0, c1, c2 += the three passes of a b (lo hi, hi lo, hi hi), each in
+// an accumulator of its own so that they do not wait on each other; b0,
+// b1 the B fragment as float32 bits
+__device__ __forceinline__ void mma3p(float (&c0)[4], float (&c1)[4],
+                                      float (&c2)[4], const uint32_t (&ah)[4],
+                                      const uint32_t (&al)[4], uint32_t b0,
+                                      uint32_t b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  gru::Tf32x3::split(__uint_as_float(b0), bh0, bl0);
+  gru::Tf32x3::split(__uint_as_float(b1), bh1, bl1);
+  gru::mma_tf32(c0, al, bh0, bh1);
+  gru::mma_tf32(c1, ah, bl0, bl1);
+  gru::mma_tf32(c2, ah, bh0, bh1);
+}
+// c += a b as 3xTF32 in one accumulator (the small terms first)
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  gru::Tf32x3::split(b0, bh0, bl0);
+  gru::Tf32x3::split(b1, bh1, bl1);
+  gru::mma_tf32(c, al, bh0, bh1);
+  gru::mma_tf32(c, ah, bl0, bl1);
+  gru::mma_tf32(c, ah, bh0, bh1);
+}
+
+// acc[pass][n] += one k-step of A B^T: the warp's 16 rows of A at the
+// `ldmatrix` address a (lane l: row l % 8 + 8 (l / 8 % 2), column 4 (l /
+// 16)) against NT 8-row tiles of B at b (lane l: row l % 8 + 8 (l / 16),
+// column 4 (l / 8 % 2); tile pairs 16 rows apart)
+template <int NT, int LD>
+__device__ __forceinline__ void f_kstep(float (&acc)[3][NT][4], uint32_t a,
+                                        uint32_t b) {
+  uint32_t x[4], ah[4], al[4];
+  ldsm4(x, a);
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    gru::Tf32x3::split(__uint_as_float(x[e]), ah[e], al[e]);
+  if constexpr (NT == 1) {
+    uint32_t y[2];
+    ldsm2(y, b);
+    mma3p(acc[0][0], acc[1][0], acc[2][0], ah, al, y[0], y[1]);
+  } else {
+#pragma unroll
+    for (int m = 0; m < NT / 2; ++m) {
+      uint32_t y[4];
+      ldsm4(y, b + m * 16 * LD * 4);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        mma3p(acc[0][2 * m + j], acc[1][2 * m + j], acc[2][2 * m + j], ah,
+              al, y[2 * j], y[2 * j + 1]);
+    }
+  }
+}
+
+// s = A B^T and t = A2 B2^T over the NK k-steps (`f_kstep`'s addresses
+// a, b, a2, b2), each 4 k-steps summed from zero, then added in float32.
+// s[n][e]: row gid + 8 (e >> 1), column 8 n + 2 tig + (e & 1).
+template <int NT, int NK, int LD>
+__device__ __forceinline__ void f_gram(float (&s)[NT][4], float (&t)[NT][4],
+                                       uint32_t a, uint32_t b, uint32_t a2,
+                                       uint32_t b2) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = t[n][e] = 0.0f;
+#pragma unroll
+  for (int k0 = 0; k0 < NK; k0 += 4) {
+    float ps[3][NT][4], pt[3][NT][4];
+#pragma unroll
+    for (int z = 0; z < 3; ++z)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ps[z][n][e] = pt[z][n][e] = 0.0f;
+#pragma unroll
+    for (int kk = k0; kk < k0 + 4; ++kk) {
+      f_kstep<NT, LD>(ps, a + 32 * kk, b + 32 * kk);
+      f_kstep<NT, LD>(pt, a2 + 32 * kk, b2 + 32 * kk);
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] += (ps[0][n][e] + ps[1][n][e]) + ps[2][n][e];
+        t[n][e] += (pt[0][n][e] + pt[1][n][e]) + pt[2][n][e];
+      }
+  }
+}
+
+// acc (the warp's 16 rows x NT tiles of 8 columns) = the sum over a
+// step's FC columns of p (16 rows from p, row stride LDP: P^T, dS^T or dS
+// as phase 1 wrote them) times y (FC rows of a staged tile, from the
+// warp's first column), from zero. The k index is permuted (k t of a
+// k-step is its column / row 2 t, k t + 4 is 2 t + 1), and so is the n
+// index: column n of tile j is y's column 16 (j / 2) + 2 n + j % 2.
+template <int NT, int FC, int LD, int LDP>
+__device__ __forceinline__ void f_sum(float (&acc)[NT][4], const float* p,
+                                      const float* y, int gid, int tig) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < FC / 8; ++kk) {
+    const float2 x0 =
+        *reinterpret_cast<const float2*>(p + gid * LDP + 8 * kk + 2 * tig);
+    const float2 x1 = *reinterpret_cast<const float2*>(
+        p + (gid + 8) * LDP + 8 * kk + 2 * tig);
+    uint32_t ah[4], al[4];
+    gru::Tf32x3::split(x0.x, ah[0], al[0]);
+    gru::Tf32x3::split(x1.x, ah[1], al[1]);
+    gru::Tf32x3::split(x0.y, ah[2], al[2]);
+    gru::Tf32x3::split(x1.y, ah[3], al[3]);
+    const float* y0 = y + (8 * kk + 2 * tig) * LD + 2 * gid;
+#pragma unroll
+    for (int m = 0; m < NT / 2; ++m) {
+      const float2 u = *reinterpret_cast<const float2*>(y0 + 16 * m);
+      const float2 w = *reinterpret_cast<const float2*>(y0 + LD + 16 * m);
+      mma3(acc[2 * m], ah, al, u.x, w.x);
+      mma3(acc[2 * m + 1], ah, al, u.y, w.y);
+    }
+  }
+}
+// the column of a staged tile that f_sum's acc[j][e] (lane tig) sums,
+// from the warp's first column
+__device__ __forceinline__ int f_col(int j, int e, int tig) {
+  return 16 * (j >> 1) + 4 * tig + 2 * (e & 1) + (j & 1);
+}
+
+// x[n][2 h + e] (rows gid + 8 h, columns 8 n + 2 tig + e) as float2s into
+// a tile of row stride LDP from `at` (the warp's first row and column)
+template <int NT, int LDP>
+__device__ __forceinline__ void f_put(float* at, const float (&x)[NT][4],
+                                      int gid, int tig) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(at + (gid + 8 * h) * LDP + 8 * n +
+                                 2 * tig) =
+          make_float2(x[n][2 * h], x[n][2 * h + 1]);
+}
+
+// dK / dV: a block per (FR-key tile, KV head, batch row, run of its
+// steps); each run's sums (dK unscaled) into part[split][dK, dV][b][key]
+// [hk][:]
+template <int NK, bool VEC>
+__global__ void __launch_bounds__(F_THREADS, 1)
+    bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ part,
+                 Params p, int splits) {
+  constexpr int FR = f_rows(NK), FC = f_cols(NK);
+  constexpr int LD = f_ld(NK), LDP = f_ldp(FC);
+  constexpr int MT = FR / 16, CG = 8 / MT;  // row tiles, column groups
+  constexpr int NT1 = FC / 8 / CG, NT2 = NK / CG;
+  extern __shared__ __align__(16) float fs[];
+  const int d = p.d;
+  float* ks = fs;                 // [FR][LD]
+  float* vs = ks + FR * LD;       // [FR][LD]
+  float* qs = vs + FR * LD;       // [2][FC][LD]
+  float* os = qs + 2 * FC * LD;   // [2][FC][LD]
+  float* ls = os + 2 * FC * LD;   // [2][FC] lse
+  float* dls = ls + 2 * FC;       // [2][FC] D
+  float* pts = dls + 2 * FC;      // [FR][LDP] P^T
+  float* dss = pts + FR * LDP;    // [FR][LDP] dS^T
+
+  const int kt = blockIdx.x / splits, split = blockIdx.x % splits;
+  const int k0 = kt * FR, hk = blockIdx.y, b = blockIdx.z;
+  const int group = p.heads / p.kv_heads;
+  const size_t kv_ld = static_cast<size_t>(p.kv_heads) * d;
+  const size_t q_ld = static_cast<size_t>(p.heads) * d;
+  const size_t kv_off =
+      (static_cast<size_t>(b) * p.seq_k * p.kv_heads + hk) * d;
+  // steps (g, t): the query tiles that see a key of the block, for every
+  // head of the group; this block's run of them
+  const int t_lo = (p.causal ? k0 : 0) / FC;
+  const int i_hi =
+      p.window > 0 ? min(p.seq, k0 + FR - 1 + p.window) : p.seq;
+  const int n_t = max(0, (i_hi + FC - 1) / FC - t_lo);
+  const long long total = static_cast<long long>(group) * n_t;
+  const int s0 = static_cast<int>(total * split / splits);
+  const int n_steps = static_cast<int>(total * (split + 1) / splits) - s0;
+  auto stage_step = [&](int i) {
+    const int s = s0 + i, h = hk * group + s / n_t;
+    const int q0 = (t_lo + s % n_t) * FC, st = i & 1;
+    const size_t q_off = (static_cast<size_t>(b) * p.seq * p.heads + h) * d;
+    const size_t row_off = (static_cast<size_t>(b) * p.heads + h) * p.seq;
+    f_stage<LD, VEC>(qs + st * FC * LD, q + q_off, q_ld, q0, p.seq, FC, d);
+    f_stage<LD, VEC>(os + st * FC * LD, dout + q_off, q_ld, q0, p.seq, FC,
+                     d);
+    f_stage_row(ls + st * FC, lse + row_off, q0, p.seq, FC);
+    f_stage_row(dls + st * FC, delta + row_off, q0, p.seq, FC);
+  };
+  f_zero_pad<LD>(ks, 2 * FR + 4 * FC, d);  // K, V, the ring: adjacent
+  f_stage<LD, VEC>(ks, k + kv_off, kv_ld, k0, p.seq_k, FR, d);
+  f_stage<LD, VEC>(vs, v + kv_off, kv_ld, k0, p.seq_k, FR, d);
+  if (n_steps > 0) stage_step(0);
+  gru::cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  // phase 1: rows (keys) 16 mt, columns 8 NT1 cg of the step; phase 2:
+  // rows 16 mt, head-dim columns 8 NT2 cg on
+  const int mt = warp % MT, cg = warp / MT;
+  const int kw = 16 * mt, cw = 8 * NT1 * cg;
+  // `ldmatrix` addresses (f_kstep): K, V rows (A), a step's Q, dO (B)
+  const int a_at = (kw + lane % 8 + 8 * (lane / 8 % 2)) * LD + 4 * (lane / 16);
+  const int b_at = (cw + lane % 8 + 8 * (lane / 16)) * LD + 4 * (lane / 8 % 2);
+  const uint32_t ka = smem_addr(ks + a_at), va = smem_addr(vs + a_at);
+  const uint32_t qb = smem_addr(qs + b_at), ob = smem_addr(os + b_at);
+  const float sl2 = p.scale * LOG2E;
+  float dk[NT2][4], dv[NT2][4];
+#pragma unroll
+  for (int n = 0; n < NT2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
+
+  for (int i = 0; i < n_steps; ++i) {
+    __syncthreads();  // step i - 1's readers are done with its buffers
+    if (i + 1 < n_steps) {
+      stage_step(i + 1);
+      gru::cp_async_commit();
+      gru::cp_async_wait<1>();
+    } else {
+      gru::cp_async_wait<0>();
+    }
+    __syncthreads();  // step i has landed, for every thread
+    const int st = i & 1, q0 = (t_lo + (s0 + i) % n_t) * FC;
+    const float* qt = qs + st * FC * LD;
+    const float* ot = os + st * FC * LD;
+    const float* lt = ls + st * FC;
+    const float* dlt = dls + st * FC;
+
+    // (1) S^T = K Q^T, dP^T = V dO^T for keys kw + [0, 16), queries cw +
+    // [0, 8 NT1); P^T and dS^T, masked where the sub-tile crosses an edge
+    float sv[NT1][4], tv[NT1][4];
+    const uint32_t so = st * FC * LD * 4;
+    f_gram<NT1, NK, LD>(sv, tv, ka, qb + so, va, ob + so);
+    const int key0 = k0 + kw, qry0 = q0 + cw;
+    const bool edge = key0 + 15 >= p.seq_k ||
+                      (p.causal && key0 + 15 > qry0) ||
+                      (p.window > 0 && key0 <= qry0 + 8 * NT1 - 1 - p.window);
+#pragma unroll
+    for (int n = 0; n < NT1; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = cw + 8 * n + 2 * tig + (e & 1);
+        float pv = ex2(fmaf(sv[n][e], sl2, -lt[c] * LOG2E));
+        if (edge && !visible(p, q0 + c, key0 + gid + 8 * (e >> 1)))
+          pv = 0.0f;
+        sv[n][e] = pv;
+        tv[n][e] = pv * (tv[n][e] - dlt[c]);
+      }
+    f_put<NT1, LDP>(pts + kw * LDP + cw, sv, gid, tig);
+    f_put<NT1, LDP>(dss + kw * LDP + cw, tv, gid, tig);
+    __syncthreads();
+
+    // (2) dV += P^T dO, dK += dS^T Q: keys kw + [0, 16), the warp's
+    // head-dim columns; each step's sum from zero
+    float acc[NT2][4];
+    f_sum<NT2, FC, LD, LDP>(acc, pts + kw * LDP, ot + 8 * NT2 * cg, gid,
+                            tig);
+#pragma unroll
+    for (int n = 0; n < NT2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dv[n][e] += acc[n][e];
+    f_sum<NT2, FC, LD, LDP>(acc, dss + kw * LDP, qt + 8 * NT2 * cg, gid,
+                            tig);
+#pragma unroll
+    for (int n = 0; n < NT2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[n][e] += acc[n][e];
+  }
+
+  const size_t n_el = static_cast<size_t>(gridDim.z) * p.seq_k *
+                      p.kv_heads * d;
+  float* pk = part + static_cast<size_t>(split) * 2 * n_el;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + kw + gid + 8 * h;
+    if (key >= p.seq_k) continue;
+    const size_t off =
+        ((static_cast<size_t>(b) * p.seq_k + key) * p.kv_heads + hk) * d;
+#pragma unroll
+    for (int n = 0; n < NT2; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * NT2 * cg + f_col(n, e, tig);
+        if (col < d) {
+          pk[off + col] = dk[n][2 * h + e];
+          pk[n_el + off + col] = dv[n][2 * h + e];
+        }
+      }
+  }
+}
+
+// dK = scale sum of the runs, dV = sum, in run order, float32; an element
+// a thread
+__global__ void __launch_bounds__(256)
+    bwd_dkdv_sum_f32(const float* __restrict__ part, float* __restrict__ dk,
+                     float* __restrict__ dv, size_t n, int splits,
+                     float scale) {
+  const size_t e = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (e >= n) return;
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+    float s = part[which * n + e];
+    for (int r = 1; r < splits; ++r) s += part[(2 * r + which) * n + e];
+    if (which)
+      dv[e] = s;
+    else
+      dk[e] = s * scale;
+  }
+}
+
+// dQ: a block per (FR query rows, head, batch row), walking FC-key tiles
+template <int NK, bool VEC>
+__global__ void __launch_bounds__(F_THREADS, 1)
+    bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta, float* __restrict__ dq,
+               Params p) {
+  constexpr int FR = f_rows(NK), FC = f_dq_cols(NK);
+  constexpr int LD = f_ld(NK), LDP = f_ldp(FC);
+  constexpr int MT = FR / 16, CG = 8 / MT;
+  constexpr int NT1 = FC / 8 / CG, NT2 = NK / CG;
+  extern __shared__ __align__(16) float fs[];
+  const int d = p.d;
+  float* qs = fs;                 // [FR][LD]
+  float* os = qs + FR * LD;       // [FR][LD]
+  float* ks = os + FR * LD;       // [2][FC][LD]
+  float* vs = ks + 2 * FC * LD;   // [2][FC][LD]
+  float* dss = vs + 2 * FC * LD;  // [FR][LDP] dS
+
+  // causal: the last query tiles see the most keys, and start first
+  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * FR, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.heads / p.kv_heads);
+  const size_t kv_ld = static_cast<size_t>(p.kv_heads) * d;
+  const size_t q_ld = static_cast<size_t>(p.heads) * d;
+  const size_t kv_off =
+      (static_cast<size_t>(b) * p.seq_k * p.kv_heads + hk) * d;
+  const size_t q_off = (static_cast<size_t>(b) * p.seq * p.heads + h) * d;
+  const size_t row_off = (static_cast<size_t>(b) * p.heads + h) * p.seq;
+  // the key tiles the rows see: [t_begin, t_begin + n_tiles)
+  const int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  const int k_end = p.causal ? min(q0 + FR, p.seq_k) : p.seq_k;
+  const int t_begin = k_begin / FC;
+  const int n_tiles = (k_end + FC - 1) / FC - t_begin;
+  auto stage_tile = [&](int i) {
+    const int key = (t_begin + i) * FC, st = i & 1;
+    f_stage<LD, VEC>(ks + st * FC * LD, k + kv_off, kv_ld, key, p.seq_k,
+                     FC, d);
+    f_stage<LD, VEC>(vs + st * FC * LD, v + kv_off, kv_ld, key, p.seq_k,
+                     FC, d);
+  };
+  f_zero_pad<LD>(qs, 2 * FR + 4 * FC, d);  // Q, dO, the ring: adjacent
+  f_stage<LD, VEC>(qs, q + q_off, q_ld, q0, p.seq, FR, d);
+  f_stage<LD, VEC>(os, dout + q_off, q_ld, q0, p.seq, FR, d);
+  if (n_tiles > 0) stage_tile(0);
+  gru::cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int mt = warp % MT, cg = warp / MT;
+  const int rw = 16 * mt, cw = 8 * NT1 * cg;
+  // `ldmatrix` addresses (f_kstep): Q, dO rows (A), a tile's K, V (B)
+  const int a_at = (rw + lane % 8 + 8 * (lane / 8 % 2)) * LD + 4 * (lane / 16);
+  const int b_at = (cw + lane % 8 + 8 * (lane / 16)) * LD + 4 * (lane / 8 % 2);
+  const uint32_t qa = smem_addr(qs + a_at), oa = smem_addr(os + a_at);
+  const uint32_t kb = smem_addr(ks + b_at), vb = smem_addr(vs + b_at);
+  const float sl2 = p.scale * LOG2E;
+  // the thread's two rows' lse (log2 units) and D
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + rw + gid + 8 * r;
+    l2[r] = row < p.seq ? lse[row_off + row] * LOG2E : INFINITY;
+    dl[r] = row < p.seq ? delta[row_off + row] : 0.0f;
+  }
+  float acc_q[NT2][4];
+#pragma unroll
+  for (int n = 0; n < NT2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_q[n][e] = 0.0f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    __syncthreads();  // tile i - 1's readers are done with its buffers
+    if (i + 1 < n_tiles) {
+      stage_tile(i + 1);
+      gru::cp_async_commit();
+      gru::cp_async_wait<1>();
+    } else {
+      gru::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile i has landed, for every thread
+    const int st = i & 1, kt0 = (t_begin + i) * FC;
+    const float* kt = ks + st * FC * LD;
+
+    // (1) S = Q K^T, dP = dO V^T for rows rw + [0, 16), keys cw + [0, 8
+    // NT1); dS, masked where the sub-tile crosses an edge
+    float sv[NT1][4], tv[NT1][4];
+    const uint32_t so = st * FC * LD * 4;
+    f_gram<NT1, NK, LD>(sv, tv, qa, kb + so, oa, vb + so);
+    const int row0 = q0 + rw, key0 = kt0 + cw, key_last = key0 + 8 * NT1 - 1;
+    const bool edge = key_last >= p.seq_k ||
+                      (p.causal && key_last > row0) ||
+                      (p.window > 0 && key0 <= row0 + 15 - p.window);
+#pragma unroll
+    for (int n = 0; n < NT1; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float pv = ex2(fmaf(sv[n][e], sl2, -l2[r]));
+        if (edge && !visible(p, row0 + gid + 8 * r,
+                             key0 + 8 * n + 2 * tig + (e & 1)))
+          pv = 0.0f;
+        sv[n][e] = pv * (tv[n][e] - dl[r]);
+      }
+    f_put<NT1, LDP>(dss + rw * LDP + cw, sv, gid, tig);
+    __syncthreads();
+
+    // (2) dQ += dS K: rows rw + [0, 16), the warp's head-dim columns
+    float acc[NT2][4];
+    f_sum<NT2, FC, LD, LDP>(acc, dss + rw * LDP, kt + 8 * NT2 * cg, gid,
+                            tig);
+#pragma unroll
+    for (int n = 0; n < NT2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_q[n][e] += acc[n][e];
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + rw + gid + 8 * r;
+    if (row >= p.seq) continue;
+    float* out = dq + q_off + static_cast<size_t>(row) * q_ld;
+#pragma unroll
+    for (int n = 0; n < NT2; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * NT2 * cg + f_col(n, e, tig);
+        if (col < d) out[col] = acc_q[n][2 * r + e] * p.scale;
+      }
+  }
+}
+
 template <typename T>
 cudaError_t launch_delta(const void* o, const void* dout, int batch,
                          const Params& p, float* delta, cudaStream_t st) {
@@ -1447,12 +1790,12 @@ cudaError_t launch_delta(const void* o, const void* dout, int batch,
   return cudaGetLastError();
 }
 
-// the floats of the dK / dV runs' scratch a call needs (0: the CUDA-core
-// form, which needs none)
+// the floats of the dK / dV runs' scratch a call needs
 size_t scratch_floats(int batch, const Params& p, int is_bf16) {
-  if (!takes_tc(is_bf16, p.d)) return 0;
-  return static_cast<size_t>(dkdv_splits(batch, p)) * 2 * batch * p.seq_k *
-         p.kv_heads * p.d;
+  const int splits = takes_wgmma(is_bf16, p.d) ? dkdv_splits(batch, p)
+                                               : f_splits(batch, p);
+  return static_cast<size_t>(splits) * 2 * batch * p.seq_k * p.kv_heads *
+         p.d;
 }
 
 // bf16 at head dim D (32, 64, 128 or 256) on the tensor cores
@@ -1514,49 +1857,60 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-// head dims up to NC * 16 with BQ x BK tiles, float32 on the CUDA cores
-template <int BQ, int BK, int NC>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* lse, const void* dout, int batch, const Params& p,
-           float* delta, void* dq, void* dk, void* dv, cudaStream_t st) {
-  static_assert(4 * smem_floats<BQ, BK>(NC * 16 + 1) <= MAX_SMEM, "smem");
-  const int smem = 4 * smem_floats<BQ, BK>(p.d | 1);
-  const int max_smem = 4 * smem_floats<BQ, BK>(NC * 16 + 1);
-  cudaError_t err = allow_smem<bwd_dkdv<BQ, BK, NC>>(max_smem);
-  if (err == cudaSuccess) err = allow_smem<bwd_dq<BQ, BK, NC>>(max_smem);
+// float32 at head dims to 8 NK on the tensor cores (3xTF32): four
+// launches, as the bf16 form's
+template <int NK, bool VEC>
+int launch_f32(const void* q, const void* k, const void* v, const void* o,
+               const void* lse, const void* dout, int batch, const Params& p,
+               float* delta, float* part, void* dq, void* dk, void* dv,
+               cudaStream_t st) {
+  constexpr int FR = f_rows(NK);
+  cudaError_t err =
+      allow_smem<bwd_dkdv_f32<NK, VEC>>(f_dkdv_smem(NK));
+  if (err == cudaSuccess)
+    err = allow_smem<bwd_dq_f32<NK, VEC>>(f_dq_smem(NK));
+  if (err == cudaSuccess)
+    err = launch_delta<float>(o, dout, batch, p, delta, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float* tq = static_cast<const float*>(q);
   const float* tk = static_cast<const float*>(k);
   const float* tv = static_cast<const float*>(v);
   const float* tdo = static_cast<const float*>(dout);
   const float* tl = static_cast<const float*>(lse);
-  err = launch_delta<float>(o, dout, batch, p, delta, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dkdv<BQ, BK, NC>
-      <<<dim3((p.seq_k + BK - 1) / BK, p.kv_heads, batch), THREADS, smem,
-         st>>>(tq, tk, tv, tdo, tl, delta, static_cast<float*>(dk),
-               static_cast<float*>(dv), p);
+  const int splits = f_splits(batch, p);
+  bwd_dkdv_f32<NK, VEC>
+      <<<dim3((p.seq_k + FR - 1) / FR * splits, p.kv_heads, batch),
+         F_THREADS, f_dkdv_smem(NK), st>>>(tq, tk, tv, tdo, tl, delta,
+                                                part, p, splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dq<BQ, BK, NC><<<dim3((p.seq + BQ - 1) / BQ, p.heads, batch), THREADS,
-                       smem, st>>>(tq, tk, tv, tdo, tl, delta,
-                                   static_cast<float*>(dq), p);
+  const size_t n = static_cast<size_t>(batch) * p.seq_k * p.kv_heads * p.d;
+  bwd_dkdv_sum_f32<<<(n + 255) / 256, 256, 0, st>>>(
+      part, static_cast<float*>(dk), static_cast<float*>(dv), n, splits,
+      p.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bwd_dq_f32<NK, VEC><<<dim3((p.seq + FR - 1) / FR, p.heads, batch),
+                        F_THREADS, f_dq_smem(NK), st>>>(
+      tq, tk, tv, tdo, tl, delta, static_cast<float*>(dq), p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// float32 at any head dim up to 256
-int dispatch(const void* q, const void* k, const void* v, const void* o,
-             const void* lse, const void* dout, int batch, const Params& p,
-             float* delta, void* dq, void* dk, void* dv, cudaStream_t st) {
-  switch (nc_of(p.d)) {
-    case 2: return launch<CC_BQ, cc_block_kv(2), 2>(
-        q, k, v, o, lse, dout, batch, p, delta, dq, dk, dv, st);
-    case 4: return launch<CC_BQ, cc_block_kv(4), 4>(
-        q, k, v, o, lse, dout, batch, p, delta, dq, dk, dv, st);
-    case 8: return launch<CC_BQ, cc_block_kv(8), 8>(
-        q, k, v, o, lse, dout, batch, p, delta, dq, dk, dv, st);
-    default: return launch<CC_BQ, cc_block_kv(16), 16>(
-        q, k, v, o, lse, dout, batch, p, delta, dq, dk, dv, st);
+// float32 at any head dim to 256
+template <bool VEC>
+int dispatch_f32(const void* q, const void* k, const void* v, const void* o,
+                 const void* lse, const void* dout, int batch,
+                 const Params& p, float* delta, float* part, void* dq,
+                 void* dk, void* dv, cudaStream_t st) {
+  switch (f_nk(p.d)) {
+    case 4: return launch_f32<4, VEC>(q, k, v, o, lse, dout, batch, p, delta,
+                                      part, dq, dk, dv, st);
+    case 8: return launch_f32<8, VEC>(q, k, v, o, lse, dout, batch, p, delta,
+                                      part, dq, dk, dv, st);
+    case 16: return launch_f32<16, VEC>(q, k, v, o, lse, dout, batch, p,
+                                        delta, part, dq, dk, dv, st);
+    default: return launch_f32<32, VEC>(q, k, v, o, lse, dout, batch, p,
+                                        delta, part, dq, dk, dv, st);
   }
 }
 
@@ -1568,7 +1922,7 @@ namespace {
 bool params_of(int seq_q, int seq_k, int heads, int kv_heads, int head_dim,
                int causal, int window, int is_bf16, Params* p) {
   if (kv_heads <= 0 || heads % kv_heads || head_dim <= 0 ||
-      head_dim > 256 || (is_bf16 && !takes_tc(1, head_dim)) || seq_k <= 0 ||
+      head_dim > 256 || (is_bf16 && !takes_wgmma(1, head_dim)) || seq_k <= 0 ||
       seq_q <= 0 || ((causal || window > 0) && seq_k != seq_q))
     return false;
   *p = Params{seq_q,  seq_k,  heads,    kv_heads,
@@ -1586,9 +1940,8 @@ bool params_of(int seq_q, int seq_k, int heads, int kv_heads, int head_dim,
 // `part_floats` float32 of scratch, as many as
 // `flash_attention_bwd_scratch` gives for the call (else refused). H a
 // multiple of Hkv; window <= 0 for none; Sk >= 1, and Sk = Sq where the
-// call is causal or has a window. bf16 on the tensor cores (four
-// launches), float32 on the CUDA cores (three), on `stream`; returns the
-// first error.
+// call is causal or has a window. Four launches on `stream` in both
+// forms; returns the first error.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* lse, const void* dout,
@@ -1608,8 +1961,15 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* dl = static_cast<float*>(delta);
   float* pt = static_cast<float*>(part);
+  // float32 takes any head dim (the calls' contract); no model's is
+  // off a multiple of 4, only test shapes such as D 21 take the
+  // 4-byte copies
   if (!is_bf16)
-    return dispatch(q, k, v, o, lse, dout, batch, p, dl, dq, dk, dv, st);
+    return head_dim % 4 == 0
+               ? dispatch_f32<true>(q, k, v, o, lse, dout, batch, p, dl, pt,
+                                    dq, dk, dv, st)
+               : dispatch_f32<false>(q, k, v, o, lse, dout, batch, p, dl, pt,
+                                     dq, dk, dv, st);
   switch (head_dim) {
     case 32: return launch_tc<32>(q, k, v, o, lse, dout, batch, p, dl, pt,
                                   dq, dk, dv, st);
@@ -1623,9 +1983,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
 }
 
 // The float32 scratch (`part`) that `flash_attention_bwd` needs for the
-// call: the tensor-core form's dK / dV runs, (splits, 2, B, Sk, Hkv, D);
-// 0 for the CUDA-core form; -1 for a call the kernels refuse. Launches
-// nothing.
+// call: the dK / dV runs' sums, (splits, 2, B, Sk, Hkv, D), in either
+// form; -1 for a call the kernels refuse. Launches nothing.
 extern "C" long long flash_attention_bwd_scratch(int batch, int seq_q,
                                                  int seq_k, int heads,
                                                  int kv_heads, int head_dim,
@@ -1643,8 +2002,11 @@ extern "C" long long flash_attention_bwd_scratch(int batch, int seq_q,
 // of *keys. Launches nothing.
 extern "C" void flash_attention_bwd_dq_tile(int head_dim, int is_bf16,
                                             int* rows, int* keys) {
-  const bool tc = takes_tc(is_bf16, head_dim);
-  *rows = tc ? WG_ROWS : CC_BQ;
-  *keys = tc ? (head_dim > 128 ? W_KEYS : BK)
-             : cc_block_kv(nc_of(head_dim));
+  if (takes_wgmma(is_bf16, head_dim)) {
+    *rows = WG_ROWS;
+    *keys = head_dim > 128 ? W_KEYS : BK;
+  } else {
+    *rows = f_rows(f_nk(head_dim));
+    *keys = f_dq_cols(f_nk(head_dim));
+  }
 }

@@ -118,9 +118,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     gradient ``do`` (B, Sq, H, D) in q's dtype: (dq, dk, dv) in the
     inputs' dtype, dk and dv per KV head (summed over the query heads of
     its group). The same inputs as the forward's; float32 sums, no
-    atomics (two calls agree bit for bit); one count a call of its
-    launches (four on the tensor cores, for bf16; three on the CUDA
-    cores, for float32)."""
+    atomics (two calls agree bit for bit); one count a call of its four
+    launches, on the tensor cores in both dtypes (bf16 by ``wgmma``,
+    float32 as 3xTF32 products by ``mma.sync``)."""
     b, s, sk, h, hkv, d = _check_inputs(q, k, v, causal, window)
     check("o", o, q.dtype, (b, s, h, d), q.device)
     check("do", do, q.dtype, (b, s, h, d), q.device)
@@ -138,7 +138,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), do.data_ptr(), b, s, sk, h, hkv, d, int(causal),
         int(window or 0), int(bf16), delta.data_ptr(),
-        part.data_ptr() if part.numel() else None, part.numel(),
+        part.data_ptr(), part.numel(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stream(q.device))
     return dq, dk, dv
 
@@ -153,9 +153,8 @@ def _bwd_query(name: str, argtypes: tuple, restype):
 def bwd_scratch(b: int, sq: int, sk: int, h: int, hkv: int, d: int,
                 causal: bool, window: Optional[int], bf16: bool) -> int:
     """The float32 scratch, in elements, that the backward kernel needs
-    for a call (the tensor-core form's dK / dV sums of each run of its
-    walk, bf16; none on the CUDA cores, float32), as the built kernel
-    reports it:
+    for a call (the dK / dV sums of each run of its walk, in either
+    dtype), as the built kernel reports it:
     ``csrc/flash_attention_bwd.cu`` owns its tiles and runs."""
     n = _bwd_query("flash_attention_bwd_scratch", (ctypes.c_int,) * 9,
                    ctypes.c_longlong)(b, sq, sk, h, hkv, d, int(causal),

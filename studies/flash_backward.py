@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""The flash backward's tensor-core form on one NVIDIA GPU: its build,
-the variants of it that were tried, and the kernel it replaced.
+"""The flash backward's tensor-core forms on one NVIDIA GPU: their
+build, the variants of them that were tried, and the kernels they
+replaced.
 
     python3 studies/flash_backward.py [--parent <checkout>] [--variants]
                                       [--shapes LABEL ...]
+                                      [--cases LABEL ...]
 
 Builds the port's kernels (``build.build_all``) and prints what ``ptxas``
 says of the backward's kernels (registers, spills) and an opcode count of
 each one's SASS (``cuobjdump -sass``). Then, at the shapes of
-``chip_smoke.FLASH_BWD_CASES`` (bf16 on the tensor cores at D 32, 64, 128
-and 256, float32 on the CUDA cores; inputs as phase 24 makes them), it
-holds the kernel to phase 24's limits (``chip_smoke.flash_bwd_ratio``
-against ``flash_bwd_plain``) and times it through the kernel entry into
-outputs and scratch allocated once (``chip_smoke.call_ms``: CUDA events
-over back-to-back calls; ``chip_smoke.device_ms``: the profiler), beside
-the bound of phase 24.
+``chip_smoke.FLASH_BWD_CASES`` (bf16 by ``wgmma`` at D 32, 64, 128 and
+256, float32 as 3xTF32 by ``mma.sync``; inputs as phase 24 makes them;
+``--cases`` picks some by label), it holds the kernel to phase 24's
+limits (``chip_smoke.flash_bwd_ratio`` against ``flash_bwd_plain``) and
+times it through the kernel entry into outputs and scratch allocated
+once (``chip_smoke.call_ms``: CUDA events over back-to-back calls;
+``chip_smoke.device_ms``: the profiler), beside the bound of phase 24
+(in float32 the function's FLOPs three times at the TF32 rate).
 
 ``--parent`` builds another checkout's ``flash_attention.cu`` and
 ``flash_attention_bwd.cu`` (its ``src/repro_torch/kernels/csrc``) into
@@ -43,6 +46,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
+
+
+def _split_for(body: str) -> tuple:
+    """Substitutions that put a split of float32 x into tf32 hi + lo with
+    ``body`` in place of ``gru::Tf32x3::split`` at each of the float32
+    form's nine calls."""
+    return (('#include "gru_tile.cuh"\n',
+             '#include "gru_tile.cuh"\n__device__ __forceinline__ void '
+             'study_split(float x, uint32_t& hi, uint32_t& lo) {\n'
+             + body + "}\n", 1),
+            ("gru::Tf32x3::split(", "study_split(", 9))
+
 
 # name: ((old text, new text, occurrences), ...) in flash_attention_bwd.cu
 VARIANTS = {
@@ -75,6 +90,30 @@ VARIANTS = {
          "      wgmma_wait<0>();", 1),
         ("    pair_sync();  // both consumers done with the last tile's dS "
          "parts\n", "", 1)),
+    # float32 (3xTF32): the runs, and what the lo passes cost (one tf32
+    # pass must fail the limit)
+    "f32: one run a key tile": (
+        ("constexpr int F_MIN_BLOCKS = 4 * 132;",
+         "constexpr int F_MIN_BLOCKS = 1;", 1),),
+    "f32: runs for 8 waves": (
+        ("constexpr int F_MIN_BLOCKS = 4 * 132;",
+         "constexpr int F_MIN_BLOCKS = 8 * 132;", 1),),
+    "f32: 32-key dQ tiles at D 128": (
+        ("  return nk > 16 ? 32 : 64;\n}", "  return nk > 8 ? 32 : 64;\n}",
+         1),),
+    "f32: truncating split": _split_for(
+        "  hi = __float_as_uint(x) & 0xffffe000u;\n"
+        "  lo = __float_as_uint(x - __uint_as_float(hi));\n"),
+    "diagnostic: f32 no split instructions": _split_for(
+        "  hi = __float_as_uint(x);\n  lo = hi;\n"),
+    "diagnostic: f32 no dV / dK / dQ products": (
+        ("      mma3(acc[2 * m], ah, al, u.x, w.x);\n"
+         "      mma3(acc[2 * m + 1], ah, al, u.y, w.y);\n", "", 1),),
+    "diagnostic: f32 one tf32 pass": (
+        ("  gru::mma_tf32(c, al, bh0, bh1);\n  gru::mma_tf32(c, ah, bl0, "
+         "bl1);\n", "", 1),
+        ("  gru::mma_tf32(c0, al, bh0, bh1);\n  gru::mma_tf32(c1, ah, bl0, "
+         "bl1);\n", "", 1)),
 }
 
 
@@ -137,12 +176,16 @@ def print_ptxas(name: str, log: str) -> None:
             sym = line.split("'")[1]
             kernel = next((k for k in ("bwd_dkdv_wg256", "bwd_dq_wg256",
                                        "bwd_dkdv_wg", "bwd_dq_wg",
+                                       "bwd_dkdv_sum_f32", "bwd_dkdv_f32",
+                                       "bwd_dq_f32",
                                        "bwd_dkdv_sum", "bwd_dkdv_tc",
                                        "bwd_dq_tc", "bwd_dkdv", "bwd_dq",
                                        "fa_bf16_kernel")
                            if k in sym), None)
             if kernel and "ILi" in sym:
-                kernel += " D " + sym.split("ILi")[1].split("E")[0]
+                kernel += (" NK " if "f32" in kernel else " D ") + sym.split(
+                    "ILi")[1].split("E")[0] + (" VEC" if "Lb1" in sym else
+                                               "")
         elif kernel and ("spill" in line or "Used" in line):
             print(f"  {name} {kernel}: {line.strip()}")
 
@@ -247,11 +290,13 @@ def compare(torch, cs, case, gen, dev, entries, parent_fwd=None,
     turns = [cs.call_ms(runs[i], iters=iters) * 1e3 for i in order]
     dev_us = [cs.device_ms(fn, iters=iters, rounds=3) * 1e3 for fn in runs]
     pairs = cs.causal_pairs(sq, window) if causal else sq * sk
+    # float32: the function's FLOPs three times (3xTF32) at the TF32 rate
+    flops = 2.5 * 4.0 * d * b * h * pairs
     bound_ms, by = cs.bound(
         q.element_size() * (4 * q.numel() + 2 * (k.numel() + v.numel()))
         + 4 * lse.numel(),
-        2.5 * 4.0 * d * b * h * pairs,
-        cs.BF16_FLOP_PER_S if bf16 else cs.FP32_FLOP_PER_S)
+        flops if bf16 else 3 * flops,
+        cs.BF16_FLOP_PER_S if bf16 else cs.TF32_FLOP_PER_S)
     split = breakdown(torch, runs[-1])
     print(f"{label} (B {b}, Sq {sq}, Sk {sk}, H {h}, Hkv {hkv}, D {d}, "
           f"window {window}, causal {causal}): {'; '.join(notes)}; us "
@@ -295,6 +340,8 @@ def main() -> int:
                     help="names of VARIANTS to build (none named: all)")
     ap.add_argument("--shapes", nargs="*",
                     help="labels of FLASH_BWD_CASES to time variants at")
+    ap.add_argument("--cases", nargs="*",
+                    help="labels of FLASH_BWD_CASES to run (default all)")
     ap.add_argument("--same", nargs="*", type=int, default=[],
                     help="head dims (0: float32) whose outputs must be "
                          "bitwise the parent's")
@@ -318,7 +365,8 @@ def main() -> int:
                   f"({top})")
 
     dev = torch.device("cuda")
-    cases = list(cs.FLASH_BWD_CASES)
+    cases = [c for c in cs.FLASH_BWD_CASES
+             if not opts.cases or c[0] in opts.cases]
     entries = {"this": bwd_entry(lib)}
     parent_fwd = None
     if opts.parent:

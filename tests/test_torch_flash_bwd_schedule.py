@@ -1,6 +1,7 @@
 """An emulation, in plain PyTorch on the CPU, of the flash backward
-kernel's tensor-core form (``csrc/flash_attention_bwd.cu``, bf16): its
-two walks' tiling, its masks and its products.
+kernel's two tensor-core forms (``csrc/flash_attention_bwd.cu``): the
+bf16 form's two walks' tiling, its masks and its products, and the
+float32 form's 3xTF32 products, chains, runs and their ordered sum.
 
 * dK / dV: blocks of 128 keys (two warpgroups of 64) and KV head, whose
   steps (query head of the group, 64-query tile that sees one of the
@@ -25,6 +26,22 @@ largest |plain| plus one bf16 unit, 2^-7, of each element, outputs
 rounded to bf16 as the kernel's are); two faulty schedules must fail it:
 tiles at the window's lower edge passed over, and P / dS rounded once to
 bf16 with no lo part.
+
+* float32: FR rows resident (keys of a dK / dV block, queries of a dQ
+  block) over steps of FC columns (64 x 64 to D 64, 64 x 32 for dK / dV
+  and 64 x 64 for dQ to D 128, 32 x 32 to D 256), the dK / dV steps cut
+  into runs (``_f_splits``, the
+  kernel's ``f_splits``). Every product is 3xTF32: each operand split
+  into a tf32 hi rounded on its bits and lo = x - hi read truncated to
+  tf32, summed as lo hi + hi lo + hi hi; each mma adds a pass's 8
+  products to its accumulator and rounds toward zero to float32, as the
+  tensor cores' accumulate truncates. S and dP sum each 32 columns of
+  the padded head dim into a partial from zero (an accumulator a pass),
+  dV, dK and dQ each step's columns (one accumulator); partials are
+  added in float32, the runs in order. Held to phase 24's float32 limit
+  (1e-5 of each gradient's largest |plain|) at D 21 / 32 / 64 / 128 /
+  256, GQA with window edges and Sk != Sq; one tf32 pass, a run dropped
+  from the sum and one long chain over a block's walk must fail it.
 """
 
 import math
@@ -377,3 +394,254 @@ def test_runs_split_the_heaviest_key_tile():
     # D 256: Gemma-7B's training call fills the card with 64-key blocks
     assert _splits(4096, 4096, 16, 16, None, W_KEYS) == 1
     assert _splits(4096, 4096, 16, 2, None, W_KEYS) == 5
+
+
+# ---------------------------------------------------------------- float32
+
+F_MIN_BLOCKS, F_MIN_STEPS = 4 * 132, 2   # the float32 form's runs
+
+
+def _f_tiles(d):
+    """(FR rows resident, FC columns a dK / dV step, FC keys a dQ step) of
+    the float32 form at head dim d (``f_rows`` / ``f_cols`` /
+    ``f_dq_cols`` of its k-step class)."""
+    nk = 4 if d <= 32 else 8 if d <= 64 else 16 if d <= 128 else 32
+    return (32 if nk > 16 else 64), (32 if nk > 8 else 64), (
+        32 if nk > 16 else 64)
+
+
+def _f_splits(sq, sk, h, hkv, d, window):
+    """The runs of a float32 dK / dV block's steps, as ``f_splits`` (B 1)."""
+    fr, fc, _ = _f_tiles(d)
+    blocks = -(-sk // fr) * hkv
+    i_hi = fr - 1 + window if window and fr - 1 + window < sq else sq
+    steps = h // hkv * -(-i_hi // fc)
+    return max(1, min(-(-F_MIN_BLOCKS // blocks), steps // F_MIN_STEPS))
+
+
+def _tf32_parts(x, one_pass):
+    """x as the tensor cores read its 3xTF32 split: hi rounded to tf32 on
+    its bits (half an ulp added, the low 13 bits cleared), lo = x - hi
+    truncated to tf32 as the hardware reads it; hi alone for one pass."""
+    bits = x.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    if one_pass:
+        return hi, None
+    lo = ((x - hi).view(torch.int32) & -0x2000).view(torch.float32)
+    return hi, lo
+
+
+def _rz(x):
+    """float64 x rounded toward zero to float32."""
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(),
+                       torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _tf32_ksteps(a, b, one_pass):
+    """The mma k-steps of a @ b as 3xTF32: for each 8 of a's columns (b's
+    rows), the exact products of its passes (lo hi, hi lo, hi hi; lo lo
+    dropped), None for the lo passes of one pass."""
+    ah, al = _tf32_parts(a, one_pass)
+    bh, bl = _tf32_parts(b, one_pass)
+    for c in range(0, a.shape[1], 8):
+        x, y = ah[:, c:c + 8].double(), bh[c:c + 8].double()
+        yield ((None, None) if one_pass else
+               (al[:, c:c + 8].double() @ y, x @ bl[c:c + 8].double())) + (
+                   x @ y,)
+
+
+def _tf32_chain(a, b, one_pass, acc=None):
+    """acc (zeros where None) plus a @ b in one tensor-core accumulator
+    (``mma3``): each mma adds a pass's 8 products to it and rounds toward
+    zero to float32 (the tensor cores' truncating accumulate), the small
+    passes first."""
+    if acc is None:
+        acc = torch.zeros(a.shape[0], b.shape[1])
+    for terms in _tf32_ksteps(a, b, one_pass):
+        for x in terms:
+            if x is not None:
+                acc = _rz(acc.double() + x)
+    return acc
+
+
+def _f_gram(a, b, one_pass):
+    """a b^T over the padded head dim (``f_gram``): each 32 columns (4
+    k-steps) a partial from zero with an accumulator a pass
+    (``mma3p``), the three added in float32, the partials in order."""
+    out = torch.zeros(a.shape[0], b.shape[0])
+    for c in range(0, a.shape[1], 32):
+        parts = [torch.zeros_like(out) for _ in range(3)]
+        for terms in _tf32_ksteps(a[:, c:c + 32], b[:, c:c + 32].T,
+                                  one_pass):
+            for z, x in enumerate(terms):
+                if x is not None:
+                    parts[z] = _rz(parts[z].double() + x)
+        out += (parts[0] + parts[1]) + parts[2]
+    return out
+
+
+def _f_dkdv(q, k, v, do, lse, dl, causal, window, one_pass, long_chain,
+            drop_run):
+    sq, h, d = q.shape
+    sk, hkv = k.shape[:2]
+    fr, fc, _ = _f_tiles(d)
+    group, sl2 = h // hkv, math.log2(math.e) / math.sqrt(d)
+    splits = 1 if long_chain else _f_splits(sq, sk, h, hkv, d, window)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for k0 in range(0, sk, fr):
+        t_lo = (k0 if causal else 0) // fc
+        i_hi = min(sq, k0 + fr - 1 + window) if window else sq
+        n_t = max(0, -(-i_hi // fc) - t_lo)
+        total = group * n_t
+        keys = torch.arange(k0, k0 + fr)
+        for hk in range(hkv):
+            kt, vt = (_rows(x[:, hk], k0, fr) for x in (k, v))
+            runs = []
+            for split in range(splits):
+                acc_k, acc_v = torch.zeros(fr, d), torch.zeros(fr, d)
+                for s in range(total * split // splits,
+                               total * (split + 1) // splits):
+                    hh, q0 = hk * group + s // n_t, (t_lo + s % n_t) * fc
+                    qt, ot = (_rows(x[:, hh], q0, fc) for x in (q, do))
+                    lt, dlt = (_rows(x[hh], q0, fc) for x in (lse, dl))
+                    pt = torch.exp2(_f_gram(kt, qt, one_pass) * sl2
+                                    - lt * math.log2(math.e))
+                    # the sub-tiles' edge masks mask what they cover
+                    vis = _visible(torch.arange(q0, q0 + fc), keys, causal,
+                                   window).T & (keys < sk)[:, None]
+                    pt = pt.masked_fill(~vis, 0.0)
+                    dst = pt * (_f_gram(vt, ot, one_pass) - dlt)
+                    if long_chain:
+                        acc_v = _tf32_chain(pt, ot, one_pass, acc_v)
+                        acc_k = _tf32_chain(dst, qt, one_pass, acc_k)
+                    else:
+                        acc_v += _tf32_chain(pt, ot, one_pass)
+                        acc_k += _tf32_chain(dst, qt, one_pass)
+                if split != drop_run:
+                    runs.append((acc_k, acc_v))
+            sum_k, sum_v = runs[0]
+            for rk, rv in runs[1:]:
+                sum_k, sum_v = sum_k + rk, sum_v + rv
+            n = min(fr, sk - k0)
+            dk[k0:k0 + n, hk] = sum_k[:n] / math.sqrt(d)
+            dv[k0:k0 + n, hk] = sum_v[:n]
+    return dk, dv
+
+
+def _f_dq(q, k, v, do, lse, dl, causal, window, one_pass, long_chain):
+    sq, h, d = q.shape
+    sk, hkv = k.shape[:2]
+    fr, _, fc = _f_tiles(d)
+    group, sl2 = h // hkv, math.log2(math.e) / math.sqrt(d)
+    dq = torch.zeros_like(q)
+    for q0 in range(0, sq, fr):
+        k_begin = max(0, q0 - window + 1) if window else 0
+        k_end = min(q0 + fr, sk) if causal else sk
+        rows = torch.arange(q0, q0 + fr)
+        for hh in range(h):
+            qt, ot = (_rows(x[:, hh], q0, fr) for x in (q, do))
+            l2 = _rows(lse[hh], q0, fr)[:, None] * math.log2(math.e)
+            dlt = _rows(dl[hh], q0, fr)[:, None]
+            acc = torch.zeros(fr, d)
+            for kt0 in range(k_begin // fc * fc, k_end, fc):
+                kt, vt = (_rows(x[:, hh // group], kt0, fc) for x in (k, v))
+                keys = torch.arange(kt0, kt0 + fc)
+                vis = _visible(rows, keys, causal, window) & (keys < sk)
+                p = torch.exp2(_f_gram(qt, kt, one_pass) * sl2 - l2)
+                ds = p.masked_fill(~vis, 0.0) * (_f_gram(ot, vt, one_pass)
+                                                 - dlt)
+                acc = (_tf32_chain(ds, kt, one_pass, acc) if long_chain
+                       else acc + _tf32_chain(ds, kt, one_pass))
+            n = min(fr, sq - q0)
+            dq[q0:q0 + n, hh] = acc[:n] / math.sqrt(d)
+    return dq
+
+
+def _case32(seed, sq, sk, h, hkv, d, causal, window):
+    """float32 q, k, v, dO (one batch row, the model's layout) and the
+    forward's o and lse (float64 rounded to float32), as the float32
+    form gets them."""
+    rng = np.random.default_rng(seed)
+    q, do = (torch.from_numpy(rng.standard_normal((sq, h, d)).astype(
+        np.float32)) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((sk, hkv, d)).astype(
+        np.float32)) for _ in range(2))
+    kh, vh = (x.double().repeat_interleave(h // hkv, 1).transpose(0, 1)
+              for x in (k, v))
+    qh = q.double().transpose(0, 1)
+    m = ref.attention_mask(sq, sk, causal, window, "cpu")
+    s = (qh @ kh.transpose(-1, -2) / math.sqrt(d)).masked_fill(~m, -math.inf)
+    lse = torch.logsumexp(s, -1)
+    o = torch.softmax(s, -1) @ vh
+    return q, k, v, do, o.transpose(0, 1).float(), lse.float()
+
+
+def _emulate32(q, k, v, do, o, lse, causal, window, one_pass=False,
+               long_chain=False, drop_run=None):
+    """(dq, dk, dv) of the emulated float32 form; D = rowsum(dO o) as
+    ``bwd_delta`` forms it, in float32. ``long_chain``: dV, dK and dQ
+    each summed over a block's whole walk in one tensor-core accumulator
+    (no step partials, no runs)."""
+    dl = (do * o).sum(-1).T
+    args = (q, k, v, do, lse, dl, causal, window, one_pass, long_chain)
+    return [_f_dq(*args), *_f_dkdv(*args, drop_run)]
+
+
+def _ratio32(got, want) -> float:
+    """Phase 24's float32 limit ratio over dq, dk, dv: 1e-5 of each one's
+    largest |plain|."""
+    return max(float((g - w).abs().max()) / (TOL * float(w.abs().max()))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("sq,sk,h,hkv,d,causal,window", [
+    (150, 150, 6, 2, 21, True, 40),       # D 21 (padded to 24), GQA window
+    (200, 200, 4, 2, 32, True, 70),       # D 32: 64 x 64 tiles
+    (130, 130, 4, 1, 64, True, None),     # D 64, G 4, S one past two tiles
+    (160, 160, 12, 2, 128, True, 60),     # G 6, D 128: 64 x 32, window edge
+    (100, 100, 2, 2, 256, True, 40),      # D 256: 32 x 32 tiles
+    (77, 200, 2, 2, 64, False, None),     # Sk > Sq
+    (150, 70, 3, 1, 128, False, None)])   # Sk < Sq
+def test_emulated_f32_form_holds_phase_24_limit(sq, sk, h, hkv, d, causal,
+                                               window):
+    """The emulated 3xTF32 form (its tiles, per-chain partials, runs and
+    their ordered sum) against the plain backward, within phase 24's
+    float32 limit."""
+    x = _case32(sq * 5 + d, sq, sk, h, hkv, d, causal, window)
+    ratio = _ratio32(_emulate32(*x, causal, window), _plain(*x, causal,
+                                                            window))
+    assert ratio <= 1.0, ratio
+
+
+@pytest.mark.parametrize("fault", ["one tf32 pass", "a run dropped",
+                                   "one long chain"])
+def test_faulty_f32_forms_fail_phase_24_limit(fault):
+    """One tf32 pass (hi products only), a run's sums left out of the
+    ordered sum (the call is cut into 12 runs), or dV / dK / dQ each
+    summed in one truncating accumulator over a block's walk (1,152
+    mma adds at G 12, S 256: 48 steps of 8 k-steps, 3 passes each)
+    fails the same limit."""
+    if fault == "one long chain":
+        sq, h, hkv, d, window = 256, 12, 1, 64, None
+    else:
+        sq, h, hkv, d, window = 160, 12, 2, 128, 60
+        assert _f_splits(sq, sq, h, hkv, d, window) == 12
+    x = _case32(17, sq, sq, h, hkv, d, True, window)
+    got = _emulate32(*x, True, window, one_pass=fault == "one tf32 pass",
+                     long_chain=fault == "one long chain",
+                     drop_run=1 if fault == "a run dropped" else None)
+    ratio = _ratio32(got, _plain(*x, True, window))
+    assert ratio > 1.0, ratio
+
+
+def test_f32_runs_and_tiles():
+    """The float32 form's tiles by head dim and its runs: 3 at
+    StarCoder2-3B's float32 training call (128 64-key blocks x 2 KV
+    heads), 4 at the REDUCED shape, none at a one-step call."""
+    assert [_f_tiles(d) for d in (21, 32, 64, 128, 256)] == [
+        (64, 64, 64), (64, 64, 64), (64, 64, 64), (64, 32, 64),
+        (32, 32, 32)]
+    assert _f_splits(8192, 8192, 24, 2, 128, 4096) == 3
+    assert _f_splits(100, 100, 8, 2, 32, 64) == 4
+    assert _f_splits(64, 64, 1, 1, 32, 16) == 1

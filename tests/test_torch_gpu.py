@@ -1403,15 +1403,28 @@ def _flash_bwd_plain(q, k, v, o, lse, do, causal, window):
     (torch.bfloat16, 1, 65, 65, 4, 2, 256, True, None),     # S one past
     (torch.bfloat16, 1, 300, 300, 4, 2, 256, True, 100),    # window edge
     (torch.bfloat16, 1, 333, 1000, 2, 2, 256, False, None),  # Sk > Sq
-    (torch.bfloat16, 2, 200, 200, 4, 4, 256, True, 70)])    # B 2
+    (torch.bfloat16, 2, 200, 200, 4, 4, 256, True, 70),     # B 2
+    # float32 (3xTF32): FR-row blocks over FC-column steps, 64 x 64 to D
+    # 64, 64 x 32 (dK / dV) or 64 x 64 (dQ) to D 128, 32 x 32 to D 256,
+    # dK / dV cut into runs
+    (torch.float32, 1, 65, 65, 4, 2, 64, True, None),       # S one past
+    (torch.float32, 1, 129, 129, 24, 2, 128, True, None),   # a tile, G 12
+    (torch.float32, 1, 400, 400, 4, 2, 64, True, 100),      # window edge
+    (torch.float32, 2, 333, 333, 24, 2, 128, True, 200),    # G 12, D 128
+    (torch.float32, 1, 300, 300, 4, 2, 256, True, 100),     # D 256
+    (torch.float32, 1, 33, 33, 2, 1, 256, True, None),      # D 256, S 33
+    (torch.float32, 1, 100, 300, 4, 4, 128, False, None),   # Sk != Sq
+    (torch.float32, 1, 77, 130, 2, 2, 36, False, None),     # D 36 padded
+    (torch.float32, 1, 200, 200, 8, 1, 32, True, None)])    # 16 runs
 def test_flash_backward_kernel_matches_plain(cuda, dtype, b, sq, sk, h, hkv,
                                              d, causal, window):
     """dq, dk, dv within 1e-5 of each one's largest |plain| (float32
     sums in another order), plus one bfloat16 unit (2^-7) of each element
     in bf16 (both round the output); one launch a call, two calls
     bitwise equal; the forward's lse is each row's log-sum-exp. Both
-    forms: the tensor cores (bf16 at D 32 / 64 / 128 / 256) and the CUDA
-    cores (float32)."""
+    forms: ``wgmma`` (bf16 at D 32 / 64 / 128 / 256) and 3xTF32
+    ``mma.sync`` (float32, any D to 256); the last case's grid of four
+    64-key blocks is cut into 16 runs of its 32 steps."""
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_fwd)
 
@@ -1450,15 +1463,17 @@ def test_flash_backward_kernel_matches_plain(cuda, dtype, b, sq, sk, h, hkv,
 def test_flash_backward_dq_tile_is_the_kernels(cuda):
     """The dQ walk's tile as the built kernel reports it: 64 rows x 128
     keys on the tensor cores (a consumer warpgroup's rows, the K / V
-    ring's tile), 64 x 64 at D 256 (64-key tiles for shared memory); 64 x
-    64 on the CUDA cores to D 128, 64 x 32 above."""
+    ring's tile), 64 x 64 at D 256 (64-key tiles for shared memory); in
+    float32 64 x 64 to D 128, 32 x 32 above."""
     from repro_torch.kernels.flash_attention import bwd_dq_tile
 
     assert bwd_dq_tile(128, True) == (64, 128)
     assert bwd_dq_tile(64, True) == (64, 128)
     assert bwd_dq_tile(64, False) == (64, 64)
+    assert bwd_dq_tile(21, False) == (64, 64)
+    assert bwd_dq_tile(128, False) == (64, 64)
     assert bwd_dq_tile(256, True) == (64, 64)
-    assert bwd_dq_tile(256, False) == (64, 32)
+    assert bwd_dq_tile(256, False) == (32, 32)
 
 
 def test_flash_backward_scratch_is_the_kernels(cuda):
@@ -1466,9 +1481,11 @@ def test_flash_backward_scratch_is_the_kernels(cuda):
     form's dK / dV sums of each run, (runs, 2, B, Sk, Hkv, D), with the
     runs of ``tests/test_torch_flash_bwd_schedule.py``'s emulation (5 at
     StarCoder2-3B's training call, 4 at hymba's, 1 at seamless's cross
-    shape and at Gemma-7B's, whose 64-key blocks fill the card); none on
-    the CUDA cores; -1 for a call it refuses (a causal call with Sk !=
-    Sq, bf16 at a head dim the tensor-core form has no tiles for)."""
+    shape and at Gemma-7B's, whose 64-key blocks fill the card); in
+    float32 the same sums over the float32 form's runs (3 at
+    StarCoder2-3B's training call, 4 at the REDUCED shape, 2 steps a run
+    at least); -1 for a call it refuses (a causal call with Sk != Sq,
+    bf16 at a head dim the tensor-core form has no tiles for)."""
     from repro_torch.kernels.flash_attention import bwd_scratch
 
     assert bwd_scratch(1, 8192, 8192, 24, 2, 128, True, 4096,
@@ -1479,7 +1496,12 @@ def test_flash_backward_scratch_is_the_kernels(cuda):
                        True) == 2 * 1024 * 16 * 64
     assert bwd_scratch(1, 4096, 4096, 16, 16, 256, True, None,
                        True) == 2 * 4096 * 16 * 256
-    assert bwd_scratch(2, 100, 100, 8, 2, 32, True, 64, False) == 0
+    assert bwd_scratch(2, 100, 100, 8, 2, 32, True, 64,
+                       False) == 4 * 2 * 2 * 100 * 2 * 32
+    assert bwd_scratch(1, 8192, 8192, 24, 2, 128, True, 4096,
+                       False) == 3 * 2 * 8192 * 2 * 128
+    assert bwd_scratch(1, 200, 200, 8, 1, 32, True, None,
+                       False) == 16 * 2 * 200 * 32
     with pytest.raises(ValueError, match="refuses"):
         bwd_scratch(1, 100, 200, 8, 2, 32, True, None, True)
     with pytest.raises(ValueError, match="refuses"):     # bf16 at D 96
