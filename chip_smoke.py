@@ -170,13 +170,16 @@ Phases, each fatal on failure:
      StarCoder2-3B forward's shape (B 2, S 8192, 24 / 2 heads, D 128,
      bf16, window 4096; the plain version a batch row and 4 heads at a
      time) and the shapes listed below, where faulty versions of the
-     plain one (P in float8, a key tile dropped at the kernel's tiles)
-     must fail the same check and two calls must agree bitwise, at a
-     small ragged float32 shape without a window and at phase 26d's
-     float32 training call (B 1, S 8192, 24 / 2 heads, window 4096),
-     timed beside ``F.scaled_dot_product_attention`` with the same mask
-     (in float32 at GQA with its GQA flag and over K / V expanded, the
-     faster kept);
+     plain one (P in float8, a key tile dropped at the kernel's tiles;
+     in float32 one tf32 pass and the edge tile dropped, which every
+     float32 row must have) must fail the same check and two calls must
+     agree bitwise, at a small ragged float32 shape without a window and
+     at phase 26d's float32 training call (B 1, S 8192, 24 / 2 heads,
+     window 4096), timed beside ``F.scaled_dot_product_attention`` with
+     the same mask (in float32 at GQA with its GQA flag and over K / V
+     expanded, the faster kept) and its bound (float32: the function's
+     FLOPs three times at the TF32 rate, as 3xTF32 runs them; beside
+     it, once at the CUDA cores' float32 rate);
  12. small-input agreement: REDUCED StarCoder2 in float32, ``forward``
      logits and 16 greedy ``generate`` tokens after a 56-token prompt (the
      ring buffer of the window of 64 wraps) on the card against the CPU;
@@ -2869,20 +2872,30 @@ def head_chunks(q, k, v, heads=4):
                    v[b:b + 1, :, kv].transpose(1, 2))
 
 
-def flash_controls(torch, att, v, want, lim, window, bf16=True) -> dict:
+def flash_controls(torch, att, v, want, lim, window, bf16=True, qk=None,
+                   causal=True, group=1) -> dict:
     """Faulty versions of the plain one, each with its output rounded as a
     kernel's is (bf16, or not in float32): in bf16, P rounded to bf16 (the
-    flash kernel's first P V), P rounded to float8 e4m3, and the key tile
-    at the lower edge of each query block's window (no window: key tile 0)
-    dropped where the block has another, at the kernel's tiles
-    (``BLOCK_Q`` rows, ``BLOCK_KV[D]`` keys), where some block has such a
-    tile and another; where there are more keys than queries, the keys
-    past the query length masked (a key length taken for the query
-    length). Returns each one's (max |err|, max err / limit) against the
-    plain float32 output."""
-    from repro_torch.kernels.flash_attention import BLOCK_KV, BLOCK_Q
+    flash kernel's first P V) and P rounded to float8 e4m3; in float32,
+    one tf32 pass (q and k of ``qk``, v and P rounded to tf32, as 3xTF32
+    without its lo parts); in both, the key tile at the lower edge of each
+    query block's window (no window: key tile 0) dropped where the block
+    has another, at the kernel's tiles (bf16: ``BLOCK_Q`` rows,
+    ``BLOCK_KV[D]`` keys; float32: ``f32_tiles``' slots, two heads of a
+    KV group on one slot's rows where ``group`` is even, else two slots'
+    rows of one head), where some block has such a tile and another;
+    where there are more keys than queries, the keys past the query length
+    masked (a key length taken for the query length). Returns each one's
+    (max |err|, max err / limit) against the plain float32 output."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (BLOCK_KV, BLOCK_Q,
+                                                     f32_tiles)
 
-    block_kv = BLOCK_KV.get(v.shape[-1], 128)
+    if bf16:
+        block_q, block_kv = BLOCK_Q, BLOCK_KV.get(v.shape[-1], 128)
+    else:
+        _, slot, block_kv = f32_tiles(v.shape[-1])
+        block_q = slot if group % 2 == 0 else 2 * slot
     pmax = att.amax(-1, keepdim=True)
 
     def rounded(dtype):    # P rounded as a kernel rounds exp(s - max)
@@ -2896,10 +2909,15 @@ def flash_controls(torch, att, v, want, lim, window, bf16=True) -> dict:
         return bool(drop.any()) and bool(
             (att.masked_fill(drop, 0.0).sum(-1) > 0).all())
 
+    def one_tf32_pass():
+        qt, kt = (tf32_round(torch, x.float()) for x in qk)
+        pt = ref.flash_attention_probs(qt, kt, causal=causal, window=window)
+        return tf32_round(torch, pt) @ tf32_round(torch, v)
+
     sq, sk = att.shape[-2:]
     qi = torch.arange(sq, device=att.device)[:, None]
     ki = torch.arange(sk, device=att.device)[None, :]
-    q0 = qi // BLOCK_Q * BLOCK_Q
+    q0 = qi // block_q * block_q
     edge = (q0 - window + 1).clamp(min=0) if window else torch.zeros_like(q0)
     edge_tile = (q0 >= (window or block_kv)) & (
         ki // block_kv == edge // block_kv)
@@ -2907,8 +2925,10 @@ def flash_controls(torch, att, v, want, lim, window, bf16=True) -> dict:
     if bf16:
         fns["P bf16"] = lambda: rounded(torch.bfloat16)
         fns["P e4m3"] = lambda: rounded(torch.float8_e4m3fn)
-        if keeps_a_key(edge_tile):
-            fns["edge tile dropped"] = lambda: renormed(edge_tile)
+    elif qk is not None:
+        fns["one tf32 pass"] = one_tf32_pass
+    if keeps_a_key(edge_tile):
+        fns["edge tile dropped"] = lambda: renormed(edge_tile)
     if sk > sq:
         fns["keys masked at Sq"] = lambda: renormed(
             (ki >= sq).expand(sq, -1))
@@ -2919,11 +2939,15 @@ def flash_controls(torch, att, v, want, lim, window, bf16=True) -> dict:
             got = got.to(torch.bfloat16).float()
         diff = (got - want).abs()
         out[name] = (float(diff.max()), float((diff / lim).max()))
+        del got, diff
     return out
 
 
 # the controls that must fail the check
-FLASH_FAULTS = ("P e4m3", "edge tile dropped", "keys masked at Sq")
+FLASH_FAULTS = ("P e4m3", "edge tile dropped", "keys masked at Sq",
+                "one tf32 pass")
+# the controls every float32 row must have (and fail)
+FLASH_F32_FAULTS = ("one tf32 pass", "edge tile dropped")
 
 
 def flash_checks(torch, dev, cases) -> list:
@@ -2980,7 +3004,8 @@ def flash_checks(torch, dev, cases) -> list:
                                      f" ({ratio:.3g} of the limit)")
             if bi == 0 and hs.start == 0:
                 ctl = flash_controls(torch, att, vf, want, lim, window,
-                                     bf16)
+                                     bf16, qk=(qc, kc), causal=causal,
+                                     group=h // hkv)
             del att, want, diff, lim
         print(f"flash {label}: max |kernel - plain| {err:.3g}, at most "
               f"{ratio:.3g} of the limit; two calls bitwise equal")
@@ -2990,6 +3015,11 @@ def flash_checks(torch, dev, cases) -> list:
             if name in FLASH_FAULTS and r <= 1.0:
                 raise AssertionError(f"the flash check passes a faulty "
                                      f"version ({name}) at {label}")
+        missing = [] if bf16 else [n for n in FLASH_F32_FAULTS
+                                   if n not in ctl]
+        if missing:
+            raise AssertionError(f"flash {label}: no float32 control "
+                                 f"{missing}")
 
         def plain():
             for _, _, qc, kc, vc in head_chunks(*args):
@@ -3028,8 +3058,10 @@ def flash_checks(torch, dev, cases) -> list:
                f"{window}, causal {causal}",
             out_dtype=str(dtype).split(".")[-1], max_abs_err=err,
             kernel=timings(kernel), plain=timings(plain, heavy=heavy),
-            bound=bound(nbytes, flops, BF16_FLOP_PER_S
-                        if bf16 else FP32_FLOP_PER_S),
+            # float32 runs as 3xTF32: the function's FLOPs three times at
+            # the TF32 rate
+            bound=(bound(nbytes, flops, BF16_FLOP_PER_S) if bf16 else
+                   bound(nbytes, 3 * flops, TF32_FLOP_PER_S)),
             library_ms=forms[best]["ms"],
             # CUDA events over back-to-back calls, beside the kernel's own
             # call_ms: a bound on each where the profiler loses events
@@ -3039,6 +3071,16 @@ def flash_checks(torch, dev, cases) -> list:
         print(f"SDPA {label} ({best}): "
               f"{recs[-1]['extra']['library_call_ms'] * 1e3:.2f}"
               f" us back to back (CUDA events)")
+        if not bf16:
+            # beside it, the function's FLOPs on the CUDA cores' float32
+            # FMA
+            recs[-1]["extra"]["fp32_fma_bound_ms"] = (
+                flops / FP32_FLOP_PER_S * 1e3)
+            print(f"flash {label}: bound {recs[-1]['bound'][0]:.4g} ms "
+                  f"(3xTF32), on float32 FMA "
+                  f"{recs[-1]['extra']['fp32_fma_bound_ms']:.4g} ms, kernel "
+                  f"{recs[-1]['kernel']['ms']:.4g} ms, SDPA ({best}) "
+                  f"{forms[best]['ms']:.4g} ms ({card_line()})")
         del got, args, q, k, v, mask
         torch.cuda.empty_cache()
     return recs
@@ -4053,8 +4095,7 @@ F32_TRAIN_STEPS = 3
 
 def classify(name: str) -> str:
     """The part of a training step a device kernel belongs to."""
-    if name.startswith("fa_bf16_kernel") or name.startswith(
-            "fa_f32_kernel"):
+    if name.startswith(("fa_bf16_kernel", "fa_f32_tc_kernel")):
         return "flash forward"
     if name.startswith("bwd_"):
         return "flash backward"

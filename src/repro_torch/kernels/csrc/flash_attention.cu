@@ -83,22 +83,57 @@
 //     a warpgroup's softmax with its own previous P V did not pay: `ptxas`
 //     hoists the wait on that P V above the exponentials.
 //
-// float32 (`fa_f32_kernel`, any D <= 256; the REDUCED configs and the
-// float32 parity checks run it). Bound at the REDUCED ragged shape (B 2,
-// S 300, H 8, Hkv 2, D 64, causal): 185 MFLOP at 67 TFLOP/s = 2.76 us.
-// The first version gave each query row a warp whose lanes read 32
-// different key rows (32 sectors a load) and walked the keys in series.
-// Now one block of 128 threads per (32 queries, head, batch row) stages
-// Q and 32-key K and V tiles in shared memory by cp.async, coalesced and
-// double buffered, 16 bytes a copy where D is a multiple of 4, else 4
-// bytes (a path chosen at launch); each thread computes 2 rows x 4 keys
-// of S and 2 rows x ceil(D / 8) columns of O in float32 FMA, reusing each
-// staged value across rows, with the online softmax per row across the 8
-// threads that share it.
+// float32 (`fa_f32_tc_kernel`, any D <= 256: StarCoder2-3B's float32
+// training, the REDUCED configs and the float32 parity checks), on the
+// tensor cores as 3xTF32 with `mma.sync` m16n8k8 (`gru_tile.cuh`): each
+// float32 operand is split into a tf32 hi (rounded on its bits) and lo =
+// x - hi, which the tensor cores read truncated to tf32, and a b is summed
+// as a_lo b_hi + a_hi b_lo + a_hi b_hi (a_lo b_lo, ~2^-22 of a b, is
+// dropped). Bound on an H100 at StarCoder2-3B's float32 training call (B
+// 1, S 8192, H 24, Hkv 2, D 128, window 4096): 25.2 M pairs a head, 309.3
+// GFLOP, three times at 495 TFLOP/s of dense tf32 = 1.87 ms (4.62 ms at
+// 67 TFLOP/s of float32 FMA), against 218 MB of q, k, v and o (65 us at
+// 3.35 TB/s): operations. The first version ran every product as float32
+// FMA on the CUDA cores, its thread reading ~0.5-0.75 floats from shared
+// memory an FMA (the SM feeds 0.25), through P staged in shared memory,
+// and staged each K / V tile again for every 32 queries of every query
+// head (19 GB from L2 a call at the training call). This one:
+//   * S = Q K^T and O += P V as 3xTF32 mma.sync (tf32 `wgmma` reads K-major
+//     operands only, and V, P V's B, is MN-major), A and K fragments by
+//     `ldmatrix`, split in registers (staging lo parts beside a tile cost
+//     the backward more than the splits), the passes issued n8 block by n8
+//     block so that consecutive mmas do not wait on each other;
+//   * the tensor cores' float32 accumulate truncates, so chains are short:
+//     S sums each F_CHAIN k-steps (64 head-dim columns) from zero, P V each
+//     tile's keys for 64 columns from zero, and each partial is added in
+//     float32 (one chain over a block's walk fails the 1e-5 limit). S's
+//     chains of 4 k-steps spilled at D 128 and ran 8% slower; 16 gained
+//     nothing, nor did 16-block P V groups; 32-key tiles lost 1-2%;
+//   * P stays in registers: with the key index permuted within each 8-key
+//     group (2 t for t, 2 t + 1 for t + 4), S's accumulator is P V's A
+//     fragment, and V's rows are read in the same order, two n8 blocks'
+//     columns as one float2; the online softmax runs on the accumulator
+//     with quad shuffles, the scale folded into an exp2f FMA, masks on
+//     edge tiles only;
+//   * a block is 8 warps of 16 rows, two slots of 64 rows (4 warps, two
+//     slots of 32 at D 256): two heads of one KV group on the same rows
+//     where the group is even, as the bf16 form's `pair`, else 128 rows of
+//     one head, so each staged K / V tile serves 128 rows (64 at D 256);
+//     tiles outside the window are never loaded, heavy tiles go first;
+//   * `cp.async` stages Q once and 64-key K and V tiles (32 at D 256)
+//     through a 2-stage ring, one barrier a tile, 16 bytes a copy where D
+//     is a multiple of 4, else 4 bytes (a path chosen at launch), rows
+//     holding D padded with zeros to 8 NK columns (NK: its k-steps rounded
+//     up to 4, 8, 16 or 32) + 4 floats.
+// At the training call it runs ~2.8x its bound, held by mma.sync issue:
+// the two lo passes are over half of its time (one tf32 pass, wrong by
+// design, ran 2.55 of 5.6 ms), so 2x needs `wgmma` and K / V lo parts
+// staged beside the tiles.
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "gru_tile.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -377,189 +412,326 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 // ---------------------------------------------------------- float32
 
-constexpr int F_BQ = 32;  // queries per block: 16 thread rows x 2
-constexpr int F_BK = 32;  // keys per staged tile: 8 thread columns x 4
-constexpr int F_THREADS = 128;
+// The float32 form on the tensor cores as 3xTF32 with `mma.sync`
+// m16n8k8 (see the note at the top). F32Tile<NK>: the head dim padded
+// with zeros to 8 NK columns (NK 4, 8, 16, 32: D to 32, 64, 128, 256);
+// W warps of 16 query rows, two slots of SLOT rows; key tiles of BK
+// keys; shared rows of LD = 8 NK + 4 floats (16-byte aligned, and 4 banks
+// apart, so that `ldmatrix` rows and P V's float2 reads of V fall in
+// distinct banks). At D 256 a block is 4 warps over 32-key tiles: 128
+// rows of Q and a 2-stage ring of 32-key tiles would need 266 KB of
+// shared memory, and the O accumulator alone is 128 registers a thread.
+constexpr int F_CHAIN = 8;  // k-steps of S summed in one tensor-core chain
 constexpr int F_MAX_D = 256;
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
+template <int NK>
+struct F32Tile {
+  static constexpr int W = NK > 16 ? 4 : 8;      // warps
+  static constexpr int THREADS = 32 * W;
+  static constexpr int SLOT = 8 * W;             // query rows a slot
+  static constexpr int ROWS = 2 * SLOT;          // Q rows staged
+  static constexpr int BK = NK > 16 ? 32 : 64;   // keys a tile
+  static constexpr int NT = BK / 8;              // S's n8 blocks
+  static constexpr int CHAIN = NK < F_CHAIN ? NK : F_CHAIN;
+  static constexpr int CG = NK < 8 ? NK : 8;     // P V's n8 blocks a group
+  static constexpr int LD = 8 * NK + 4;
+  static constexpr int SMEM = 4 * LD * (ROWS + 4 * BK);  // Q, K / V ring
+  static_assert(NK % CHAIN == 0 && NK % CG == 0 && CG % 2 == 0, "NK");
+  static_assert(SMEM <= MAX_SMEM, "shared memory");
+};
+
+// four 8 x 4 float32 tiles from shared memory (`ldmatrix` of 8 x 8 b16
+// matrices): lane l gives the address of row l % 8 of tile l / 8 and
+// gets element (l / 4, l % 4) of each
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
 }
 
-// R rows from row r0 of g (row stride ld floats, d columns) into s (row
-// stride lds), zero-filled from row lim on; VEC: 16-byte copies (d, ld
-// multiples of 4, g 16-byte aligned), else 4 bytes a copy
-template <int R, bool VEC>
-__device__ __forceinline__ void stage_rows(float* s, int lds, const float* g,
-                                           size_t ld, int r0, int lim,
-                                           int d) {
-  const int per = VEC ? d / 4 : d, width = VEC ? 4 : 1;
-  for (int e = threadIdx.x; e < R * per; e += F_THREADS) {
-    const int row = e / per, col = (e % per) * width;
-    const bool ok = r0 + row < lim;
-    const float* src = g + static_cast<size_t>(ok ? r0 + row : 0) * ld + col;
-    if (VEC)
-      cp_async16(s + row * lds + col, src, ok ? 16 : 0);
+// N rows from row r0 of g (row stride gld floats) into s (row stride
+// 8 NK + 4), the head dim's padding [d, 8 NK) and rows from lim on
+// zero-filled; VEC: 16-byte copies (d a multiple of 4, g 16-byte
+// aligned), else 4 bytes. Issues the copies only.
+template <int NK, int N, int NTHR, bool VEC>
+__device__ __forceinline__ void f32_stage(float* s, const float* g,
+                                          size_t gld, int r0, int lim,
+                                          int d) {
+  constexpr int WIDTH = VEC ? 4 : 1, PER = 8 * NK / WIDTH, LD = 8 * NK + 4;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < N * PER; e += NTHR) {
+    const int row = e / PER, col = (e % PER) * WIDTH;
+    const bool ok = r0 + row < lim && col < d;
+    const float* src = ok ? g + static_cast<size_t>(r0 + row) * gld + col : g;
+    if constexpr (VEC)
+      gru::cp_async16(s + row * LD + col, src, ok ? 16 : 0);
     else
-      cp_async4(s + row * lds + col, src, ok ? 4 : 0);
+      gru::cp_async4(s + row * LD + col, src, ok ? 4 : 0);
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// the shared row stride: 16-byte aligned and 4 banks apart (VEC), or odd
-__host__ __device__ constexpr int f32_ld(int d, bool vec) {
-  return vec ? d + 4 : (d | 1);
-}
-
-// NC = ceil(D / 8) output columns per thread: thread (ty, tx) = (tid / 8,
-// tid % 8) owns rows ty and ty + 16 of the block, keys tx + 8 c of a tile
-// and output columns tx + 8 c
-template <int NC, bool VEC>
-__global__ void __launch_bounds__(F_THREADS)
-    fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, Params p,
-                  int d) {
+// One block: two slots of SLOT query rows (with `pair`, heads 2 y and 2 y
+// + 1 of one KV group on the same rows; else rows [0, SLOT) and [SLOT, 2
+// SLOT) of one head), a warp 16 rows of a slot. Every K / V tile the
+// block stages serves all 2 SLOT rows.
+//
+// An m16n8k8 accumulator c[j][e] of a warp (lane = 4 gid + tig) is row
+// gid + 8 (e >> 1), column 8 j + 2 tig + (e & 1). S's is, with the key
+// index permuted within each 8-key group (2 t for t, 2 t + 1 for t + 4),
+// P V's A fragment {c0, c2, c1, c3}; V's rows 8 j + 2 tig and 8 j + 2 tig
+// + 1 are read in the same order, two n8 blocks' columns as a float2: O's
+// c[n][e] is column 16 (n >> 1) + 4 tig + 2 (e & 1) + (n & 1).
+template <int NK, bool VEC>
+__global__ void __launch_bounds__(F32Tile<NK>::THREADS, 1)
+    fa_f32_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     Params p, int d) {
+  using T = F32Tile<NK>;
+  constexpr int LD = T::LD, BK = T::BK, NT = T::NT, CG = T::CG;
+  constexpr int CHAIN = T::CHAIN;
   extern __shared__ __align__(16) float fs[];
-  const int ld = f32_ld(d, VEC);
-  float* qs = fs;                    // [F_BQ][ld]
-  float* ks = qs + F_BQ * ld;        // [2][F_BK][ld]
-  float* vs = ks + 2 * F_BK * ld;    // [2][F_BK][ld]
-  float* ps = vs + 2 * F_BK * ld;    // [F_BQ][F_BK + 1]
-  constexpr int LDP = F_BK + 1;
+  float* qs = fs;                    // [ROWS][LD]
+  float* ks = qs + T::ROWS * LD;     // [2][BK][LD]
+  float* vs = ks + 2 * BK * LD;      // [2][BK][LD]
 
-  const int ty = threadIdx.x / 8, tx = threadIdx.x % 8;
   const int qt = gridDim.x - 1 - blockIdx.x;  // heavy tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.heads / p.kv_heads);
-  const int q0 = qt * F_BQ;
+  const int rows = p.pair ? T::SLOT : T::ROWS;
+  const int q0 = qt * rows, b = blockIdx.z;
+  const int h0 = p.pair ? 2 * blockIdx.y : blockIdx.y;
+  const int hk = h0 / (p.heads / p.kv_heads);
   const size_t q_ld = static_cast<size_t>(p.heads) * d;
   const size_t kv_ld = static_cast<size_t>(p.kv_heads) * d;
-  const size_t q_off = (static_cast<size_t>(b) * p.seq * p.heads + h) * d;
   const size_t kv_off =
       (static_cast<size_t>(b) * p.seq_k * p.kv_heads + hk) * d;
-  const float* kb = k + kv_off;
-  const float* vb = v + kv_off;
-
-  const int k_end = p.causal ? min(q0 + F_BQ, p.seq_k) : p.seq_k;
+  auto slot_head = [&](int g) { return h0 + (p.pair ? g : 0); };
+  auto slot_row = [&](int g) { return q0 + (p.pair ? 0 : g * T::SLOT); };
+  auto q_base = [&](int g) {
+    return q + (static_cast<size_t>(b) * p.seq * p.heads + slot_head(g)) * d;
+  };
+  // key tiles of the block: [t_begin, t_begin + n_tiles)
+  const int k_end = p.causal ? min(q0 + rows, p.seq_k) : p.seq_k;
   const int k_begin = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
-  const int t_begin = k_begin / F_BK, t_end = (k_end + F_BK - 1) / F_BK;
+  const int t_begin = k_begin / BK;
+  const int n_tiles = (k_end + BK - 1) / BK - t_begin;
+  auto stage_tile = [&](int i) {
+    const int key = (t_begin + i) * BK, off = (i & 1) * BK * LD;
+    f32_stage<NK, BK, T::THREADS, VEC>(ks + off, k + kv_off, kv_ld, key,
+                                       p.seq_k, d);
+    f32_stage<NK, BK, T::THREADS, VEC>(vs + off, v + kv_off, kv_ld, key,
+                                       p.seq_k, d);
+  };
+  for (int g = 0; g < 2; ++g)
+    f32_stage<NK, T::SLOT, T::THREADS, VEC>(qs + g * T::SLOT * LD,
+                                            q_base(g), q_ld, slot_row(g),
+                                            p.seq, d);
+  if (n_tiles > 0) stage_tile(0);
+  gru::cp_async_commit();
 
-  stage_rows<F_BQ, VEC>(qs, ld, q + q_off, q_ld, q0, p.seq, d);
-  stage_rows<F_BK, VEC>(ks, ld, kb, kv_ld, t_begin * F_BK, p.seq_k, d);
-  stage_rows<F_BK, VEC>(vs, ld, vb, kv_ld, t_begin * F_BK, p.seq_k, d);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int g = warp / (T::W / 2);                    // the warp's slot
+  const int r0 = slot_row(g) + 16 * (warp % (T::W / 2));  // its rows
+  const int r_last = min(r0 + 15, p.seq - 1);
+  // the warp's tiles [i_lo, i_hi): those with a key for one of its rows
+  int i_lo = 0, i_hi = n_tiles;
+  if (p.window > 0) i_lo = max(0, r0 - p.window + 1) / BK - t_begin;
+  if (p.causal) i_hi = min(n_tiles, r_last / BK + 1 - t_begin);
+  if (r0 > r_last) i_hi = i_lo;
+  // `ldmatrix` addresses: the warp's Q rows (A), a tile's K rows (B;
+  // n8 block pairs 16 rows apart)
+  const uint32_t qa = smem_addr(
+      qs + (16 * warp + lane % 8 + 8 * (lane / 8 % 2)) * LD + 4 * (lane / 16));
+  const uint32_t kb =
+      smem_addr(ks + (lane % 8 + 8 * (lane / 16)) * LD + 4 * (lane / 8 % 2));
+  const float sl2 = p.scale * 1.4426950408889634f;  // log2 units
 
-  float acc[2][NC] = {};
+  float acc[NK][4];
+#pragma unroll
+  for (int n = 0; n < NK; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
   float mrow[2] = {kNegInit, kNegInit}, lrow[2] = {0.0f, 0.0f};
-  for (int t = t_begin; t < t_end; ++t) {
-    const int stage = (t - t_begin) & 1;
-    if (t + 1 < t_end) {
-      const int nxt = (stage ^ 1) * F_BK * ld;
-      stage_rows<F_BK, VEC>(ks + nxt, ld, kb, kv_ld, (t + 1) * F_BK,
-                            p.seq_k, d);
-      stage_rows<F_BK, VEC>(vs + nxt, ld, vb, kv_ld, (t + 1) * F_BK,
-                            p.seq_k, d);
-      asm volatile("cp.async.wait_group 2;\n" ::: "memory");
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    }
-    __syncthreads();
-    const float* kst = ks + stage * F_BK * ld;
-    const float* vst = vs + stage * F_BK * ld;
 
-    float sc[2][4] = {};
-    const float* qa = qs + ty * ld;
-    const float* qb = qs + (ty + 16) * ld;
-#pragma unroll 4
-    for (int dd = 0; dd < d; ++dd) {
-      const float x0 = qa[dd], x1 = qb[dd];
+  for (int i = 0; i < n_tiles; ++i) {
+    gru::cp_async_wait<0>();  // tile i (and Q) has landed, for this thread
+    __syncthreads();          // ... for all; tile i - 1 is used up
+    if (i + 1 < n_tiles) stage_tile(i + 1);
+    gru::cp_async_commit();
+    if (i < i_lo || i >= i_hi) continue;
+    const int kt = (t_begin + i) * BK, st = i & 1;
+
+    // S = Q K^T: each CHAIN k-steps summed from zero (the passes lo hi,
+    // hi lo, hi hi in one accumulator), then added in float32
+    float s[NT][4];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float kv = kst[(tx + 8 * c) * ld + dd];
-        sc[0][c] = fmaf(x0, kv, sc[0][c]);
-        sc[1][c] = fmaf(x1, kv, sc[1][c]);
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int c0 = 0; c0 < NK; c0 += CHAIN) {
+      float part[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[j][e] = 0.0f;
+#pragma unroll
+      for (int kk = c0; kk < c0 + CHAIN; ++kk) {
+        uint32_t x[4], ah[4], al[4];
+        ldsm4(x, qa + 32 * kk);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          gru::Tf32x3::split(__uint_as_float(x[e]), ah[e], al[e]);
+        uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+        for (int m = 0; m < NT / 2; ++m) {
+          uint32_t y[4];
+          ldsm4(y, kb + 4 * (st * BK * LD + 16 * m * LD) + 32 * kk);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            gru::Tf32x3::split(__uint_as_float(y[e]), bh[2 * m + e / 2][e % 2],
+                               bl[2 * m + e / 2][e % 2]);
+        }
+        // pass by pass over the n8 blocks, so that consecutive mmas do
+        // not wait on each other
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          gru::mma_tf32(part[j], al, bh[j][0], bh[j][1]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          gru::mma_tf32(part[j], ah, bl[j][0], bl[j][1]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          gru::mma_tf32(part[j], ah, bh[j][0], bh[j][1]);
       }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] += part[j][e];
     }
 
-    const int kt = t * F_BK;
+    // mask where the tile crosses a boundary of the warp's rows
+    if (kt + BK > p.seq_k || (p.causal && kt + BK - 1 > r0) ||
+        (p.window > 0 && kt <= r_last - p.window)) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + ty + 16 * r;
-      float mx = kNegInit;
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int key = kt + tx + 8 * c;
-        const bool ok = key < p.seq_k && (!p.causal || key <= row) &&
-                        (p.window <= 0 || key > row - p.window);
-        sc[r][c] = ok ? sc[r][c] * p.scale : -INFINITY;
-        mx = fmaxf(mx, sc[r][c]);
-      }
-      // the 8 lanes of a row: tx = lane % 8
+        for (int e = 0; e < 4; ++e) {
+          const int row = r0 + gid + 8 * (e >> 1);
+          const int key = kt + 8 * j + 2 * tig + (e & 1);
+          if (key >= p.seq_k || (p.causal && key > row) ||
+              (p.window > 0 && key <= row - p.window))
+            s[j][e] = -INFINITY;
+        }
+    }
+
+    // online softmax in log2 units (the scale folded into the exponent);
+    // the four lanes of a quad share a row
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * rh], s[j][2 * rh + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(mrow[r], mx);
-      const float corr = expf(mrow[r] - m_new);
+      const float m_new = fmaxf(mrow[rh], mx * sl2);
+      const float corr = exp2f(mrow[rh] - m_new);
       float sum = 0.0f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float pj = expf(sc[r][c] - m_new);  // 0 where masked
-        ps[(ty + 16 * r) * LDP + tx + 8 * c] = pj;
-        sum += pj;
+      for (int j = 0; j < NT; ++j) {
+        const float p0 = exp2f(fmaf(s[j][2 * rh], sl2, -m_new));
+        const float p1 = exp2f(fmaf(s[j][2 * rh + 1], sl2, -m_new));
+        s[j][2 * rh] = p0;
+        s[j][2 * rh + 1] = p1;
+        sum += p0 + p1;
       }
-      lrow[r] = lrow[r] * corr + sum;  // this thread's share of the row
-      mrow[r] = m_new;
+      lrow[rh] = lrow[rh] * corr + sum;  // this lane's share of the row
+      mrow[rh] = m_new;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) acc[r][c] *= corr;
+      for (int n = 0; n < NK; ++n) {
+        acc[n][2 * rh] *= corr;
+        acc[n][2 * rh + 1] *= corr;
+      }
     }
-    __syncwarp();  // a row's P is written and read by one warp
 
-    const float* pa = ps + ty * LDP;
-    const float* pb = ps + (ty + 16) * LDP;
-#pragma unroll 4
-    for (int kk = 0; kk < F_BK; ++kk) {
-      const float w0 = pa[kk], w1 = pb[kk];
-      const float* vr = vst + kk * ld;
+    // O += P V: for each group of CG n8 blocks (8 CG columns), the tile's
+    // keys summed from zero, then added in float32
+    const float* vt = vs + st * BK * LD + 2 * tig * LD + 2 * gid;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = tx + 8 * c;
-        if (col < d) {
-          const float x = vr[col];
-          acc[0][c] = fmaf(w0, x, acc[0][c]);
-          acc[1][c] = fmaf(w1, x, acc[1][c]);
+    for (int c = 0; c < NK / CG; ++c) {
+      float part[CG][4];
+#pragma unroll
+      for (int n = 0; n < CG; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[n][e] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float pa[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+        const gru::Tf32x3::A a = gru::Tf32x3::split_a(pa);
+        uint32_t bh[CG][2], bl[CG][2];
+#pragma unroll
+        for (int m = 0; m < CG / 2; ++m) {
+          const float* y = vt + 8 * j * LD + 8 * CG * c + 16 * m;
+          const float2 u = *reinterpret_cast<const float2*>(y);
+          const float2 w = *reinterpret_cast<const float2*>(y + LD);
+          gru::Tf32x3::split(u.x, bh[2 * m][0], bl[2 * m][0]);
+          gru::Tf32x3::split(w.x, bh[2 * m][1], bl[2 * m][1]);
+          gru::Tf32x3::split(u.y, bh[2 * m + 1][0], bl[2 * m + 1][0]);
+          gru::Tf32x3::split(w.y, bh[2 * m + 1][1], bl[2 * m + 1][1]);
         }
-      }
-    }
-    __syncthreads();  // the next tile refills the other stage and P
-  }
-
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = lrow[r];
+        for (int n = 0; n < CG; ++n)
+          gru::mma_tf32(part[n], a.lo, bh[n][0], bh[n][1]);
+#pragma unroll
+        for (int n = 0; n < CG; ++n)
+          gru::mma_tf32(part[n], a.hi, bl[n][0], bl[n][1]);
+#pragma unroll
+        for (int n = 0; n < CG; ++n)
+          gru::mma_tf32(part[n], a.hi, bh[n][0], bh[n][1]);
+      }
+#pragma unroll
+      for (int n = 0; n < CG; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[CG * c + n][e] += part[n][e];
+    }
+  }
+  if (r0 > r_last) return;
+
+  // epilogue: O / l; a thread's columns of a row are 4 adjacent floats
+  // per pair of n8 blocks
+  const int h = slot_head(g);
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    float l = lrow[rh];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    l += __shfl_xor_sync(0xffffffffu, l, 4);
     const float den = fmaxf(l, 1e-30f);
-    const int row = q0 + ty + 16 * r;
+    const int row = r0 + gid + 8 * rh;
     if (row >= p.seq) continue;
-    if (p.lse != nullptr && tx == 0)
+    // the row's log-sum-exp in natural units (m is in log2 units)
+    if (p.lse != nullptr && tig == 0)
       p.lse[(static_cast<size_t>(b) * p.heads + h) * p.seq + row] =
-          mrow[r] + logf(den);
-    float* orow = o + q_off + static_cast<size_t>(row) * q_ld;
+          (mrow[rh] + log2f(den)) * 0.6931471805599453f;
+    float* orow =
+        o + ((static_cast<size_t>(b) * p.seq + row) * p.heads + h) * d;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 8 * c;
-      if (col < d) orow[col] = acc[r][c] / den;
+    for (int m = 0; m < NK / 2; ++m) {
+      const int col = 16 * m + 4 * tig;
+      const float x[4] = {acc[2 * m][2 * rh] / den,
+                          acc[2 * m + 1][2 * rh] / den,
+                          acc[2 * m][2 * rh + 1] / den,
+                          acc[2 * m + 1][2 * rh + 1] / den};
+      if (VEC) {
+        if (col < d)
+          *reinterpret_cast<float4*>(orow + col) =
+              make_float4(x[0], x[1], x[2], x[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < d) orow[col + e] = x[e];
+      }
     }
   }
 }
@@ -593,30 +765,41 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NC, bool VEC>
+template <int NK, bool VEC>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                int batch, const Params& p, int d, cudaStream_t stream) {
-  auto smem = [](int dd) {
-    const int ld = f32_ld(dd, VEC);
-    return static_cast<int>(sizeof(float)) *
-           (F_BQ * ld + 4 * F_BK * ld + F_BQ * (F_BK + 1));
-  };
-  const cudaError_t err = allow_smem<fa_f32_kernel<NC, VEC>>(smem(8 * NC));
+  using T = F32Tile<NK>;
+  const cudaError_t err = allow_smem<fa_f32_tc_kernel<NK, VEC>>(T::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.seq + F_BQ - 1) / F_BQ, p.heads, batch);
-  fa_f32_kernel<NC, VEC><<<grid, F_THREADS, smem(d), stream>>>(
+  const int rows = p.pair ? T::SLOT : T::ROWS;
+  const dim3 grid((p.seq + rows - 1) / rows, p.pair ? p.heads / 2 : p.heads,
+                  batch);
+  fa_f32_tc_kernel<NK, VEC><<<grid, T::THREADS, T::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), p, d);
   return static_cast<int>(cudaGetLastError());
 }
 
+// NK of head dim d: its 8-column k-steps rounded up to 4, 8, 16 or 32
+constexpr int f32_nk(int d) {
+  return d <= 32 ? 4 : d <= 64 ? 8 : d <= 128 ? 16 : 32;
+}
+
 template <bool VEC>
 int dispatch_f32(const void* q, const void* k, const void* v, void* o,
                  int batch, const Params& p, int d, cudaStream_t stream) {
-  if (d <= 32) return launch_f32<4, VEC>(q, k, v, o, batch, p, d, stream);
-  if (d <= 64) return launch_f32<8, VEC>(q, k, v, o, batch, p, d, stream);
-  if (d <= 128) return launch_f32<16, VEC>(q, k, v, o, batch, p, d, stream);
-  return launch_f32<32, VEC>(q, k, v, o, batch, p, d, stream);
+  switch (f32_nk(d)) {
+    case 4: return launch_f32<4, VEC>(q, k, v, o, batch, p, d, stream);
+    case 8: return launch_f32<8, VEC>(q, k, v, o, batch, p, d, stream);
+    case 16: return launch_f32<16, VEC>(q, k, v, o, batch, p, d, stream);
+    default: return launch_f32<32, VEC>(q, k, v, o, batch, p, d, stream);
+  }
+}
+
+template <int NK>
+void f32_tile(int* rows, int* keys) {
+  *rows = F32Tile<NK>::SLOT;
+  *keys = F32Tile<NK>::BK;
 }
 
 }  // namespace
@@ -656,4 +839,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   return head_dim % 4 == 0
              ? dispatch_f32<true>(q, k, v, o, batch, p, head_dim, st)
              : dispatch_f32<false>(q, k, v, o, batch, p, head_dim, st);
+}
+
+// The float32 kernel's tiles at head_dim: NK (k-steps of the padded head
+// dim), query rows a slot, keys a tile, and the k-steps of S's chains
+// (kernels/flash_attention.py's f32_tiles and F32_S_CHAIN mirror them).
+extern "C" void flash_attention_fwd_f32_tile(int head_dim, int* nk,
+                                             int* rows, int* keys,
+                                             int* chain) {
+  *nk = f32_nk(head_dim);
+  *chain = F_CHAIN;
+  switch (*nk) {
+    case 4: return f32_tile<4>(rows, keys);
+    case 8: return f32_tile<8>(rows, keys);
+    case 16: return f32_tile<16>(rows, keys);
+    default: return f32_tile<32>(rows, keys);
+  }
 }

@@ -23,7 +23,8 @@ from repro_torch.kernels._checks import check, stream
 from repro_torch.kernels.build import KERNELS, library
 
 __all__ = ["flash_attention_fwd", "flash_attention_bwd", "check_key_length",
-           "bwd_dq_tile", "bwd_scratch", "BLOCK_Q", "BLOCK_KV"]
+           "bwd_dq_tile", "bwd_scratch", "fwd_f32_tile", "f32_tiles",
+           "BLOCK_Q", "BLOCK_KV", "F32_S_CHAIN"]
 
 # the bf16 kernel's instantiations: StarCoder2-3B and OLMoE-1B-7B (128),
 # Gemma-7B (256), hymba-1.5B (64) and the REDUCED configs (32)
@@ -37,6 +38,27 @@ BF16_HEAD_DIMS = (32, 64, 128, 256)
 BLOCK_Q = 64
 BLOCK_KV = {d: 64 if d > 128 else 128 for d in BF16_HEAD_DIMS}
 F32_MAX_HEAD_DIM = 256
+# the float32 kernel's tiles, mirroring csrc/flash_attention.cu (`F32Tile`):
+# a warp holds 16 query rows; a block two slots of F32_SLOT_ROWS rows,
+# two heads of one KV group on the same rows where the group is even,
+# else 2 slots of rows of one head; key tiles of F32_BLOCK_KV keys, by
+# the head dim's bucket (D padded with zeros to 32, 64, 128 or 256)
+F32_SLOT_ROWS = {32: 64, 64: 64, 128: 64, 256: 32}
+F32_BLOCK_KV = {32: 64, 64: 64, 128: 64, 256: 32}
+# the k-steps (8 head-dim columns each) of S = Q K^T summed in one
+# tensor-core chain before the float32 add of the partials (all of them
+# where the padded head dim has fewer)
+F32_S_CHAIN = 8
+
+
+def f32_tiles(d: int) -> tuple:
+    """(k-steps NK of the padded head dim, query rows a slot, keys a
+    tile) of the float32 kernel at head dim ``d``."""
+    if not 0 < d <= F32_MAX_HEAD_DIM:
+        raise ValueError(f"float32 flash attention takes head dims up to "
+                         f"{F32_MAX_HEAD_DIM}, got {d}")
+    bucket = next(b for b in sorted(F32_SLOT_ROWS) if d <= b)
+    return bucket // 8, F32_SLOT_ROWS[bucket], F32_BLOCK_KV[bucket]
 
 
 def check_key_length(sq: int, sk: int, causal: bool,
@@ -162,6 +184,19 @@ def bwd_scratch(b: int, sq: int, sk: int, h: int, hkv: int, d: int,
     if n < 0:
         raise ValueError("the flash backward kernel refuses the call")
     return n
+
+
+def fwd_f32_tile(head_dim: int) -> tuple:
+    """(k-steps NK, query rows a slot, keys a tile, S's chain in
+    k-steps) of the forward's float32 kernel at ``head_dim``, as the
+    built kernel reports it (``f32_tiles`` and ``F32_S_CHAIN`` mirror
+    it)."""
+    fn = library("flash_attention.cu").flash_attention_fwd_f32_tile
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4
+    fn.restype = None
+    out = [ctypes.c_int() for _ in range(4)]
+    fn(head_dim, *(ctypes.byref(x) for x in out))
+    return tuple(x.value for x in out)
 
 
 def bwd_dq_tile(head_dim: int, bf16: bool) -> tuple:

@@ -168,8 +168,8 @@ def build(name: str, csrc: Path, source: str, subs=()) -> Path:
 
 
 def print_ptxas(name: str, log: str) -> None:
-    """Registers and spills of the backward's bf16 kernels from a build
-    log (``-Xptxas=-v``)."""
+    """Registers and spills of the flash kernels from a build log
+    (``-Xptxas=-v``)."""
     kernel = None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -180,7 +180,8 @@ def print_ptxas(name: str, log: str) -> None:
                                        "bwd_dq_f32",
                                        "bwd_dkdv_sum", "bwd_dkdv_tc",
                                        "bwd_dq_tc", "bwd_dkdv", "bwd_dq",
-                                       "fa_bf16_kernel")
+                                       "fa_bf16_kernel", "fa_f32_tc_kernel",
+                                       "fa_f32_kernel")
                            if k in sym), None)
             if kernel and "ILi" in sym:
                 kernel += (" NK " if "f32" in kernel else " D ") + sym.split(

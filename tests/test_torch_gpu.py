@@ -1119,14 +1119,23 @@ def _plain_attention(q, k, v, causal, window):
     (torch.float32, 2, 77, 4, 2, 32, False, None),
     (torch.float32, 1, 77, 8, 2, 32, True, 16),
     (torch.float32, 1, 100, 4, 2, 21, True, 30),
-    (torch.float32, 1, 150, 4, 2, 128, True, None)])
+    (torch.float32, 1, 150, 4, 2, 128, True, None),
+    (torch.float32, 1, 200, 4, 2, 64, True, 64),
+    (torch.float32, 1, 300, 24, 2, 128, True, 128),
+    (torch.float32, 1, 130, 4, 4, 256, True, None),
+    (torch.float32, 2, 333, 4, 2, 256, True, 100),
+    (torch.float32, 1, 257, 3, 1, 64, True, 64),
+    (torch.float32, 1, 300, 4, 2, 128, True, 1),
+    (torch.float32, 1, 1, 4, 2, 128, True, None)])
 def test_flash_kernel_matches_plain(cuda, dtype, b, s, h, hkv, d, causal,
                                     window):
     """GQA (heads paired in a block, or not where a KV group is odd),
     sliding windows down to 1, causal and not, S within one tile and not a
     multiple of the tiles, in bfloat16 at D 32, 64, 128 and 256 (64-key
-    tiles); float32 at D 32, 128 and 21 (rows
-    not a multiple of 16 bytes). Two calls agree bitwise."""
+    tiles); float32 (3xTF32 on the tensor cores) at D 21 (rows not a
+    multiple of 16 bytes), 32, 64, 128 and 256 (32-row slots, 32-key
+    tiles), StarCoder2-3B's group of 12 with a window at a ragged S, an
+    odd group 3 / 1, window 1 and S 1. Two calls agree bitwise."""
     gen = torch.Generator(device=cuda).manual_seed(5)
     q = torch.randn((b, s, h, d), generator=gen, device=cuda).to(dtype)
     k, v = (torch.randn((b, s, hkv, d), generator=gen, device=cuda).to(dtype)
@@ -1155,7 +1164,8 @@ def test_flash_kernel_matches_plain(cuda, dtype, b, s, h, hkv, d, causal,
     (torch.bfloat16, 1, 1024, 256, 4, 4, 64),     # more queries than keys
     (torch.bfloat16, 1, 77, 333, 3, 1, 128),      # unpaired blocks
     (torch.bfloat16, 1, 1, 257, 2, 2, 256),
-    (torch.float32, 1, 40, 9, 4, 4, 21)])
+    (torch.float32, 1, 40, 9, 4, 4, 21),
+    (torch.float32, 1, 1024, 256, 4, 2, 128)])    # more queries than keys
 def test_flash_kernel_at_a_key_length(cuda, dtype, b, sq, sk, h, hkv, d):
     """Non-causal calls with Sk keys of their own (cross-attention), bf16
     and float32, fewer and more keys than queries, ragged: one launch,
@@ -1179,6 +1189,18 @@ def test_flash_kernel_at_a_key_length(cuda, dtype, b, sq, sk, h, hkv, d):
         assert bool((diff <= bound).all()), float((diff / bound).max())
     with pytest.raises(ValueError, match="as many keys"):
         ops.flash_attention(q, k, v, causal=True)
+
+
+def test_flash_f32_tile_is_the_kernels(cuda):
+    """The float32 forward's tiles that ``kernels/flash_attention.py``
+    exports (``f32_tiles``, ``F32_S_CHAIN``: what the CPU emulation in
+    ``tests/test_torch_flash_fwd_schedule.py`` and phase 11's controls
+    read) are the built kernel's."""
+    from repro_torch.kernels.flash_attention import (F32_S_CHAIN, f32_tiles,
+                                                     fwd_f32_tile)
+
+    for d in (1, 21, 32, 33, 64, 100, 128, 129, 256):
+        assert fwd_f32_tile(d) == f32_tiles(d) + (F32_S_CHAIN,), d
 
 
 def test_gru_and_flash_wrappers_reject_bad_arguments(cuda):
