@@ -349,7 +349,22 @@ Phases, each fatal on failure:
      within phase 26's 0.5-1.5;
  27. the LM pretraining CLI: ``python -m repro_torch.launch.train --arch
      starcoder2-3b --reduced --steps 20 --batch 8 --seq 128`` exits 0
-     with finite losses.
+     with finite losses;
+ 28. the roofline and the dry run (``repro_torch.roofline``,
+     ``repro_torch.launch.dryrun``): one eager TGN ``train_single`` step
+     (phase 5's graph, ``TIG``) and one StarCoder2-3B bf16 training step
+     at phase 26's (1, 8192), each counted by the step cost counter on
+     the card and on ``meta`` copies of the same inputs: FLOPs and
+     collective bytes equal, bytes within 1% (any aten op counted
+     differently printed); ``mfu`` = 6 N_active D / (phase 26's median
+     step seconds x 989 TFLOP/s), beside the counted FLOPs' share of that
+     peak, labelled as such (the JAX program's FLOPs, masked attention
+     chunks included, so not a utilisation); each training path's mfu at
+     its dtype's peak; the dry run
+     of each phase 26 path at its shape (StarCoder2-3B bf16 and float32,
+     RWKV6-1.6B, Hymba-1.5B, Gemma-7B at 8 layers) and of Gemma-7B at 28
+     layers, each report printed with its state + saved bytes beside the
+     path's measured peak.
 Phase 11 also holds the bf16 flash kernel at OLMoE-1B-7B's and
 Gemma-7B's forward shapes (B 2, S 4096, 16 / 16 heads, D 128 and 256,
 causal) and at hymba-1.5B's head dim 64 (25 / 5 heads, window 1024). After
@@ -382,10 +397,12 @@ BF16_UNIT = 2.0 ** -7     # one bfloat16 unit, relative: two roundings
 # kept to 2^-17 as hi + lo bf16 parts; the P V error of a relative error d
 # in every weight is at most d |P| |V|)
 FLASH_P_REL = 2.0 ** -14
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
-FP32_FLOP_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
-TF32_FLOP_PER_S = 495e12      # H100 SXM, dense TF32 on the tensor cores
-BF16_FLOP_PER_S = 989e12      # H100 SXM, dense bf16 on the tensor cores
+# the H100 SXM's peaks, from the port's roofline: HBM3 bytes/s, float32
+# FLOP/s outside the tensor cores, dense TF32 and bf16 on them
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.roofline.analysis import (  # noqa: E402
+    BF16_FLOPS as BF16_FLOP_PER_S, FP32_FLOPS as FP32_FLOP_PER_S,
+    HBM_BW as HBM_BYTES_PER_S, TF32_FLOPS as TF32_FLOP_PER_S)
 TPU_KERNELS = {               # the TPU kernel each CUDA kernel replaces
     "neighbor_sample": "src/repro/kernels/neighbor_sample.py:52",
     "fused_flush": "src/repro/kernels/fused_flush.py:53",
@@ -5249,13 +5266,119 @@ def boundary_phase(torch, kernels, g, train_g, part, pac4,
     return {f"pac_p{p}_overlap": counts["overlap"]}
 
 
+ROOFLINE_REL = 0.01       # phase 28: card bytes within 1% of meta's
+
+
+def count_compare(label: str, card, on_meta) -> None:
+    """Phase 28's check of one step counted on the card and on ``meta``:
+    equal FLOPs and collective bytes, bytes within ``ROOFLINE_REL``; any
+    aten op counted differently is printed first."""
+    diff = {k: (card.by_op.get(k), on_meta.by_op.get(k))
+            for k in sorted(set(card.by_op) | set(on_meta.by_op))
+            if card.by_op.get(k) != on_meta.by_op.get(k)}
+    for op, (c, m) in diff.items():
+        print(f"  {label}: {op} counted differently: card [calls, FLOPs, "
+              f"bytes] {c}, meta {m}")
+    rel = abs(card.bytes - on_meta.bytes) / max(on_meta.bytes, 1)
+    print(f"{label}, counted: card {card.flops} FLOPs, {card.bytes} bytes, "
+          f"{card.collective_bytes} collective bytes; meta {on_meta.flops} "
+          f"FLOPs, {on_meta.bytes} bytes, {on_meta.collective_bytes} "
+          f"collective bytes (bytes {rel:.2e} apart); kernel scopes "
+          f"{card.kernels}")
+    if card.flops != on_meta.flops or card.kernels != on_meta.kernels:
+        raise AssertionError(f"{label}: card and meta FLOPs differ")
+    if card.collective_bytes != on_meta.collective_bytes:
+        raise AssertionError(f"{label}: collective bytes differ")
+    if rel > ROOFLINE_REL:
+        raise AssertionError(f"{label}: bytes {rel:.3%} apart")
+
+
+def roofline_phase(torch, g, cfg, paths: dict) -> None:
+    """Phase 28: the step cost counter on the card against the dry run's
+    ``meta`` count, ``mfu`` from phase 26's step times, and the dry run
+    of each phase 26 path beside its measured peak (see the module's
+    docstring). ``paths``: label -> (arch, seq, layers, dtype,
+    ``lm_train_path``'s result)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model
+    from repro_torch.optim import adamw, linear_warmup_cosine
+    from repro_torch.roofline.analysis import MODEL_FLOPS, peak_flops
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    card = card_line()
+    # one eager TGN step of train_single, on the card and on meta
+    inputs = dryrun.tig_step_inputs(g, cfg, dev)
+    tig_card = dryrun.count_tig_step(cfg, inputs, dev)
+    tig_meta = dryrun.count_tig_step(cfg, dryrun.on_meta(inputs), "meta")
+    count_compare(f"TGN train_single step (batch {cfg.batch_size}, "
+                  f"{g.num_nodes} nodes; {card})", tig_card, tig_meta)
+    del inputs
+    # one StarCoder2-3B bf16 training step at phase 26's shape
+    arch, seq = "starcoder2-3b", 8192
+    lm = get_config(arch)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               lm)
+    opt = adamw(lr=linear_warmup_cosine(3e-3, 20, TRAIN_STEPS + 2),
+                weight_decay=0.1, max_grad_norm=1.0)
+    opt_state = opt.init(params)
+    batch = fixed_batch(torch, lm, seq)
+    meta_args = [dryrun.on_meta(x) for x in (params, opt_state, batch)]
+    lm_card, saved_card = dryrun.count_lm_train_step(lm, params, opt,
+                                                     opt_state, batch, dev)
+    torch.cuda.synchronize()
+    del params, opt_state, batch
+    torch.cuda.empty_cache()
+    lm_meta, saved_meta = dryrun.count_lm_train_step(
+        lm, meta_args[0], opt, meta_args[1], meta_args[2], "meta")
+    count_compare(f"{arch} bf16 training step (1, {seq}) ({card})",
+                  lm_card, lm_meta)
+    print(f"{arch} saved for the backward (distinct storages): card "
+          f"{saved_card / 2 ** 30:.3f} GiB, meta {saved_meta / 2 ** 30:.3f} "
+          f"GiB ({card})")
+    # mfu from each training path's measured step time
+    for label, (a, s, layers, dtype, res) in paths.items():
+        c = res["cfg"]
+        step_s = statistics.median(res["step_s"])
+        peak = peak_flops(c.dtype)
+        mf = MODEL_FLOPS(c.active_param_count(), s, "train")
+        line = (f"{label}: mfu {mf / (step_s * peak):.4f} (6 N D = "
+                f"{mf:.4e} over {step_s:.4f} s x {peak:.3e} FLOP/s, "
+                f"{c.dtype} peak)")
+        if label == "starcoder2-3b training":
+            line += (f"; counted-FLOP share of the peak (the JAX "
+                     f"program's FLOPs, masked attention chunks included, "
+                     f"not a utilisation) "
+                     f"{lm_card.flops / (step_s * peak):.4f}, counted FLOPs "
+                     f"{lm_card.flops:.4e}")
+        print(f"{line} ({card})")
+    # the dry run of each path at its shape, beside its measured peak
+    for label, (a, s, layers, dtype, res) in paths.items():
+        out = dryrun.dryrun_one(a, "train_4k", batch=1, seq=s,
+                                layers=layers, dtype=dtype, save=False,
+                                verbose=False)
+        est = out["state_bytes"] + out["saved_bytes"]
+        print(f"dry run {label} ({out['note']}): {json.dumps(out)}")
+        print(f"{label}: measured peak {res['peak_gib']:.2f} GiB beside the "
+              f"dry run's state {out['state_bytes'] / 2 ** 30:.2f} + saved "
+              f"{out['saved_bytes'] / 2 ** 30:.2f} = {est / 2 ** 30:.2f} GiB "
+              f"({card})")
+    out = dryrun.dryrun_one("gemma-7b", "train_4k", batch=1,
+                            seq=GEMMA_TRAIN_SEQ, save=False, verbose=False)
+    print(f"dry run gemma-7b training, 28 layers: {json.dumps(out)}")
+    print(f"gemma-7b at 28 layers: state {out['state_bytes'] / 2 ** 30:.2f}"
+          f" + saved {out['saved_bytes'] / 2 ** 30:.2f} GiB, fits one card: "
+          f"{out['fits_one_card']}")
+    print(f"phase 28: {time.perf_counter() - t0:.1f} s ({card})")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.speed_tig import TIG
     from repro_torch.kernels.build import (KERNELS, SOURCES, build_all,
                                            library_path)
@@ -5504,22 +5627,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 26b: RWKV6-1.6B and Hymba-1.5B training at full width, each
     # counted from zero
-    recur = {arch: lm_train_path(
+    recur_res = {arch: lm_train_path(
         torch, KERNELS, arch, RECUR_TRAIN_SEQ, RECUR_TRAIN_STEPS,
-        RECUR_DROP_RATIO)["launches"]
-        for arch in RECUR_TRAIN}
+        RECUR_DROP_RATIO) for arch in RECUR_TRAIN}
+    recur = {arch: r["launches"] for arch, r in recur_res.items()}
     torch.cuda.empty_cache()
     # phase 26c: Gemma-7B training at full width, 8 of its 28 layers,
     # counted from zero (the flash backward at D 256)
-    gemma = lm_train_path(torch, KERNELS, GEMMA_TRAIN, GEMMA_TRAIN_SEQ,
-                          GEMMA_TRAIN_STEPS,
-                          layers=GEMMA_TRAIN_LAYERS)["launches"]
+    gemma_res = lm_train_path(torch, KERNELS, GEMMA_TRAIN, GEMMA_TRAIN_SEQ,
+                              GEMMA_TRAIN_STEPS, layers=GEMMA_TRAIN_LAYERS)
+    gemma = gemma_res["launches"]
     torch.cuda.empty_cache()
     # phase 26d, this slice's main path: StarCoder2-3B training at full
     # width in float32 compute, counted from zero (the flash backward's
     # float32 form)
-    train32 = lm_train_path(torch, KERNELS, "starcoder2-3b", F32_TRAIN_SEQ,
-                            F32_TRAIN_STEPS, dtype="float32")["launches"]
+    train32_res = lm_train_path(torch, KERNELS, "starcoder2-3b",
+                                F32_TRAIN_SEQ, F32_TRAIN_STEPS,
+                                dtype="float32")
+    train32 = train32_res["launches"]
     torch.cuda.empty_cache()
     flash_by_path["starcoder2-3b training"] = train["launches"][
         "flash_attention"]
@@ -5565,6 +5690,21 @@ def main() -> int:
         "hymba-1.5b training": recur["hymba-1.5b"]["selective_scan"]}
     # phase 27: the LM pretraining CLI
     lm_cli()
+    # phase 28: the step cost counter on the card against the dry run's
+    # meta count, mfu, and the dry run of phase 26's paths
+    roofline_phase(torch, g, TIG, {
+        "starcoder2-3b training": ("starcoder2-3b", 8192, None, None,
+                                   train),
+        "starcoder2-3b float32 training": ("starcoder2-3b", F32_TRAIN_SEQ,
+                                           None, "float32", train32_res),
+        "rwkv6-1.6b training": ("rwkv6-1.6b", RECUR_TRAIN_SEQ, None, None,
+                                recur_res["rwkv6-1.6b"]),
+        "hymba-1.5b training": ("hymba-1.5b", RECUR_TRAIN_SEQ, None, None,
+                                recur_res["hymba-1.5b"]),
+        "gemma-7b training (8 layers)": (GEMMA_TRAIN, GEMMA_TRAIN_SEQ,
+                                         GEMMA_TRAIN_LAYERS, None,
+                                         gemma_res)})
+    torch.cuda.empty_cache()
     launches["flash_attention"] = sum(flash_by_path.values())
     flash[-1]["extra"]["launches_by_path"] = flash_by_path
 

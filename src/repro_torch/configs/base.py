@@ -9,7 +9,11 @@ fields that ``models.make_train_step`` reads (``remat``, ``microbatch``,
 with the JAX package's defaults). Left out: ``attn_chunk``, the query
 block of the JAX package's ``chunked_attention`` (the port attends
 through the flash kernels, whose tiles are their own), and ``max_seq``,
-which only the JAX package's dry run and sharding rules read. The
+which only the JAX package's sharding rules read (the port's dry run,
+``launch/dryrun.py``, takes its lengths from ``INPUT_SHAPES``). The
+analytic ``param_count`` / ``active_param_count`` (for 6 N D), the
+``attention_free`` / ``sub_quadratic`` flags and ``INPUT_SHAPES`` are
+copies of the JAX package's. The
 registry loads every language-model architecture of the JAX
 package's (``_ARCH_MODULES``; ``speed-tig`` is the TIG workload, in
 ``configs/speed_tig.py``); each module registers its published
@@ -23,7 +27,8 @@ import dataclasses
 import importlib
 from typing import Optional, Sequence
 
-__all__ = ["ArchConfig", "register", "get_config", "list_archs"]
+__all__ = ["ArchConfig", "register", "get_config", "list_archs",
+           "INPUT_SHAPES", "InputShape"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +109,77 @@ class ArchConfig:
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
+    @property
+    def attention_free(self) -> bool:
+        return self.rwkv
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for long_500k (SSM / linear attention / SWA)."""
+        return self.rwkv or self.ssm_state > 0 or self.window is not None
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + layers), for 6 N D; the
+        JAX package's formula, which tracks ``init_params`` to < 2%."""
+        d, v = self.d_model, self.vocab
+        ff_mats = 3 if self.act in ("swiglu", "geglu") else 2
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        per_layer = 0
+        if self.rwkv:
+            # time-mix (r, k, v, g, o = 5 d^2 + decay LoRA) + channel-mix
+            lora = max(32, d // 32)
+            per_layer = 5 * d * d + 2 * d * lora \
+                + 2 * d * self.d_ff + d * d
+        else:
+            dh = self.resolved_head_dim
+            qkvo = d * (self.n_heads * dh) * 2 \
+                + d * (self.n_kv_heads * dh) * 2
+            per_layer += qkvo
+            if self.is_moe:
+                per_layer += self.n_experts * ff_mats * d \
+                    * self.d_ff_expert + d * self.n_experts
+            else:
+                per_layer += ff_mats * d * self.d_ff
+            if self.ssm_state:  # hymba parallel SSM heads
+                di = self.ssm_expand * d
+                dt_rank = max(16, d // 16)
+                per_layer += d * 2 * di + di * self.ssm_conv \
+                    + di * (dt_rank + 2 * self.ssm_state) \
+                    + dt_rank * di + di * self.ssm_state \
+                    + di * d + di
+        n = emb + self.n_layers * per_layer
+        if self.enc_dec:
+            # encoder layers + decoder cross-attention
+            enc = self.n_enc_layers * (4 * d * d + ff_mats * d * self.d_ff)
+            cross = self.n_layers * 4 * d * d
+            n += enc + cross
+        return n
+
+    def active_param_count(self) -> int:
+        """MoE: params actually used per token (for 6 N_active D)."""
+        if not self.is_moe:
+            return self.param_count()
+        d = self.d_model
+        dense_like = dataclasses.replace(
+            self, n_experts=0, top_k=0,
+            d_ff=self.top_k * self.d_ff_expert)
+        return dense_like.param_count() + self.n_layers * d * self.n_experts
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 _REGISTRY: dict[str, "ArchConfig"] = {}
 _REDUCED: dict[str, "ArchConfig"] = {}

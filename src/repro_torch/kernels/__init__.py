@@ -14,5 +14,6 @@ and the device dispatch.
 
 CUDA sources live in ``csrc/`` and are built by ``build.py`` at first use;
 ``ops.py`` is the entry point the model calls; ``ref.py`` holds the plain
-versions.
+versions; ``meta.py`` the meta route (shapes only, for the dry run) and
+each kernel's cost scope for the step cost counter.
 """

@@ -1,8 +1,13 @@
 """The kernel entry points the model calls, dispatched by device.
 
 A CUDA tensor goes to the hand-written kernel; a CPU tensor goes to the
-plain version in ``ref.py``. Nothing else chooses: there is no backend
-switch and no fallback from a kernel that fails to build or launch.
+plain version in ``ref.py``; a tensor on the ``meta`` device (shapes
+only, no data: the dry run, ``launch/dryrun.py``) goes to the meta route,
+``meta.run``, which returns empty outputs of the kernel's shapes and
+dtypes. Nothing else chooses: there is no backend switch and no fallback
+from a kernel that fails to build or launch, and any other device raises.
+Each entry point is one scope of a step cost counter
+(``meta.scoped``, ``roofline/op_cost.py``), its backward another.
 
 On the CPU autograd differentiates the plain versions. On the card every
 kernel is differentiable through a ``torch.autograd.Function`` whose
@@ -21,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import meta, ref
 from repro_torch.kernels.flash_attention import (check_key_length,
                                                  flash_attention_bwd,
                                                  flash_attention_fwd)
@@ -39,11 +44,11 @@ __all__ = ["temporal_attention", "fused_flush", "neighbor_sample",
            "selective_scan", "FlashAttention", "RWKV6", "SelectiveScan"]
 
 
-def _on_card(x: torch.Tensor) -> bool:
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
+def _route(x: torch.Tensor) -> str:
+    """``"cuda"`` (the kernel), ``"cpu"`` (the plain version) or
+    ``"meta"`` (the meta route), by ``x``'s device; any other raises."""
+    if x.device.type in ("cuda", "cpu", "meta"):
+        return x.device.type
     raise ValueError(f"no kernel or plain version for device {x.device}")
 
 
@@ -119,18 +124,23 @@ class SelectiveScan(torch.autograd.Function):
         return selective_scan_bwd(x, dt, b, c, a, _f32(dy), state, _f32(dh))
 
 
+@meta.scoped("gru")
 def gru(x, h, wx, wh, bx, bh):
     """GRU cell h' = GRU(x, h), differentiable in all six arguments.
     x: (B, d_in), h: (B, d_h), wx: (d_in, 3 d_h), wh: (d_h, 3 d_h), bx,
     bh: (3 d_h,); gates [r | z | n]. On the card the forward and the
     backward are kernels (the backward recomputes the gates); on the CPU
     autograd goes through ``ref.gru_ref``."""
-    if _on_card(x):
+    route = _route(x)
+    if route == "meta":
+        return meta.run("gru", x, h, wx, wh, bx, bh)[0]
+    if route == "cuda":
         return FusedGRU.apply(*(t.contiguous() for t in (x, h, wx, wh, bx,
                                                           bh)))
     return ref.gru_ref(x, h, wx, wh, bx, bh)
 
 
+@meta.scoped("flash_attention")
 def flash_attention(q, k, v, *, causal=True, window=None):
     """Causal or full attention with an optional sliding ``window`` (how
     many tokens a query may look back, itself included), in the model's
@@ -147,7 +157,11 @@ def flash_attention(q, k, v, *, causal=True, window=None):
     version gets that layout: K and V repeated in kv-major order and the
     axes moved.)"""
     check_key_length(q.shape[1], k.shape[1], causal, window)
-    if _on_card(q):
+    route = _route(q)
+    if route == "meta":
+        return meta.run("flash_attention", q, k, v, causal=causal,
+                        window=window)[0]
+    if route == "cuda":
         args = (q.contiguous(), k.contiguous(), v.contiguous())
         if _wants_grad(*args):
             return FlashAttention.apply(*args, causal, window)
@@ -160,37 +174,51 @@ def flash_attention(q, k, v, *, causal=True, window=None):
                                    window=window).transpose(1, 2)
 
 
+@meta.scoped("temporal_attention")
 def temporal_attention(q, k, v, mask):
     """q: (B, H, D); k, v: (B, K, H, D); mask: (B, K) bool -> (B, H, D)."""
-    if _on_card(q):
+    route = _route(q)
+    if route == "meta":
+        return meta.run("temporal_attention", q, k, v, mask)[0]
+    if route == "cuda":
         return TemporalAttention.apply(q.contiguous(), k.contiguous(),
                                        v.contiguous(), mask.contiguous())
     return ref.temporal_attention_ref(q, k, v, mask)
 
 
+@meta.scoped("fused_flush")
 def fused_flush(ids, msg, ts, mem, last, wx, wh, bx, bh):
     """The whole message flush (segment-mean + GRU + mem/last scatter);
     ``(mem', last', mbar)``. On the card the kernel writes ``mem`` and
     ``last`` in place and returns them (so a caller that keeps the old
     state passes a copy); on the CPU ``ref.flush_ref`` returns new
     tensors."""
-    if _on_card(msg):
+    route = _route(msg)
+    if route == "meta":
+        return meta.run("fused_flush", ids, msg, ts, mem, last, wx, wh, bx,
+                        bh)
+    if route == "cuda":
         return FusedFlush.apply(*(x.contiguous() for x in (
             ids, msg, ts, mem, last, wx, wh, bx, bh)))
     return ref.flush_ref(ids, msg, ts, mem, last, wx, wh, bx, bh)
 
 
+@meta.scoped("neighbor_sample")
 def neighbor_sample(tcsr: dict, nodes, batch_of, k: int, window=0):
     """K most recent temporal neighbors from a staged T-CSR (``tcsr``
     holds indptr / nbr / t / eidx / bat). Returns ((R, k) ids, times, edge
     rows), -1 / -1.0 front-padded, oldest -> newest."""
     args = (tcsr["indptr"], tcsr["nbr"], tcsr["t"], tcsr["eidx"],
             tcsr["bat"], nodes, batch_of, k, window)
-    if _on_card(nodes):
+    route = _route(nodes)
+    if route == "meta":
+        return meta.run("neighbor_sample", nodes, k=k)
+    if route == "cuda":
         return neighbor_sample_fwd(*args)
     return ref.sample_ref(*args)
 
 
+@meta.scoped("sample_roles")
 def sample_roles(tcsr: dict, src, dst, neg, valid, batch_of, k: int):
     """A step's neighbor grids in one call: ``neighbor_sample`` over the 3B
     rows src ++ dst ++ neg, where a row whose id is < 0 or whose slot is
@@ -198,11 +226,15 @@ def sample_roles(tcsr: dict, src, dst, neg, valid, batch_of, k: int):
     as sampled). Returns (3B, k) ids, times, edge rows."""
     args = (tcsr["indptr"], tcsr["nbr"], tcsr["t"], tcsr["eidx"],
             tcsr["bat"], src, dst, neg, valid, batch_of, k)
-    if _on_card(src):
+    route = _route(src)
+    if route == "meta":
+        return meta.run("sample_roles", src, k=k)
+    if route == "cuda":
         return sample_roles_fwd(*args)
     return ref.sample_roles_ref(*args)
 
 
+@meta.scoped("rwkv6")
 def rwkv6(r, k, v, w, u, *, state=None, chunk=64, return_state=True):
     """RWKV6 WKV recurrence in the model's layout. r, k, w: (B, S, H, Dk);
     v: (B, S, H, Dv); u: (H, Dk); state: optional (B, H, Dk, Dv). Returns
@@ -222,7 +254,10 @@ def rwkv6(r, k, v, w, u, *, state=None, chunk=64, return_state=True):
     then the backward kernel); without one the forward kernel runs
     alone."""
     s = r.shape[1]
-    if _on_card(r):
+    route = _route(r)
+    if route == "meta":
+        o, st = meta.run("rwkv6", r, k, v, w, u, state, chunk=chunk)
+    elif route == "cuda":
         out_dtype = torch.float32 if (s % chunk or s <= chunk) else r.dtype
         args = (*(x.contiguous() for x in (r, k, v, w.float(), u.float())),
                 None if state is None else state.float().contiguous())
@@ -238,6 +273,7 @@ def rwkv6(r, k, v, w, u, *, state=None, chunk=64, return_state=True):
     return (o, st) if return_state else o
 
 
+@meta.scoped("selective_scan")
 def selective_scan(x, dt, b, c, a, *, state=None):
     """Mamba's selective scan h = exp(dt a) h + (dt x) b, y = c . h over
     the tokens. x, dt: (B, S, di); b, c: (B, S, n), in the compute dtype;
@@ -246,7 +282,10 @@ def selective_scan(x, dt, b, c, a, *, state=None):
     CUDA kernel (n 8 or 16; its chunked form from S 128, its per-state form
     below), through ``SelectiveScan`` (with the backward kernel) where a
     gradient is wanted; on the CPU ``ref.selective_scan_ref``."""
-    if _on_card(x):
+    route = _route(x)
+    if route == "meta":
+        return meta.run("selective_scan", x, dt, b, c, a, state)
+    if route == "cuda":
         args = (*(t.contiguous() for t in (x, dt, b, c)),
                 a.float().contiguous(),
                 None if state is None else state.float().contiguous())

@@ -22,7 +22,11 @@ __all__ = ["linear_init", "linear", "rmsnorm_init", "rmsnorm", "draw",
 
 def draw(gen: torch.Generator, shape, scale: float, device) -> torch.Tensor:
     """Standard normal float32 draws times ``scale``, made on ``gen``'s
-    device and moved to ``device``."""
+    device and moved to ``device``; on the ``meta`` device (the dry run's
+    params: shapes only, the counterpart of ``jax.eval_shape``) an empty
+    tensor, with nothing drawn."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device) * scale
     return x.to(device)

@@ -56,6 +56,14 @@ def capacity(t: int, top_k: int, n_experts: int, capacity_factor: float,
     return int(max(1, -(-t * top_k // n_experts) * capacity_factor))
 
 
+def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(idx, minlength=n)`` for ids below ``n``, with a
+    shape that does not depend on the data (the dry run's ``meta``
+    tensors have none); integer sums, the same in any order."""
+    return torch.zeros(n, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx))
+
+
 def moe_apply(p: dict, x: torch.Tensor, *, top_k: int, act: str,
               capacity_factor: float = 1.25, dropless: bool = False):
     """x: (T, d) -> (y (T, d) in x's dtype, aux float32 scalar).
@@ -74,8 +82,7 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int, act: str,
 
     # the load-balance aux loss (Switch eqs. 4-6)
     me = probs.mean(dim=0)                                     # (E,)
-    ce = torch.bincount(top_i.reshape(-1), minlength=e).float() / (
-        t * top_k)
+    ce = _counts(top_i.reshape(-1), e).float() / (t * top_k)
     aux = e * torch.sum(me * ce)
 
     # sort-based dispatch
@@ -85,7 +92,7 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int, act: str,
     flat_w = top_p.reshape(-1).to(dtype)
     order = torch.argsort(flat_e, stable=True)
     se, st, sw = flat_e[order], flat_t[order], flat_w[order]
-    counts = torch.bincount(se, minlength=e)
+    counts = _counts(se, e)
     starts = torch.cumsum(counts, dim=0) - counts
     pos = torch.arange(t * top_k, device=dev) - starts[se]    # rank in expert
     keep = pos < cap

@@ -1842,3 +1842,61 @@ def test_lm_train_bf16_step_on_card_matches_cpu(cuda):
         up = b - b0
         assert float(((a.cpu() - b0) - up).abs().max()) <= 2e-2 * float(
             up.abs().max())
+
+
+def _same_count(card, on_meta):
+    diff = {k: (card.by_op.get(k), on_meta.by_op.get(k))
+            for k in sorted(set(card.by_op) | set(on_meta.by_op))
+            if card.by_op.get(k) != on_meta.by_op.get(k)}
+    assert card.flops == on_meta.flops, diff
+    assert card.kernels == on_meta.kernels, diff
+    assert card.collective_bytes == on_meta.collective_bytes
+    assert abs(card.bytes - on_meta.bytes) <= 0.01 * on_meta.bytes, diff
+
+
+def test_step_cost_of_a_tgn_step_on_card_is_meta_s(cuda):
+    """chip_smoke phase 28's check at a small size: one eager TGN step of
+    ``train_single`` on ``tiny`` counted on the card and on ``meta``
+    copies of its inputs: FLOPs and collective bytes equal, bytes within
+    1%, the kernels' launches made on the card."""
+    from repro_torch.launch import dryrun
+    from repro_torch.tig.data import synthetic_tig
+
+    cfg = TIGConfig(dim=16, dim_time=8, dim_edge=16, dim_node=16,
+                    num_neighbors=4, n_heads=2, batch_size=50)
+    inputs = dryrun.tig_step_inputs(synthetic_tig("tiny"), cfg, cuda)
+    before = {n: k.launches for n, k in KERNELS.items()}
+    card = dryrun.count_tig_step(cfg, inputs, cuda)
+    assert all(KERNELS[n].launches > before[n] for n in (
+        "neighbor_sample", "fused_flush", "temporal_attn",
+        "temporal_attn_bwd"))
+    _same_count(card, dryrun.count_tig_step(cfg, dryrun.on_meta(inputs),
+                                            "meta"))
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "rwkv6-1.6b",
+                                  "hymba-1.5b"])
+def test_step_cost_of_a_reduced_lm_step_on_card_is_meta_s(cuda, arch):
+    """A REDUCED training step (bf16, remat) counted on the card and on
+    ``meta``: the same count, through the card's flash / WKV / scan
+    kernels and their backwards."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+
+    cfg = get_config(arch, reduced=True)
+    params = model.init_params(torch.Generator().manual_seed(0), cfg,
+                               device=cuda)
+    opt = adamw(lr=1e-3)
+    state = opt.init(params)
+    tok = torch.randint(0, cfg.vocab, (2, 128), device=cuda)
+    batch = {"tokens": tok, "targets": tok}
+    meta_args = [dryrun.on_meta(x) for x in (params, state, batch)]
+    card, _ = dryrun.count_lm_train_step(cfg, params, opt, state, batch,
+                                         cuda)
+    on_meta, _ = dryrun.count_lm_train_step(cfg, meta_args[0], opt,
+                                            meta_args[1], meta_args[2],
+                                            "meta")
+    _same_count(card, on_meta)
+    assert card.kernels and all(v[0] for v in card.kernels.values())

@@ -37,6 +37,11 @@ def _modules():
 def test_importing_every_module_pulls_in_no_jax():
     mods = _modules()
     assert "repro_torch.kernels.ops" in mods and len(mods) > 20
+    assert {"repro_torch.roofline.kernel_bytes",
+            "repro_torch.roofline.pipeline_bubble",
+            "repro_torch.roofline.op_cost", "repro_torch.roofline.analysis",
+            "repro_torch.kernels.meta",
+            "repro_torch.launch.dryrun"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -194,3 +199,15 @@ def test_encdec_and_vlm_entry_points_refuse_to_run_without_a_card(
             model.encode(params, frames, cfg)
         with pytest.raises(RuntimeError, match="CUDA"):
             model.fill_enc_cache(params, cache, frames, cfg)
+
+
+def test_dry_run_needs_no_card(monkeypatch):
+    """The dry run and the step cost counter run on ``meta`` where no card
+    is: the entry points' meta route, not the card's kernels."""
+    from repro_torch.launch import dryrun
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = dryrun.dryrun_one("hymba-1.5b", "decode_32k", save=False,
+                            verbose=False)
+    assert out["status"] == "ok" and out["hlo_flops"] > 0
+    assert set(out["kernels"]) == {"selective_scan"}

@@ -368,7 +368,7 @@ def _fake_kernels(monkeypatch):
         calls["bwd"] += 1
         return _plain_bwd_model_layout(q, k, v, o, lse, do, causal, window)
 
-    monkeypatch.setattr(ops, "_on_card", lambda x: True)
+    monkeypatch.setattr(ops, "_route", lambda x: "cuda")
     monkeypatch.setattr(ops, "flash_attention_fwd", fwd)
     monkeypatch.setattr(ops, "flash_attention_bwd", bwd)
     return calls
@@ -429,7 +429,7 @@ def _fake_recurrences(monkeypatch):
         return ref.selective_scan_bwd_ref(x, dt, b, c, a, dy, state=state,
                                           dstate=dstate)
 
-    monkeypatch.setattr(ops, "_on_card", lambda x: True)
+    monkeypatch.setattr(ops, "_route", lambda x: "cuda")
     monkeypatch.setattr(ops, "rwkv6_fwd", rwkv6_fwd)
     monkeypatch.setattr(ops, "rwkv6_bwd", rwkv6_bwd)
     monkeypatch.setattr(ops, "selective_scan_fwd", scan_fwd)
